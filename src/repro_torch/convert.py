@@ -1,0 +1,81 @@
+"""Carry weights and state between the JAX package and the port.
+
+The JAX side hands over numpy arrays (``np.array(jax_array)``), or any
+object whose fields are array-likes — e.g. a JAX ``GLRCUCBState``, which is
+read by attribute name without importing JAX.  The functions here build
+the port's objects from them on a device; ``to_numpy`` goes back.  Array
+dtypes are kept (f32 counts stay f32, int32 ``tau`` stays int32).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.bandits.glr_cucb import GLRCUCBState
+from repro_torch.core.channels.base import ChannelEnv
+from repro_torch.core.contribution import ContributionBuffer
+from repro_torch.core.matching import MatcherState
+from repro_torch.device import resolve_device
+from repro_torch.fl.round import AsyncFLState
+
+
+def tensor(x, device=None) -> torch.Tensor:
+    """A copy of array-like ``x`` as a tensor on ``device``."""
+    return torch.from_numpy(np.array(x)).to(resolve_device(device))
+
+
+def params(src: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """A parameter dict (same keys) on ``device``."""
+    return {k: tensor(v, device) for k, v in src.items()}
+
+
+def channel_env(form: str, means, breaks, table, score_kind: str = "ucb",
+                device=None) -> ChannelEnv:
+    """A ``ChannelEnv`` from the JAX env's canonical leaves."""
+    dev = resolve_device(device)
+    return ChannelEnv(form, tensor(means, dev).to(torch.float32),
+                      tensor(breaks, dev).to(torch.int64),
+                      tensor(table, dev).to(torch.float32), score_kind)
+
+
+def _fields(cls, src, device, **nested):
+    return cls(**{f: nested[f] if f in nested else tensor(getattr(src, f), device)
+                  for f in cls._fields})
+
+
+def glr_cucb_state(src, device=None) -> GLRCUCBState:
+    """A ``GLRCUCBState`` from an object with the same fields."""
+    return _fields(GLRCUCBState, src, device, hp=params(src.hp, device))
+
+
+def matcher_state(src, device=None) -> MatcherState:
+    return _fields(MatcherState, src, device)
+
+
+def contribution_buffer(src, device=None) -> ContributionBuffer:
+    return _fields(ContributionBuffer, src, device)
+
+
+def async_fl_state(src, device=None) -> AsyncFLState:
+    """An ``AsyncFLState`` from the JAX trainer's state (its GLR-CUCB
+    scheduler state included; the JAX fault carry has no counterpart)."""
+    return _fields(AsyncFLState, src, device,
+                   params=params(src.params, device),
+                   contrib_buf=contribution_buffer(src.contrib_buf, device),
+                   sched_state=glr_cucb_state(src.sched_state, device),
+                   matcher_state=matcher_state(src.matcher_state, device),
+                   t=int(np.array(src.t)))
+
+
+def to_numpy(obj):
+    """Tensors to numpy arrays, through dicts and ``NamedTuple`` states
+    (returned as dicts of their fields)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return {f: to_numpy(getattr(obj, f)) for f in obj._fields}
+    if isinstance(obj, dict):
+        return {k: to_numpy(v) for k, v in obj.items()}
+    return obj

@@ -1,0 +1,225 @@
+"""GLR-CUCB (Algorithm 2) — piecewise-stationary channel scheduling.
+
+Combinatorial-UCB schedules the M highest-UCB channels each round
+(Eq. 30); a Generalized-Likelihood-Ratio change-point detector watches
+the per-channel reward streams and restarts the bandit when a breakpoint
+is detected.  The GLR statistic for a stream z_1..z_n is
+
+    gamma = sup_{1 <= s < n}  s * kl(mean(z_1..s), mean(z_1..n))
+                            + (n-s) * kl(mean(z_s+1..n), mean(z_1..n))
+
+against the threshold beta(n, delta) = (1 + 1/n) log(3 n sqrt(n) / delta).
+
+The detector is the streaming one of the JAX package: per-channel
+prefix-sum state (``cum``/``total``/``base``) carried in
+``GLRCUCBState``, one O(N) masked append per round, and the statistic
+read straight from the carried prefixes.  Two paths compute it:
+
+* the fused path: on a detection round one ``ops.glr_step`` (append +
+  test, the CUDA kernel on the card), ``ref.glr_stream_append`` alone on
+  the other rounds.  Taken whenever the state lives on CUDA, or with
+  ``detector_backend="kernel"`` (which runs ``ref.glr_step`` on the CPU);
+* the split path: the append on every round, the statistic on the M
+  scheduled rows only (unscheduled channels can never fire).  The CPU
+  default, or ``detector_backend="torch"``.
+
+For {0, 1} rewards both paths give bitwise-equal prefix state and
+statistics.  Twin of ``repro/core/bandits/glr_cucb.py``; the legacy
+``detector_impl="recompute"`` path is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.bandits.base import TracedHyperParams, rotate_assignment
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops, ref
+
+
+def glr_threshold(n: torch.Tensor, delta) -> torch.Tensor:
+    """beta(n, delta) = (1 + 1/n) log(3 n sqrt(n) / delta)."""
+    n_f = n.to(torch.float32).clamp_min(1.0)
+    return (1.0 + 1.0 / n_f) * torch.log(3.0 * n_f * torch.sqrt(n_f) / delta)
+
+
+class GLRCUCBState(NamedTuple):
+    mu_tilde: torch.Tensor  # (N,) empirical means since last restart
+    counts: torch.Tensor    # (N,) f32 D_i — observations since last restart
+    tau: torch.Tensor       # () int32 — last restart round
+    hist: torch.Tensor      # (N, 0) — the streaming detector keeps no raw samples
+    restarts: torch.Tensor  # () int32 — number of detected change points
+    hp: Dict[str, torch.Tensor]  # {gamma, delta, min_samples} 0-d f32
+    cum: torch.Tensor       # (N, H) carried prefix sums: cum[j] = stream total
+                            # at the sample last written to ring slot j
+    total: torch.Tensor     # (N,) running stream total since restart
+    base: torch.Tensor      # (N,) stream total just before the window's
+                            # oldest sample (0 until the ring wraps)
+
+
+@dataclasses.dataclass(frozen=True)
+class GLRCUCB(TracedHyperParams):
+    n_channels: int
+    n_clients: int
+    delta: float = 1e-3          # GLR confidence
+    gamma: float = 1.0           # UCB exploration scale (Eq. 30 bonus)
+    alpha: float = 0.0           # forced-exploration rate
+    history: int = 2048          # H — per-channel ring length
+    detector_stride: int = 1     # run the GLR detector every k rounds
+    min_samples: int = 8         # don't test before this many samples
+    detector_backend: Optional[str] = None  # None (auto: fused path iff the
+                                            # state is on CUDA) | "kernel"
+                                            # (fused) | "torch" (split)
+    split_grid: str = "all"      # "all" | "geometric" | "auto"
+    auto_split_h: int = 4096     # "auto": history above this is geometric
+    name: str = "glr-cucb"
+
+    TRACED = ("gamma", "delta", "min_samples")
+
+    def __post_init__(self):
+        if self.detector_backend not in (None, "kernel", "torch"):
+            raise ValueError(
+                f"GLRCUCB: unknown detector_backend {self.detector_backend!r}; "
+                "use None (auto), 'kernel' or 'torch'")
+        if self.split_grid not in ("all", "geometric", "auto"):
+            raise ValueError(
+                f"GLRCUCB: unknown split_grid {self.split_grid!r}; "
+                "use 'all', 'geometric' or 'auto'")
+        if self.auto_split_h < 1:
+            raise ValueError(f"GLRCUCB: auto_split_h must be >= 1, got {self.auto_split_h}")
+
+    def resolved_split_grid(self) -> str:
+        """The concrete split grid: ``"auto"`` is dense while
+        ``history <= auto_split_h``, geometric above."""
+        if self.split_grid != "auto":
+            return self.split_grid
+        return "geometric" if self.history > self.auto_split_h else "all"
+
+    def _fused(self, state: GLRCUCBState) -> bool:
+        return (self.detector_backend == "kernel"
+                or (self.detector_backend is None and state.cum.is_cuda))
+
+    # ------------------------------------------------------------------ api
+    def init(self, device=None, hp: Optional[Dict[str, Any]] = None) -> GLRCUCBState:
+        dev = resolve_device(device)
+        n, h = self.n_channels, self.history
+        f32 = dict(dtype=torch.float32, device=dev)
+        hp = self.params(dev) if hp is None else {
+            k: torch.as_tensor(v, **f32) for k, v in hp.items()}
+        return GLRCUCBState(
+            mu_tilde=torch.zeros((n,), **f32),
+            counts=torch.zeros((n,), **f32),
+            tau=torch.zeros((), dtype=torch.int32, device=dev),
+            hist=torch.zeros((n, 0), **f32),
+            restarts=torch.zeros((), dtype=torch.int32, device=dev),
+            hp=hp,
+            cum=torch.zeros((n, h), **f32),
+            total=torch.zeros((n,), **f32),
+            base=torch.zeros((n,), **f32),
+        )
+
+    def ucb(self, state: GLRCUCBState, t: int) -> torch.Tensor:
+        """Eq. 30: mu_tilde + gamma * sqrt(3 log(t - tau) / (2 D)); +inf unseen."""
+        since = (t - state.tau).to(torch.float32).clamp_min(2.0)
+        bonus = torch.sqrt(3.0 * torch.log(since) / (2.0 * state.counts.clamp_min(1.0)))
+        ucb = state.mu_tilde + state.hp["gamma"] * bonus
+        return torch.where(state.counts > 0, ucb, torch.inf)
+
+    def select(self, state: GLRCUCBState, t: int, u: torch.Tensor,
+               aoi: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        """The M channels of round ``t``.  ``u`` is the round's (N,) uniform
+        draw: it breaks ties among unseen arms (scaled to 1e6 so it survives
+        f32 rounding on top of the 1e9 stand-in for +inf); seen arms rank by
+        their Eq.-30 values alone.  The sort is stable, as ``jnp.argsort``."""
+        n, m = self.n_channels, self.n_clients
+        ucb = self.ucb(state, t)
+        noise = torch.where(state.counts == 0, u * 1e6, 0.0)
+        key = torch.where(torch.isinf(ucb), 1e9, ucb) + noise
+        top = torch.argsort(-key, stable=True)[:m]
+        # forced exploration (Alg. 2 line 3): at rate alpha, channel
+        # i = (t - tau) mod floor(N / alpha) is scheduled when i < N
+        if self.alpha > 0:
+            period = max(int(n / self.alpha), n)
+            slot = ((t - state.tau) % period).to(top.dtype)
+            forced = slot < n
+            present = (top == slot).any()
+            swapped = top.clone()
+            swapped[m - 1] = slot
+            top = torch.where(forced & ~present, swapped, top)
+        return rotate_assignment(top, t, m), None
+
+    def update(self, state: GLRCUCBState, t: int, channels: torch.Tensor,
+               rewards: torch.Tensor, aux: Any) -> GLRCUCBState:
+        n = self.n_channels
+        dev = state.counts.device
+        # sanitize: the GLR statistics assume Bernoulli rewards in [0, 1];
+        # the identity on valid {0, 1} streams
+        rewards = torch.where(torch.isfinite(rewards), rewards, 0.0).clamp(0.0, 1.0)
+        sched = torch.zeros((n,), dtype=torch.bool, device=dev).index_fill(0, channels, True)
+        r_vec = torch.zeros((n,), dtype=torch.float32, device=dev).index_put(
+            (channels,), rewards.to(torch.float32))
+
+        d_prev = state.counts
+        mu = torch.where(sched, (state.mu_tilde * d_prev + r_vec) / (d_prev + 1.0),
+                         state.mu_tilde)
+        counts = torch.where(sched, d_prev + 1.0, d_prev)
+        stride_ok = t % self.detector_stride == 0
+        cum, total, base, change = self._detect_streaming(
+            state, channels, sched, r_vec, d_prev, counts, stride_ok)
+
+        # restart (Alg. 2 line 21): D_i = 0 for all i, tau <- t.  The ring
+        # stays in place: zeroed counts/total/base make every stale slot's
+        # split position invalid.
+        mu = mu.masked_fill(change, 0.0)
+        counts = counts.masked_fill(change, 0.0)
+        total = total.masked_fill(change, 0.0)
+        base = base.masked_fill(change, 0.0)
+        tau = state.tau.masked_fill(change, t)
+        restarts = state.restarts + change.to(torch.int32)
+        return GLRCUCBState(mu, counts, tau, state.hist, restarts, state.hp,
+                            cum, total, base)
+
+    def _fire(self, stats, sched, counts, hp) -> torch.Tensor:
+        """Restart decision from per-channel statistics, () bool."""
+        n_valid = counts.clamp_max(float(self.history)).to(torch.int32)
+        thresh = glr_threshold(n_valid, hp["delta"])
+        fire = (sched & (stats >= thresh)
+                & (n_valid.to(torch.float32) >= hp["min_samples"]))
+        return fire.any()
+
+    def _detect_streaming(self, state, channels, sched, r_vec, d_prev, counts,
+                          stride_ok: bool):
+        """Carried-prefix-sum detector; returns ``(cum, total, base, change)``."""
+        n = self.n_channels
+        grid = self.resolved_split_grid()
+        if self._fused(state):
+            if stride_ok:
+                cum, total, base, stats = ops.glr_step(
+                    state.cum, state.total, state.base, d_prev, r_vec, sched,
+                    split_grid=grid)
+            else:
+                cum, total, base = ref.glr_stream_append(
+                    state.cum, state.total, state.base, d_prev, r_vec, sched)
+                stats = torch.full((n,), -torch.inf, device=d_prev.device)
+        else:
+            cum, total, base = ref.glr_stream_append(
+                state.cum, state.total, state.base, d_prev, r_vec, sched)
+            stats = torch.full((n,), -torch.inf, device=d_prev.device)
+            if stride_ok:
+                stats = stats.index_put((channels,), ref.glr_stream_stat(
+                    cum[channels], total[channels], base[channels],
+                    counts[channels], grid))
+        change = self._fire(stats, sched, counts, state.hp)
+        return cum, total, base, change
+
+    def channel_scores(self, state: GLRCUCBState, t: int) -> torch.Tensor:
+        """UCB values (Eq. 30) rank channels for the Sec.-V matcher."""
+        ucb = self.ucb(state, t)
+        return torch.where(torch.isinf(ucb), 1e9, ucb)
+
+    def mean_scores(self, state: GLRCUCBState, t: int) -> torch.Tensor:
+        """Historical empirical means (Eq. 31) — the matcher's rank source
+        under ``"mean"``-hint scenarios."""
+        return state.mu_tilde

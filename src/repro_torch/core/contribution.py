@@ -1,0 +1,93 @@
+"""Marginal-contribution estimation (Sec. V, Eq. 32-35 and 41-43).
+
+The Shapley value (Eq. 32) is approximated with the FedCE-style estimator
+
+    C~_m = Gamma_cos * Gamma_err
+    Gamma_cos = 1 - cos( grad F_m(w_t^m), grad F(w_t^{-m}) )      (Eq. 34)
+    Gamma_err = E( D^_m ; w_t^{-m} )                              (Eq. 35)
+
+where ``w^{-m}`` / ``grad F(w^{-m})`` are leave-one-out (LOO) aggregates
+over a server-side buffer of the last gradient and parameter vector per
+client (Eq. 41-42); the aggregation weights are the normalized
+contributions (Eq. 43).  All functions take flattened (M, P) matrices.
+Twin of ``repro/core/contribution.py`` (``exact_shapley`` is not ported).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.device import resolve_device
+
+_EPS = 1e-12
+
+
+class ContributionBuffer(NamedTuple):
+    """Server-side buffer (Eq. 41-42): last-known per-client grad + params."""
+
+    grads: torch.Tensor     # (M, P) buffered gradient vectors
+    params: torch.Tensor    # (M, P) buffered parameter vectors
+    fresh: torch.Tensor     # (M,)   1.0 once a client has ever reported
+
+
+def init_buffer(n_clients: int, n_params: int, device=None) -> ContributionBuffer:
+    dev = resolve_device(device)
+    return ContributionBuffer(
+        grads=torch.zeros((n_clients, n_params), device=dev),
+        params=torch.zeros((n_clients, n_params), device=dev),
+        fresh=torch.zeros((n_clients,), device=dev),
+    )
+
+
+def update_buffer(buf: ContributionBuffer, success: torch.Tensor,
+                  new_grads: torch.Tensor, new_params: torch.Tensor) -> ContributionBuffer:
+    s = success.to(torch.float32)[:, None]
+    return ContributionBuffer(
+        grads=buf.grads * (1.0 - s) + new_grads * s,
+        params=buf.params * (1.0 - s) + new_params * s,
+        fresh=torch.maximum(buf.fresh, success.to(torch.float32)),
+    )
+
+
+def _cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    num = (a * b).sum(dim=-1)
+    den = torch.linalg.vector_norm(a, dim=-1) * torch.linalg.vector_norm(b, dim=-1)
+    return num / den.clamp_min(_EPS)
+
+
+def loo_aggregates(buf: ContributionBuffer, weights: torch.Tensor):
+    """Leave-one-out weighted aggregates for every client at once:
+    g^{-m} = (sum_i zeta_i g_i - zeta_m g_m) / (1 - zeta_m).
+    Returns (grads^{-m} (M, P), params^{-m} (M, P))."""
+    w = (weights * buf.fresh)[:, None]                   # ignore never-seen clients
+    wsum = w.sum().clamp_min(_EPS)
+    g_tot = (w * buf.grads).sum(dim=0, keepdim=True)
+    p_tot = (w * buf.params).sum(dim=0, keepdim=True)
+    denom = (wsum - w).clamp_min(_EPS)
+    return (g_tot - w * buf.grads) / denom, (p_tot - w * buf.params) / denom
+
+
+def marginal_contribution(buf: ContributionBuffer, weights: torch.Tensor,
+                          proxy_loss_fn: Optional[Callable] = None) -> torch.Tensor:
+    """C~_m = Gamma_cos(m) * Gamma_err(m) (Eq. 33).  ``proxy_loss_fn`` maps
+    a flattened parameter vector to the server's proxy loss (Eq. 35); with
+    None, Gamma_err = 1."""
+    g_loo, p_loo = loo_aggregates(buf, weights)
+    gamma_cos = 1.0 - _cosine(buf.grads, g_loo)          # Eq. 34: in [0, 2]
+    if proxy_loss_fn is not None:
+        gamma_err = torch.func.vmap(proxy_loss_fn)(p_loo)    # Eq. 35
+    else:
+        gamma_err = torch.ones_like(gamma_cos)
+    contrib = gamma_cos * gamma_err
+    # never-seen clients get the mean contribution (uninformative prior)
+    seen = buf.fresh > 0.5
+    fill = torch.where(seen, contrib, 0.0).sum() / seen.sum().to(torch.float32).clamp_min(1.0)
+    fill = torch.where(seen.any(), fill, 1.0)
+    return torch.where(seen, contrib, fill)
+
+
+def aggregation_weights(contrib: torch.Tensor) -> torch.Tensor:
+    """Eq. 43: zeta_m = C~_m / sum_l C~_l (clipped to a valid simplex point)."""
+    c = contrib.clamp_min(_EPS)
+    return c / c.sum()

@@ -1,0 +1,54 @@
+"""Entry points for the kernels, dispatched by the device of the tensors.
+
+A CPU tensor goes to the plain PyTorch version in ``ref``; a CUDA tensor
+goes to the hand-written CUDA kernel, which launches or raises — there is
+no fallback from the card to the plain version.  Twin of
+``repro/kernels/ops.py``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import glr_step as _gs
+from repro_torch.kernels import ref as ref  # re-export the plain versions
+from repro_torch.kernels import weighted_aggregate as _wa
+
+_GLR_SPLIT_GRIDS = ("all", "geometric")
+
+
+def glr_step(cum, total, base, counts, r_vec, sched, split_grid: str = "all"):
+    """Fused streaming GLR detector step (prefix append + test).
+
+    ``cum`` (N, H) or, with a leading tenant axis, (G, N, H); the rest
+    (N,) / (G, N).  ``counts`` may be float or int, ``sched`` bool.
+    Returns ``(cum, total, base, stats)``.  Every row is independent, so
+    the tenant form is the same computation over G*N rows: one kernel
+    launch on CUDA.
+    """
+    if split_grid not in _GLR_SPLIT_GRIDS:
+        raise ValueError(
+            f"glr_step: unknown split_grid {split_grid!r}; use one of {_GLR_SPLIT_GRIDS}")
+    if cum.dim() not in (2, 3):
+        raise ValueError(f"glr_step: cum must be (N, H) or (G, N, H), got {tuple(cum.shape)}")
+    if cum.is_cuda:
+        f32 = lambda x: x.to(torch.float32).contiguous()
+        return _gs.glr_step(f32(cum), f32(total), f32(base),
+                            counts.to(torch.int32).contiguous(), f32(r_vec),
+                            sched.to(torch.bool).contiguous(), split_grid=split_grid)
+    if cum.device.type != "cpu":
+        raise ValueError(f"glr_step: no kernel for device {cum.device}")
+    rows_shape, h = cum.shape[:-1], cum.shape[-1]
+    flat = lambda x: x.reshape(-1)
+    outs = ref.glr_step(cum.reshape(-1, h), flat(total), flat(base), flat(counts),
+                        flat(r_vec), flat(sched), split_grid=split_grid)
+    return (outs[0].reshape(cum.shape),) + tuple(o.reshape(rows_shape) for o in outs[1:])
+
+
+def weighted_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Eq. 7 fused masked aggregation: updates (M, P), scale (M,) -> (P,) f32."""
+    if updates.is_cuda:
+        return _wa.weighted_aggregate(updates.contiguous(),
+                                      scale.to(torch.float32).contiguous())
+    if updates.device.type != "cpu":
+        raise ValueError(f"weighted_aggregate: no kernel for device {updates.device}")
+    return ref.weighted_aggregate(updates, scale)

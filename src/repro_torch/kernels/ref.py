@@ -1,0 +1,121 @@
+"""Plain PyTorch versions of the kernels of the main path.
+
+The semantics of record, twin of ``repro/kernels/ref.py``: the CPU path of
+``repro_torch.kernels.ops`` and the oracle every CUDA kernel is held
+against on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-6  # float32-safe: 1.0 - 1e-9 rounds to 1.0 and poisons KL with 0*log(0)
+
+
+def bernoulli_kl(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    p = p.clamp(_EPS, 1.0 - _EPS)
+    q = q.clamp(_EPS, 1.0 - _EPS)
+    return p * torch.log(p / q) + (1.0 - p) * torch.log((1.0 - p) / (1.0 - q))
+
+
+# ---------------------------------------------------------------------------
+# glr_step — streaming (carried prefix-sum) detector
+# ---------------------------------------------------------------------------
+#
+# Per channel the detector carries
+#   cum[j]   cumulative stream total C_k for the sample k last written to
+#            ring slot j
+#   total    running stream total C_c (c = samples since restart)
+#   base     C_{c-n}, n = min(c, H): the total just before the window's
+#            oldest sample (0 until the ring wraps)
+# so the window prefix at split s is ``cum[slot(s)] - base`` and the window
+# total is ``total - base``.  For {0, 1} rewards every quantity is an exact
+# small integer.
+
+
+def glr_split_offsets(h: int, device=None) -> torch.Tensor:
+    """Powers of two <= h — the geometric split-grid offsets."""
+    offs = []
+    d = 1
+    while d <= h:
+        offs.append(d)
+        d *= 2
+    return torch.tensor(offs, dtype=torch.int64, device=device)
+
+
+def glr_stream_append(cum, total, base, counts, r_vec, sched):
+    """Append one masked sample per channel to the streaming state.
+
+    cum (N, H); total/base (N,); counts (N,) samples since restart
+    (pre-append, float or int); r_vec (N,) rewards; sched (N,) bool.
+    Returns the updated ``(cum, total, base)``; the evicted slot's ``cum``
+    becomes ``base`` once the ring is full.
+    """
+    n, h = cum.shape
+    c_prev = counts.to(torch.int64)
+    w = torch.remainder(c_prev, h)                 # ring slot of this append
+    rows = torch.arange(n, device=cum.device)
+    evict = cum[rows, w]                           # C_{c-H} when the ring is full
+    full = c_prev >= h
+    base2 = torch.where(sched & full, evict, base)
+    total2 = torch.where(sched, total + r_vec, total)
+    cum2 = cum.index_put((rows, w), torch.where(sched, total2, evict))
+    return cum2, total2, base2
+
+
+def _stream_stat_terms(P, W, s, n):
+    """GLR statistic terms at split positions ``s`` of windows of length
+    ``n``; the division guards are the identity on valid splits."""
+    s_f = s.to(torch.float32).clamp_min(1.0)
+    n_f = n.to(torch.float32)
+    mu_all = W / n_f.clamp_min(1.0)
+    mu_a = P / s_f
+    mu_b = (W - P) / (n_f - s_f).clamp_min(1.0)
+    return (s_f * bernoulli_kl(mu_a, mu_all)
+            + (n_f - s_f) * bernoulli_kl(mu_b, mu_all))
+
+
+def glr_stream_stat(cum, total, base, counts, split_grid: str = "all"):
+    """GLR statistic from the carried prefix state, (N,); -inf where n < 2.
+
+    ``"all"``: every split (per ring slot j, s_j = n - ((w - j) mod H), w
+    the newest slot).  ``"geometric"``: only the splits at power-of-two
+    distance from either window end, gathered.
+    """
+    n_chan, h = cum.shape
+    c = counts.to(torch.int64)[:, None]
+    n = c.clamp_max(h)
+    W = (total - base)[:, None]
+    if split_grid == "geometric":
+        d = glr_split_offsets(h, cum.device)[None, :]                # (1, L)
+        s = torch.cat([d.expand(n_chan, -1), n - d], dim=1)
+        slot = torch.remainder(c - n + s - 1, h)                      # slot of sample s
+        P = torch.take_along_dim(cum, slot, dim=1) - base[:, None]
+    elif split_grid == "all":
+        j = torch.arange(h, device=cum.device)[None, :]
+        w_last = torch.remainder(c - 1, h)
+        s = n - torch.remainder(w_last - j, h)                        # split at slot j
+        P = cum - base[:, None]
+    else:
+        raise ValueError(f"unknown split_grid {split_grid!r}; use 'all' or 'geometric'")
+    stat = _stream_stat_terms(P, W, s, n)
+    valid = (s >= 1) & (s <= n - 1)
+    return torch.where(valid, stat, -torch.inf).amax(dim=-1)
+
+
+def glr_step(cum, total, base, counts, r_vec, sched, split_grid: str = "all"):
+    """Fused detector step: ``glr_stream_append`` then ``glr_stream_stat``
+    on the post-append state.  Returns ``(cum, total, base, stats)``."""
+    cum2, total2, base2 = glr_stream_append(cum, total, base, counts, r_vec, sched)
+    c2 = counts.to(torch.int64) + sched.to(torch.int64)
+    stats = glr_stream_stat(cum2, total2, base2, c2, split_grid)
+    return cum2, total2, base2, stats
+
+
+# ---------------------------------------------------------------------------
+# weighted_aggregate
+# ---------------------------------------------------------------------------
+
+def weighted_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Eq. 7: out[p] = sum_m scale[m] * updates[m, p]; (M, P) any float
+    dtype, (M,) f32 -> (P,) f32."""
+    return (scale.to(torch.float32)[:, None] * updates.to(torch.float32)).sum(dim=0)

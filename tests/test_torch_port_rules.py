@@ -1,0 +1,154 @@
+"""Rules of the PyTorch port that hold whatever the numbers.
+
+* No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports JAX
+  or anything of the JAX package ``repro``.
+* Entry points run on CUDA unless the caller passes a device: without
+  CUDA and without ``device=``, they raise.
+* A CUDA tensor goes to the kernel or raises; nothing falls back to the
+  plain version (faked here with a CUDA-looking tensor and a loader that
+  finds no built library).
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.bandits import GLRCUCB  # noqa: E402
+from repro_torch.core.channels import make_piecewise, make_scenario, make_stationary  # noqa: E402
+from repro_torch.core.regret import simulate_aoi_regret  # noqa: E402
+from repro_torch.fl import AsyncFLConfig, AsyncFLTrainer  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import glr_step as glr_step_mod  # noqa: E402
+from repro_torch.kernels import weighted_aggregate as wagg_mod  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax(path):
+    assert path.exists(), path
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_covers_every_module():
+    assert len(PORT_FILES) > 20
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_cuda(no_cuda):
+    sched = GLRCUCB(5, 2, history=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_stationary([0.5, 0.2, 0.9, 0.1, 0.3])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_piecewise(np.full((2, 5), 0.5, np.float32), [10])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_scenario("piecewise", n_channels=5, horizon=50, n_breakpoints=2).realize()
+    env = make_stationary([0.5, 0.2, 0.9, 0.1, 0.3], device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate_aoi_regret(sched, env, 10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AsyncFLTrainer(AsyncFLConfig(n_clients=2, n_channels=5), sched, env, lambda p, x, y: 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sched.init()
+    # the explicit CPU request works
+    out = simulate_aoi_regret(sched, env, 10, generator=torch.Generator(), device="cpu")
+    assert out["regret"].device.type == "cpu"
+
+
+class _FakeCuda:
+    """Stands in for a CUDA tensor: the dispatch routes on ``is_cuda`` and
+    the wrappers check device, dtype, shape and contiguity, all of which
+    this passes, so a call reaches the kernel loader."""
+
+    is_cuda = True
+    device = torch.device("cuda", 0)
+
+    def __init__(self, t):
+        self._t = t
+
+    def to(self, *a, **k):
+        return self
+
+    def contiguous(self):
+        return self
+
+    def __getattr__(self, name):
+        return getattr(self._t, name)
+
+
+class _State:
+    """The detector fields the streaming path reads, on fake CUDA tensors."""
+
+    def __init__(self, cum, total, base):
+        self.cum, self.total, self.base = cum, total, base
+        self.hp = {}
+
+
+def test_cuda_tensors_never_fall_back_to_the_plain_version(monkeypatch):
+    def missing(*a, **k):
+        raise RuntimeError("repro_torch kernel build failed: no library")
+
+    monkeypatch.setattr(_build, "load", missing)
+    before = (glr_step_mod.glr_step.launches, wagg_mod.weighted_aggregate.launches)
+    called = []
+    monkeypatch.setattr(ops.ref, "weighted_aggregate", lambda *a: called.append(a))
+    monkeypatch.setattr(ops.ref, "glr_step", lambda *a, **k: called.append(a))
+    upd = _FakeCuda(torch.zeros((2, 8)))
+    with pytest.raises(RuntimeError, match="no library"):
+        ops.weighted_aggregate(upd, _FakeCuda(torch.ones(2)))
+    cum = _FakeCuda(torch.zeros((3, 8)))
+    z = _FakeCuda(torch.zeros(3))
+    counts = _FakeCuda(torch.zeros(3, dtype=torch.int32))
+    sched = _FakeCuda(torch.zeros(3, dtype=torch.bool))
+    with pytest.raises(RuntimeError, match="no library"):
+        ops.glr_step(cum, z, z, counts, z, sched)
+    with pytest.raises(RuntimeError, match="no library"):
+        GLRCUCB(3, 1, history=8)._detect_streaming(
+            _State(cum, z, z), torch.zeros(1, dtype=torch.int64), sched, z, counts, z, True)
+    assert not called
+    assert (glr_step_mod.glr_step.launches, wagg_mod.weighted_aggregate.launches) == before
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    before = (glr_step_mod.glr_step.launches, wagg_mod.weighted_aggregate.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        wagg_mod.weighted_aggregate(torch.zeros((2, 8)), torch.ones(2))
+    z = torch.zeros(3)
+    with pytest.raises(ValueError, match="CUDA"):
+        glr_step_mod.glr_step(torch.zeros((3, 8)), z, z, z.int(), z, z.bool())
+    assert (glr_step_mod.glr_step.launches, wagg_mod.weighted_aggregate.launches) == before
+
+
+def test_missing_compiler_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "DEFAULT_NVCC", tmp_path / "no-nvcc")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build(["glr_step"])
+
+
+def test_build_targets_name_the_source_hash():
+    a = _build.library_path("glr_step")
+    b = _build.library_path("weighted_aggregate")
+    assert a.parent == b.parent and a.name != b.name and a.suffix == ".so"
+    with pytest.raises(ValueError, match="unknown kernel"):
+        _build.build(["flash_attention"])

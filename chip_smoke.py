@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S] [--fig2-rounds T] [--fig3-rounds R]
+    python3 chip_smoke.py [--seed S]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -10,7 +10,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``nvcc`` processes started together), with its seconds;
 2. kernels against their plain PyTorch versions on the card, at the main
    path's shapes and larger ones, with the stated tolerances, and their
-   times beside the plain version's, the bound and a library call;
+   times beside the plain version's, the bound and a library call; the
+   card's floor per launch, from an empty kernel launched back to back;
 3. the Fig. 2 AoI-regret path: GLR-CUCB (history 1024, detector stride 5)
    on a piecewise env with N=5, M=2 and 5 breakpoints, T=20000 rounds;
    ``glr_step`` must launch T/5 times.  A 5000-round run is first held
@@ -21,8 +22,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``weighted_aggregate`` must launch 150 times each.  Three rounds are
    first held against the same rounds on the CPU.
 
-Weights, envs and randomness are made on the card from ``--seed``.  The
-last line is ``{"ok": true, "device": {...}}``; the line before it lists
+Both paths run at the paper's sizes, uncut.  Weights, envs and randomness
+are made on the card from ``--seed``; the Fig. 3 data is the benchmark's
+synthetic problem, made on the host from seeds offset by ``--seed`` (seed
+0 gives the benchmark's own data).  The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel with its launches, error and times.  Without CUDA, or beside
 no ``src/repro_torch`` package, it exits non-zero and prints no result.
 """
@@ -39,6 +42,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 KL_SPLIT_FLOPS = 32            # f32 operations per evaluated GLR split
+FIG2_ROUNDS = 20000            # the paper's Fig. 2 horizon (benchmarks/run.py:175)
+FIG2_REF_ROUNDS = 5000         # the card-vs-CPU reference run of Fig. 2
+FIG3_ROUNDS = 150              # the paper's Fig. 3 large-scale rounds (benchmarks/run.py:744-760)
 
 
 class SmokeFailure(Exception):
@@ -113,6 +119,28 @@ def profile_window(torch, label, fn, rounds):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def launch_floor(torch):
+    """The card's floor per kernel launch: an empty kernel launched
+    back to back (a) 1000 times from one C loop, the device's own floor,
+    and (b) once per ``ctypes`` call, as the port's wrappers call a kernel
+    (host call cost included).  Milliseconds per launch."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    fn = _build.load("launch_floor", "launch_floor_launch", [ctypes.c_int, ctypes.c_void_p])
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch(n):
+        check(fn(n, stream) == 0, "launch_floor: empty kernel failed to launch")
+
+    device_ms = time_ms(torch, lambda: launch(1000), 20) / 1000
+    call_ms = time_ms(torch, lambda: launch(1), 5000)
+    line(f"  launch floor: empty kernel {device_ms:.5f} ms per launch from a C loop, "
+         f"{call_ms:.5f} ms per ctypes call")
+    return device_ms, call_ms
+
+
 def glr_inputs(torch, shape, gen, binary):
     """A prefix state across ring wraparound: counts in [0, 3H) with rows
     before, at and past the wrap; a mixed ``sched`` mask."""
@@ -156,7 +184,7 @@ def glr_bound_ms(torch, args, h, geometric):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_glr_step(torch, gen):
+def check_glr_step(torch, gen, floor_ms):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.glr_step import glr_step as kernel
 
@@ -201,7 +229,8 @@ def check_glr_step(torch, gen):
         bound, bound_by = glr_bound_ms(torch, args, h, geometric=False)
         timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
         line(f"  glr_step time {label} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-             f"bound {bound:.2e} ms ({bound_by}), per call back to back")
+             f"bound {bound:.2e} ms ({bound_by}), launch floor {floor_ms:.5f} ms, "
+             f"per call back to back")
     return max_err, timings
 
 
@@ -214,7 +243,7 @@ def scale_like_main_path(torch, m, gen):
     return mask * zeta * (m / mask.sum())
 
 
-def check_weighted_aggregate(torch, gen):
+def check_weighted_aggregate(torch, gen, floor_ms):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.weighted_aggregate import weighted_aggregate as kernel
 
@@ -250,7 +279,8 @@ def check_weighted_aggregate(torch, gen):
                               library_ms=library_ms)
         line(f"  weighted_aggregate time {label} ({m}, {p}) f32: kernel {ms:.4f} ms, "
              f"plain {plain_ms:.4f} ms, library (scale @ updates) {library_ms:.4f} ms, "
-             f"bound {bound:.4f} ms ({bound_by}), {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+             f"bound {bound:.4f} ms ({bound_by}), launch floor {floor_ms:.5f} ms, "
+             f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
         del upd
     return max_err, timings
 
@@ -259,7 +289,7 @@ def check_weighted_aggregate(torch, gen):
 # phase 3: Fig. 2 AoI-regret path
 # ---------------------------------------------------------------------------
 
-def fig2(torch, seed, rounds):
+def fig2(torch, seed):
     from repro_torch.core.bandits import GLRCUCB
     from repro_torch.core.channels import make_scenario
     from repro_torch.core.regret import simulate_aoi_regret, sublinearity_index
@@ -268,11 +298,15 @@ def fig2(torch, seed, rounds):
     n, m = 5, 2
     sched = GLRCUCB(n, m, history=1024, detector_stride=5)
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    rounds = FIG2_ROUNDS
     env = make_scenario("piecewise", n_channels=n, horizon=rounds, n_breakpoints=5).realize(gen)
+    # the env, for tools/fig2_reference.py --env (the JAX reference on it)
+    line("  fig2 env: " + json.dumps({"means": env.means.cpu().tolist(),
+                                      "breaks": env.breaks.cpu().tolist()}))
 
     # reference: a shorter run on the card (fused kernel path) equals the
     # same run on the CPU (plain split path) on the same uniforms
-    t_ref = 5000                        # typically passes a breakpoint and a restart
+    t_ref = FIG2_REF_ROUNDS             # typically passes a breakpoint and a restart
     u = torch.rand((t_ref, 2, n), generator=gen, device="cuda")
     card = simulate_aoi_regret(sched, env, t_ref, uniforms=u)
     cpu = simulate_aoi_regret(sched, env.to("cpu"), t_ref, uniforms=u.cpu(), device="cpu")
@@ -306,7 +340,7 @@ def fig2(torch, seed, rounds):
 # phase 4: Fig. 3 asynchronous-FL path
 # ---------------------------------------------------------------------------
 
-def fig3(torch, seed, rounds):
+def fig3(torch, seed):
     import numpy as np
     from torch import nn
     from torch.nn import functional as F
@@ -319,15 +353,17 @@ def fig3(torch, seed, rounds):
     from repro_torch.kernels.weighted_aggregate import weighted_aggregate
 
     n, m, dim, hidden, classes, spc = 30, 20, 48, 96, 10, 192
+    rounds = FIG3_ROUNDS
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
 
-    # data: the benchmark's Fig. 3 problem (Dirichlet alpha 0.1, 192 samples a client)
-    ds = SyntheticClassification(m * spc * 2, n_classes=classes, dim=dim, noise=1.0, seed=3)
+    # data: the benchmark's Fig. 3 problem (Dirichlet alpha 0.1, 192 samples a
+    # client; its seeds 3 and 4 at --seed 0)
+    ds = SyntheticClassification(m * spc * 2, n_classes=classes, dim=dim, noise=1.0, seed=3 + seed)
     (trx, try_), (tex, tey) = ds.split(0.9)
-    parts = dirichlet_partition(try_, m, 0.1, seed=3, min_per_client=spc)
+    parts = dirichlet_partition(try_, m, 0.1, seed=3 + seed, min_per_client=spc)
     cx = np.stack([trx[np.resize(p, spc)] for p in parts])
     cy = np.stack([try_[np.resize(p, spc)] for p in parts])
-    bx, by = FederatedLoader(cx, cy, batch_size=16, local_epochs=3, seed=4).next_rounds(rounds)
+    bx, by = FederatedLoader(cx, cy, batch_size=16, local_epochs=3, seed=4 + seed).next_rounds(rounds)
     bx, by = torch.from_numpy(bx).cuda(), torch.from_numpy(by).to(torch.int64).cuda()
     tex, tey = torch.from_numpy(tex).cuda(), torch.from_numpy(tey).to(torch.int64).cuda()
 
@@ -410,8 +446,6 @@ def fig3(torch, seed, rounds):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--fig2-rounds", type=int, default=20000)
-    ap.add_argument("--fig3-rounds", type=int, default=150)
     args = ap.parse_args(argv)
 
     import torch
@@ -437,7 +471,7 @@ def main(argv=None) -> int:
                              check=True).stdout.strip().splitlines()[0]
         line(f"  python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
         t0 = time.perf_counter()
-        reports = _build.build()
+        reports = _build.build(_build.KERNELS + _build.PROBES)
         line(f"  built {sorted(reports) or 'nothing (current builds present)'} "
              f"in {time.perf_counter() - t0:.1f} s")
         for name, rep in sorted(reports.items()):
@@ -447,13 +481,14 @@ def main(argv=None) -> int:
 
         line("[2] kernels against their plain versions on the card")
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
-        glr_err, glr_t = check_glr_step(torch, gen)
-        wa_err, wa_t = check_weighted_aggregate(torch, gen)
+        floor_ms, _ = launch_floor(torch)
+        glr_err, glr_t = check_glr_step(torch, gen, floor_ms)
+        wa_err, wa_t = check_weighted_aggregate(torch, gen, floor_ms)
 
         line("[3] Fig. 2 AoI-regret path")
-        fig2_launches = fig2(torch, args.seed, args.fig2_rounds)
+        fig2_launches = fig2(torch, args.seed)
         line("[4] Fig. 3 asynchronous-FL path")
-        fig3_launches = fig3(torch, args.seed, args.fig3_rounds)
+        fig3_launches = fig3(torch, args.seed)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1

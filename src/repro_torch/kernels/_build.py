@@ -22,6 +22,7 @@ from typing import Dict, Iterable, List, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("glr_step", "weighted_aggregate")
+PROBES = ("launch_floor",)     # measurement only: an empty kernel's launch floor
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,8 +54,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     ``-Xptxas -v`` register/shared-memory report) for the ones built."""
     names = list(names)
     for name in names:
-        if name not in KERNELS:
-            raise ValueError(f"unknown kernel {name!r}; known: {KERNELS}")
+        if name not in KERNELS + PROBES:
+            raise ValueError(f"unknown kernel {name!r}; known: {KERNELS + PROBES}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     jobs: List[tuple] = []

@@ -9,6 +9,8 @@ rewards.  Channels, counts, the prefix ring, totals, bases, ``tau`` and
 ``restarts`` must be bitwise; ``mu_tilde`` is a running mean, one division
 per round, held at rtol 1e-6.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -35,13 +37,21 @@ def _configs(**kw):
     return JaxGLRCUCB(N, M, **cfg), cfg
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_prefix_run(prefix, split_grid):
+    """The JAX run up to ``prefix``, shared by both port backends."""
+    jsched, cfg = _configs(split_grid=split_grid)
+    out = jax_simulate(jsched, make_piecewise(MEANS, BREAKS), KEY, prefix,
+                       collect_curve=False, return_state=True)
+    return jsched, cfg, out
+
+
 @pytest.mark.parametrize("prefix", [7, 64, 130, 245, 330, 400])
 @pytest.mark.parametrize("split_grid", ["all", "geometric"])
 @pytest.mark.parametrize("backend", ["torch", "kernel"])
 def test_one_step_matches_jax(prefix, split_grid, backend):
-    jsched, cfg = _configs(split_grid=split_grid)
+    jsched, cfg, out = _jax_prefix_run(prefix, split_grid)
     env = make_piecewise(MEANS, BREAKS)
-    out = jax_simulate(jsched, env, KEY, prefix, collect_curve=False, return_state=True)
     jstate = out["final_sched_state"]
     tsched = GLRCUCB(N, M, detector_backend=backend, **cfg)
     tstate = convert.glr_cucb_state(jstate, device="cpu")

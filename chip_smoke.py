@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S]
+    python3 chip_smoke.py [--seed S] [--paths]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -20,13 +20,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    piecewise env, the MLP 48->96->10, E=3, B=16, lr 0.15, GLR-CUCB
    (history 256) with adaptive matching, 150 rounds; ``glr_step`` and
    ``weighted_aggregate`` must launch 150 times each.  Three rounds are
-   first held against the same rounds on the CPU.
+   first held against the same rounds on the CPU;
+5. the Fig. 3 path under Byzantine client faults with the robust
+   aggregators, phase 4's setup unchanged, 150 rounds a run, the chaos
+   suite's attacks x defenses (``benchmarks/run.py:1160-1168``,
+   ``:1245-1251``): sign_flip x {mean, trimmed_mean, coordinate_median},
+   inner_product x norm_clip, burst(sign_flip) x coordinate_median;
+   ``robust_trimmed`` must launch 150 times in each order-statistic run,
+   ``weighted_aggregate`` 150 times in the others.  Three rounds of two
+   runs are first held against the same rounds on the CPU;
+6. the Fig. 2 path with ``detector_impl="recompute"`` on phase 3's env and
+   uniforms: ``glr_scan`` must launch T/5 times, and the schedule,
+   restarts and regret must equal phase 3's streaming run bit for bit.
 
-Both paths run at the paper's sizes, uncut.  Weights, envs and randomness
+Phase 2 releases its tensors and the allocator's cache before phase 3, so
+the paths start from the same device memory state with or without it.
+``--paths`` builds the kernels and runs phases 3-6 only (no kernel line):
+the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
+
+Every path runs at the paper's sizes, uncut.  Weights, envs and randomness
 are made on the card from ``--seed``; the Fig. 3 data is the benchmark's
 synthetic problem, made on the host from seeds offset by ``--seed`` (seed
-0 gives the benchmark's own data).  The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-every kernel with its launches, error and times.  Without CUDA, or beside
+0 gives the benchmark's own data).  The last line is
+``{"ok": true, "device": {...}}``; the line before it lists every kernel
+with its launches (summed over the paths, each counted from zero), error
+and times.  Without CUDA, or beside
 no ``src/repro_torch`` package, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -41,10 +59,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
+F32_LANE_OPS = F32_FLOPS / 2   # FP32 lane instructions a second (an FMA counts 2 flops)
 KL_SPLIT_FLOPS = 32            # f32 operations per evaluated GLR split
+RANK_PAIR_OPS = 4              # lane operations per rank test: two compares, a select, an add
 FIG2_ROUNDS = 20000            # the paper's Fig. 2 horizon (benchmarks/run.py:175)
 FIG2_REF_ROUNDS = 5000         # the card-vs-CPU reference run of Fig. 2
 FIG3_ROUNDS = 150              # the paper's Fig. 3 large-scale rounds (benchmarks/run.py:744-760)
+FIG3_REF_ROUNDS = 3            # the card-vs-CPU reference rounds of Fig. 3
+FIG3_REF_MAX_ROUNDS = 12       # ... extended, under attack, until a corrupted row is aggregated
+KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan")
 
 
 class SmokeFailure(Exception):
@@ -58,6 +81,33 @@ def check(cond, what):
 
 def line(*parts):
     print(*parts, flush=True)
+
+
+def kernel_wrappers():
+    """Each kernel's wrapper, by name: the ``.launches`` counters."""
+    from repro_torch.kernels.glr_scan import glr_scan
+    from repro_torch.kernels.glr_step import glr_step
+    from repro_torch.kernels.robust_agg import robust_trimmed
+    from repro_torch.kernels.weighted_aggregate import weighted_aggregate
+
+    return dict(glr_step=glr_step, weighted_aggregate=weighted_aggregate,
+                robust_trimmed=robust_trimmed, glr_scan=glr_scan)
+
+
+def reset_launches():
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_launches():
+    return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def two_way_bound(nbytes, ops, rate):
+    """The least time for the work: bytes over HBM bandwidth or operations
+    over ``rate``, whichever is larger, in ms, and which one it is."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_ms(torch, fn, iters):
@@ -231,6 +281,20 @@ def check_glr_step(torch, gen, floor_ms):
         line(f"  glr_step time {label} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
              f"bound {bound:.2e} ms ({bound_by}), launch floor {floor_ms:.5f} ms, "
              f"per call back to back")
+
+    # the tenant form (glr_step_tenants): G x N rows of one launch
+    shape = (256, 16, 1024)
+    args = glr_inputs(torch, shape, gen, True)
+    cum, total, base, counts, r_vec, sched = args
+    counts_i = counts.to(torch.int32)
+    flat = [a.reshape(-1, shape[-1]) if a.dim() == 3 else a.reshape(-1) for a in args]
+    ms = time_ms(torch, lambda: kernel(cum, total, base, counts_i, r_vec, sched), 200)
+    plain_ms = time_ms(torch, lambda: ref.glr_step(*flat), 10)
+    bound, bound_by = glr_bound_ms(torch, args, shape[-1], geometric=False)
+    timings["tenants"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+    line(f"  glr_step_tenants time {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+         f"bound {bound:.4f} ms ({bound_by}), launch floor {floor_ms:.5f} ms, "
+         f"{2 * cum.numel() * 4 / (ms * 1e-3) / 1e9:.1f} GB/s of ring traffic")
     return max_err, timings
 
 
@@ -285,6 +349,148 @@ def check_weighted_aggregate(torch, gen, floor_ms):
     return max_err, timings
 
 
+def trim_inputs(torch, m, p, dtype, mask_kind, gen):
+    """Updates on a grid of 1/2 (so that ties really occur) and a mask that
+    is random (about 60 % participate), full or empty."""
+    x = (torch.round(torch.randn((m, p), generator=gen, device="cuda") * 3.0) * 0.5).to(dtype)
+    if mask_kind == "empty":
+        mask = torch.zeros(m, device="cuda")
+    elif mask_kind == "full":
+        mask = torch.ones(m, device="cuda")
+    else:
+        mask = (torch.rand(m, generator=gen, device="cuda") < 0.6).to(torch.float32)
+    return x, mask
+
+
+def check_robust_trimmed(torch, gen, floor_ms):
+    """Kernel against plain: the median (k = floor((n-1)/2), at most two
+    kept values) bitwise; the trimmed mean (k = 0 and k between) within
+    M * 2**-24 * max|x|, the rounding of any order of at most M adds
+    divided by their count."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.robust_agg import robust_trimmed as kernel
+
+    max_err = 0.0
+    for m, p in ((20, 5674), (64, 2 ** 22 + 3)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for mask_kind in ("random", "full", "empty"):
+                x, mask = trim_inputs(torch, m, p, dtype, mask_kind, gen)
+                n = mask.sum()
+                n_int = int(n)
+                med = max(n_int - 1, 0) // 2
+                tol = m * 2.0 ** -24 * float(x.float().abs().max())
+                errs = []
+                for k in sorted({0, med // 2, med}):
+                    kt = torch.tensor(float(k), device="cuda")
+                    got = ops.robust_trimmed(x, mask, n, kt)
+                    want = ref.robust_trimmed(x, mask, n, kt)
+                    torch.cuda.synchronize()
+                    check(got.dtype == torch.float32 and got.shape == (p,),
+                          "robust_trimmed: shape/dtype")
+                    err = float((got - want).abs().max())
+                    if k == med:
+                        check(torch.equal(got, want),
+                              f"robust_trimmed ({m}, {p}) {dtype} {mask_kind}: median not bitwise")
+                    else:
+                        check(err <= tol, f"robust_trimmed ({m}, {p}) {dtype} {mask_kind} k={k}: "
+                                          f"error {err} above {tol}")
+                    if n_int == 0:
+                        check(not bool(got.any()), "robust_trimmed: empty mask gave non-zeros")
+                    errs.append(f"k={k}: {err:.1e}")
+                    max_err = max(max_err, err)
+                    del got, want
+                line(f"  robust_trimmed ({m}, {p}) {str(dtype).split('.')[-1]} mask={mask_kind} "
+                     f"n={n_int}: median bitwise, max_abs_err {', '.join(errs)} "
+                     f"(bound {tol:.1e}) ok")
+                del x
+
+    timings = {}
+    for m, p, label in ((20, 5674, "fig3"), (64, 2 ** 22 + 3, "large")):
+        x, mask = trim_inputs(torch, m, p, torch.float32, "full", gen)
+        n = mask.sum()
+        k = torch.floor((n - 1.0) / 2.0)              # the median, as on the main path
+        lo, hi = (m - 1) // 2, m - (m - 1) // 2
+        small = p < 10 ** 6
+        ms = time_ms(torch, lambda: kernel(x, mask, n, k), 2000 if small else 20)
+        plain_ms = time_ms(torch, lambda: ref.robust_trimmed(x, mask, n, k), 200 if small else 3)
+        library = lambda: torch.sort(x, dim=0).values[lo:hi].mean(dim=0)
+        library_ms = time_ms(torch, library, 2000 if small else 10)
+        same = bool(torch.equal(library(), kernel(x, mask, n, k)))
+        nbytes = m * p * 4 + m * 4 + 8 + p * 4
+        pairs = m * m * p                              # every row participates
+        bound, bound_by = two_way_bound(nbytes, RANK_PAIR_OPS * pairs, F32_LANE_OPS)
+        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                              library_ms=library_ms)
+        line(f"  robust_trimmed time {label} ({m}, {p}) f32 median: kernel {ms:.4f} ms, "
+             f"plain {plain_ms:.4f} ms, library (sort + kept-slice mean) {library_ms:.4f} ms "
+             f"(equal to the kernel: {same}), bound {bound:.4f} ms ({bound_by}: {pairs:.3e} "
+             f"pair tests x {RANK_PAIR_OPS} ops / {F32_LANE_OPS:.3g} lane ops/s; bytes "
+             f"{nbytes / HBM_BYTES_PER_S * 1e3:.2e} ms), launch floor {floor_ms:.5f} ms, "
+             f"{RANK_PAIR_OPS * pairs / (ms * 1e-3) / 1e12:.2f} T lane ops/s")
+        del x
+    return max_err, timings
+
+
+def check_glr_scan(torch, gen, floor_ms):
+    """Kernel against plain: bitwise on {0, 1} histories (exact integer
+    prefixes).  On real-valued ones the block scan adds in another order
+    than ``torch.cumsum``, and the split term amplifies a prefix's rounding
+    near the window mean, so both are held against the plain version in
+    f64: the kernel's largest error at most twice the plain f32 version's,
+    plus 1e-6 of the largest statistic."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.glr_scan import glr_scan as kernel
+
+    def inputs(n, h, binary, full=False):
+        hist = (torch.randint(0, 2, (n, h), generator=gen, device="cuda").to(torch.float32)
+                if binary else torch.rand((n, h), generator=gen, device="cuda"))
+        if full:
+            return hist, torch.full((n,), h, dtype=torch.int32, device="cuda")
+        counts = torch.randint(0, h + 1, (n,), generator=gen, device="cuda").to(torch.int32)
+        counts[:3] = torch.tensor([0, 1, h], device="cuda")[:n]
+        return hist, counts
+
+    max_err = 0.0
+    for n, h in ((5, 1024), (30, 256), (1000, 1000)):
+        for binary in (True, False):
+            hist, counts = inputs(n, h, binary)
+            got, want = ops.glr_scan(hist, counts), ref.glr_scan(hist, counts)
+            torch.cuda.synchronize()
+            check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+                  f"glr_scan ({n}, {h}): -inf at other places")
+            fin = torch.isfinite(want)
+            check(torch.equal(fin, torch.isfinite(got)), f"glr_scan ({n}, {h}): non-finite stat")
+            err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+            if binary:
+                check(torch.equal(got, want), f"glr_scan ({n}, {h}) {{0,1}}: not bitwise ({err})")
+                how = "bitwise"
+            else:
+                exact = ref.glr_scan(hist.double(), counts)[fin]
+                e_kernel = float((got[fin].double() - exact).abs().max())
+                e_plain = float((want[fin].double() - exact).abs().max())
+                tol = 2.0 * e_plain + 1e-6 * float(exact.abs().max())
+                check(e_kernel <= tol, f"glr_scan ({n}, {h}) real: error vs f64 {e_kernel:.3e} "
+                                       f"above {tol:.3e} (plain f32's {e_plain:.3e})")
+                how = f"vs f64: kernel {e_kernel:.3e}, plain {e_plain:.3e}"
+            max_err = max(max_err, err)
+            line(f"  glr_scan ({n}, {h}) history={'{0,1}' if binary else 'U[0,1]'}: "
+                 f"{how}, max_abs_err={err:.3e} ok")
+
+    timings = {}
+    for (n, h), label in (((5, 1024), "fig2"), ((30, 256), "fig3")):
+        hist, counts = inputs(n, h, True, full=True)   # the steady state: full windows
+        ms = time_ms(torch, lambda: kernel(hist, counts), 2000)
+        plain_ms = time_ms(torch, lambda: ref.glr_scan(hist, counts), 200)
+        splits = n * (h - 1)
+        nbytes = n * h * 4 + n * 4 + n * 4
+        bound, bound_by = two_way_bound(nbytes, KL_SPLIT_FLOPS * splits + 2 * n * h, F32_FLOPS)
+        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
+        line(f"  glr_scan time {label} ({n}, {h}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+             f"bound {bound:.2e} ms ({bound_by}), launch floor {floor_ms:.5f} ms, "
+             f"per call back to back")
+    return max_err, timings
+
+
 # ---------------------------------------------------------------------------
 # phase 3: Fig. 2 AoI-regret path
 # ---------------------------------------------------------------------------
@@ -316,23 +522,62 @@ def fig2(torch, seed):
     line(f"  fig2 reference: {t_ref} rounds on the card equal the CPU run "
          f"(schedule, restarts={int(cpu['restarts'])}, regret={float(cpu['final_regret']):.0f})")
 
-    glr_step.launches = 0
+    # drawn as simulate_aoi_regret would draw them from gen; kept for phase 6
+    uniforms = torch.rand((rounds, 2, n), generator=gen, device="cuda")
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = simulate_aoi_regret(sched, env, rounds, generator=gen)
+    out = simulate_aoi_regret(sched, env, rounds, uniforms=uniforms)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = glr_step.launches
+    launches = read_launches()
+    check(launches["glr_step"] == rounds // 5,
+          f"fig2: glr_step launched {launches['glr_step']} times, expected {rounds // 5}")
     regret = out["regret"]
     check(regret.shape == (rounds,) and bool(torch.isfinite(regret).all()), "fig2: regret not finite")
-    check(launches == rounds // 5, f"fig2: glr_step launched {launches} times, expected {rounds // 5}")
     profile_window(torch, "fig2", lambda: simulate_aoi_regret(
         sched, env, 500, generator=gen, collect_curve=False), 500)
     sub = float(sublinearity_index(regret))
     line(f"  fig2: T={rounds} final_regret={float(out['final_regret']):.1f} "
          f"restarts={int(out['restarts'])} sublinearity_index={sub:.4f} "
          f"success_rate={float(out['success_rate']):.4f} seconds={secs:.2f} "
-         f"({secs / rounds * 1e3:.3f} ms/round) glr_step.launches={launches}")
+         f"({secs / rounds * 1e3:.3f} ms/round) glr_step.launches={launches['glr_step']}")
+    return launches, dict(env=env, uniforms=uniforms, out=out, n=n, m=m)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: Fig. 2 with the recompute detector
+# ---------------------------------------------------------------------------
+
+def fig2_recompute(torch, f2):
+    """Phase 3's run again with ``detector_impl="recompute"`` on the same
+    env and uniforms: every decision must be the same, bit for bit."""
+    from repro_torch.core.bandits import GLRCUCB
+    from repro_torch.core.regret import simulate_aoi_regret
+
+    rounds = FIG2_ROUNDS
+    sched = GLRCUCB(f2["n"], f2["m"], history=1024, detector_stride=5, detector_impl="recompute")
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = simulate_aoi_regret(sched, f2["env"], rounds, uniforms=f2["uniforms"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["glr_scan"] == rounds // 5,
+          f"fig2 recompute: glr_scan launched {launches['glr_scan']} times, expected {rounds // 5}")
+    check(launches["glr_step"] == 0, "fig2 recompute: the streaming kernel ran")
+    ref = f2["out"]
+    check(torch.equal(out["channels"], ref["channels"]),
+          "fig2 recompute: schedule differs from the streaming run")
+    check(int(out["restarts"]) == int(ref["restarts"]),
+          f"fig2 recompute: {int(out['restarts'])} restarts, streaming {int(ref['restarts'])}")
+    check(torch.equal(out["regret"], ref["regret"]),
+          "fig2 recompute: regret differs from the streaming run")
+    line(f"  fig2 recompute: T={rounds} schedule, restarts={int(out['restarts'])} and regret "
+         f"{float(out['final_regret']):.1f} bitwise equal to the streaming run; "
+         f"seconds={secs:.2f} ({secs / rounds * 1e3:.3f} ms/round) "
+         f"glr_scan.launches={launches['glr_scan']}")
     return launches
 
 
@@ -340,7 +585,9 @@ def fig2(torch, seed):
 # phase 4: Fig. 3 asynchronous-FL path
 # ---------------------------------------------------------------------------
 
-def fig3(torch, seed):
+def fig3_setup(torch, seed):
+    """The Fig. 3 problem at the paper's size: data, the 5,674-param MLP,
+    the skewed piecewise env, the config, GLR-CUCB and the uniforms."""
     import numpy as np
     from torch import nn
     from torch.nn import functional as F
@@ -348,9 +595,7 @@ def fig3(torch, seed):
     from repro_torch.core.bandits import GLRCUCB
     from repro_torch.core.channels import make_piecewise
     from repro_torch.data import FederatedLoader, SyntheticClassification, dirichlet_partition
-    from repro_torch.fl import AsyncFLConfig, AsyncFLTrainer
-    from repro_torch.kernels.glr_step import glr_step
-    from repro_torch.kernels.weighted_aggregate import weighted_aggregate
+    from repro_torch.fl import AsyncFLConfig
 
     n, m, dim, hidden, classes, spc = 30, 20, 48, 96, 10, 192
     rounds = FIG3_ROUNDS
@@ -388,46 +633,99 @@ def fig3(torch, seed):
     def loss_fn(p, x, y):
         return F.cross_entropy(torch.func.functional_call(model, p, (x,)), y)
 
+    def accuracy(state):
+        with torch.no_grad():
+            logits = torch.relu(tex @ state.params["w1"] + state.params["b1"]) \
+                @ state.params["w2"] + state.params["b2"]
+            return float((logits.argmax(1) == tey).float().mean())
+
     # the skewed piecewise env: Good channels are rare (means ~ u^4)
     means = 0.03 + (0.95 - 0.03) * torch.rand((5, n), generator=gen, device="cuda") ** 4.0
     breaks = torch.linspace(0, rounds, 6, device="cuda")[1:-1].to(torch.int64)
-    env = make_piecewise(means, breaks)
-    cfg = AsyncFLConfig(n_clients=m, n_channels=n, local_epochs=3, client_lr=0.15,
-                        server_lr=0.15, use_matching=True, use_zeta=True)
-    sched = GLRCUCB(n, m, history=256)
-    uniforms = torch.rand((rounds, 2, n), generator=gen, device="cuda")
+    return dict(
+        n=n, m=m, rounds=rounds, bx=bx, by=by, params=params, loss_fn=loss_fn,
+        accuracy=accuracy, env=make_piecewise(means, breaks),
+        cfg=AsyncFLConfig(n_clients=m, n_channels=n, local_epochs=3, client_lr=0.15,
+                          server_lr=0.15, use_matching=True, use_zeta=True),
+        sched=GLRCUCB(n, m, history=256),
+        uniforms=torch.rand((rounds, 2, n), generator=gen, device="cuda"))
 
-    # reference: three rounds on the card equal the same rounds on the CPU
-    card_tr = AsyncFLTrainer(cfg, sched, env, loss_fn)
-    cpu_tr = AsyncFLTrainer(cfg, sched, env, loss_fn, device="cpu")
-    s_card, m_card = card_tr.run(card_tr.init(params), bx[:3], by[:3], uniforms=uniforms[:3])
-    s_cpu, m_cpu = cpu_tr.run(cpu_tr.init(params), bx[:3].cpu(), by[:3].cpu(),
-                              uniforms=uniforms[:3].cpu())
+
+def fig3_reference(torch, S, label, fault_uniforms=None, burst_on=False, **kw):
+    """Rounds on the card equal the same rounds on the CPU, on the same
+    uniforms: n_success and mean AoI bitwise, the rest at rtol 1e-4.  ``kw``
+    (faults, aggregator) goes to both trainers.  With faults the CPU run is
+    also held, round by round, against the same run without them: their
+    params must part, so a corrupted row reached the aggregate within the
+    compared rounds (``FIG3_REF_ROUNDS``, or up to ``FIG3_REF_MAX_ROUNDS``
+    until that happens).  ``burst_on`` starts a burst schedule bursting."""
+    from repro_torch.fl import AsyncFLTrainer
+
+    faults = kw.get("faults")
+
+    def start(tr):
+        state = tr.init(S["params"])
+        return state._replace(fault_state=torch.ones((), device=tr.device)) if burst_on else state
+
+    def one_round(tr, state, r, fu):
+        sl = slice(r, r + 1)
+        return tr.run(state, S["bx"][sl].to(tr.device), S["by"][sl].to(tr.device),
+                      uniforms=S["uniforms"][sl].to(tr.device),
+                      fault_uniforms=None if fu is None else fu[sl].to(tr.device))
+
+    cpu_tr = AsyncFLTrainer(S["cfg"], S["sched"], S["env"], S["loss_fn"], device="cpu", **kw)
+    s_cpu, mets, hit, r = start(cpu_tr), [], None, 0
+    if faults is not None:
+        clean_tr = AsyncFLTrainer(S["cfg"], S["sched"], S["env"], S["loss_fn"], device="cpu",
+                                  aggregator=kw.get("aggregator"))
+        s_clean = clean_tr.init(S["params"])
+    while r < FIG3_REF_ROUNDS or (faults is not None and hit is None and r < FIG3_REF_MAX_ROUNDS):
+        s_cpu, m = one_round(cpu_tr, s_cpu, r, fault_uniforms)
+        mets.append(m)
+        if faults is not None and hit is None:
+            s_clean, _ = one_round(clean_tr, s_clean, r, None)
+            if any(not torch.equal(s_cpu.params[k], s_clean.params[k]) for k in S["params"]):
+                hit = r + 1
+        r += 1
+    check(faults is None or hit is not None,
+          f"{label}: no corrupted row reached the aggregate in {r} rounds")
+    m_cpu = {k: torch.cat([m[k] for m in mets]) for k in mets[0]}
+
+    card_tr = AsyncFLTrainer(S["cfg"], S["sched"], S["env"], S["loss_fn"], **kw)
+    s_card, m_card = card_tr.run(start(card_tr), S["bx"][:r], S["by"][:r],
+                                 uniforms=S["uniforms"][:r],
+                                 fault_uniforms=None if fault_uniforms is None else fault_uniforms[:r])
     for k in ("n_success", "mean_aoi"):
-        check(torch.equal(m_card[k].cpu(), m_cpu[k]), f"fig3: card {k} != CPU {k}")
+        check(torch.equal(m_card[k].cpu(), m_cpu[k]), f"{label}: card {k} != CPU {k}")
     for k in ("local_loss", "aoi_var", "zeta_max"):
         check(torch.allclose(m_card[k].cpu(), m_cpu[k], rtol=1e-4, atol=1e-5),
-              f"fig3: card {k} not close to CPU {k}")
-    for k in params:
+              f"{label}: card {k} not close to CPU {k}")
+    for k in S["params"]:
         check(torch.allclose(s_card.params[k].cpu(), s_cpu.params[k], rtol=1e-4, atol=1e-5),
-              f"fig3: card params {k} not close to CPU")
-    line(f"  fig3 reference: 3 rounds on the card match the CPU run "
-         f"(n_success {m_cpu['n_success'].tolist()}, local_loss rtol 1e-4)")
+              f"{label}: card params {k} not close to CPU")
+    hit_note = "" if faults is None else f"; an attacked row first reached the aggregate in round {hit}"
+    line(f"  {label} reference: {r} rounds on the card match the CPU run "
+         f"(n_success {m_cpu['n_success'].tolist()}, local_loss rtol 1e-4{hit_note})")
 
-    glr_step.launches = 0
-    weighted_aggregate.launches = 0
+
+def fig3(torch, S):
+    import numpy as np
+
+    from repro_torch.fl import AsyncFLTrainer
+
+    rounds = S["rounds"]
+    fig3_reference(torch, S, "fig3")
+    card_tr = AsyncFLTrainer(S["cfg"], S["sched"], S["env"], S["loss_fn"])
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, mets = card_tr.run(card_tr.init(params), bx, by, uniforms=uniforms)
+    state, mets = card_tr.run(card_tr.init(S["params"]), S["bx"], S["by"], uniforms=S["uniforms"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(glr_step=glr_step.launches, weighted_aggregate=weighted_aggregate.launches)
+    launches = read_launches()
     profile_window(torch, "fig3", lambda: card_tr.run(
-        state, bx[:10], by[:10], uniforms=uniforms[:10]), 10)
-    with torch.no_grad():
-        logits = torch.relu(tex @ state.params["w1"] + state.params["b1"]) @ state.params["w2"] \
-            + state.params["b2"]
-        acc = float((logits.argmax(1) == tey).float().mean())
+        state, S["bx"][:10], S["by"][:10], uniforms=S["uniforms"][:10]), 10)
+    acc = S["accuracy"](state)
     loss = mets["local_loss"]
     check(bool(torch.isfinite(loss).all()) and np.isfinite(acc), "fig3: loss or accuracy not finite")
     check(launches["weighted_aggregate"] == rounds,
@@ -438,15 +736,112 @@ def fig3(torch, seed):
     line(f"  fig3: rounds={rounds} local_loss first={float(loss[0]):.4f} last={float(loss[-1]):.4f} "
          f"n_success total={float(mets['n_success'].sum()):.0f} "
          f"mean_aoi last={float(mets['mean_aoi'][-1]):.3f} test_acc={acc:.4f} "
-         f"seconds/round={secs / rounds:.4f} glr_step.launches={launches['glr_step']} "
+         f"seconds/round={secs / rounds:.6f} glr_step.launches={launches['glr_step']} "
          f"weighted_aggregate.launches={launches['weighted_aggregate']}")
-    return launches
+    return launches, acc
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the Fig. 3 path under Byzantine faults, robust aggregation
+# ---------------------------------------------------------------------------
+
+def fig3_robust(torch, S, seed, clean_acc):
+    """The chaos suite's attack x defense runs on phase 4's setup."""
+    import numpy as np
+
+    from repro_torch.core.aggregation import make_aggregator
+    from repro_torch.core.faults import make_fault
+    from repro_torch.fl import AsyncFLTrainer
+
+    rounds = S["rounds"]
+    sign_flip = make_fault("sign_flip", rate=0.2, scale=8.0)
+    trimmed = make_aggregator("trimmed_mean", trim_frac=0.34)
+    median = make_aggregator("coordinate_median")
+    burst = make_fault("burst", base=make_fault("sign_flip", rate=0.3, scale=6.0),
+                       p_on=0.15, p_off=0.35)
+    runs = [
+        ("sign_flip+mean", sign_flip, make_aggregator("mean")),
+        ("sign_flip+trimmed_mean", sign_flip, trimmed),
+        ("sign_flip+coordinate_median", sign_flip, median),
+        ("inner_product+norm_clip", make_fault("inner_product", rate=0.2, strength=8.0),
+         make_aggregator("norm_clip", clip_norm=1.0)),
+        ("burst+coordinate_median", burst, median),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    fault_u = {name: torch.rand((rounds, f.n_uniforms(S["m"])), generator=gen, device="cuda")
+               for name, f, _ in runs}
+    fig3_reference(torch, S, "fig3 sign_flip+coordinate_median", faults=sign_flip,
+                   aggregator=median, fault_uniforms=fault_u["sign_flip+coordinate_median"])
+    fig3_reference(torch, S, "fig3 burst+trimmed_mean", faults=burst, aggregator=trimmed,
+                   fault_uniforms=fault_u["burst+coordinate_median"],   # the same family
+                   burst_on=True)
+
+    totals = dict.fromkeys(KERNEL_NAMES, 0)
+    for name, fault, agg in runs:
+        tr = AsyncFLTrainer(S["cfg"], S["sched"], S["env"], S["loss_fn"], faults=fault,
+                            aggregator=agg)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, mets = tr.run(tr.init(S["params"]), S["bx"], S["by"], uniforms=S["uniforms"],
+                             fault_uniforms=fault_u[name])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        order_stat = agg.FAMILY in ("trimmed_mean", "coordinate_median")
+        want = dict(robust_trimmed=rounds if order_stat else 0,
+                    weighted_aggregate=0 if order_stat else rounds, glr_step=rounds)
+        for k, v in want.items():
+            check(launches[k] == v, f"fig3 {name}: {k} launched {launches[k]} times, expected {v}")
+        acc = S["accuracy"](state)
+        loss = mets["local_loss"]
+        check(bool(torch.isfinite(loss).all()) and np.isfinite(acc)
+              and all(bool(torch.isfinite(v).all()) for v in state.params.values()),
+              f"fig3 {name}: loss, params or accuracy not finite")
+        line(f"  fig3 {name}: rounds={rounds} test_acc={acc:.4f} (clean {clean_acc:.4f}) "
+             f"local_loss last={float(loss[-1]):.4f} "
+             f"n_success total={float(mets['n_success'].sum()):.0f} "
+             f"seconds/round={secs / rounds:.6f} launches={launches}")
+        for k in KERNEL_NAMES:
+            totals[k] += launches[k]
+        if name == "sign_flip+coordinate_median":
+            profile_window(torch, f"fig3 {name}", lambda: tr.run(
+                state, S["bx"][:10], S["by"][:10], uniforms=S["uniforms"][:10],
+                fault_uniforms=fault_u[name][:10]), 10)
+    return totals
+
+
+def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t):
+    """The entries of the kernels line: launches from the paths, the rest
+    from phase 2."""
+    def entry(name, replaces, err, t, **extra):
+        return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+                    replaces=replaces, launches=launches[name], max_abs_err=err, ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t.get("library_ms"), **extra)
+
+    tenants = glr_t["tenants"]
+    return [
+        entry("glr_step", "src/repro/kernels/glr_step.py:163", glr_err, glr_t["fig2"],
+              tenants_replaces="src/repro/kernels/glr_step.py:210",
+              tenants_shape=[256, 16, 1024], tenants_ms=tenants["ms"],
+              tenants_plain_ms=tenants["plain_ms"], tenants_bound_ms=tenants["bound_ms"],
+              tenants_bound_by=tenants["bound_by"]),
+        entry("weighted_aggregate", "src/repro/kernels/weighted_aggregate.py:47", wa_err,
+              wa_t["fig3"]),
+        entry("robust_trimmed", "src/repro/kernels/robust_agg.py:73", rt_err, rt_t["fig3"]),
+        entry("glr_scan", "src/repro/kernels/glr_scan.py:70", gs_err, gs_t["fig2"]),
+    ]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paths", action="store_true",
+                    help="build the kernels and run the paths (phases 3-6) only")
     args = ap.parse_args(argv)
+
+    import gc
 
     import torch
     if not torch.cuda.is_available():
@@ -479,38 +874,44 @@ def main(argv=None) -> int:
                 if "registers" in ln or "spill" in ln:
                     line(f"    {name}: {ln.strip()}")
 
-        line("[2] kernels against their plain versions on the card")
-        gen = torch.Generator(device="cuda").manual_seed(args.seed)
-        floor_ms, _ = launch_floor(torch)
-        glr_err, glr_t = check_glr_step(torch, gen, floor_ms)
-        wa_err, wa_t = check_weighted_aggregate(torch, gen, floor_ms)
+        if not args.paths:
+            line("[2] kernels against their plain versions on the card")
+            gen = torch.Generator(device="cuda").manual_seed(args.seed)
+            floor_ms, _ = launch_floor(torch)
+            glr_err, glr_t = check_glr_step(torch, gen, floor_ms)
+            wa_err, wa_t = check_weighted_aggregate(torch, gen, floor_ms)
+            rt_err, rt_t = check_robust_trimmed(torch, gen, floor_ms)
+            gs_err, gs_t = check_glr_scan(torch, gen, floor_ms)
+            # the checks' gigabytes go back to the driver before the timed paths
+            peak = torch.cuda.max_memory_reserved() / 2 ** 30
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            line(f"  released the checks' memory: {peak:.2f} GiB reserved at peak, "
+                 f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB now")
 
         line("[3] Fig. 2 AoI-regret path")
-        fig2_launches = fig2(torch, args.seed)
+        fig2_launches, f2 = fig2(torch, args.seed)
         line("[4] Fig. 3 asynchronous-FL path")
-        fig3_launches = fig3(torch, args.seed)
+        S = fig3_setup(torch, args.seed)
+        fig3_launches, clean_acc = fig3(torch, S)
+        line("[5] Fig. 3 path under Byzantine faults, robust aggregation")
+        robust_launches = fig3_robust(torch, S, args.seed, clean_acc)
+        line("[6] Fig. 2 path, recompute detector")
+        recompute_launches = fig2_recompute(torch, f2)
+        paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches)
+        launches = {k: sum(p[k] for p in paths) for k in KERNEL_NAMES}
+        check(all(launches[k] > 0 for k in KERNEL_NAMES), f"a kernel never launched: {launches}")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
 
+    line(f"  launches on the main paths: {launches}")
     line(f"  total seconds {time.perf_counter() - t_start:.1f}")
-    kernels = [
-        dict(name="glr_step", route="cuda", source="src/repro_torch/kernels/csrc/glr_step.cu",
-             replaces="src/repro/kernels/glr_step.py:163",
-             launches=fig2_launches + fig3_launches["glr_step"], max_abs_err=glr_err,
-             ms=glr_t["fig2"]["ms"], plain_ms=glr_t["fig2"]["plain_ms"],
-             bound_ms=glr_t["fig2"]["bound_ms"], bound_by=glr_t["fig2"]["bound_by"],
-             library_ms=None),
-        dict(name="weighted_aggregate", route="cuda",
-             source="src/repro_torch/kernels/csrc/weighted_aggregate.cu",
-             replaces="src/repro/kernels/weighted_aggregate.py:47",
-             launches=fig3_launches["weighted_aggregate"], max_abs_err=wa_err,
-             ms=wa_t["fig3"]["ms"], plain_ms=wa_t["fig3"]["plain_ms"],
-             bound_ms=wa_t["fig3"]["bound_ms"], bound_by=wa_t["fig3"]["bound_by"],
-             library_ms=wa_t["fig3"]["library_ms"]),
-    ]
     line(smi)
-    line(json.dumps({"kernels": kernels}))
+    if not args.paths:
+        line(json.dumps({"kernels": kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err,
+                                                rt_t, gs_err, gs_t)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

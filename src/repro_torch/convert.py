@@ -8,14 +8,17 @@ dtypes are kept (f32 counts stay f32, int32 ``tau`` stays int32).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
+from repro_torch.core.aggregation import Aggregator, registered_aggregators
 from repro_torch.core.bandits.glr_cucb import GLRCUCBState
 from repro_torch.core.channels.base import ChannelEnv
 from repro_torch.core.contribution import ContributionBuffer
+from repro_torch.core.faults import FaultProcess, registered_faults
 from repro_torch.core.matching import MatcherState
 from repro_torch.device import resolve_device
 from repro_torch.fl.round import AsyncFLState
@@ -60,13 +63,39 @@ def contribution_buffer(src, device=None) -> ContributionBuffer:
 
 def async_fl_state(src, device=None) -> AsyncFLState:
     """An ``AsyncFLState`` from the JAX trainer's state (its GLR-CUCB
-    scheduler state included; the JAX fault carry has no counterpart)."""
+    scheduler state and fault-schedule carry included)."""
     return _fields(AsyncFLState, src, device,
                    params=params(src.params, device),
                    contrib_buf=contribution_buffer(src.contrib_buf, device),
                    sched_state=glr_cucb_state(src.sched_state, device),
                    matcher_state=matcher_state(src.matcher_state, device),
                    t=int(np.array(src.t)))
+
+
+def _instance(registry, src, label):
+    """The port's instance of ``src``'s family, with ``src``'s knob values
+    read as plain attributes (nested ``FaultProcess`` knobs converted)."""
+    family = getattr(type(src), "FAMILY", None)
+    if family not in registry:
+        raise ValueError(f"{label}: no port family for {type(src).__name__} ({family!r})")
+    cls = registry[family]
+    knobs = {}
+    for f in dataclasses.fields(cls):
+        if f.init:
+            v = getattr(src, f.name)
+            knobs[f.name] = fault(v) if hasattr(type(v), "FAMILY") else v
+    return cls(**knobs)
+
+
+def fault(src) -> FaultProcess:
+    """The port's ``FaultProcess`` for a JAX one (same family and knobs;
+    ``burst`` nests its base family)."""
+    return _instance(registered_faults(), src, "convert.fault")
+
+
+def aggregator(src) -> Aggregator:
+    """The port's ``Aggregator`` for a JAX one (same family and knobs)."""
+    return _instance(registered_aggregators(), src, "convert.aggregator")
 
 
 def to_numpy(obj):

@@ -10,10 +10,11 @@ is detected.  The GLR statistic for a stream z_1..z_n is
 
 against the threshold beta(n, delta) = (1 + 1/n) log(3 n sqrt(n) / delta).
 
-The detector is the streaming one of the JAX package: per-channel
-prefix-sum state (``cum``/``total``/``base``) carried in
-``GLRCUCBState``, one O(N) masked append per round, and the statistic
-read straight from the carried prefixes.  Two paths compute it:
+Two detectors, as in the JAX package.  ``detector_impl="streaming"``
+(the default) carries per-channel prefix-sum state (``cum``/``total``/
+``base``) in ``GLRCUCBState``, one O(N) masked append per round, and
+reads the statistic straight from the carried prefixes.  Two paths
+compute it:
 
 * the fused path: on a detection round one ``ops.glr_step`` (append +
   test, the CUDA kernel on the card), ``ref.glr_stream_append`` alone on
@@ -24,8 +25,16 @@ read straight from the carried prefixes.  Two paths compute it:
   default, or ``detector_backend="torch"``.
 
 For {0, 1} rewards both paths give bitwise-equal prefix state and
-statistics.  Twin of ``repro/core/bandits/glr_cucb.py``; the legacy
-``detector_impl="recompute"`` path is not ported.
+statistics.
+
+``detector_impl="recompute"`` is the legacy reference detector: a rolled
+chronological (N, H) history ``hist``, whose prefix sum is rebuilt on
+every detection round by ``ops.glr_scan`` (the CUDA kernel on the card,
+``ref.glr_scan`` on the CPU).  It evaluates the dense split grid only.
+For {0, 1} rewards every prefix is an exact integer and both kernels
+share the split term (``csrc/glr_kl.cuh``), so the two detectors fire on
+the same rounds and give the same trajectories.  Twin of
+``repro/core/bandits/glr_cucb.py``.
 """
 from __future__ import annotations
 
@@ -49,11 +58,13 @@ class GLRCUCBState(NamedTuple):
     mu_tilde: torch.Tensor  # (N,) empirical means since last restart
     counts: torch.Tensor    # (N,) f32 D_i — observations since last restart
     tau: torch.Tensor       # () int32 — last restart round
-    hist: torch.Tensor      # (N, 0) — the streaming detector keeps no raw samples
+    hist: torch.Tensor      # (N, H) rolled chronological reward streams under
+                            # "recompute"; (N, 0) under "streaming"
     restarts: torch.Tensor  # () int32 — number of detected change points
     hp: Dict[str, torch.Tensor]  # {gamma, delta, min_samples} 0-d f32
     cum: torch.Tensor       # (N, H) carried prefix sums: cum[j] = stream total
                             # at the sample last written to ring slot j
+                            # ((N, 0) under "recompute")
     total: torch.Tensor     # (N,) running stream total since restart
     base: torch.Tensor      # (N,) stream total just before the window's
                             # oldest sample (0 until the ring wraps)
@@ -72,6 +83,7 @@ class GLRCUCB(TracedHyperParams):
     detector_backend: Optional[str] = None  # None (auto: fused path iff the
                                             # state is on CUDA) | "kernel"
                                             # (fused) | "torch" (split)
+    detector_impl: str = "streaming"  # "streaming" | "recompute"
     split_grid: str = "all"      # "all" | "geometric" | "auto"
     auto_split_h: int = 4096     # "auto": history above this is geometric
     name: str = "glr-cucb"
@@ -83,10 +95,18 @@ class GLRCUCB(TracedHyperParams):
             raise ValueError(
                 f"GLRCUCB: unknown detector_backend {self.detector_backend!r}; "
                 "use None (auto), 'kernel' or 'torch'")
+        if self.detector_impl not in ("streaming", "recompute"):
+            raise ValueError(
+                f"GLRCUCB: unknown detector_impl {self.detector_impl!r}; "
+                "use 'streaming' or 'recompute'")
         if self.split_grid not in ("all", "geometric", "auto"):
             raise ValueError(
                 f"GLRCUCB: unknown split_grid {self.split_grid!r}; "
                 "use 'all', 'geometric' or 'auto'")
+        if self.detector_impl == "recompute" and self.split_grid != "all":
+            raise ValueError(
+                "GLRCUCB: split_grid='geometric'/'auto' needs the streaming "
+                "detector (the recompute path always evaluates the dense grid)")
         if self.auto_split_h < 1:
             raise ValueError(f"GLRCUCB: auto_split_h must be >= 1, got {self.auto_split_h}")
 
@@ -105,6 +125,7 @@ class GLRCUCB(TracedHyperParams):
     def init(self, device=None, hp: Optional[Dict[str, Any]] = None) -> GLRCUCBState:
         dev = resolve_device(device)
         n, h = self.n_channels, self.history
+        streaming = self.detector_impl == "streaming"
         f32 = dict(dtype=torch.float32, device=dev)
         hp = self.params(dev) if hp is None else {
             k: torch.as_tensor(v, **f32) for k, v in hp.items()}
@@ -112,10 +133,10 @@ class GLRCUCB(TracedHyperParams):
             mu_tilde=torch.zeros((n,), **f32),
             counts=torch.zeros((n,), **f32),
             tau=torch.zeros((), dtype=torch.int32, device=dev),
-            hist=torch.zeros((n, 0), **f32),
+            hist=torch.zeros((n, 0 if streaming else h), **f32),
             restarts=torch.zeros((), dtype=torch.int32, device=dev),
             hp=hp,
-            cum=torch.zeros((n, h), **f32),
+            cum=torch.zeros((n, h if streaming else 0), **f32),
             total=torch.zeros((n,), **f32),
             base=torch.zeros((n,), **f32),
         )
@@ -166,19 +187,26 @@ class GLRCUCB(TracedHyperParams):
                          state.mu_tilde)
         counts = torch.where(sched, d_prev + 1.0, d_prev)
         stride_ok = t % self.detector_stride == 0
-        cum, total, base, change = self._detect_streaming(
-            state, channels, sched, r_vec, d_prev, counts, stride_ok)
+        if self.detector_impl == "streaming":
+            hist = state.hist                # (N, 0): prefix-only detector
+            cum, total, base, change = self._detect_streaming(
+                state, channels, sched, r_vec, d_prev, counts, stride_ok)
+        else:
+            hist, cum, total, base, change = self._detect_recompute(
+                state, sched, r_vec, d_prev, counts, stride_ok)
 
         # restart (Alg. 2 line 21): D_i = 0 for all i, tau <- t.  The ring
         # stays in place: zeroed counts/total/base make every stale slot's
-        # split position invalid.
+        # split position invalid.  The recompute history is zeroed.
         mu = mu.masked_fill(change, 0.0)
         counts = counts.masked_fill(change, 0.0)
         total = total.masked_fill(change, 0.0)
         base = base.masked_fill(change, 0.0)
+        if self.detector_impl == "recompute":
+            hist = hist.masked_fill(change, 0.0)
         tau = state.tau.masked_fill(change, t)
         restarts = state.restarts + change.to(torch.int32)
-        return GLRCUCBState(mu, counts, tau, state.hist, restarts, state.hp,
+        return GLRCUCBState(mu, counts, tau, hist, restarts, state.hp,
                             cum, total, base)
 
     def _fire(self, stats, sched, counts, hp) -> torch.Tensor:
@@ -213,6 +241,26 @@ class GLRCUCB(TracedHyperParams):
                     counts[channels], grid))
         change = self._fire(stats, sched, counts, state.hp)
         return cum, total, base, change
+
+    def _detect_recompute(self, state, sched, r_vec, d_prev, counts, stride_ok: bool):
+        """Legacy reference detector: rolled chronological history, prefix
+        sum rebuilt by ``ops.glr_scan`` on detection rounds; returns
+        ``(hist, cum, total, base, change)``."""
+        h = self.history
+        # history write: append at D_prev, or shift the row when it is full
+        full = d_prev >= h
+        writepos = d_prev.to(torch.int64).clamp(0, h - 1)
+        onehot = torch.nn.functional.one_hot(writepos, h).to(torch.float32)
+        appended = state.hist * (1.0 - onehot) + r_vec[:, None] * onehot
+        rolled = torch.cat([state.hist[:, 1:], r_vec[:, None]], dim=1)
+        hist = torch.where(sched[:, None], torch.where(full[:, None], rolled, appended),
+                           state.hist)
+        if stride_ok:
+            stats = ops.glr_scan(hist, counts.clamp_max(float(h)).to(torch.int32))
+        else:
+            stats = torch.full((self.n_channels,), -torch.inf, device=d_prev.device)
+        change = self._fire(stats, sched, counts, state.hp)
+        return hist, state.cum, state.total, state.base, change
 
     def channel_scores(self, state: GLRCUCBState, t: int) -> torch.Tensor:
         """UCB values (Eq. 30) rank channels for the Sec.-V matcher."""

@@ -9,7 +9,7 @@ generator is not JAX's threefry.  Twin of ``repro/core/channels/process.py``
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar, Dict, Optional, Type
+from typing import Any, ClassVar, Dict, Optional, Type
 
 import torch
 
@@ -46,6 +46,27 @@ def register_scenario(cls: Type[ChannelProcess]) -> Type[ChannelProcess]:
     return cls
 
 
+def check_knobs(cls: type, label: str, kwargs: Dict[str, Any]) -> None:
+    """Eagerly reject unknown or missing constructor knobs, listing the
+    family's valid knobs.  Shared by the scenario, fault and aggregator
+    registries; twin of ``repro.core.channels.process.check_knobs``."""
+    valid = {f.name for f in dataclasses.fields(cls) if f.init}
+    unknown = sorted(set(kwargs) - valid)
+    if unknown:
+        raise ValueError(
+            f"{label}: unknown knob(s) {unknown}; valid knobs for "
+            f"{cls.__name__}: {sorted(valid)}")
+    missing = sorted(
+        f.name for f in dataclasses.fields(cls)
+        if f.init and f.default is dataclasses.MISSING
+        and f.default_factory is dataclasses.MISSING
+        and f.name not in kwargs)
+    if missing:
+        raise ValueError(
+            f"{label}: missing required knob(s) {missing}; valid knobs for "
+            f"{cls.__name__}: {sorted(valid)}")
+
+
 def make_scenario(family: str, **kwargs) -> ChannelProcess:
     """Construct a scenario by registry name; unknown or missing knobs raise."""
     try:
@@ -54,12 +75,5 @@ def make_scenario(family: str, **kwargs) -> ChannelProcess:
         raise ValueError(
             f"make_scenario: unknown family {family!r}; registered: "
             f"{sorted(_REGISTRY)}") from None
-    fields = {f.name: f for f in dataclasses.fields(cls) if f.init}
-    unknown = sorted(set(kwargs) - set(fields))
-    missing = sorted(name for name, f in fields.items()
-                     if f.default is dataclasses.MISSING and name not in kwargs)
-    if unknown or missing:
-        raise ValueError(
-            f"make_scenario({family!r}): unknown knob(s) {unknown}, missing "
-            f"knob(s) {missing}; valid knobs for {cls.__name__}: {sorted(fields)}")
+    check_knobs(cls, f"make_scenario({family!r})", kwargs)
     return cls(**kwargs)

@@ -4,12 +4,17 @@ One round:
 
   Step 1  clients in S_{t-1} receive w_t (everyone else trains nothing and
           keeps its buffered update G~, Eq. 6)
-  Step 2  E local SGD epochs, vmapped over clients (Eq. 5)
+  Step 2  E local SGD epochs, vmapped over clients (Eq. 5); an optional
+          ``FaultProcess`` (``repro_torch.core.faults``) then corrupts the
+          fresh updates / drops clients, between local training and the
+          Eq.-6 buffer carry
   Step 3  the scheduler picks M channels; the adaptive matcher assigns
           them to clients by priority (Eq. 39-40); the channel env draws
           Good/Bad; S_t = clients whose channel was Good
   Step 4  the server aggregates  w <- w - eta_s/|S_t| * sum_{i in S_t} zeta_i G~_i
-          through the ``weighted_aggregate`` kernel (Eq. 7), updates AoI
+          through the ``weighted_aggregate`` kernel (Eq. 7), or through
+          an ``Aggregator`` (``repro_torch.core.aggregation``: the robust
+          families run the ``robust_trimmed`` kernel), updates AoI
           (Eq. 8), the contribution buffers (Eq. 41-42), zeta (Eq. 43)
           and the bandit statistics.
 
@@ -25,8 +30,11 @@ One round:
 Client updates are carried flattened (M, P), sorted-key order.  Each
 round draws two (N,) f32 uniforms, ``u_env`` for the channel states and
 ``u_sel`` for the scheduler, as the JAX round splits its key into
-``k_env, k_sel``.  Twin of ``repro/fl/round.py``; fault injection, the
-robust aggregators, ``run_served`` and the batched engine are not ported.
+``k_env, k_sel``; with ``faults`` it also draws the family's
+``n_uniforms(M)`` uniforms ``u_fault``, which stand for the JAX round's
+draws on ``fold_in(key, 0xFA17)`` (see ``repro_torch.core.faults``).
+Twin of ``repro/fl/round.py``; ``run_served`` and the batched engine are
+not ported.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.aggregation import MeanAgg
 from repro_torch.core.aoi import aoi_variance, init_aoi, update_aoi
 from repro_torch.core.bandits.base import init_with_hp
 from repro_torch.core.channels import ChannelEnv
@@ -48,21 +57,18 @@ from repro_torch.core.contribution import (
 from repro_torch.core.matching import AdaptiveMatcher, MatcherState, matcher_scores
 from repro_torch.device import resolve_device
 from repro_torch.fl.client import local_sgd
-from repro_torch.kernels import ops
 from repro_torch.utils.tree import tree_flatten_concat, tree_unflatten_concat
 
+_MEAN = MeanAgg()
 
-def dispatch_aggregate(aggregator, buffers, mask, zeta, n_succ):
-    """Step-4 aggregation: the zeta-weighted masked mean of Eq. 7 through
-    ``ops.weighted_aggregate``.  ``buffers`` arrive quarantine-masked;
-    returns the (P,) f32 aggregate.  Only the default ``aggregator=None``
-    is ported."""
-    if aggregator is not None:
-        raise NotImplementedError(
-            "dispatch_aggregate: only the default zeta-weighted mean (aggregator=None) is ported")
-    m = buffers.shape[0]
-    scale = mask * zeta * (m / n_succ.clamp_min(1.0))
-    return ops.weighted_aggregate(buffers, scale)
+
+def dispatch_aggregate(aggregator, buffers, mask, zeta, n_succ, params=None):
+    """Step-4 aggregation through a ``repro_torch.core.aggregation``
+    ``Aggregator`` with its knobs ``params`` (default ``params()``);
+    ``aggregator=None`` is ``MeanAgg``, the zeta-weighted masked mean of
+    Eq. 7.  ``buffers`` arrive quarantine-masked; returns the (P,) f32
+    aggregate, zeros when nothing participates."""
+    return (aggregator or _MEAN).aggregate(buffers, mask, zeta, n_succ, params)
 
 
 class AsyncFLState(NamedTuple):
@@ -79,6 +85,9 @@ class AsyncFLState(NamedTuple):
     t: int                           # round index (a Python int: no device sync)
     env_state: torch.Tensor          # (N,) interaction carry (dead for open-loop envs)
     staleness: torch.Tensor          # (M,) age of the buffered G~ in rounds
+    fault_state: torch.Tensor        # () fault-schedule carry (burst on/off; a
+                                     # dead zero for memoryless families and
+                                     # faultless trainers)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,12 +109,14 @@ class AsyncFLTrainer:
     """The asynchronous FL trainer on ``device`` (default ``cuda``).
 
     ``loss_fn(params, x, y)`` is a scalar loss of a parameter dict;
-    ``proxy_loss_fn(flat_params)`` the optional server proxy loss (Eq. 35).
+    ``proxy_loss_fn(flat_params)`` the optional server proxy loss (Eq. 35);
+    ``faults`` an optional ``FaultProcess``; ``aggregator`` an optional
+    ``Aggregator`` (None: the zeta-weighted mean of Eq. 7).
     """
 
     def __init__(self, cfg: AsyncFLConfig, scheduler, env: ChannelEnv,
                  loss_fn: Callable, proxy_loss_fn: Optional[Callable] = None,
-                 device=None):
+                 device=None, faults=None, aggregator=None):
         if not isinstance(env, ChannelEnv):
             raise TypeError(
                 "AsyncFLTrainer: env must be a realized ChannelEnv "
@@ -116,6 +127,16 @@ class AsyncFLTrainer:
         self.env = env.to(self.device)
         self.loss_fn = loss_fn
         self.proxy_loss_fn = proxy_loss_fn
+        self.faults = faults
+        self.aggregator = aggregator
+        # knobs made on the device once: a tensor built from a Python float
+        # per round would be a blocking host-to-device copy
+        self._fault_params = faults.params(self.device) if faults is not None else None
+        self._agg_params = aggregator.params(self.device) if aggregator is not None else None
+
+    def n_fault_uniforms(self) -> int:
+        """f32 uniforms the fault family consumes a round (0 without one)."""
+        return 0 if self.faults is None else self.faults.n_uniforms(self.cfg.n_clients)
 
     # ------------------------------------------------------------------ init
     def init(self, params: Dict[str, Any], hp: Any = None) -> AsyncFLState:
@@ -136,6 +157,8 @@ class AsyncFLTrainer:
             t=0,
             env_state=self.env.interact_init(),
             staleness=torch.ones((m,), device=dev),
+            fault_state=(self.faults.schedule_init(dev) if self.faults is not None
+                         else torch.zeros((), device=dev)),
         )
 
     # ------------------------------------------------------------------ round
@@ -157,24 +180,44 @@ class AsyncFLTrainer:
         generator: Optional[torch.Generator] = None,
         u_env: Optional[torch.Tensor] = None,
         u_sel: Optional[torch.Tensor] = None,
+        u_fault: Optional[torch.Tensor] = None,
     ) -> Tuple[AsyncFLState, Dict[str, torch.Tensor]]:
         """One round.  The round's randomness is ``u_env``/``u_sel`` ((N,)
-        uniforms) when given, else two draws from ``generator``."""
+        uniforms) and, with ``faults``, ``u_fault`` ((K,) uniforms,
+        ``K = n_fault_uniforms()``) when given, else drawn from
+        ``generator`` in that order."""
         cfg, dev = self.cfg, self.device
-        m, n = cfg.n_clients, cfg.n_channels
+        m, n, k = cfg.n_clients, cfg.n_channels, self.n_fault_uniforms()
         if (u_env is None) != (u_sel is None):
             raise ValueError("round: pass both u_env and u_sel, or neither")
+        if k and (u_env is None) != (u_fault is None):
+            raise ValueError("round: with faults, pass u_env, u_sel and u_fault, or none")
+        if not k and u_fault is not None:
+            raise ValueError("round: u_fault given to a trainer without faults")
         if u_env is None:
             u_env, u_sel = torch.rand((2, n), generator=generator, device=dev)
+            if k:
+                u_fault = torch.rand((k,), generator=generator, device=dev)
         env, t = self.env, state.t
         batches_x = batches_x.to(dev)
         batches_y = batches_y.to(dev)
 
         # ---- Steps 1-2: local training for clients in S_{t-1} ------------
         fresh_updates, local_losses = self._local_updates(state.params, batches_x, batches_y)
+
+        # ---- fault injection: between training and the Eq.-6 carry ---------
+        # A dropped client neither refreshes its buffer nor transmits; the
+        # faultless path multiplies by no all-ones mask (same values, fewer ops)
+        if self.faults is not None:
+            fresh_updates, dropped, fault_state = self.faults.inject_sched(
+                u_fault.to(dev), t, fresh_updates, state.fault_state, self._fault_params)
+            active = state.last_success * (1.0 - dropped)
+        else:
+            dropped, fault_state = None, state.fault_state
+            active = state.last_success
+
         # Eq. 6 via `where`: a corrupted fresh row must not leak NaN into an
         # inactive client's kept buffer (0 * NaN)
-        active = state.last_success
         buffers = torch.where(active[:, None] > 0.5, fresh_updates, state.buffers)
         has_update = torch.maximum(state.has_update, active)
         staleness = torch.where(active > 0.5, 1.0, state.staleness + 1.0)
@@ -194,6 +237,8 @@ class AsyncFLTrainer:
         env_state = env.interact_step(state.env_state, t, sched_mask)
         success = (ch_states[assignment] > 0.5).to(torch.float32)
         success = success * has_update        # a client with no update yet can't help
+        if dropped is not None:
+            success = success * (1.0 - dropped)   # and a dropped one can't transmit
 
         # ---- Step 4: quarantine gate + aggregate (Eq. 7, CUDA kernel) -------
         if cfg.quarantine:
@@ -217,7 +262,8 @@ class AsyncFLTrainer:
             agg_buffers = torch.where(agg_mask[:, None] > 0.5, buffers, 0.0)
         else:
             agg_buffers = buffers
-        agg_flat = dispatch_aggregate(None, agg_buffers, agg_mask, zeta, n_succ)  # (P,) f32
+        agg_flat = dispatch_aggregate(self.aggregator, agg_buffers, agg_mask, zeta, n_succ,
+                                      self._agg_params)  # (P,) f32
         step_vec = -cfg.server_lr / m * agg_flat
         delta = tree_unflatten_concat(step_vec, state.params)
         if cfg.quarantine:
@@ -249,7 +295,7 @@ class AsyncFLTrainer:
             last_success=last_success, aoi=aoi, contrib_buf=contrib_buf,
             contrib=contrib, zeta=new_zeta, sched_state=sched_state,
             matcher_state=matcher_state, t=t + 1, env_state=env_state,
-            staleness=staleness,
+            staleness=staleness, fault_state=fault_state,
         )
         # losses of clients that actually trained this round, kept finite
         loss_ok = torch.isfinite(local_losses).to(torch.float32)
@@ -273,19 +319,32 @@ class AsyncFLTrainer:
         batches_y: torch.Tensor,    # (R, M, E, B)
         generator: Optional[torch.Generator] = None,
         uniforms: Optional[torch.Tensor] = None,   # (R, 2, N)
+        fault_uniforms: Optional[torch.Tensor] = None,   # (R, K)
     ) -> Tuple[AsyncFLState, Dict[str, torch.Tensor]]:
         """``R`` sequential rounds; metrics come back stacked as (R,) tensors.
-        Round r uses ``uniforms[r, 0]`` / ``uniforms[r, 1]`` when given."""
-        r, n = int(batches_x.shape[0]), self.cfg.n_channels
+        Round r uses ``uniforms[r, 0]`` / ``uniforms[r, 1]`` and, with
+        ``faults``, ``fault_uniforms[r]`` (K = ``n_fault_uniforms()``) when
+        given; with neither, both are drawn from ``generator``."""
+        r, n, k = int(batches_x.shape[0]), self.cfg.n_channels, self.n_fault_uniforms()
         if int(batches_y.shape[0]) != r:
             raise ValueError(f"run: batches_y leading axis {batches_y.shape[0]} != {r}")
+        if k and (uniforms is None) != (fault_uniforms is None):
+            raise ValueError("run: with faults, pass uniforms and fault_uniforms, or neither")
+        if not k and fault_uniforms is not None:
+            raise ValueError("run: fault_uniforms given to a trainer without faults")
         if uniforms is None:
             uniforms = torch.rand((r, 2, n), generator=generator, device=self.device)
+            if k:
+                fault_uniforms = torch.rand((r, k), generator=generator, device=self.device)
         elif tuple(uniforms.shape) != (r, 2, n):
             raise ValueError(f"run: uniforms must be ({r}, 2, {n}), got {tuple(uniforms.shape)}")
+        if k and tuple(fault_uniforms.shape) != (r, k):
+            raise ValueError(
+                f"run: fault_uniforms must be ({r}, {k}), got {tuple(fault_uniforms.shape)}")
         per_round = []
         for i in range(r):
             state, mets = self.round(state, batches_x[i], batches_y[i],
-                                     u_env=uniforms[i, 0], u_sel=uniforms[i, 1])
+                                     u_env=uniforms[i, 0], u_sel=uniforms[i, 1],
+                                     u_fault=fault_uniforms[i] if k else None)
             per_round.append(mets)
         return state, {k: torch.stack([mm[k] for mm in per_round]) for k in per_round[0]}

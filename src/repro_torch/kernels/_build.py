@@ -5,8 +5,9 @@ compiled by ``nvcc`` into its own shared library and loaded with
 ``ctypes`` (pointers and the stream pass as ``c_void_p``).  Builds happen
 at first use, from the sources in this package only, into
 ``<repo>/build/repro_torch/`` (listed in ``.gitignore``).  The library's
-file name carries a hash of its source and flags, so an edited kernel is
-rebuilt and a stale one is never loaded.  A failed build raises.
+file name carries a hash of its source, the shared headers of ``csrc/``
+(``*.cuh``) and the flags, so an edited kernel is rebuilt and a stale one
+is never loaded.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Dict, Iterable, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("glr_step", "weighted_aggregate")
+KERNELS = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan")
 PROBES = ("launch_floor",)     # measurement only: an empty kernel's launch floor
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,9 +43,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives (hash of source + flags)."""
+    """Where the build of ``csrc/<name>.cu`` lives (hash of source, headers
+    and flags)."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

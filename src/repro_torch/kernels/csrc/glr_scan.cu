@@ -1,0 +1,115 @@
+// Recompute GLR detector for Hopper (sm_90a): the statistic of every
+// channel from its raw (N, H) reward history.
+//
+// Replaces the Pallas TPU kernel `glr_scan` (src/repro/kernels/glr_scan.py,
+// `_glr_kernel`).  Semantics of record: `repro_torch.kernels.ref.glr_scan`.
+//
+// Per row (one channel): the history masked to its first n = counts[row]
+// samples, its inclusive prefix sum, and the sup over s = 1..n-1 of
+//   s*kl(P_s/s, W/n) + (n-s)*kl((W-P_s)/(n-s), W/n)
+// (W the window total), -inf where n < 2.  The split term is the one of
+// `glr_kl.cuh`, shared with `glr_step.cu`, so on {0, 1} rewards the
+// recompute and the streaming detector give the same bits.
+//
+// Layout: one thread block per row.  The prefix is a block-wide inclusive
+// scan taken in chunks of blockDim samples with a carried offset: a warp
+// scan by shuffles, the warp totals scanned by warp 0 through shared
+// memory.  The window total is needed before any split can be tested, so
+// the row is scanned twice: once for W, once for the statistics (the two
+// scans add in the same order, so their prefixes agree bit for bit and W
+// is the last prefix).  A warp-shuffle block max starting from -inf ends it.
+// On {0, 1} rewards every prefix is an exact integer whatever the order of
+// the adds; on real-valued ones the scan's order differs from the plain
+// version's sequential `cumsum` (compared at rtol 1e-5).
+//
+// What bounds it on the H100: at the paper's sizes (N = 5..30 rows,
+// H = 256..1024) the history is 5-120 KB and the work some 40 flops per
+// split; the launch is bound by launch latency.  At (1000, 1000) the
+// ~4e7 flops take ~0.6 us of the card's f32 rate and the 4 MB ~1.2 us of
+// its bandwidth.  The design keeps one launch per detection round and no
+// padding of N or H (the TPU kernel padded rows to 8 and H to 128 lanes).
+#include <cuda_runtime.h>
+
+#include "glr_kl.cuh"
+
+namespace {
+
+constexpr int kMaxThreads = 256;
+
+// inclusive scan of one float per thread across the block; `warp_tot`
+// holds 32 floats of shared memory.  Returns this thread's prefix and
+// writes the block's total to *block_total (every thread).
+__device__ __forceinline__ float block_inclusive_scan(float v, float* warp_tot, float* block_total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = (blockDim.x + 31) >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v = __fadd_rn(v, up);
+  }
+  __syncthreads();  // warp_tot may still be read from the previous chunk
+  if (lane == 31) warp_tot[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < warps ? warp_tot[lane] : 0.0f;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float up = __shfl_up_sync(0xffffffffu, t, off);
+      if (lane >= off) t = __fadd_rn(t, up);
+    }
+    if (lane < warps) warp_tot[lane] = t;  // inclusive scan of the warp totals
+  }
+  __syncthreads();
+  *block_total = warp_tot[warps - 1];
+  return warp > 0 ? __fadd_rn(v, warp_tot[warp - 1]) : v;
+}
+
+__global__ void glr_scan_kernel(const float* __restrict__ hist, const int* __restrict__ counts,
+                                float* __restrict__ stat_out, int h) {
+  __shared__ float warp_tot[32];
+  __shared__ float warp_best[32];
+  const int row = blockIdx.x;
+  const float* x = hist + static_cast<size_t>(row) * h;
+  const int n = counts[row];
+  const float n_f = static_cast<float>(n);
+
+  // pass 1: the window total W (the carry after the last chunk)
+  float carry = 0.0f;
+  for (int c0 = 0; c0 < h; c0 += blockDim.x) {
+    const int idx = c0 + threadIdx.x;
+    float chunk_total;
+    block_inclusive_scan((idx < h && idx < n) ? x[idx] : 0.0f, warp_tot, &chunk_total);
+    carry = __fadd_rn(carry, chunk_total);
+  }
+  const float W = carry;
+  const float mu_all = glr::window_mean(W, n_f);
+
+  // pass 2: the same scan again, each prefix tested as a split
+  float best = -__int_as_float(0x7f800000);  // -inf
+  carry = 0.0f;
+  for (int c0 = 0; c0 < h; c0 += blockDim.x) {
+    const int idx = c0 + threadIdx.x;
+    float chunk_total;
+    const float pre = block_inclusive_scan((idx < h && idx < n) ? x[idx] : 0.0f, warp_tot,
+                                           &chunk_total);
+    const float P = __fadd_rn(carry, pre);
+    carry = __fadd_rn(carry, chunk_total);
+    const int s = idx + 1;
+    if (idx < h && s <= n - 1) {
+      best = fmaxf(best, glr::split_stat(P, W, static_cast<float>(s), n_f, mu_all));
+    }
+  }
+
+  const float m = glr::block_max(best, warp_best);
+  if (threadIdx.x == 0) stat_out[row] = m;
+}
+
+}  // namespace
+
+extern "C" int glr_scan_launch(const float* hist, const int* counts, float* stat_out, int rows,
+                               int h, void* stream) {
+  if (rows <= 0 || h <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int threads = ((h + 31) / 32) * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  glr_scan_kernel<<<rows, threads, 0, static_cast<cudaStream_t>(stream)>>>(hist, counts, stat_out, h);
+  return static_cast<int>(cudaGetLastError());
+}

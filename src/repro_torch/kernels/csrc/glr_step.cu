@@ -28,17 +28,11 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "glr_kl.cuh"
+
 namespace {
 
-constexpr float kEps = 1e-6f;
-constexpr float kHi = static_cast<float>(1.0 - 1e-6);  // f32(1 - 1e-6), as the reference rounds it
 constexpr int kMaxThreads = 256;
-
-__device__ __forceinline__ float bernoulli_kl(float p, float q) {
-  p = fminf(fmaxf(p, kEps), kHi);
-  q = fminf(fmaxf(q, kEps), kHi);
-  return p * logf(p / q) + (1.0f - p) * logf((1.0f - p) / (1.0f - q));
-}
 
 __device__ __forceinline__ bool is_pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
@@ -68,7 +62,7 @@ __global__ void glr_step_kernel(const float* __restrict__ cum, const float* __re
   const int w2 = pos_mod(c2 - 1, h);
   const float n_f = static_cast<float>(n);
   const float W = total2 - base2;
-  const float mu_all = W / fmaxf(n_f, 1.0f);
+  const float mu_all = glr::window_mean(W, n_f);
 
   float best = -CUDART_INF_F;
   for (int j = threadIdx.x; j < h; j += blockDim.x) {
@@ -78,24 +72,14 @@ __global__ void glr_step_kernel(const float* __restrict__ cum, const float* __re
     bool valid = s >= 1 && s <= n - 1;
     if (GEOM) valid = valid && (is_pow2(s) || is_pow2(n - s));
     if (valid) {
-      const float s_f = static_cast<float>(s);
-      const float P = cj - base2;
-      const float mu_a = P / s_f;
-      const float mu_b = (W - P) / fmaxf(n_f - s_f, 1.0f);
-      const float st = s_f * bernoulli_kl(mu_a, mu_all) + (n_f - s_f) * bernoulli_kl(mu_b, mu_all);
-      best = fmaxf(best, st);
+      best = fmaxf(best, glr::split_stat(__fsub_rn(cj, base2), W, static_cast<float>(s), n_f, mu_all));
     }
   }
 
   // block max: warp shuffles, then one value per warp through shared memory
-  for (int off = 16; off > 0; off >>= 1) best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, off));
-  __shared__ float warp_best[kMaxThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_best[warp] = best;
-  __syncthreads();
+  __shared__ float warp_best[32];
+  const float m = glr::block_max(best, warp_best);
   if (threadIdx.x == 0) {
-    float m = -CUDART_INF_F;
-    for (int i = 0; i < (blockDim.x + 31) / 32; ++i) m = fmaxf(m, warp_best[i]);
     total_out[row] = total2;
     base_out[row] = base2;
     stat_out[row] = m;

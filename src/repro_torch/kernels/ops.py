@@ -9,8 +9,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import glr_scan as _gsc
 from repro_torch.kernels import glr_step as _gs
 from repro_torch.kernels import ref as ref  # re-export the plain versions
+from repro_torch.kernels import robust_agg as _ra
 from repro_torch.kernels import weighted_aggregate as _wa
 
 _GLR_SPLIT_GRIDS = ("all", "geometric")
@@ -52,3 +54,27 @@ def weighted_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     if updates.device.type != "cpu":
         raise ValueError(f"weighted_aggregate: no kernel for device {updates.device}")
     return ref.weighted_aggregate(updates, scale)
+
+
+def robust_trimmed(updates: torch.Tensor, mask: torch.Tensor, n_succ, k_trim) -> torch.Tensor:
+    """Masked per-coordinate trimmed mean / median: updates (M, P), mask (M,)
+    {0, 1}, participant count ``n_succ`` and trim depth ``k_trim`` (0-d, on
+    the updates' device; ``k = floor((n-1)/2)`` gives the median) -> (P,)
+    f32; zeros when nothing participates."""
+    if updates.is_cuda:
+        return _ra.robust_trimmed(updates.contiguous(), mask.to(torch.float32).contiguous(),
+                                  n_succ.to(torch.float32), k_trim.to(torch.float32))
+    if updates.device.type != "cpu":
+        raise ValueError(f"robust_trimmed: no kernel for device {updates.device}")
+    return ref.robust_trimmed(updates, mask, n_succ, k_trim)
+
+
+def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Recompute GLR statistic per channel: hist (N, H), counts (N,) valid
+    lengths -> (N,) f32, -inf where n < 2."""
+    if hist.is_cuda:
+        return _gsc.glr_scan(hist.to(torch.float32).contiguous(),
+                             counts.to(torch.int32).contiguous())
+    if hist.device.type != "cpu":
+        raise ValueError(f"glr_scan: no kernel for device {hist.device}")
+    return ref.glr_scan(hist, counts)

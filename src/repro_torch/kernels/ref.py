@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels of the main path.
+"""Plain PyTorch versions of the port's kernels.
 
 The semantics of record, twin of ``repro/kernels/ref.py``: the CPU path of
 ``repro_torch.kernels.ops`` and the oracle every CUDA kernel is held
@@ -15,6 +15,35 @@ def bernoulli_kl(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     p = p.clamp(_EPS, 1.0 - _EPS)
     q = q.clamp(_EPS, 1.0 - _EPS)
     return p * torch.log(p / q) + (1.0 - p) * torch.log((1.0 - p) / (1.0 - q))
+
+
+# ---------------------------------------------------------------------------
+# glr_scan — recompute detector (prefix sum rebuilt from the raw history)
+# ---------------------------------------------------------------------------
+
+def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """GLR change-point statistic for each channel.
+
+    hist (N, H) reward streams (entries at index >= counts[i] ignored);
+    counts (N,) valid lengths.  Returns (N,)
+    sup_s [ s*kl(mu_1:s, mu_1:n) + (n-s)*kl(mu_s+1:n, mu_1:n) ], -inf
+    where n < 2, in the history's dtype (f32 on the main path; f64 gives
+    an accuracy yardstick).
+    """
+    h = hist.shape[-1]
+    idx = torch.arange(h, device=hist.device)
+    n = counts.to(torch.int32)[:, None]                        # (N, 1)
+    masked = torch.where(idx[None, :] < n, hist, 0.0)
+    prefix = torch.cumsum(masked, dim=-1)
+    total = masked.sum(dim=-1, keepdim=True)
+    s = (idx + 1).to(torch.float32)[None, :]
+    n_f = n.to(torch.float32)
+    mu_all = total / n_f.clamp_min(1.0)
+    mu_a = prefix / s
+    mu_b = (total - prefix) / (n_f - s).clamp_min(1.0)
+    stat = s * bernoulli_kl(mu_a, mu_all) + (n_f - s) * bernoulli_kl(mu_b, mu_all)
+    valid = idx[None, :] + 1 <= n - 1
+    return torch.where(valid, stat, -torch.inf).amax(dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -119,3 +148,49 @@ def weighted_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     """Eq. 7: out[p] = sum_m scale[m] * updates[m, p]; (M, P) any float
     dtype, (M,) f32 -> (P,) f32."""
     return (scale.to(torch.float32)[:, None] * updates.to(torch.float32)).sum(dim=0)
+
+
+# ---------------------------------------------------------------------------
+# robust_trimmed — masked per-coordinate trimmed mean / median
+# ---------------------------------------------------------------------------
+
+_TRIM_CHUNK_ELEMS = 1 << 28     # cap on an (M, M, chunk) temporary
+
+
+def robust_trimmed(updates: torch.Tensor, mask: torch.Tensor,
+                   n_succ: torch.Tensor, k_trim: torch.Tensor) -> torch.Tensor:
+    """Masked coordinate-wise trimmed mean by rank selection.
+
+    updates (M, P) any float dtype; mask (M,) f32 {0, 1}; n_succ the
+    participant count and k_trim the integer-valued trim depth, 0-d f32.
+    Per coordinate, a participating row's rank is the count of
+    participating rows strictly below it, ties broken by row index; rows
+    of rank in [k, n - k) are kept and their sum (in row order) is divided
+    by ``max(n - 2k, 1)``.  ``k = floor((n-1)/2)`` gives the coordinate
+    median.  Zeros when no row participates.  Returns (P,) f32.
+
+    The columns are taken in chunks so that the (M, M, chunk) comparison
+    tensor stays near 2**28 elements; every column's arithmetic is the
+    same whatever the chunk.
+    """
+    x = updates.to(torch.float32)
+    m, p = x.shape
+    part = mask > 0.5
+    i = torch.arange(m, device=x.device)
+    tie_lo = (i[None, :] < i[:, None])[:, :, None]             # j beats i on ties
+    k = torch.as_tensor(k_trim, dtype=torch.float32, device=x.device).clamp_min(0.0)
+    n = torch.as_tensor(n_succ, dtype=torch.float32, device=x.device)
+    denom = (n - 2.0 * k).clamp_min(1.0)
+    chunk = max(1, _TRIM_CHUNK_ELEMS // max(m * m, 1))
+    out = torch.empty((p,), dtype=torch.float32, device=x.device)
+    for c0 in range(0, p, chunk):
+        xc = x[:, c0:c0 + chunk]
+        beats = (xc[None, :, :] < xc[:, None, :]) | ((xc[None, :, :] == xc[:, None, :]) & tie_lo)
+        rank = (beats & part[None, :, None]).sum(dim=1).to(torch.float32)   # (M, chunk)
+        keep = part[:, None] & (rank >= k) & (rank < n - k)
+        kept = torch.where(keep, xc, 0.0)
+        acc = torch.zeros((xc.shape[1],), dtype=torch.float32, device=x.device)
+        for r in range(m):                                     # row order
+            acc = acc + kept[r]
+        out[c0:c0 + chunk] = acc / denom
+    return out

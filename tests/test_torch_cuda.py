@@ -6,18 +6,30 @@ are compiled by ``nvcc`` for sm_90a at first use).  On the card:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: the carried prefix state is bitwise for {0, 1} rewards; the
-GLR statistic goes through CUDA's ``logf`` and FMA contraction, rtol 1e-5;
-the aggregation sums the same rounded products in row order, rtol 1e-5 /
-atol 1e-6.
+GLR statistic goes through CUDA's ``logf``, rtol 1e-5; the aggregation sums
+the same rounded products in row order, rtol 1e-5 / atol 1e-6.  The
+coordinate median sums at most two kept values: bitwise.  The trimmed mean
+adds the kept values in row order like the plain version; it is held to
+|kernel - plain| <= M * 2**-24 * max|x| (any summation order of at most M
+kept values, divided by their count).  ``glr_scan`` is bitwise on {0, 1}
+histories (exact integer prefixes, the same split term as ``glr_step``);
+on real-valued ones its block scan adds in another order than
+``torch.cumsum`` and the split term amplifies the rounding, so the kernel
+and the plain version are held against the plain version in f64: the
+kernel's largest error at most twice the plain f32 version's, plus 1e-6
+of the largest statistic.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core.aggregation import make_aggregator  # noqa: E402
 from repro_torch.core.bandits import GLRCUCB  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.glr_scan import glr_scan  # noqa: E402
 from repro_torch.kernels.glr_step import glr_step  # noqa: E402
+from repro_torch.kernels.robust_agg import robust_trimmed  # noqa: E402
 from repro_torch.kernels.weighted_aggregate import weighted_aggregate  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -89,3 +101,107 @@ def test_card_fused_path_equals_cpu_split_path(cuda):
     for f in ("counts", "cum", "total", "base", "tau", "restarts"):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     torch.testing.assert_close(a.mu_tilde.cpu(), b.mu_tilde, rtol=1e-6, atol=0)
+
+
+def _trim_inputs(m, p, mask_kind, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.round(torch.randn((m, p), generator=gen, device=device) * 3.0) / 2.0).to(dtype)
+    if mask_kind == "empty":
+        mask = torch.zeros(m, device=device)
+    elif mask_kind == "full":
+        mask = torch.ones(m, device=device)
+    else:
+        mask = (torch.rand(m, generator=gen, device=device) < 0.6).to(torch.float32)
+    return x, mask
+
+
+@pytest.mark.parametrize("m,p", [(20, 5674), (64, 4099), (3, 1), (1, 300)])
+@pytest.mark.parametrize("mask_kind", ["random", "full", "empty"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_robust_trimmed_kernel_matches_plain(cuda, m, p, mask_kind, dtype):
+    x, mask = _trim_inputs(m, p, mask_kind, dtype, cuda, seed=m * p)
+    n = mask.sum()
+    n_int = int(n)
+    bound = m * 2.0 ** -24 * float(x.float().abs().max())
+    for k in sorted({0, max(n_int - 1, 0) // 4, max(n_int - 1, 0) // 2}):
+        kt = torch.tensor(float(k), device=cuda)
+        before = robust_trimmed.launches
+        got = ops.robust_trimmed(x, mask, n, kt)
+        assert robust_trimmed.launches == before + 1
+        want = ref.robust_trimmed(x, mask, n, kt)
+        if k == max(n_int - 1, 0) // 2:                 # the median
+            assert torch.equal(got, want), k
+        else:
+            assert float((got - want).abs().max()) <= bound, k
+        if n_int == 0:
+            assert not bool(got.any())
+
+
+def test_robust_aggregation_adds_no_host_sync(cuda):
+    """The order-statistic families compute n and k on the device and the
+    kernel reads them there: no ``.item()``, no device-to-host copy.  The
+    knobs are made on the device once, as ``AsyncFLTrainer`` does."""
+    x, mask = _trim_inputs(20, 5674, "random", torch.float32, cuda, seed=1)
+    zeta = torch.full((20,), 0.05, device=cuda)
+    aggs = [make_aggregator("trimmed_mean", trim_frac=0.34), make_aggregator("coordinate_median")]
+    knobs = [agg.params(cuda) for agg in aggs]
+    for agg, sp in zip(aggs, knobs):                   # build and load first
+        agg.aggregate(x, mask, zeta, mask.sum(), sp)
+    torch.cuda.synchronize()
+    before = robust_trimmed.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for agg, sp in zip(aggs, knobs):
+            agg.aggregate(x, mask, zeta, mask.sum(), sp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert robust_trimmed.launches == before + 2
+
+
+@pytest.mark.parametrize("n,h", [(5, 1024), (30, 256), (7, 1000), (3, 33)])
+@pytest.mark.parametrize("binary", [True, False])
+def test_glr_scan_kernel_matches_plain(cuda, n, h, binary):
+    gen = torch.Generator(device=cuda).manual_seed(n * h)
+    hist = (torch.randint(0, 2, (n, h), generator=gen, device=cuda).float() if binary
+            else torch.rand((n, h), generator=gen, device=cuda))
+    counts = torch.randint(0, h + 1, (n,), generator=gen, device=cuda).to(torch.int32)
+    counts[:3] = torch.tensor([0, 1, h], device=cuda)[:n]
+    before = glr_scan.launches
+    got = ops.glr_scan(hist, counts)
+    assert glr_scan.launches == before + 1
+    want = ref.glr_scan(hist, counts)
+    if binary:
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+        fin = torch.isfinite(want)
+        exact = ref.glr_scan(hist.double(), counts)[fin]
+        e_kernel = (got[fin].double() - exact).abs().max()
+        e_plain = (want[fin].double() - exact).abs().max()
+        assert e_kernel <= 2.0 * e_plain + 1e-6 * exact.abs().max()
+
+
+def test_card_recompute_detector_equals_cpu_and_streaming(cuda):
+    """The recompute detector on the card equals its CPU run and the card's
+    streaming detector over 300 {0, 1} updates."""
+    n, m = 6, 3
+    mk = lambda impl: GLRCUCB(n, m, history=32, detector_stride=3, min_samples=4, delta=0.05,
+                              detector_impl=impl)
+    rng = np.random.default_rng(4)
+    mu0 = rng.random(n)
+    runs = [("recompute", "cpu"), ("recompute", "cuda"), ("streaming", "cuda")]
+    states = {k: mk(k[0]).init(k[1]) for k in runs}
+    for t in range(300):
+        mu = (mu0, 1.0 - mu0, mu0)[min(t // 100, 2)]
+        ch = rng.permutation(n)[:m]
+        rw = (rng.random(m) < mu[ch]).astype(np.float32)
+        for k in states:
+            states[k] = mk(k[0]).update(states[k], t, torch.from_numpy(ch).to(k[1]),
+                                        torch.from_numpy(rw).to(k[1]), None)
+    a, b, c = states[("recompute", "cuda")], states[("recompute", "cpu")], \
+        states[("streaming", "cuda")]
+    assert int(b.restarts) > 0
+    for f in ("counts", "hist", "tau", "restarts"):
+        assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+    for f in ("counts", "tau", "restarts", "mu_tilde"):
+        assert torch.equal(getattr(a, f), getattr(c, f)), f

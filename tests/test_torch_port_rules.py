@@ -6,7 +6,7 @@
   CUDA and without ``device=``, they raise.
 * A CUDA tensor goes to the kernel or raises; nothing falls back to the
   plain version (faked here with a CUDA-looking tensor and a loader that
-  finds no built library).
+  finds no built library), for all four kernels.
 """
 import ast
 from pathlib import Path
@@ -21,7 +21,9 @@ from repro_torch.core.channels import make_piecewise, make_scenario, make_statio
 from repro_torch.core.regret import simulate_aoi_regret  # noqa: E402
 from repro_torch.fl import AsyncFLConfig, AsyncFLTrainer  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import glr_scan as glr_scan_mod  # noqa: E402
 from repro_torch.kernels import glr_step as glr_step_mod  # noqa: E402
+from repro_torch.kernels import robust_agg as robust_mod  # noqa: E402
 from repro_torch.kernels import weighted_aggregate as wagg_mod  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -47,6 +49,25 @@ def test_port_imports_no_jax(path):
 
 def test_port_covers_every_module():
     assert len(PORT_FILES) > 20
+
+
+# the JAX modules each slice ports, by their path under src/repro/
+SLICE_TWINS = ("core/aggregation.py", "core/faults.py", "core/channels/process.py",
+               "core/bandits/glr_cucb.py", "fl/round.py", "kernels/ref.py",
+               "kernels/ops.py", "kernels/robust_agg.py", "kernels/glr_scan.py",
+               "kernels/glr_step.py", "kernels/weighted_aggregate.py")
+
+
+@pytest.mark.parametrize("rel", SLICE_TWINS)
+def test_ported_modules_have_their_twin(rel):
+    assert (ROOT / "src" / "repro" / rel).exists(), rel
+    assert (ROOT / "src" / "repro_torch" / rel).exists(), rel
+
+
+def test_every_kernel_has_a_source_and_a_wrapper():
+    for name in _build.KERNELS:
+        assert (_build.CSRC / f"{name}.cu").exists(), name
+    assert {"robust_trimmed", "glr_scan"} <= set(_build.KERNELS)
 
 
 @pytest.fixture
@@ -103,15 +124,20 @@ class _State:
         self.hp = {}
 
 
+def _counts():
+    return (glr_step_mod.glr_step.launches, wagg_mod.weighted_aggregate.launches,
+            robust_mod.robust_trimmed.launches, glr_scan_mod.glr_scan.launches)
+
+
 def test_cuda_tensors_never_fall_back_to_the_plain_version(monkeypatch):
     def missing(*a, **k):
         raise RuntimeError("repro_torch kernel build failed: no library")
 
     monkeypatch.setattr(_build, "load", missing)
-    before = (glr_step_mod.glr_step.launches, wagg_mod.weighted_aggregate.launches)
+    before = _counts()
     called = []
-    monkeypatch.setattr(ops.ref, "weighted_aggregate", lambda *a: called.append(a))
-    monkeypatch.setattr(ops.ref, "glr_step", lambda *a, **k: called.append(a))
+    for name in ("weighted_aggregate", "glr_step", "robust_trimmed", "glr_scan"):
+        monkeypatch.setattr(ops.ref, name, lambda *a, **k: called.append(a))
     upd = _FakeCuda(torch.zeros((2, 8)))
     with pytest.raises(RuntimeError, match="no library"):
         ops.weighted_aggregate(upd, _FakeCuda(torch.ones(2)))
@@ -125,17 +151,60 @@ def test_cuda_tensors_never_fall_back_to_the_plain_version(monkeypatch):
         GLRCUCB(3, 1, history=8)._detect_streaming(
             _State(cum, z, z), torch.zeros(1, dtype=torch.int64), sched, z, counts, z, True)
     assert not called
-    assert (glr_step_mod.glr_step.launches, wagg_mod.weighted_aggregate.launches) == before
+    assert _counts() == before
+
+
+def test_new_kernels_never_fall_back_to_the_plain_version(monkeypatch):
+    def missing(*a, **k):
+        raise RuntimeError("repro_torch kernel build failed: no library")
+
+    monkeypatch.setattr(_build, "load", missing)
+    before = _counts()
+    called = []
+    for name in ("robust_trimmed", "glr_scan"):
+        monkeypatch.setattr(ops.ref, name, lambda *a, **k: called.append(a))
+    mask = _FakeCuda(torch.ones(4))
+    one = _FakeCuda(torch.tensor(4.0))
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(RuntimeError, match="no library"):
+            ops.robust_trimmed(_FakeCuda(torch.zeros((4, 8), dtype=dtype)), mask, one, one)
+    with pytest.raises(RuntimeError, match="no library"):
+        ops.glr_scan(_FakeCuda(torch.zeros((3, 8))), _FakeCuda(torch.zeros(3, dtype=torch.int32)))
+    with pytest.raises(ValueError, match="M <= 64"):
+        ops.robust_trimmed(_FakeCuda(torch.zeros((65, 8))), _FakeCuda(torch.ones(65)), one, one)
+    assert not called
+    assert _counts() == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    before = (glr_step_mod.glr_step.launches, wagg_mod.weighted_aggregate.launches)
+    before = _counts()
     with pytest.raises(ValueError, match="CUDA"):
         wagg_mod.weighted_aggregate(torch.zeros((2, 8)), torch.ones(2))
     z = torch.zeros(3)
     with pytest.raises(ValueError, match="CUDA"):
         glr_step_mod.glr_step(torch.zeros((3, 8)), z, z, z.int(), z, z.bool())
-    assert (glr_step_mod.glr_step.launches, wagg_mod.weighted_aggregate.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        robust_mod.robust_trimmed(torch.zeros((2, 8)), torch.ones(2), torch.tensor(2.0),
+                                  torch.tensor(0.0))
+    with pytest.raises(ValueError, match="CUDA"):
+        glr_scan_mod.glr_scan(torch.zeros((3, 8)), z.int())
+    assert _counts() == before
+
+
+def test_robust_trimmed_takes_n_and_k_as_f32_scalars_on_the_device(monkeypatch):
+    """The kernel reads n and k through two f32 pointers: anything else is
+    refused before the loader, so no launch and no count."""
+    monkeypatch.setattr(_build, "load", lambda *a, **k: pytest.fail("reached the loader"))
+    before = _counts()
+    upd, mask = _FakeCuda(torch.zeros((4, 8))), _FakeCuda(torch.ones(4))
+    one = _FakeCuda(torch.tensor(4.0))
+    for bad in (_FakeCuda(torch.tensor(4)), _FakeCuda(torch.tensor([4.0, 1.0])),
+                torch.tensor(4.0)):
+        with pytest.raises(ValueError, match="one-element f32 tensor"):
+            robust_mod.robust_trimmed(upd, mask, bad, one)
+        with pytest.raises(ValueError, match="one-element f32 tensor"):
+            robust_mod.robust_trimmed(upd, mask, one, bad)
+    assert _counts() == before
 
 
 def test_missing_compiler_raises(monkeypatch, tmp_path):
@@ -150,5 +219,23 @@ def test_build_targets_name_the_source_hash():
     a = _build.library_path("glr_step")
     b = _build.library_path("weighted_aggregate")
     assert a.parent == b.parent and a.name != b.name and a.suffix == ".so"
+    names = {_build.library_path(k).name for k in _build.KERNELS}
+    assert len(names) == len(_build.KERNELS)
     with pytest.raises(ValueError, match="unknown kernel"):
         _build.build(["flash_attention"])
+
+
+def test_build_targets_follow_the_shared_header(monkeypatch, tmp_path):
+    """Both detector kernels include ``glr_kl.cuh``: editing it renames
+    (so rebuilds) both libraries."""
+    import shutil
+
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {k: _build.library_path(k).name for k in _build.KERNELS}
+    (tmp_path / "glr_kl.cuh").write_text((tmp_path / "glr_kl.cuh").read_text() + "\n// edit\n")
+    after = {k: _build.library_path(k).name for k in _build.KERNELS}
+    assert after["glr_step"] != before["glr_step"] and after["glr_scan"] != before["glr_scan"]
+    for name in ("glr_step", "glr_scan"):
+        assert '#include "glr_kl.cuh"' in (tmp_path / f"{name}.cu").read_text()

@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Run ``chip_smoke.py`` from two checkouts in turns on one card, A B B A,
+and print each path's time a round side by side.
+
+    python3 tools/ab_smoke.py A_DIR B_DIR [--out DIR] [--paths]
+
+A_DIR and B_DIR each hold a checkout (e.g. ``git archive`` of two commits
+unpacked into a git-ignored directory).  Each run builds its own kernels
+from its own sources and must exit 0; its whole output goes to
+``DIR/<label>.log`` (default ``build/ab``, git-ignored).  The table lists, for
+every path both runs report, the milliseconds a round (host clock around a
+run that ends in a synchronize), then each run's total seconds.
+
+``--paths`` passes ``--paths`` to both smokes, which then run their Fig. 2
+and Fig. 3 paths only, none of the kernel checks before them; both
+checkouts must know the flag.
+"""
+from __future__ import annotations
+
+import argparse
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+# chip_smoke.py's path lines: "  fig2: T=20000 ... (1.676 ms/round)" and
+# "  fig3 ...: ... seconds/round=0.0152"; a run that yields none is an error
+_MS = re.compile(r"^  (fig[23][^:]*): .*\((\d+\.\d+) ms/round\)")
+_S = re.compile(r"^  (fig3[^:]*): .*seconds/round=(\d+\.\d+)")
+_TOTAL = re.compile(r"^  total seconds (\d+\.\d+)")
+
+
+def parse(text):
+    """{path: ms a round} and the total seconds of one smoke run."""
+    rows, total = {}, None
+    for ln in text.splitlines():
+        if m := _MS.match(ln):
+            rows[m.group(1)] = float(m.group(2))
+        elif m := _S.match(ln):
+            rows[m.group(1)] = float(m.group(2)) * 1e3
+        elif m := _TOTAL.match(ln):
+            total = float(m.group(1))
+    return rows, total
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("a")
+    ap.add_argument("b")
+    ap.add_argument("--out", default="build/ab")
+    ap.add_argument("--paths", action="store_true")
+    args = ap.parse_args(argv)
+    cmd = [sys.executable, "chip_smoke.py"] + (["--paths"] if args.paths else [])
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    order = [("A1", args.a), ("B1", args.b), ("B2", args.b), ("A2", args.a)]
+    results = {}
+    for label, tree in order:
+        proc = subprocess.run(cmd, cwd=tree, capture_output=True, text=True)
+        (out / f"{label}.log").write_text(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+        lines = proc.stdout.strip().splitlines()
+        print(f"{label} ({tree}): exit {proc.returncode}; last line {lines[-1] if lines else ''}",
+              flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        results[label] = parse(proc.stdout)
+        if not results[label][0]:
+            print(f"{label}: no path times in the smoke's output (see {out / label}.log)",
+                  file=sys.stderr)
+            return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    print("card:", card)
+    paths = [p for p in results["A1"][0] if all(p in r[0] for r in results.values())]
+    print("path | " + " | ".join(f"{lb} ms/round" for lb, _ in order))
+    for p in paths:
+        print(f"{p} | " + " | ".join(f"{results[lb][0][p]:.3f}" for lb, _ in order))
+    print("B only | " + ", ".join(sorted(set(results["B1"][0]) - set(paths))))
+    print("total seconds | " + " | ".join(f"{results[lb][1]}" for lb, _ in order))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

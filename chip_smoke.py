@@ -31,11 +31,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    runs are first held against the same rounds on the CPU;
 6. the Fig. 2 path with ``detector_impl="recompute"`` on phase 3's env and
    uniforms: ``glr_scan`` must launch T/5 times, and the schedule,
-   restarts and regret must equal phase 3's streaming run bit for bit.
+   restarts and regret must equal phase 3's streaming run bit for bit;
+7. the model zoo's serving path on qwen3-32b at full width: (a) 2 layers
+   in f32, the prefill of one 2048-token prompt through the kernel route
+   against the plain chunked route, then 12 teacher-forced decode steps
+   against ``apply``'s logits; (b) all 64 layers in bf16 (61.0 GiB of
+   weights drawn on the card): ``make_prefill_step`` on 4 prompts of 2048
+   tokens (``flash_attention`` must launch 64 times a prefill), then the
+   ``launch/serve.py`` loop, batch 8, context 2048, 32 tokens.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
-``--paths`` builds the kernels and runs phases 3-6 only (no kernel line):
+Phase 2 also holds ``flash_attention`` against ``ref.mha_attention`` at the
+JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128).
+``--paths`` builds the kernels and runs phases 3-7 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
 Every path runs at the paper's sizes, uncut.  Weights, envs and randomness
@@ -67,7 +76,16 @@ FIG2_REF_ROUNDS = 5000         # the card-vs-CPU reference run of Fig. 2
 FIG3_ROUNDS = 150              # the paper's Fig. 3 large-scale rounds (benchmarks/run.py:744-760)
 FIG3_REF_ROUNDS = 3            # the card-vs-CPU reference rounds of Fig. 3
 FIG3_REF_MAX_ROUNDS = 12       # ... extended, under attack, until a corrupted row is aggregated
-KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan")
+BF16_TC_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense (NVIDIA data sheet)
+SERVE_ARCH = "qwen3-32b"       # the most demanding dense GQA config of the zoo
+SERVE_PROMPT = 2048            # prefill prompt length
+SERVE_PREFILL_BATCH = 4        # prompts a prefill
+SERVE_BATCH, SERVE_CONTEXT, SERVE_TOKENS = 8, 2048, 32   # the serve loop
+SERVE_LAYERS = 64              # qwen3-32b's full depth: 61.0 GiB of bf16 weights
+SERVE_REF_LAYERS = 2           # depth of the f32 reference model (full width)
+DECODE_REF_STEPS = 12          # teacher-forced decode steps against the prefill
+KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
+                "flash_attention")
 
 
 class SmokeFailure(Exception):
@@ -85,13 +103,15 @@ def line(*parts):
 
 def kernel_wrappers():
     """Each kernel's wrapper, by name: the ``.launches`` counters."""
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.glr_scan import glr_scan
     from repro_torch.kernels.glr_step import glr_step
     from repro_torch.kernels.robust_agg import robust_trimmed
     from repro_torch.kernels.weighted_aggregate import weighted_aggregate
 
     return dict(glr_step=glr_step, weighted_aggregate=weighted_aggregate,
-                robust_trimmed=robust_trimmed, glr_scan=glr_scan)
+                robust_trimmed=robust_trimmed, glr_scan=glr_scan,
+                flash_attention=flash_attention)
 
 
 def reset_launches():
@@ -127,7 +147,8 @@ def time_ms(torch, fn, iters):
 def profile_window(torch, label, fn, rounds):
     """Trace ``fn`` (``rounds`` rounds of a loop) with ``torch.profiler`` and
     print the device's busy share of the wall time, kernels launched per
-    round and the kernels that take the most device time."""
+    round and the kernels that take the most device time.  Returns the
+    device time by kernel name in us ({} when the trace has none)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -147,7 +168,7 @@ def profile_window(torch, label, fn, rounds):
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
         line(f"  profile {label}: no device kernels in the trace; device busy share not measured")
-        return
+        return {}
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels)
     busy, end = 0.0, float("-inf")
     for a, b in spans:                      # union of kernel intervals
@@ -163,6 +184,7 @@ def profile_window(torch, label, fn, rounds):
          f"{len(kernels) / rounds:.1f} kernels/round, {busy / rounds:.1f} us device time/round")
     for name, dur in top:
         line(f"    {dur / rounds:8.2f} us/round  {100 * dur / busy:5.1f}%  {name[:90]}")
+    return by_name
 
 
 # ---------------------------------------------------------------------------
@@ -491,6 +513,107 @@ def check_glr_scan(torch, gen, floor_ms):
     return max_err, timings
 
 
+def attn_pairs(s, causal, window):
+    """(query, key) pairs the mask lets through: the work of a prefill."""
+    total = 0
+    for q in range(s):
+        lo = max(0, q - window + 1) if window > 0 else 0
+        total += (q if causal else s - 1) - lo + 1
+    return total
+
+
+def attn_bound_ms(shape, causal, window, dtype_bytes, rate):
+    """The least time of one attention call: 4 D flops a visible pair (q.k
+    and p.v) over ``rate``, or q, k, v read and the output written once over
+    HBM bandwidth, whichever is larger."""
+    b, hq, hkv, s, d = shape
+    flops = 4 * b * hq * d * attn_pairs(s, causal, window)
+    nbytes = (2 * b * hq + 2 * b * hkv) * s * d * dtype_bytes
+    return two_way_bound(nbytes, flops, rate)
+
+
+def check_flash_attention(torch, gen, floor_ms):
+    """Kernel against plain: f32 within rtol/atol 1e-4 of the f32 plain
+    version (another order of the D-term sums, an online softmax); bf16
+    within rtol 2**-8 / atol 1e-4 of the plain version on the same inputs in
+    f32 (the output's one rounding to bf16 is at most 2**-9 relative).
+    Times at the JAX package's test shapes (f32) and at qwen3-32b's
+    prefill shape (bf16 and f32), beside SDPA at the model shape."""
+    from torch.nn import functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    def inputs(shape, dtype):
+        b, hq, hkv, s, d = shape
+        q = torch.randn((b, hq, s, d), generator=gen, device="cuda") * 0.5
+        k = torch.randn((b, hkv, s, d), generator=gen, device="cuda") * 0.5
+        v = torch.randn((b, hkv, s, d), generator=gen, device="cuda")
+        return q.to(dtype), k.to(dtype), v.to(dtype)
+
+    jax_shapes = [((1, 2, 2, 128, 64), True, 0), ((2, 4, 2, 257, 72), True, 0),
+                  ((1, 4, 1, 200, 128), False, 0), ((1, 2, 2, 300, 64), True, 64),
+                  ((2, 8, 4, 64, 96), True, 16)]       # tests/test_kernels.py:155-159
+    model = (4, 64, 8, SERVE_PROMPT, 128)              # qwen3-32b, 4 prompts of 2048
+    cases = [(s, c, w, torch.float32) for s, c, w in jax_shapes] + [
+        (model, True, 0, torch.bfloat16), (model, True, 0, torch.float32),
+        ((1, 64, 8, SERVE_PROMPT, 128), True, 1024, torch.bfloat16),   # a window
+        ((1, 8, 2, 300, 128), True, 8, torch.float32),  # windows inside one tile
+        ((1, 8, 2, 300, 32), True, 16, torch.bfloat16),
+        ((1, 64, 8, SERVE_PROMPT, 128), False, 0, torch.float32),      # encoder-style
+    ]
+    max_err = 0.0
+    for shape, causal, window, dtype in cases:
+        q, k, v = inputs(shape, dtype)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.mha_attention(q.float(), k.float(), v.float(), causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and got.shape == q.shape, f"flash_attention {shape}: shape/dtype")
+        err = float((got.float() - want).abs().max())
+        if dtype == torch.float32:
+            ok, tol = torch.allclose(got, want, rtol=1e-4, atol=1e-4), "rtol/atol 1e-4 vs f32 plain"
+        else:
+            ok = torch.allclose(got.float(), want, rtol=2.0 ** -8, atol=1e-4)
+            tol = "rtol 2^-8 atol 1e-4 vs f32 plain"
+        check(ok, f"flash_attention {shape} causal={causal} window={window} {dtype}: "
+                  f"beyond {tol} (max err {err:.3e})")
+        max_err = max(max_err, err)
+        line(f"  flash_attention (B, Hq, Hkv, S, D)={shape} causal={causal} window={window} "
+             f"{str(dtype).split('.')[-1]}: max_abs_err={err:.3e} ({tol}) ok")
+        del q, k, v, got, want
+
+    timings = {"jax_shapes": []}
+    for shape, causal, window in jax_shapes:
+        q, k, v = inputs(shape, torch.float32)
+        ms = time_ms(torch, lambda: kernel(q, k, v, causal=causal, window=window), 200)
+        plain_ms = time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=causal,
+                                                            window=window), 50)
+        bound, bound_by = attn_bound_ms(shape, causal, window, 4, F32_FLOPS)
+        timings["jax_shapes"].append(dict(shape=list(shape), causal=causal, window=window,
+                                          ms=ms, plain_ms=plain_ms, bound_ms=bound))
+        line(f"  flash_attention time {shape} f32 causal={causal} window={window}: "
+             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.2e} ms ({bound_by}, "
+             f"f32 rate), launch floor {floor_ms:.5f} ms")
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = inputs(model, dtype)
+        ms = time_ms(torch, lambda: kernel(q, k, v, causal=True), 10)
+        plain_ms = time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=True), 3)
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20)
+        rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
+        bound, bound_by = attn_bound_ms(model, True, 0, q.element_size(), rate)
+        flops = 4 * model[0] * model[1] * model[4] * attn_pairs(model[3], True, 0)
+        label = "model" if dtype == torch.bfloat16 else "model_f32"
+        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                              library_ms=library_ms)
+        line(f"  flash_attention time qwen3-32b prefill {model} causal "
+             f"{str(dtype).split('.')[-1]}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+             f"plain {plain_ms:.4f} ms, library (SDPA, enable_gqa) {library_ms:.4f} ms, "
+             f"bound {bound:.4f} ms ({bound_by} at {rate / 1e12:.0f} TFLOP/s)")
+        del q, k, v
+    return max_err, timings
+
+
 # ---------------------------------------------------------------------------
 # phase 3: Fig. 2 AoI-regret path
 # ---------------------------------------------------------------------------
@@ -811,7 +934,169 @@ def fig3_robust(torch, S, seed, clean_acc):
     return totals
 
 
-def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t):
+# ---------------------------------------------------------------------------
+# phase 7: the model zoo's serving path (prefill and greedy decode)
+# ---------------------------------------------------------------------------
+
+def release(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def serve_reference(torch, seed):
+    """qwen3-32b at full width, 2 layers, f32: the kernel route's prefill
+    against the plain chunked route (rtol/atol 2e-3, the JAX package's
+    kernel-vs-XLA tolerance), then decode against prefill (rtol/atol 2e-3,
+    the twin of ``tests/test_arch_smoke.py::test_decode_matches_prefill_f32``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_REF_LAYERS, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    model, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    params, _ = model.init(gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    before = kernel.launches
+    got = make_prefill_step(model)(params, {"tokens": toks})
+    check(kernel.launches == before + SERVE_REF_LAYERS,
+          f"serve f32: the kernel route launched {kernel.launches - before} kernels")
+    want = make_prefill_step(plain)(params, {"tokens": toks})
+    check(kernel.launches == before + SERVE_REF_LAYERS, "serve f32: the plain route ran the kernel")
+    err = float((got - want).abs().max())
+    check(got.shape == (1, 1, cfg.vocab_size) and bool(torch.isfinite(got).all()),
+          f"serve f32: prefill logits {tuple(got.shape)} not finite or of the wrong shape")
+    check(torch.allclose(got, want, rtol=2e-3, atol=2e-3),
+          f"serve f32: kernel-route prefill beyond rtol/atol 2e-3 of the plain route ({err:.3e})")
+    line(f"  serve {cfg.name} width {cfg.d_model}, {cfg.n_layers} layers, f32: prefill of "
+         f"{SERVE_PROMPT} tokens, kernel route vs plain chunked route max_abs_err={err:.3e} "
+         f"(max |logit| {float(want.abs().max()):.3f}; rtol/atol 2e-3) ok")
+
+    full, _ = model.apply(params, {"tokens": toks})
+    cache = model.init_cache(1, SERVE_PROMPT, dtype=torch.float32, device="cuda")
+    dec_err = 0.0
+    for t in range(DECODE_REF_STEPS):
+        lg, cache = model.decode_step(params, cache, toks[:, t])
+        ref_t = full[:, t].float()
+        dec_err = max(dec_err, float((lg - ref_t).abs().max()))
+        check(torch.allclose(lg, ref_t, rtol=2e-3, atol=2e-3),
+              f"serve f32: decode step {t} beyond rtol/atol 2e-3 of apply's logits ({dec_err:.3e})")
+    line(f"  serve {cfg.name} f32: {DECODE_REF_STEPS} teacher-forced decode steps match apply's "
+         f"logits (kernel-route prefill), max_abs_err={dec_err:.3e} (rtol/atol 2e-3) ok")
+    del params, got, want, full, cache, lg
+    release(torch)
+
+
+def serve_path(torch, seed, n_layers):
+    """qwen3-32b at full width and ``n_layers`` depth in bf16: prefill steps
+    and the serve loop, the main path whose launches are counted."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=n_layers)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    t0 = time.perf_counter()
+    params, _ = model.init(gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    norms = n_layers * (2 * cfg.d_model + 2 * cfg.resolved_head_dim * cfg.qk_norm) + cfg.d_model
+    check(n_params == cfg.param_count() + norms,      # param_count leaves out the norm gains
+          f"serve: {n_params} params, config says {cfg.param_count()} + {norms} norm gains")
+    weights_gib = sum(v.numel() * v.element_size() for v in params.values()) / 2 ** 30
+    line(f"  serve {cfg.name}: {n_layers} layers, width {cfg.d_model}, bf16, {n_params / 1e9:.2f} B "
+         f"params ({weights_gib:.2f} GiB) drawn on the card in {init_s:.2f} s")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_PREFILL_BATCH, SERVE_PROMPT), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    batch = {"tokens": prompts}
+    prefill = make_prefill_step(model)
+
+    reset_launches()
+    prefill_ms = []
+    for _ in range(3):                    # the first one is the warm-up
+        before = kernel.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        check(kernel.launches == before + n_layers,
+              f"serve: flash_attention launched {kernel.launches - before} times in a prefill, "
+              f"expected {n_layers}")
+        check(logits.shape == (SERVE_PREFILL_BATCH, 1, cfg.vocab_size)
+              and logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
+              f"serve: prefill logits {tuple(logits.shape)} {logits.dtype} not finite or misshapen")
+    release(torch)
+    tok, cache, secs = serve_loop(model, params, SERVE_BATCH, SERVE_CONTEXT, SERVE_TOKENS,
+                                  device="cuda")
+    launches = read_launches()
+    check(int(cache["pos"]) == SERVE_TOKENS, f"serve: cache pos {int(cache['pos'])}")
+    check(tok.shape == (SERVE_BATCH,) and tok.dtype == torch.int32
+          and bool(((tok >= 0) & (tok < cfg.vocab_size)).all()), "serve: decoded tokens invalid")
+    step_ms = secs / SERVE_TOKENS * 1e3
+    line(f"  serve {cfg.name}: prefill {SERVE_PREFILL_BATCH} x {SERVE_PROMPT} tokens "
+         f"{prefill_ms[1]:.1f} / {prefill_ms[2]:.1f} ms (warm-up {prefill_ms[0]:.1f} ms), "
+         f"{SERVE_PREFILL_BATCH * SERVE_PROMPT / (prefill_ms[1] / 1e3):.0f} prompt tok/s; "
+         f"flash_attention.launches={launches['flash_attention']} "
+         f"({launches['flash_attention'] // 3} a prefill)")
+    line(f"  [serve] {cfg.name}: {SERVE_TOKENS} tokens x {SERVE_BATCH} seqs in {secs:.2f}s "
+         f"({SERVE_BATCH * SERVE_TOKENS / secs:.1f} tok/s, {step_ms:.2f} ms a decode step, "
+         f"context {SERVE_CONTEXT}), cache pos={int(cache['pos'])}")
+
+    # not counted: the plain route's prefill for comparison, and traces
+    got = logits.float()
+    want = make_prefill_step(build_model(cfg, attn_impl="plain"))(params, batch).float()
+    rel = float((got - want).abs().max() / want.abs().max())
+    line(f"  serve {cfg.name}: bf16 prefill logits, kernel route vs plain chunked route: "
+         f"max |diff| / max |logit| = {rel:.3e} (printed, not gated)")
+    del got, want
+    release(torch)
+    by_name = profile_window(torch, f"serve prefill {SERVE_PREFILL_BATCH}x{SERVE_PROMPT}",
+                             lambda: prefill(params, batch), 1)
+    total = sum(by_name.values())
+    attn_us = sum(v for k, v in by_name.items() if "flash_fwd" in k)
+    if total:
+        line(f"  serve prefill: flash_attention {attn_us / 1e3:.2f} ms of {total / 1e3:.2f} ms "
+             f"device time ({100 * attn_us / total:.1f} %)")
+    steps = 4
+    out = {}
+
+    def decode():
+        tk = tok
+        c = cache
+        for _ in range(steps):
+            lg, c = model.decode_step(params, c, tk)
+            tk = lg.argmax(-1).to(torch.int32)
+        out["logits"] = lg
+
+    profile_window(torch, f"serve decode batch {SERVE_BATCH}", decode, steps)
+    lg = out["logits"]
+    check(lg.shape == (SERVE_BATCH, cfg.vocab_size) and bool(torch.isfinite(lg).all()),
+          "serve: decode logits not finite or misshapen")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    line(f"  serve {cfg.name}: decode logits finite, peak device memory {peak:.2f} GiB")
+    del params, logits, cache, lg, out
+    release(torch)
+    return launches, dict(prefill_ms=prefill_ms[1:], decode_step_ms=step_ms,
+                          tok_s=SERVE_BATCH * SERVE_TOKENS / secs)
+
+
+def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
+                fa_t):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2."""
     def entry(name, replaces, err, t, **extra):
@@ -831,6 +1116,12 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               wa_t["fig3"]),
         entry("robust_trimmed", "src/repro/kernels/robust_agg.py:73", rt_err, rt_t["fig3"]),
         entry("glr_scan", "src/repro/kernels/glr_scan.py:70", gs_err, gs_t["fig2"]),
+        entry("flash_attention", "src/repro/kernels/flash_attention.py:123", fa_err,
+              fa_t["model"], shape_b_hq_hkv_s_d=[4, 64, 8, SERVE_PROMPT, 128], causal=True,
+              dtype="bfloat16", f32_ms=fa_t["model_f32"]["ms"],
+              f32_plain_ms=fa_t["model_f32"]["plain_ms"],
+              f32_library_ms=fa_t["model_f32"]["library_ms"],
+              f32_bound_ms=fa_t["model_f32"]["bound_ms"], jax_test_shapes=fa_t["jax_shapes"]),
     ]
 
 
@@ -838,10 +1129,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-6) only")
+                    help="build the kernels and run the paths (phases 3-7) only")
     args = ap.parse_args(argv)
-
-    import gc
 
     import torch
     if not torch.cuda.is_available():
@@ -882,11 +1171,10 @@ def main(argv=None) -> int:
             wa_err, wa_t = check_weighted_aggregate(torch, gen, floor_ms)
             rt_err, rt_t = check_robust_trimmed(torch, gen, floor_ms)
             gs_err, gs_t = check_glr_scan(torch, gen, floor_ms)
+            fa_err, fa_t = check_flash_attention(torch, gen, floor_ms)
             # the checks' gigabytes go back to the driver before the timed paths
             peak = torch.cuda.max_memory_reserved() / 2 ** 30
-            gc.collect()
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
+            release(torch)
             line(f"  released the checks' memory: {peak:.2f} GiB reserved at peak, "
                  f"{torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB now")
 
@@ -899,7 +1187,13 @@ def main(argv=None) -> int:
         robust_launches = fig3_robust(torch, S, args.seed, clean_acc)
         line("[6] Fig. 2 path, recompute detector")
         recompute_launches = fig2_recompute(torch, f2)
-        paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches)
+        del f2, S
+        release(torch)
+        line("[7] serving path: qwen3-32b prefill and greedy decode")
+        serve_reference(torch, args.seed)
+        serve_launches, _ = serve_path(torch, args.seed, SERVE_LAYERS)
+        paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
+                 serve_launches)
         launches = {k: sum(p[k] for p in paths) for k in KERNEL_NAMES}
         check(all(launches[k] > 0 for k in KERNEL_NAMES), f"a kernel never launched: {launches}")
     except SmokeFailure as exc:
@@ -911,7 +1205,7 @@ def main(argv=None) -> int:
     line(smi)
     if not args.paths:
         line(json.dumps({"kernels": kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err,
-                                                rt_t, gs_err, gs_t)}))
+                                                rt_t, gs_err, gs_t, fa_err, fa_t)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,37 @@
+"""Architecture registry of the port: ``--arch <id>`` resolution.
+
+get_config(id)  / get_smoke_config(id)  / list_archs().  Twin of
+``repro/configs/__init__.py``, listing only the architectures whose
+modules the port has (the dense GQA decoders); any other arch raises a
+``KeyError`` saying it is not ported yet.
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ModelConfig
+
+_MODULES: Dict[str, str] = {
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "qwen3-32b": "repro_torch.configs.qwen3_32b",
+    "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
+}
+
+
+def list_archs() -> List[str]:
+    return sorted(_MODULES.keys())
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"arch {arch!r} is not ported yet; ported: {list_archs()}")
+    return importlib.import_module(_MODULES[arch])
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE

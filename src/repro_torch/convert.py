@@ -4,7 +4,8 @@ The JAX side hands over numpy arrays (``np.array(jax_array)``), or any
 object whose fields are array-likes — e.g. a JAX ``GLRCUCBState``, which is
 read by attribute name without importing JAX.  The functions here build
 the port's objects from them on a device; ``to_numpy`` goes back.  Array
-dtypes are kept (f32 counts stay f32, int32 ``tau`` stays int32).
+dtypes are kept (f32 counts stay f32, int32 ``tau`` stays int32, bf16
+weights stay bf16, bit for bit).
 """
 from __future__ import annotations
 
@@ -25,13 +26,25 @@ from repro_torch.fl.round import AsyncFLState
 
 
 def tensor(x, device=None) -> torch.Tensor:
-    """A copy of array-like ``x`` as a tensor on ``device``."""
-    return torch.from_numpy(np.array(x)).to(resolve_device(device))
+    """A copy of array-like ``x`` as a tensor on ``device``.  A bf16 array
+    (numpy dtype ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
+    refuses) goes across through its bits."""
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(resolve_device(device))
+    return torch.from_numpy(a).to(resolve_device(device))
 
 
 def params(src: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
     """A parameter dict (same keys) on ``device``."""
     return {k: tensor(v, device) for k, v in src.items()}
+
+
+def model_params(src: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
+    """A JAX model's flat parameter dict (``{path: array}``, the layer stack
+    under ``blocks/`` with its leading L) as the port's, on ``device``:
+    the same keys, shapes and dtypes, bf16 bit for bit."""
+    return params(src, device)
 
 
 def channel_env(form: str, means, breaks, table, score_kind: str = "ucb",

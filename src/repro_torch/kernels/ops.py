@@ -7,8 +7,11 @@ no fallback from the card to the plain version.  Twin of
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import glr_scan as _gsc
 from repro_torch.kernels import glr_step as _gs
 from repro_torch.kernels import ref as ref  # re-export the plain versions
@@ -78,3 +81,19 @@ def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     if hist.device.type != "cpu":
         raise ValueError(f"glr_scan: no kernel for device {hist.device}")
     return ref.glr_scan(hist, counts)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+                    window: int = 0, scale=None) -> torch.Tensor:
+    """Blockwise GQA attention.  q (B,Hq,S,D), k/v (B,Hkv,S,D) -> (B,Hq,S,D).
+
+    ``scale`` defaults to 1/sqrt(D) of the true D (the JAX wrapper takes it
+    before padding D).  On CUDA the kernel masks the D and S tails itself,
+    so nothing is padded in device memory."""
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.is_cuda:
+        return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal, window=window, scale=scale)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    return ref.mha_attention(q, k, v, causal=causal, window=window, scale=scale)

@@ -6,6 +6,8 @@ against on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 _EPS = 1e-6  # float32-safe: 1.0 - 1e-9 rounds to 1.0 and poisons KL with 0*log(0)
@@ -194,3 +196,37 @@ def robust_trimmed(updates: torch.Tensor, mask: torch.Tensor,
             acc = acc + kept[r]
         out[c0:c0 + chunk] = acc / denom
     return out
+
+
+# ---------------------------------------------------------------------------
+# flash_attention — blockwise grouped-query attention, forward
+# ---------------------------------------------------------------------------
+
+def mha_attention(
+    q: torch.Tensor,          # (B, Hq, S, D)
+    k: torch.Tensor,          # (B, Hkv, S, D)
+    v: torch.Tensor,          # (B, Hkv, S, D)
+    causal: bool = True,
+    window: int = 0,          # 0 => full; else sliding window of this width
+    scale=None,
+) -> torch.Tensor:
+    """Grouped-query attention, the naive O(S^2) oracle: query head h reads
+    KV head h // (Hq / Hkv); f32 logits and softmax; masked keys get -inf
+    (causal: k <= q; window: k > q - window); the output in q's dtype."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    k_exp = k.repeat_interleave(group, dim=1)
+    v_exp = v.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k_exp.float()) * scale
+    qi = torch.arange(s, device=q.device)[:, None]
+    ki = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window > 0:
+        mask &= ki > qi - window
+    logits.masked_fill_(~mask, -torch.inf)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v_exp.float())
+    return out.to(q.dtype)

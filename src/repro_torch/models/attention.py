@@ -1,0 +1,194 @@
+"""Attention blocks: GQA (bias / qk-norm / windowed).
+
+Twin of the GQA half of ``repro/models/attention.py`` (MLA waits for its
+slice).  Two execution paths share one set of weights:
+
+* ``prefill`` — full-sequence attention through ``attn_core``.  On a CUDA
+  tensor it is the hand-written ``flash_attention`` kernel whenever the
+  value width equals the query width, at every prompt length (the JAX
+  package's ``S >= 256`` and TPU-backend tests were a TPU tiling choice).
+  Elsewhere, or with ``impl="plain"``, a query-chunked softmax in plain
+  PyTorch with the same semantics runs (the twin of ``_attn_core_xla``).
+* ``decode`` — one token against a (possibly ring) KV cache, plain
+  products against the cache as in the JAX package.  The cache is
+  updated in place (one slot written a step) instead of copied.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as _kernel_ops
+from repro_torch.models.kvcache import ring_slot, valid_mask
+from repro_torch.models.layers import ParamBuilder, apply_rope, rms_norm
+
+_NEG_INF = -1e30
+ATTN_CHUNK = 512      # query-chunk size for the plain prefill path
+ATTN_IMPLS = (None, "kernel", "plain")
+
+
+# ---------------------------------------------------------------------------
+# parameter construction
+# ---------------------------------------------------------------------------
+
+def add_gqa_params(pb: ParamBuilder, prefix: str, cfg: ModelConfig, stacked: int = 0):
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    lead = (stacked,) if stacked else ()
+    ls = ("layers",) if stacked else ()
+    pb.add(f"{prefix}/wq", lead + (d, hq * hd), ls + ("embed", "heads"))
+    pb.add(f"{prefix}/wk", lead + (d, hkv * hd), ls + ("embed", "heads"))
+    pb.add(f"{prefix}/wv", lead + (d, hkv * hd), ls + ("embed", "heads"))
+    pb.add(f"{prefix}/wo", lead + (hq * hd, d), ls + ("heads", "embed"))
+    if cfg.qkv_bias:
+        pb.add(f"{prefix}/bq", lead + (hq * hd,), ls + ("heads",), init="zeros")
+        pb.add(f"{prefix}/bk", lead + (hkv * hd,), ls + ("heads",), init="zeros")
+        pb.add(f"{prefix}/bv", lead + (hkv * hd,), ls + ("heads",), init="zeros")
+    if cfg.qk_norm:
+        pb.add(f"{prefix}/q_norm", lead + (hd,), ls + (None,), init="ones")
+        pb.add(f"{prefix}/k_norm", lead + (hd,), ls + (None,), init="ones")
+
+
+# ---------------------------------------------------------------------------
+# core attention
+# ---------------------------------------------------------------------------
+
+def _chunk_attn(q, k, v, q_offset, causal, window, scale, kv_len):
+    """One query chunk: q (B,H,Cq,D); k,v (B,Hkv,S,D) -> (B,H,Cq,Dv)."""
+    hq, hkv = q.shape[1], k.shape[1]
+    g = hq // hkv
+    b, _, cq, _ = q.shape
+    s = k.shape[2]
+    qg = q.reshape(b, hkv, g, cq, -1)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
+    q_idx = q_offset + torch.arange(cq, device=q.device)[:, None]
+    k_idx = torch.arange(s, device=q.device)[None, :]
+    mask = k_idx < kv_len
+    if causal:
+        mask = mask & (k_idx <= q_idx)
+    if window > 0:
+        mask = mask & (k_idx > q_idx - window)
+    logits.masked_fill_(~mask, _NEG_INF)        # in place: the product's output is not saved
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
+    return out.reshape(b, hq, cq, -1).to(q.dtype)
+
+
+def _attn_core_plain(q, k, v, causal, window, scale, chunk):
+    """The query-chunked plain path: at most ``chunk`` query rows a step, so
+    the f32 logits of one step are (B, Hq, chunk, S)."""
+    s = q.shape[2]
+    if s <= chunk:
+        return _chunk_attn(q, k, v, 0, causal, window, scale, s)
+    outs = [_chunk_attn(q[:, :, i:i + chunk], k, v, i, causal, window, scale, s)
+            for i in range(0, s, chunk)]
+    return torch.cat(outs, dim=2)
+
+
+class _KernelAttention(torch.autograd.Function):
+    """Forward: ``ops.flash_attention`` (the CUDA kernel on the card).
+    Backward: recompute through the plain chunked path, as the JAX package
+    does with its ``custom_vjp`` (the kernel is forward-only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, chunk):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, window, scale, chunk)
+        return _kernel_ops.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = _attn_core_plain(*leaves, *ctx.args)
+        grads = torch.autograd.grad(out, leaves, g)
+        return (*grads, None, None, None, None)
+
+
+def attn_core(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    causal: bool = True, window: int = 0, scale: Optional[float] = None,
+    chunk: int = ATTN_CHUNK, impl: Optional[str] = None,
+) -> torch.Tensor:
+    """GQA attention.  q (B,Hq,S,D), k/v (B,Hkv,S,Dv) -> (B,Hq,S,Dv).
+
+    ``impl``: ``None`` takes the kernel route on a CUDA tensor whenever
+    Dv == D and the plain chunked path otherwise; ``"kernel"`` forces the
+    kernel route (the plain version of the kernel on a CPU tensor: the
+    twin of ``REPRO_ATTN_IMPL=flash``); ``"plain"`` forces the chunked path
+    (the card-side reference)."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_core: unknown impl {impl!r}; use one of {ATTN_IMPLS}")
+    d = q.shape[-1]
+    scale = float(scale) if scale is not None else float(1.0 / (d ** 0.5))
+    kernel = impl == "kernel" or (impl is None and q.is_cuda)
+    if kernel and v.shape[-1] == d:
+        return _KernelAttention.apply(q, k, v, causal, window, scale, chunk)
+    return _attn_core_plain(q, k, v, causal, window, scale, chunk)
+
+
+# ---------------------------------------------------------------------------
+# GQA block
+# ---------------------------------------------------------------------------
+
+def _project_qkv(p, prefix, x, cfg: ModelConfig, positions):
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    b, s, _ = x.shape
+    q = x @ p[f"{prefix}/wq"]
+    k = x @ p[f"{prefix}/wk"]
+    v = x @ p[f"{prefix}/wv"]
+    if cfg.qkv_bias:
+        q = q + p[f"{prefix}/bq"]
+        k = k + p[f"{prefix}/bk"]
+        v = v + p[f"{prefix}/bv"]
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p[f"{prefix}/q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p[f"{prefix}/k_norm"], cfg.norm_eps)
+    if cfg.is_decoder:  # encoders use absolute positions, no rope
+        q = apply_rope(q.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+        k = apply_rope(k.transpose(1, 2), positions, cfg.rope_theta).transpose(1, 2)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def gqa_prefill(
+    p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor, cfg: ModelConfig,
+    window: int = 0, attn_impl: Optional[str] = None,
+) -> torch.Tensor:
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(p, prefix, x, cfg, positions)
+    out = attn_core(q, k, v, causal=cfg.is_decoder, window=window, impl=attn_impl)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return out @ p[f"{prefix}/wo"]
+
+
+def gqa_decode(
+    p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor, cfg: ModelConfig,
+    cache_k: torch.Tensor, cache_v: torch.Tensor, pos: torch.Tensor,
+    window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode.  x (B,1,D); cache k/v (B,Hkv,P,hd), written in
+    place at the slot of ``pos`` (0-d int tensor).  Returns (y, k, v)."""
+    b = x.shape[0]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    phys = cache_k.shape[2]
+    q, k_new, v_new = _project_qkv(p, prefix, x, cfg, pos.reshape(1))
+    slot = (ring_slot(pos, phys) if window > 0 else pos).reshape(1).long()
+    cache_k.index_copy_(2, slot, k_new.to(cache_k.dtype))
+    cache_v.index_copy_(2, slot, v_new.to(cache_v.dtype))
+
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, hd)
+    logits = torch.einsum("bhgd,bhkd->bhgk", qg.float(), cache_k.float()) / (hd ** 0.5)
+    mask = valid_mask(pos, phys, window)
+    logits = torch.where(mask, logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", probs, cache_v.float())
+    out = out.reshape(b, 1, hq * hd).to(x.dtype)
+    y = out @ p[f"{prefix}/wo"]
+    return y, cache_k, cache_v

@@ -1,0 +1,146 @@
+"""Model facade: ``build_model(config) -> Model`` with init / apply / cache /
+decode entry points for the dense GQA decoders.
+
+Twin of ``repro/models/model.py``.  The parameter layout is the JAX one: a
+flat ``{path: tensor}`` dict plus a parallel ``{path: logical_spec}`` dict,
+the layer stack under ``blocks/`` with a leading layer axis, so
+``convert.model_params`` carries JAX parameters across as they are.
+``loss`` comes with the training slice; audio and VLM inputs, and the
+hybrid / MoE layouts (``layers/NN/`` unrolled blocks), are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import kvcache
+from repro_torch.models.attention import ATTN_IMPLS
+from repro_torch.models.layers import ParamBuilder, rms_norm, torch_dtype
+from repro_torch.models.transformer import (
+    _ffn_is_moe,
+    add_block_params,
+    check_ported,
+    scanned_decode,
+    scanned_forward,
+)
+
+Params = Dict[str, torch.Tensor]
+
+
+def _subtree(params: Params, prefix: str) -> Params:
+    pre = prefix + "/"
+    return {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    attn_impl: Optional[str] = None  # None: the kernel on CUDA; "plain": the chunked
+                                     # reference path; "kernel": the kernel route everywhere
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"Model: unknown attn_impl {self.attn_impl!r}; one of {ATTN_IMPLS}")
+        cfg = self.cfg
+        if cfg.layer_pattern or cfg.first_k_dense or cfg.arch_type in ("audio", "vlm"):
+            raise NotImplementedError(f"{cfg.name}: the {cfg.arch_type} layout is not ported yet")
+        check_ported(cfg, cfg.layer_kind(0), _ffn_is_moe(cfg, 0))
+
+    # ------------------------------------------------------------------ init
+    def param_specs(self) -> Tuple[Params, Dict[str, tuple]]:
+        """(meta-tensor dict, logical-spec dict) — shapes and dtypes, no storage."""
+        return self._build(None, meta=True)
+
+    def init(self, generator: torch.Generator, device=None) -> Tuple[Params, Dict[str, tuple]]:
+        """Draw the parameters from ``generator`` on ``device`` (``cuda``
+        unless given; the generator must live on the same device type)."""
+        return self._build(generator, meta=False, device=resolve_device(device))
+
+    def _build(self, generator, meta: bool, device=None) -> Tuple[Params, Dict[str, tuple]]:
+        cfg = self.cfg
+        pb = ParamBuilder(generator, dtype=torch_dtype(cfg.dtype), meta=meta, device=device)
+        pb.add("embed", (cfg.vocab_size, cfg.d_model), ("vocab", "embed"), init="embed")
+        if not cfg.tie_embeddings:
+            pb.add("unembed", (cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+        pb.add("final_norm", (cfg.d_model,), (None,), init="ones")
+        add_block_params(pb, "blocks/b", cfg, "attn", False, stacked=cfg.n_layers)
+        return pb.params, pb.specs
+
+    # ------------------------------------------------------------------ forward
+    def apply(
+        self, params: Params, batch: Dict[str, torch.Tensor],
+        last_only: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward.  Returns (logits (B,S,V), moe_aux).
+
+        ``last_only`` unembeds just the final position — the serving-prefill
+        path, which avoids materializing (B, S, V) logits."""
+        x, aux = self._forward_hidden(params, batch)
+        if last_only:
+            x = x[:, -1:]
+        return x @ self._unembed_matrix(params), aux
+
+    def _unembed_matrix(self, params: Params) -> torch.Tensor:
+        return params["embed"].t() if self.cfg.tie_embeddings else params["unembed"]
+
+    def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if set(batch) != {"tokens"}:
+            raise NotImplementedError(
+                f"{self.cfg.name}: only token inputs are ported, got {sorted(batch)}")
+        return params["embed"][batch["tokens"].long()]
+
+    def _forward_hidden(
+        self, params: Params, batch: Dict[str, torch.Tensor]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """All blocks + final norm; returns (hidden (B,S,d), moe_aux)."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
+        window = cfg.local_attn_window
+        x, aux = scanned_forward(_subtree(params, "blocks"), x, cfg, "attn", False, window,
+                                 self.attn_impl)
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+    # ------------------------------------------------------------------ caches
+    def init_cache(
+        self, batch: int, seq_len: int, window: Optional[int] = None,
+        dtype=torch.bfloat16, device=None,
+    ) -> Dict[str, Any]:
+        """Decode cache for every layer on ``device`` (``cuda`` unless given).
+        ``window`` overrides cfg.sliding_window (the serve-time ring cache)."""
+        cfg = self.cfg
+        if cfg.is_encoder:
+            raise ValueError(f"{cfg.name} is encoder-only: no decode cache")
+        dev = resolve_device(device)
+        win = cfg.sliding_window if window is None else window
+        return {
+            "pos": torch.zeros((), dtype=torch.int32, device=dev),
+            "blocks": kvcache.init_gqa_cache(
+                batch, cfg.n_kv_heads, seq_len, cfg.resolved_head_dim, window=win,
+                n_layers=cfg.n_layers, dtype=torch_dtype(dtype), device=dev),
+        }
+
+    # ------------------------------------------------------------------ decode
+    def decode_step(
+        self, params: Params, cache: Dict[str, Any], tokens: torch.Tensor,
+        window: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """One serve step: tokens (B,) -> (logits (B,V) f32, cache').  The
+        cache's K/V tensors are written in place; ``cache'`` holds them with
+        ``pos + 1``."""
+        cfg = self.cfg
+        win = cfg.sliding_window if window is None else window
+        pos = cache["pos"]
+        x = params["embed"][tokens.long()][:, None]               # (B,1,d)
+        x, blocks = scanned_decode(_subtree(params, "blocks"), x, cfg, "attn", False,
+                                   cache["blocks"], pos, window=win)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = (x @ self._unembed_matrix(params))[:, 0].float()
+        return logits, {"pos": pos + 1, "blocks": blocks}
+
+
+def build_model(cfg: ModelConfig, attn_impl: Optional[str] = None) -> Model:
+    return Model(cfg=cfg, attn_impl=attn_impl)

@@ -1,0 +1,117 @@
+"""Block composition and the loop over stacked layers.
+
+Twin of ``repro/models/transformer.py`` for the blocks the port has: a
+*block* is (pre-norm -> GQA attention -> residual -> pre-norm -> dense
+MLP -> residual).  Per-layer parameters keep the JAX layout, stacked along
+a leading ``layers`` axis under ``blocks/b/...``; where JAX scans over that
+axis, the port loops over it in Python (a layer's parameters are views).
+``remat`` and ``seq_shard`` are training and multi-device options with no
+meaning for serving.  MLA, MoE, SSM and RG-LRU blocks are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import ParamBuilder, add_mlp_params, apply_mlp, rms_norm
+
+
+def check_ported(cfg: ModelConfig, kind: str, moe_ffn: bool) -> None:
+    """Raise for the blocks whose modules the port does not have yet."""
+    if kind != "attn":
+        raise NotImplementedError(f"{cfg.name}: {kind} blocks are not ported yet")
+    if cfg.attention != "gqa":
+        raise NotImplementedError(f"{cfg.name}: {cfg.attention} attention is not ported yet")
+    if moe_ffn:
+        raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported yet")
+
+
+def _ffn_is_moe(cfg: ModelConfig, layer_idx: int) -> bool:
+    return bool(cfg.n_experts) and layer_idx >= cfg.first_k_dense
+
+
+def add_block_params(
+    pb: ParamBuilder, prefix: str, cfg: ModelConfig, kind: str,
+    moe_ffn: bool, stacked: int = 0,
+):
+    check_ported(cfg, kind, moe_ffn)
+    d = cfg.d_model
+    lead = (stacked,) if stacked else ()
+    ls = ("layers",) if stacked else ()
+    pb.add(f"{prefix}/norm1", lead + (d,), ls + (None,), init="ones")
+    attn.add_gqa_params(pb, f"{prefix}/attn", cfg, stacked)
+    pb.add(f"{prefix}/norm2", lead + (d,), ls + (None,), init="ones")
+    add_mlp_params(pb, f"{prefix}/mlp", d, cfg.d_ff, cfg.mlp_act, stacked)
+
+
+def block_forward(
+    p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor, cfg: ModelConfig,
+    kind: str, moe_ffn: bool, window: int = 0, attn_impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence block.  Returns (x, moe_aux_loss)."""
+    check_ported(cfg, kind, moe_ffn)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = rms_norm(x, p[f"{prefix}/norm1"], cfg.norm_eps)
+    h = attn.gqa_prefill(p, f"{prefix}/attn", h, cfg, window=window, attn_impl=attn_impl)
+    x = x + h
+    h = rms_norm(x, p[f"{prefix}/norm2"], cfg.norm_eps)
+    h = apply_mlp(p, f"{prefix}/mlp", h, cfg.mlp_act)
+    return x + h, aux
+
+
+def block_decode(
+    p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor, cfg: ModelConfig,
+    kind: str, moe_ffn: bool, cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+    window: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token block step.  ``cache`` is this block's (unstacked) cache
+    dict, updated in place."""
+    check_ported(cfg, kind, moe_ffn)
+    h = rms_norm(x, p[f"{prefix}/norm1"], cfg.norm_eps)
+    h, ck, cv = attn.gqa_decode(
+        p, f"{prefix}/attn", h, cfg, cache["k"], cache["v"], pos, window=window)
+    x = x + h
+    h = rms_norm(x, p[f"{prefix}/norm2"], cfg.norm_eps)
+    h = apply_mlp(p, f"{prefix}/mlp", h, cfg.mlp_act)
+    return x + h, {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# stacking
+# ---------------------------------------------------------------------------
+
+def _slice_tree(tree: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    return {k: v[i] for k, v in tree.items()}
+
+
+def _depth(stacked: Dict[str, torch.Tensor]) -> int:
+    return next(iter(stacked.values())).shape[0]
+
+
+def scanned_forward(
+    stacked: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+    kind: str, moe_ffn: bool, window: int = 0, attn_impl: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run a homogeneous block stack; ``stacked`` values have a leading L dim."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(_depth(stacked)):
+        x, a = block_forward(_slice_tree(stacked, i), "b", x, cfg, kind, moe_ffn, window,
+                             attn_impl)
+        aux = aux + a
+    return x, aux
+
+
+def scanned_decode(
+    stacked: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
+    kind: str, moe_ffn: bool, cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+    window: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decode through a stack; cache values also carry a leading L dim and
+    are updated in place (each layer writes one slot of its view)."""
+    for i in range(_depth(stacked)):
+        x, _ = block_decode(_slice_tree(stacked, i), "b", x, cfg, kind, moe_ffn,
+                            _slice_tree(cache, i), pos, window)
+    return x, cache

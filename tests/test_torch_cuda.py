@@ -17,7 +17,11 @@ on real-valued ones its block scan adds in another order than
 ``torch.cumsum`` and the split term amplifies the rounding, so the kernel
 and the plain version are held against the plain version in f64: the
 kernel's largest error at most twice the plain f32 version's, plus 1e-6
-of the largest statistic.
+of the largest statistic.  ``flash_attention`` in f32 is held to its
+f32 plain version at rtol/atol 1e-4 (another order of the D-term sums and
+an online softmax: a few ulps of logits of size ~10, carried through exp);
+in bf16 to the plain version on the same inputs in f32, at rtol 2**-8 (the
+output's one rounding to bf16 is at most 2**-9 relative) and atol 1e-4.
 """
 import numpy as np
 import pytest
@@ -27,6 +31,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.aggregation import make_aggregator  # noqa: E402
 from repro_torch.core.bandits import GLRCUCB  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.glr_scan import glr_scan  # noqa: E402
 from repro_torch.kernels.glr_step import glr_step  # noqa: E402
 from repro_torch.kernels.robust_agg import robust_trimmed  # noqa: E402
@@ -205,3 +210,61 @@ def test_card_recompute_detector_equals_cpu_and_streaming(cuda):
         assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
     for f in ("counts", "tau", "restarts", "mu_tilde"):
         assert torch.equal(getattr(a, f), getattr(c, f)), f
+
+
+_FLASH_SHAPES = [
+    (1, 2, 2, 128, 64, True, 0),      # the JAX package's five (tests/test_kernels.py)
+    (2, 4, 2, 257, 72, True, 0),
+    (1, 4, 1, 200, 128, False, 0),
+    (1, 2, 2, 300, 64, True, 64),
+    (2, 8, 4, 64, 96, True, 16),
+    (1, 8, 2, 300, 128, True, 8),     # windows narrower than a tile: fully masked first tiles
+    (1, 8, 2, 300, 32, True, 16),
+    (1, 4, 2, 300, 256, False, 40),   # non-causal window, the largest head dim
+    (2, 64, 8, 256, 128, True, 0),    # qwen3-32b's heads, group 8
+    (1, 2, 1, 1, 64, True, 0),        # one token
+]
+
+
+def _attn_inputs(b, hq, hkv, s, d, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((b, hq, s, d), generator=gen, device=device) * 0.5
+    k = torch.randn((b, hkv, s, d), generator=gen, device=device) * 0.5
+    v = torch.randn((b, hkv, s, d), generator=gen, device=device)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", _FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal, window, dtype):
+    q, k, v = _attn_inputs(b, hq, hkv, s, d, dtype, cuda, seed=s * d + hq)
+    before = flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.mha_attention(q.float(), k.float(), v.float(), causal=causal, window=window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=2.0 ** -8, atol=1e-4)
+
+
+def test_attn_core_takes_the_kernel_at_every_length(cuda):
+    """On the card the model's attention reaches the kernel even for a
+    prompt of a few tokens, and its gradients (the plain path's recompute)
+    equal the plain path's own."""
+    from repro_torch.models.attention import attn_core
+
+    for s in (3, 300):
+        q, k, v = _attn_inputs(1, 4, 2, s, 64, torch.float32, cuda, seed=s)
+        q.requires_grad_(True)
+        before = flash_attention.launches
+        y = attn_core(q, k, v, causal=True)
+        assert flash_attention.launches == before + 1
+        (g,) = torch.autograd.grad((y ** 2).sum(), q)
+        q2 = q.detach().clone().requires_grad_(True)
+        y2 = attn_core(q2, k, v, causal=True, impl="plain")
+        (g2,) = torch.autograd.grad((y2 ** 2).sum(), q2)
+        assert flash_attention.launches == before + 1
+        torch.testing.assert_close(y, y2, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(g, g2, rtol=1e-4, atol=1e-4)

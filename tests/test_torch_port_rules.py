@@ -6,7 +6,8 @@
   CUDA and without ``device=``, they raise.
 * A CUDA tensor goes to the kernel or raises; nothing falls back to the
   plain version (faked here with a CUDA-looking tensor and a loader that
-  finds no built library), for all four kernels.
+  finds no built library), for all five kernels; ``attn_core`` on a CUDA
+  tensor goes to the kernel at every prompt length.
 """
 import ast
 from pathlib import Path
@@ -20,11 +21,16 @@ from repro_torch.core.bandits import GLRCUCB  # noqa: E402
 from repro_torch.core.channels import make_piecewise, make_scenario, make_stationary  # noqa: E402
 from repro_torch.core.regret import simulate_aoi_regret  # noqa: E402
 from repro_torch.fl import AsyncFLConfig, AsyncFLTrainer  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import glr_scan as glr_scan_mod  # noqa: E402
 from repro_torch.kernels import glr_step as glr_step_mod  # noqa: E402
 from repro_torch.kernels import robust_agg as robust_mod  # noqa: E402
 from repro_torch.kernels import weighted_aggregate as wagg_mod  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import attention as attn_mod  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -55,7 +61,12 @@ def test_port_covers_every_module():
 SLICE_TWINS = ("core/aggregation.py", "core/faults.py", "core/channels/process.py",
                "core/bandits/glr_cucb.py", "fl/round.py", "kernels/ref.py",
                "kernels/ops.py", "kernels/robust_agg.py", "kernels/glr_scan.py",
-               "kernels/glr_step.py", "kernels/weighted_aggregate.py")
+               "kernels/glr_step.py", "kernels/weighted_aggregate.py",
+               "configs/__init__.py", "configs/base.py", "configs/qwen3_32b.py",
+               "configs/qwen2_5_32b.py", "configs/qwen1_5_0_5b.py", "models/__init__.py",
+               "models/layers.py", "models/kvcache.py", "models/attention.py",
+               "models/transformer.py", "models/model.py", "launch/steps.py",
+               "launch/serve.py", "kernels/flash_attention.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_TWINS)
@@ -67,7 +78,7 @@ def test_ported_modules_have_their_twin(rel):
 def test_every_kernel_has_a_source_and_a_wrapper():
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").exists(), name
-    assert {"robust_trimmed", "glr_scan"} <= set(_build.KERNELS)
+    assert {"robust_trimmed", "glr_scan", "flash_attention"} <= set(_build.KERNELS)
 
 
 @pytest.fixture
@@ -93,6 +104,31 @@ def test_entry_points_default_to_cuda(no_cuda):
     # the explicit CPU request works
     out = simulate_aoi_regret(sched, env, 10, generator=torch.Generator(), device="cpu")
     assert out["regret"].device.type == "cpu"
+
+
+def test_serving_entry_points_default_to_cuda(no_cuda, capsys):
+    model = build_model(get_smoke_config("qwen3-32b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init(torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_cache(2, 16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "qwen3-32b", "--smoke", "--tokens", "1"])
+    assert capsys.readouterr().out == ""
+    params, _ = model.init(torch.Generator(), device="cpu")     # the explicit CPU request
+    assert params["embed"].device.type == "cpu"
+
+
+def test_unported_archs_say_so():
+    for arch in ("deepseek-v2-236b", "mamba2-1.3b", "hubert-xlarge"):
+        with pytest.raises(KeyError, match="not ported yet"):
+            get_config(arch)
+    with pytest.raises(KeyError, match="not ported yet"):
+        get_smoke_config("mamba2-1.3b")
+    import dataclasses
+    moe = dataclasses.replace(get_smoke_config("qwen3-32b"), n_experts=4)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_model(moe)
 
 
 class _FakeCuda:
@@ -126,7 +162,8 @@ class _State:
 
 def _counts():
     return (glr_step_mod.glr_step.launches, wagg_mod.weighted_aggregate.launches,
-            robust_mod.robust_trimmed.launches, glr_scan_mod.glr_scan.launches)
+            robust_mod.robust_trimmed.launches, glr_scan_mod.glr_scan.launches,
+            flash_mod.flash_attention.launches)
 
 
 def test_cuda_tensors_never_fall_back_to_the_plain_version(monkeypatch):
@@ -176,6 +213,56 @@ def test_new_kernels_never_fall_back_to_the_plain_version(monkeypatch):
     assert _counts() == before
 
 
+@pytest.mark.parametrize("s", [1, 3, 300])
+def test_flash_attention_never_falls_back_to_the_plain_version(monkeypatch, s):
+    """``ops.flash_attention`` and the model's ``attn_core`` (its default
+    route and the forced kernel route) reach the kernel's loader for a CUDA
+    tensor at every prompt length, in f32 and bf16."""
+    def missing(*a, **k):
+        raise RuntimeError("repro_torch kernel build failed: no library")
+
+    monkeypatch.setattr(_build, "load", missing)
+    called = []
+    monkeypatch.setattr(ops.ref, "mha_attention", lambda *a, **k: called.append(a))
+    monkeypatch.setattr(attn_mod, "_attn_core_plain", lambda *a, **k: called.append(a))
+    before = _counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _FakeCuda(torch.zeros((1, 4, s, 32), dtype=dtype))
+        kv = _FakeCuda(torch.zeros((1, 2, s, 32), dtype=dtype))
+        with pytest.raises(RuntimeError, match="no library"):
+            ops.flash_attention(q, kv, kv)
+        for impl in (None, "kernel"):
+            with pytest.raises(RuntimeError, match="no library"):
+                attn_mod.attn_core(q, kv, kv, causal=True, impl=impl)
+    assert not called
+    assert _counts() == before
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """Shapes, dtypes and layouts outside the kernel are refused before the
+    loader, so no launch and no count."""
+    monkeypatch.setattr(_build, "load", lambda *a, **k: pytest.fail("reached the loader"))
+    before = _counts()
+    f = flash_mod.flash_attention
+    z = lambda *shape, dtype=torch.float32: _FakeCuda(torch.zeros(shape, dtype=dtype))
+    with pytest.raises(ValueError, match="unsupported shape"):
+        f(z(1, 4, 8, 257), z(1, 2, 8, 257), z(1, 2, 8, 257))       # D > 256
+    with pytest.raises(ValueError, match="unsupported shape"):
+        f(z(1, 3, 8, 32), z(1, 2, 8, 32), z(1, 2, 8, 32))          # Hq % Hkv
+    with pytest.raises(ValueError, match="k and v must be"):
+        f(z(1, 4, 8, 32), z(1, 2, 9, 32), z(1, 2, 8, 32))
+    with pytest.raises(TypeError, match="one dtype"):
+        f(z(1, 4, 8, 32), z(1, 2, 8, 32, dtype=torch.bfloat16), z(1, 2, 8, 32))
+    with pytest.raises(TypeError, match="one dtype"):
+        f(z(1, 4, 8, 32, dtype=torch.float16), z(1, 2, 8, 32, dtype=torch.float16),
+          z(1, 2, 8, 32, dtype=torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        f(_FakeCuda(torch.zeros((1, 8, 4, 32)).transpose(1, 2)), z(1, 2, 8, 32), z(1, 2, 8, 32))
+    with pytest.raises(ValueError, match="window"):
+        f(z(1, 4, 8, 32), z(1, 2, 8, 32), z(1, 2, 8, 32), window=-1)
+    assert _counts() == before
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     before = _counts()
     with pytest.raises(ValueError, match="CUDA"):
@@ -188,6 +275,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                   torch.tensor(0.0))
     with pytest.raises(ValueError, match="CUDA"):
         glr_scan_mod.glr_scan(torch.zeros((3, 8)), z.int())
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_mod.flash_attention(torch.zeros((1, 2, 4, 8)), torch.zeros((1, 2, 4, 8)),
+                                  torch.zeros((1, 2, 4, 8)))
     assert _counts() == before
 
 
@@ -222,7 +312,7 @@ def test_build_targets_name_the_source_hash():
     names = {_build.library_path(k).name for k in _build.KERNELS}
     assert len(names) == len(_build.KERNELS)
     with pytest.raises(ValueError, match="unknown kernel"):
-        _build.build(["flash_attention"])
+        _build.build(["no_such_kernel"])
 
 
 def test_build_targets_follow_the_shared_header(monkeypatch, tmp_path):

@@ -43,7 +43,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
 Phase 2 also holds ``flash_attention`` against ``ref.mha_attention`` at the
-JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128).
+JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
+f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
+D <= 128, the FMA route otherwise), and times both routes, the plain
+version and SDPA at the model shape in one call.
 ``--paths`` builds the kernels and runs phases 3-7 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
@@ -86,6 +89,8 @@ SERVE_REF_LAYERS = 2           # depth of the f32 reference model (full width)
 DECODE_REF_STEPS = 12          # teacher-forced decode steps against the prefill
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention")
+FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
+COUNTERS = KERNEL_NAMES + FLASH_ROUTES
 
 
 class SmokeFailure(Exception):
@@ -117,10 +122,17 @@ def kernel_wrappers():
 def reset_launches():
     for w in kernel_wrappers().values():
         w.launches = 0
+    fa = kernel_wrappers()["flash_attention"]
+    fa.tc_launches = fa.fma_launches = 0
 
 
 def read_launches():
-    return {k: w.launches for k, w in kernel_wrappers().items()}
+    """Every counter of ``COUNTERS``: each wrapper's, and ``flash_attention``'s
+    per route."""
+    out = {k: w.launches for k, w in kernel_wrappers().items()}
+    fa = kernel_wrappers()["flash_attention"]
+    out.update(flash_attention_tc=fa.tc_launches, flash_attention_fma=fa.fma_launches)
+    return out
 
 
 def two_way_bound(nbytes, ops, rate):
@@ -536,13 +548,17 @@ def check_flash_attention(torch, gen, floor_ms):
     """Kernel against plain: f32 within rtol/atol 1e-4 of the f32 plain
     version (another order of the D-term sums, an online softmax); bf16
     within rtol 2**-8 / atol 1e-4 of the plain version on the same inputs in
-    f32 (the output's one rounding to bf16 is at most 2**-9 relative).
-    Times at the JAX package's test shapes (f32) and at qwen3-32b's
-    prefill shape (bf16 and f32), beside SDPA at the model shape."""
+    f32 (the output's one rounding to bf16 is at most 2**-9 relative; the
+    tensor-core route splits P into two bf16 terms to stay inside it).
+    Every case checks which route launched.  Times at the JAX package's
+    test shapes (f32) and at qwen3-32b's prefill shape: bf16 on both routes,
+    f32, the plain version and SDPA."""
     from torch.nn import functional as F
 
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention as kernel
+
+    kernel = fa_mod.flash_attention
 
     def inputs(shape, dtype):
         b, hq, hkv, s, d = shape
@@ -555,19 +571,29 @@ def check_flash_attention(torch, gen, floor_ms):
                   ((1, 4, 1, 200, 128), False, 0), ((1, 2, 2, 300, 64), True, 64),
                   ((2, 8, 4, 64, 96), True, 16)]       # tests/test_kernels.py:155-159
     model = (4, 64, 8, SERVE_PROMPT, 128)              # qwen3-32b, 4 prompts of 2048
-    cases = [(s, c, w, torch.float32) for s, c, w in jax_shapes] + [
+    cases = [(s, c, w, dt) for dt in (torch.float32, torch.bfloat16) for s, c, w in jax_shapes] + [
         (model, True, 0, torch.bfloat16), (model, True, 0, torch.float32),
         ((1, 64, 8, SERVE_PROMPT, 128), True, 1024, torch.bfloat16),   # a window
         ((1, 8, 2, 300, 128), True, 8, torch.float32),  # windows inside one tile
+        ((1, 8, 2, 300, 128), True, 8, torch.bfloat16),
         ((1, 8, 2, 300, 32), True, 16, torch.bfloat16),
         ((1, 64, 8, SERVE_PROMPT, 128), False, 0, torch.float32),      # encoder-style
-    ]
+        ((1, 4, 2, 300, 200), True, 0, torch.bfloat16),                # bf16 on the FMA route
+        ((1, 4, 2, 300, 128), False, 40, torch.bfloat16),   # non-causal window, tensor cores
+    ] + [((1, 4, 2, 300, 64), True, 0, dt, sc)   # a scale of either sign, and 0
+         for dt in (torch.bfloat16, torch.float32) for sc in (-0.1, 0.0)]
     max_err = 0.0
-    for shape, causal, window, dtype in cases:
+    for shape, causal, window, dtype, *opt in cases:
+        scale = opt[0] if opt else None
         q, k, v = inputs(shape, dtype)
-        got = ops.flash_attention(q, k, v, causal=causal, window=window)
-        want = ref.mha_attention(q.float(), k.float(), v.float(), causal=causal, window=window)
+        tc = fa_mod.tc_route(dtype, shape[4])
+        before = (kernel.tc_launches, kernel.fma_launches)
+        got = ops.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+        want = ref.mha_attention(q.float(), k.float(), v.float(), causal=causal, window=window,
+                                 scale=scale)
         torch.cuda.synchronize()
+        check((kernel.tc_launches, kernel.fma_launches) == (before[0] + tc, before[1] + (not tc)),
+              f"flash_attention {shape} {dtype}: not on the {'tensor-core' if tc else 'FMA'} route")
         check(got.dtype == dtype and got.shape == q.shape, f"flash_attention {shape}: shape/dtype")
         err = float((got.float() - want).abs().max())
         if dtype == torch.float32:
@@ -575,11 +601,12 @@ def check_flash_attention(torch, gen, floor_ms):
         else:
             ok = torch.allclose(got.float(), want, rtol=2.0 ** -8, atol=1e-4)
             tol = "rtol 2^-8 atol 1e-4 vs f32 plain"
-        check(ok, f"flash_attention {shape} causal={causal} window={window} {dtype}: "
-                  f"beyond {tol} (max err {err:.3e})")
+        at = f"causal={causal} window={window}" + (f" scale={scale}" if opt else "")
+        check(ok, f"flash_attention {shape} {at} {dtype}: beyond {tol} (max err {err:.3e})")
         max_err = max(max_err, err)
-        line(f"  flash_attention (B, Hq, Hkv, S, D)={shape} causal={causal} window={window} "
-             f"{str(dtype).split('.')[-1]}: max_abs_err={err:.3e} ({tol}) ok")
+        line(f"  flash_attention (B, Hq, Hkv, S, D)={shape} {at} "
+             f"{str(dtype).split('.')[-1]} {'tensor-core' if tc else 'FMA'} route: "
+             f"max_abs_err={err:.3e} ({tol}) ok")
         del q, k, v, got, want
 
     timings = {"jax_shapes": []}
@@ -594,22 +621,40 @@ def check_flash_attention(torch, gen, floor_ms):
         line(f"  flash_attention time {shape} f32 causal={causal} window={window}: "
              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.2e} ms ({bound_by}, "
              f"f32 rate), launch floor {floor_ms:.5f} ms")
+    flops = 4 * model[0] * model[1] * model[4] * attn_pairs(model[3], True, 0)
+    scale = 1.0 / model[4] ** 0.5
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(model, dtype)
-        ms = time_ms(torch, lambda: kernel(q, k, v, causal=True), 10)
-        plain_ms = time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=True), 3)
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 20)
         rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         bound, bound_by = attn_bound_ms(model, True, 0, q.element_size(), rate)
-        flops = 4 * model[0] * model[1] * model[4] * attn_pairs(model[3], True, 0)
+        t = dict(bound_ms=bound, bound_by=bound_by)
+        if dtype == torch.bfloat16:      # both routes, in turns: tc, fma, tc
+            tc_fn = lambda: fa_mod._launch("tensor-core", q, k, v, True, 0, scale)
+            t["ms"] = time_ms(torch, tc_fn, 50)
+            t["fma_ms"] = time_ms(torch, lambda: fa_mod._launch("FMA", q, k, v, True, 0,
+                                                                   scale), 10)
+            t["ms_again"] = time_ms(torch, tc_fn, 50)
+        else:
+            t["ms"] = time_ms(torch, lambda: kernel(q, k, v, causal=True), 10)
+        t["plain_ms"] = time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=True), 3)
+        t["library_ms"] = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20)
         label = "model" if dtype == torch.bfloat16 else "model_f32"
-        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                              library_ms=library_ms)
-        line(f"  flash_attention time qwen3-32b prefill {model} causal "
-             f"{str(dtype).split('.')[-1]}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-             f"plain {plain_ms:.4f} ms, library (SDPA, enable_gqa) {library_ms:.4f} ms, "
-             f"bound {bound:.4f} ms ({bound_by} at {rate / 1e12:.0f} TFLOP/s)")
+        timings[label] = t
+        if dtype == torch.bfloat16:
+            split_ms = 1.5 * flops / BF16_TC_FLOPS * 1e3
+            line(f"  flash_attention time qwen3-32b prefill {model} causal bf16: tensor-core "
+                 f"route {t['ms']:.4f} / {t['ms_again']:.4f} ms ({flops / t['ms'] / 1e9:.1f} "
+                 f"TFLOP/s of attention), FMA route "
+                 f"{t['fma_ms']:.4f} ms ({flops / t['fma_ms'] / 1e9:.1f} TFLOP/s), plain "
+                 f"{t['plain_ms']:.4f} ms, library (SDPA, enable_gqa) {t['library_ms']:.4f} ms, "
+                 f"bound {bound:.4f} ms ({bound_by} at {rate / 1e12:.0f} TFLOP/s), split-P "
+                 f"ceiling {split_ms:.4f} ms (1.5x the products)")
+        else:
+            line(f"  flash_attention time qwen3-32b prefill {model} causal f32: FMA route "
+                 f"{t['ms']:.4f} ms ({flops / t['ms'] / 1e9:.1f} TFLOP/s), plain "
+                 f"{t['plain_ms']:.4f} ms, library (SDPA, enable_gqa) {t['library_ms']:.4f} ms, "
+                 f"bound {bound:.4f} ms ({bound_by} at {rate / 1e12:.0f} TFLOP/s)")
         del q, k, v
     return max_err, timings
 
@@ -899,7 +944,7 @@ def fig3_robust(torch, S, seed, clean_acc):
                    fault_uniforms=fault_u["burst+coordinate_median"],   # the same family
                    burst_on=True)
 
-    totals = dict.fromkeys(KERNEL_NAMES, 0)
+    totals = dict.fromkeys(COUNTERS, 0)
     for name, fault, agg in runs:
         tr = AsyncFLTrainer(S["cfg"], S["sched"], S["env"], S["loss_fn"], faults=fault,
                             aggregator=agg)
@@ -925,7 +970,7 @@ def fig3_robust(torch, S, seed, clean_acc):
              f"local_loss last={float(loss[-1]):.4f} "
              f"n_success total={float(mets['n_success'].sum()):.0f} "
              f"seconds/round={secs / rounds:.6f} launches={launches}")
-        for k in KERNEL_NAMES:
+        for k in COUNTERS:
             totals[k] += launches[k]
         if name == "sign_flip+coordinate_median":
             profile_window(torch, f"fig3 {name}", lambda: tr.run(
@@ -964,10 +1009,12 @@ def serve_reference(torch, seed):
     params, _ = model.init(gen, device="cuda")
     toks = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT), generator=gen, device="cuda",
                          dtype=torch.int32)
-    before = kernel.launches
+    before, before_fma = kernel.launches, kernel.fma_launches
     got = make_prefill_step(model)(params, {"tokens": toks})
-    check(kernel.launches == before + SERVE_REF_LAYERS,
-          f"serve f32: the kernel route launched {kernel.launches - before} kernels")
+    check(kernel.launches == before + SERVE_REF_LAYERS
+          and kernel.fma_launches == before_fma + SERVE_REF_LAYERS,
+          f"serve f32: the kernel route launched {kernel.launches - before} kernels, "
+          f"{kernel.fma_launches - before_fma} on the FMA route")
     want = make_prefill_step(plain)(params, {"tokens": toks})
     check(kernel.launches == before + SERVE_REF_LAYERS, "serve f32: the plain route ran the kernel")
     err = float((got - want).abs().max())
@@ -1028,15 +1075,15 @@ def serve_path(torch, seed, n_layers):
     reset_launches()
     prefill_ms = []
     for _ in range(3):                    # the first one is the warm-up
-        before = kernel.launches
+        before, before_tc = kernel.launches, kernel.tc_launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits = prefill(params, batch)
         torch.cuda.synchronize()
         prefill_ms.append((time.perf_counter() - t0) * 1e3)
-        check(kernel.launches == before + n_layers,
+        check(kernel.launches == before + n_layers and kernel.tc_launches == before_tc + n_layers,
               f"serve: flash_attention launched {kernel.launches - before} times in a prefill, "
-              f"expected {n_layers}")
+              f"{kernel.tc_launches - before_tc} on the tensor-core route, expected {n_layers}")
         check(logits.shape == (SERVE_PREFILL_BATCH, 1, cfg.vocab_size)
               and logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
               f"serve: prefill logits {tuple(logits.shape)} {logits.dtype} not finite or misshapen")
@@ -1052,7 +1099,8 @@ def serve_path(torch, seed, n_layers):
          f"{prefill_ms[1]:.1f} / {prefill_ms[2]:.1f} ms (warm-up {prefill_ms[0]:.1f} ms), "
          f"{SERVE_PREFILL_BATCH * SERVE_PROMPT / (prefill_ms[1] / 1e3):.0f} prompt tok/s; "
          f"flash_attention.launches={launches['flash_attention']} "
-         f"({launches['flash_attention'] // 3} a prefill)")
+         f"({launches['flash_attention'] // 3} a prefill, "
+         f"{launches['flash_attention_tc'] // 3} of them on the tensor-core route)")
     line(f"  [serve] {cfg.name}: {SERVE_TOKENS} tokens x {SERVE_BATCH} seqs in {secs:.2f}s "
          f"({SERVE_BATCH * SERVE_TOKENS / secs:.1f} tok/s, {step_ms:.2f} ms a decode step, "
          f"context {SERVE_CONTEXT}), cache pos={int(cache['pos'])}")
@@ -1099,8 +1147,9 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
                 fa_t):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2."""
-    def entry(name, replaces, err, t, **extra):
-        return dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+    def entry(name, replaces, err, t, source=None, **extra):
+        source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
+        return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches[name], max_abs_err=err, ms=t["ms"],
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t.get("library_ms"), **extra)
@@ -1117,8 +1166,13 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
         entry("robust_trimmed", "src/repro/kernels/robust_agg.py:73", rt_err, rt_t["fig3"]),
         entry("glr_scan", "src/repro/kernels/glr_scan.py:70", gs_err, gs_t["fig2"]),
         entry("flash_attention", "src/repro/kernels/flash_attention.py:123", fa_err,
-              fa_t["model"], shape_b_hq_hkv_s_d=[4, 64, 8, SERVE_PROMPT, 128], causal=True,
-              dtype="bfloat16", f32_ms=fa_t["model_f32"]["ms"],
+              fa_t["model"], source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
+              shape_b_hq_hkv_s_d=[4, 64, 8, SERVE_PROMPT, 128], causal=True,
+              dtype="bfloat16", tc_launches=launches["flash_attention_tc"],
+              fma_launches=launches["flash_attention_fma"],
+              fma_source="src/repro_torch/kernels/csrc/flash_attention.cu",
+              fma_ms=fa_t["model"]["fma_ms"], tc_ms_again=fa_t["model"]["ms_again"],
+              f32_ms=fa_t["model_f32"]["ms"],
               f32_plain_ms=fa_t["model_f32"]["plain_ms"],
               f32_library_ms=fa_t["model_f32"]["library_ms"],
               f32_bound_ms=fa_t["model_f32"]["bound_ms"], jax_test_shapes=fa_t["jax_shapes"]),
@@ -1160,7 +1214,8 @@ def main(argv=None) -> int:
              f"in {time.perf_counter() - t0:.1f} s")
         for name, rep in sorted(reports.items()):
             for ln in rep.strip().splitlines():
-                if "registers" in ln or "spill" in ln:
+                if any(w in ln for w in ("registers", "spill", "arning", "C75",
+                                         "Performance Loss")):
                     line(f"    {name}: {ln.strip()}")
 
         if not args.paths:
@@ -1194,8 +1249,9 @@ def main(argv=None) -> int:
         serve_launches, _ = serve_path(torch, args.seed, SERVE_LAYERS)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
                  serve_launches)
-        launches = {k: sum(p[k] for p in paths) for k in KERNEL_NAMES}
-        check(all(launches[k] > 0 for k in KERNEL_NAMES), f"a kernel never launched: {launches}")
+        launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
+        check(all(launches[k] > 0 for k in KERNEL_NAMES + ("flash_attention_tc",)),
+              f"a kernel never launched: {launches}")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1

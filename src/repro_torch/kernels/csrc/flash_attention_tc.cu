@@ -1,0 +1,552 @@
+// Blockwise (flash) grouped-query attention, forward, bf16 on Hopper's tensor
+// cores (sm_90a): wgmma for both products, TMA for every tile.
+//
+// Replaces the Pallas TPU kernel `flash_attention`
+// (src/repro/kernels/flash_attention.py, `_flash_kernel`) for bf16 inputs
+// with D % 8 == 0 and D <= 128; every other call takes the f32-FMA kernel of
+// `flash_attention.cu`.  Semantics of record:
+// `repro_torch.kernels.ref.mha_attention`.
+//
+// q (B, Hq, S, D), k and v (B, Hkv, S, D), contiguous bf16; out (B, Hq, S, D)
+// bf16.  Query head h reads KV head h / (Hq / Hkv).  Logits scale * q.k in
+// f32; a key is visible to a query when k < S, and k <= q (causal), and
+// k > q - window (window > 0).  Online softmax with a running max m and
+// normaliser l per row; the output is O / max(l, 1e-30), rounded once to
+// bf16.
+//
+// What bounds it on the H100: bf16 tensor-core operations.  A causal prefill
+// at qwen3-32b's (4, 64/8, 2048, 128) does 2.75e11 flops of Q.K^T and P.V
+// (0.278 ms at 989 TFLOP/s) against 302 MB of q, k, v and out (0.090 ms at
+// 3.35 TB/s).  This kernel issues P.V twice (below), so its tensor-core work
+// is 1.5x the algorithm's: a ceiling of 0.417 ms.
+//
+// Design.  One block per (128-query tile, q head, batch), the query tiles
+// launched last-first so that the longest causal rows start first; the
+// q heads of one KV head are neighbours in the grid, so their K and V tiles
+// meet in L2.  Two consumer warpgroups own 64 query rows each (wgmma's M);
+// one thread of a producer warpgroup issues TMA loads: the Q tile once, then
+// K and V tiles of 128 keys through a ring of 2 stages, each stage with a
+// full barrier for K, one for V and an empty barrier that all 256 consumer
+// threads arrive on.  `setmaxnreg` moves registers from the producer (24 a
+// thread) to the consumers (240): 128 x 24 + 256 x 240 is the 384 x 168 the
+// block starts with (with a lone producer warp the increase never returns).
+// Tiles land in shared memory with the 128-byte swizzle, in column blocks of
+// 64 (one 128-byte row each): the tensor maps are of rank 3, (D, S, B * H)
+// innermost first, so rows past S and columns past D are zero-filled by the
+// TMA unit and never read from the next head.
+//   S = Q.K^T: wgmma m64n128k16, Q and K from shared memory, both K-major, f32
+//   accumulators in registers (bf16 products are exact in f32).  The mask is
+//   applied only on tiles that cross the diagonal, the window's left edge or
+//   S; whole tiles outside every row of a warpgroup are skipped.  A row's
+//   values sit in a quad of the accumulator layout: its max and sum are two
+//   xor shuffles.  Each logit is multiplied by scale * log2(e) before the
+//   mask and the max, as in the FMA kernel, so exp2f serves and the max is
+//   right for a scale of any sign, 0 included.  m = -inf is guarded
+//   (a row with nothing visible yet shifts by 0), so a window narrower than
+//   a tile adds exp2(-inf) = 0 and a correction of 0, never NaN.
+//   O += P.V: the accumulator layout of S is the A-operand layout of wgmma
+//   with A in registers, so P never goes through shared memory.  One bf16
+//   rounding of P puts the output outside the card check (rtol 2^-8, atol
+//   1e-4 against the f32 plain version; tests/test_torch_flash_split.py
+//   emulates both roundings), so P is split, P_hi = bf16(P) and
+//   P_lo = bf16(P - P_hi), and both products go into the one f32
+//   accumulator; V is an MN-major B.  l sums the f32 probabilities.
+//   A warpgroup runs S, the softmax and P.V of a tile in turn; the other
+//   warpgroup's products fill the tensor cores meanwhile.
+//   Epilogue: rows < S and columns < D only, stored from registers (a TMA
+//   store would cross into the next head).
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBQ = 128;                  // queries a block
+constexpr int kConsumers = 256;           // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 128; // and a producer warpgroup: one thread loads
+constexpr int kRowBytes = 128;            // one swizzled row: 64 bf16 columns
+constexpr int kBK = 128;                  // keys a K/V tile
+constexpr int kStages = 2;                // K/V tiles in flight
+
+template <int DP>
+struct Layout {
+  static constexpr int kColBlocks = DP / 64;
+  static constexpr uint32_t kQBytes = kColBlocks * kBQ * kRowBytes;
+  static constexpr uint32_t kTileBytes = kColBlocks * kBK * kRowBytes;  // one K or V stage
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kQBytes;
+  static constexpr uint32_t kV = kK + kStages * kTileBytes;
+  static constexpr uint32_t kBar = kV + kStages * kTileBytes;          // q, k[], v[], empty[]
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 3 * kStages);
+  static constexpr uint32_t kAlloc = kBytes + 1024;                    // base aligned up to 1 KB
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// box (64 columns, rows, 1 head) at (col, row, head) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: address, leading and
+// stride byte offsets in 16-byte units
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// returns once every committed group of this warpgroup is done
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps registers that an in-flight wgmma reads or writes where they are
+template <int N>
+__device__ __forceinline__ void hold(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// ---- wgmma m64nNk16, bf16 in, f32 accumulators ----
+
+// D (64 x 128, f32) (+)= A (64 x 16, smem) . B (128 x 16, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b);
+  else wgmma_rs_n128(d, a, desc_b);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// S = Q . K^T (64 x kBK, f32) for one warpgroup's rows, issued and committed
+template <int DP>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], uint32_t q_rows, uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;      // 16 columns = 32 bytes
+    const uint64_t da = smem_desc(q_rows + (kk / 4) * kBQ * kRowBytes + off, 16, 1024);
+    const uint64_t db = smem_desc(k_tile + (kk / 4) * kBK * kRowBytes + off, 16, 1024);
+    wgmma_ss_n128(sc, da, db, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P_hi . V + P_lo . V, issued and committed; V (kBK x DP) is an MN-major B
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&p_hi)[kBK / 16][4],
+                                         const uint32_t (&p_lo)[kBK / 16][4], uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t db = smem_desc(v_tile + kk * 16 * kRowBytes, kBK * kRowBytes, 1024);
+    wgmma_rs<DP>(acc, p_hi[kk], db);
+    wgmma_rs<DP>(acc, p_lo[kk], db);
+  }
+  wgmma_commit();
+}
+
+// Where this thread's logits sit: rows `row` (h = 0) and `row` + 8 (h = 1),
+// columns col0 + {0, 1} of every 8; the mask and the softmax's constants.
+struct RowView {
+  int row, col0, s, causal, window;
+  float scale_log2;
+};
+
+// mask (when `masked`), the online-softmax update of m and l, and the
+// probabilities split into the two bf16 A fragments of P.V.  `corr` is the
+// factor that carries O to the new row max.
+__device__ __forceinline__ void softmax(float (&sc)[kBK / 2], const RowView& rv, int k0,
+                                        bool masked, float (&m_run)[2], float (&l_run)[2],
+                                        float (&corr)[2], uint32_t (&p_hi)[kBK / 16][4],
+                                        uint32_t (&p_lo)[kBK / 16][4]) {
+  // scaled before the mask and the max, in log2 units: right for any sign of scale
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) sc[i] *= rv.scale_log2;
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i) {
+      const int kpos = k0 + 8 * (i / 4) + rv.col0 + (i % 2);
+      const int qpos = rv.row + 8 * ((i / 2) % 2);
+      bool ok = kpos < rv.s;
+      if (rv.causal) ok = ok && kpos <= qpos;
+      if (rv.window > 0) ok = ok && kpos > qpos - rv.window;
+      if (!ok) sc[i] = -INFINITY;
+    }
+  }
+  // a row's values sit in one quad of lanes
+  float m_use[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[h], mx);
+    m_use[h] = m_new == -INFINITY ? 0.0f : m_new;           // nothing visible yet
+    corr[h] = exp2f(m_run[h] - m_use[h]);
+    m_run[h] = m_new;
+  }
+  float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      // A-fragment register r of k-slice kk holds accumulator pair 8 kk + 2 r
+      const int i = 8 * kk + 2 * r, h = r % 2;
+      const float p0 = exp2f(sc[i] - m_use[h]);
+      const float p1 = exp2f(sc[i + 1] - m_use[h]);
+      rs[h] += p0 + p1;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(hi);
+      p_hi[kk][r] = pack_bf16(hi);
+      p_lo[kk][r] = pack_bf16(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * corr[h] + rs[h];
+}
+
+// DP: the head dim padded to 64 or 128
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                    int hq, int hkv, int s, int d, int causal, int window, float scale_log2) {
+  using L = Layout<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base + L::kQ, sk = base + L::kK, sv = base + L::kV;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * kStages, bar_e = bar_v + 8 * kStages;
+
+  const int bh = blockIdx.x;                              // b * Hq + h
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int q_first = (gridDim.y - 1 - blockIdx.y) * kBQ; // the longest causal rows first
+  const int q_last = min(q_first + kBQ, s) - 1;
+
+  // the key tiles any row of this block can see
+  int kj_lo = 0, kj_hi = (s - 1) / kBK;
+  if (causal) kj_hi = min(kj_hi, q_last / kBK);
+  if (window > 0 && q_first - window + 1 > 0) kj_lo = (q_first - window + 1) / kBK;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_k + 8 * st, 1);
+      mbar_init(bar_v + 8 * st, 1);
+      mbar_init(bar_e + 8 * st, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // ---- producer warpgroup: one thread issues the TMA loads ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == kConsumers) {
+      mbar_expect_tx(bar_q, L::kQBytes);
+      for (int c = 0; c < L::kColBlocks; ++c)
+        tma_load(sq + c * kBQ * kRowBytes, &tm_q, bar_q, 64 * c, q_first, bh);
+      int st = 0;
+      uint32_t phase = 0;
+      for (int kj = kj_lo; kj <= kj_hi; ++kj) {
+        mbar_wait(bar_e + 8 * st, phase ^ 1);   // the consumers are done with this stage
+        mbar_expect_tx(bar_k + 8 * st, L::kTileBytes);
+        for (int c = 0; c < L::kColBlocks; ++c)
+          tma_load(sk + st * L::kTileBytes + c * kBK * kRowBytes, &tm_k, bar_k + 8 * st, 64 * c,
+                   kj * kBK, kvh);
+        mbar_expect_tx(bar_v + 8 * st, L::kTileBytes);
+        for (int c = 0; c < L::kColBlocks; ++c)
+          tma_load(sv + st * L::kTileBytes + c * kBK * kRowBytes, &tm_v, bar_v + 8 * st, 64 * c,
+                   kj * kBK, kvh);
+        if (++st == kStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- two consumer warpgroups, 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int r0 = q_first + 64 * wg, r1 = r0 + 63;          // this warpgroup's rows
+    const int row = r0 + 16 * warp + lane / 4;               // this thread's rows: row, row + 8
+    const RowView rv{row, 2 * (lane % 4), s, causal, window, scale_log2};
+    const uint32_t q_rows = sq + 64 * wg * kRowBytes;
+
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};   // l: this thread's part
+    float sc[kBK / 2], corr[2];
+    uint32_t p_hi[kBK / 16][4], p_lo[kBK / 16][4];
+
+    mbar_wait(bar_q, 0);
+    int st = 0;
+    uint32_t phase = 0;
+    for (int kj = kj_lo; kj <= kj_hi; ++kj) {
+      const int k0 = kj * kBK;
+      // a warpgroup waits for every stage it passes, skipped or not, so that
+      // its arrival counts toward the phase of that stage's load and no other
+      mbar_wait(bar_k + 8 * st, phase);
+      if (r0 < s && (!causal || k0 <= min(r1, s - 1)) &&
+          (window == 0 || k0 + kBK - 1 > r0 - window)) {       // some row of ours sees the tile
+        hold(sc);
+        wgmma_fence();
+        issue_qk<DP>(sc, q_rows, sk + st * L::kTileBytes);
+        wgmma_wait_all();
+        hold(sc);
+        const bool masked = k0 + kBK > s || (causal && k0 + kBK - 1 > r0) ||
+                            (window > 0 && k0 <= r1 - window);
+        softmax(sc, rv, k0, masked, m_run, l_run, corr, p_hi, p_lo);
+#pragma unroll
+        for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+        mbar_wait(bar_v + 8 * st, phase);
+        hold(acc);
+        wgmma_fence();
+        issue_pv<DP>(acc, p_hi, p_lo, sv + st * L::kTileBytes);
+        wgmma_wait_all();
+        hold(acc);
+        hold(p_hi);
+        hold(p_lo);
+      }
+      mbar_arrive(bar_e + 8 * st);
+      if (++st == kStages) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+
+    // epilogue: O / max(l, 1e-30), rows < S and columns < D
+    float denom[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = l_run[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      denom[h] = fmaxf(l, 1e-30f);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qpos = row + 8 * h;
+      if (qpos >= s) continue;
+      __nv_bfloat16* orow = o + (static_cast<long long>(bh) * s + qpos) * d;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + rv.col0;
+        if (col < d)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+              acc[4 * j + 2 * h] / denom[h], acc[4 * j + 2 * h + 1] / denom[h]);
+      }
+    }
+  }
+}
+
+// ---- host side ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a (D, S, heads) bf16 map, innermost first, boxes of (64, rows, 1)
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int heads, int s, int d,
+              int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(s) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int s,
+           int d, int causal, int window, float scale, cudaStream_t stream) {
+  using L = Layout<DP>;
+  static bool attr_set = false;     // once per instantiation: above 48 KB needs the opt-in
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<DP>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(L::kAlloc));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!make_map(encode, &tm_q, q, b * hq, s, d, kBQ) ||
+      !make_map(encode, &tm_k, k, b * hkv, s, d, kBK) ||
+      !make_map(encode, &tm_v, v, b * hkv, s, d, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(b * hq, (s + kBQ - 1) / kBQ);
+  flash_fwd_tc_kernel<DP><<<grid, kThreads, L::kAlloc, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), hq, hkv, s, d, causal, window,
+      scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// bf16 q, k, v and out; 8 <= d <= 128 with d % 8 == 0, hq % hkv == 0, b * hq
+// below 2^31, 16-byte aligned pointers (the tensor maps refuse others).
+extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* o,
+                                         int b, int hq, int hkv, int s, int d, int causal,
+                                         int window, float scale, void* stream) {
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || s <= 0 || d < 8 || d > 128 ||
+      d % 8 != 0 || window < 0 || static_cast<long long>(b) * hq > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d <= 64) return launch<64>(q, k, v, o, b, hq, hkv, s, d, causal, window, scale, st);
+  return launch<128>(q, k, v, o, b, hq, hkv, s, d, causal, window, scale, st);
+}

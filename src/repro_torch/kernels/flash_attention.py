@@ -2,17 +2,25 @@
 
 Replaces the Pallas TPU kernel ``flash_attention`` of
 ``src/repro/kernels/flash_attention.py`` (``_flash_kernel``): online
-softmax over 64-key tiles against a resident 64-query tile, causal and
+softmax over key tiles against a resident query tile, causal and
 sliding-window masks with whole tiles skipped, query head h reading KV
-head h // (Hq / Hkv).  Source: ``csrc/flash_attention.cu``; semantics of
-record: ``ref.mha_attention``.
+head h // (Hq / Hkv).  Semantics of record: ``ref.mha_attention``.
+
+Two device routes, picked from dtype and head dim before any launch:
+
+* tensor cores (``csrc/flash_attention_tc.cu``): bf16 with D % 8 == 0 and
+  D <= 128, every head dim of the ported zoo.  ``wgmma`` for Q.K^T and P.V
+  with TMA-fed K/V tiles; P is split into two bf16 terms so that the output
+  keeps the f32 plain version's accuracy (see the source's header).
+* f32 FMAs (``csrc/flash_attention.cu``): everything else, every f32 call
+  and bf16 at other D, with 64-query tiles and D padded to 64, 128 or 256
+  in shared memory.
 
 What bounds it on the H100: operations (2 B Hq S^2 D multiply-adds for a
 full mask, about half of them causal, against 2 (B Hq + B Hkv) S D
-elements moved).  This version runs them as f32 FMAs from shared memory;
-the tensor cores are for a later version.  The JAX wrapper pads D to 128
-and S to a tile multiple in device memory; here the kernel masks the
-tails itself, so any D in [1, 256] and any S are taken as they are.
+elements moved).  The JAX wrapper pads D to 128 and S to a tile multiple
+in device memory; here both kernels mask the tails themselves.  A failed
+build or launch raises; no route stands in for the other.
 """
 from __future__ import annotations
 
@@ -25,14 +33,18 @@ from repro_torch.kernels import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
                                                            ctypes.c_void_p]
+_TC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"tensor-core": ("flash_attention_tc", "flash_attention_tc_launch", _TC_ARGTYPES),
+           "FMA": ("flash_attention", "flash_attention_launch", _ARGTYPES)}
 MAX_HEAD_DIM = 256
+TC_MAX_HEAD_DIM = 128
 _MAX_GRID_YZ = 65535
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                     window: int = 0, scale=None) -> torch.Tensor:
-    """Launch the kernel: ``q`` (B, Hq, S, D), ``k`` and ``v`` (B, Hkv, S, D),
+    """Launch the route's kernel (``tc_route``): ``q`` (B, Hq, S, D), ``k`` and ``v`` (B, Hkv, S, D),
     one dtype (f32 or bf16), contiguous, on one CUDA device; Hq a multiple
     of Hkv, 1 <= D <= 256, ``window`` >= 0.  ``scale`` defaults to
     1/sqrt(D).  Returns (B, Hq, S, D) in q's dtype."""
@@ -61,15 +73,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
 
-    fn = _build.load("flash_attention", "flash_attention_launch", _ARGTYPES)
-    out = torch.empty_like(q)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, d,
-             int(bool(causal)), int(window), scale, _DTYPES[q.dtype],
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {err})")
+    if tc_route(q.dtype, d):
+        out = _launch("tensor-core", q, k, v, causal, window, scale)
+        flash_attention.tc_launches += 1
+    else:
+        out = _launch("FMA", q, k, v, causal, window, scale)
+        flash_attention.fma_launches += 1
     flash_attention.launches += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0       # every launch, both routes
+flash_attention.tc_launches = 0    # the tensor-core kernel's
+flash_attention.fma_launches = 0   # the f32-FMA kernel's
+
+
+def tc_route(dtype: torch.dtype, d: int) -> bool:
+    """Whether a call of this dtype and head dim takes the tensor-core
+    kernel (else the f32-FMA kernel)."""
+    return dtype == torch.bfloat16 and d % 8 == 0 and d <= TC_MAX_HEAD_DIM
+
+
+def _stream(q: torch.Tensor) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _launch(route, q, k, v, causal, window, scale):
+    """One route's kernel ("tensor-core" or "FMA") on checked inputs;
+    counts nothing."""
+    lib, symbol, argtypes = _ROUTES[route]
+    b, hq, s, d = q.shape
+    fn = _build.load(lib, symbol, argtypes)
+    out = q.new_empty(q.shape)
+    extra = (_DTYPES[q.dtype],) if route == "FMA" else ()
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, k.shape[1], s, d,
+             int(bool(causal)), int(window), scale, *extra, _stream(q))
+    if err != 0:
+        raise RuntimeError(f"flash_attention: {route} kernel launch failed (cudaError {err})")
+    return out

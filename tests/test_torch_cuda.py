@@ -21,7 +21,10 @@ of the largest statistic.  ``flash_attention`` in f32 is held to its
 f32 plain version at rtol/atol 1e-4 (another order of the D-term sums and
 an online softmax: a few ulps of logits of size ~10, carried through exp);
 in bf16 to the plain version on the same inputs in f32, at rtol 2**-8 (the
-output's one rounding to bf16 is at most 2**-9 relative) and atol 1e-4.
+output's one rounding to bf16 is at most 2**-9 relative) and atol 1e-4;
+bf16 with D % 8 == 0 and D <= 128 must take the tensor-core route (which
+splits P into two bf16 terms to stay inside that tolerance), every other
+call the FMA route.
 """
 import numpy as np
 import pytest
@@ -31,7 +34,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.aggregation import make_aggregator  # noqa: E402
 from repro_torch.core.bandits import GLRCUCB  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention, tc_route  # noqa: E402
 from repro_torch.kernels.glr_scan import glr_scan  # noqa: E402
 from repro_torch.kernels.glr_step import glr_step  # noqa: E402
 from repro_torch.kernels.robust_agg import robust_trimmed  # noqa: E402
@@ -221,8 +224,14 @@ _FLASH_SHAPES = [
     (1, 8, 2, 300, 128, True, 8),     # windows narrower than a tile: fully masked first tiles
     (1, 8, 2, 300, 32, True, 16),
     (1, 4, 2, 300, 256, False, 40),   # non-causal window, the largest head dim
+    (1, 4, 2, 300, 128, False, 40),   # non-causal window on the tensor-core route
     (2, 64, 8, 256, 128, True, 0),    # qwen3-32b's heads, group 8
     (1, 2, 1, 1, 64, True, 0),        # one token
+    (1, 4, 4, 100, 128, False, 0),    # group 1, S not a multiple of 64
+    (1, 8, 2, 190, 64, True, 8),      # group 4, window 8
+    (1, 16, 2, 1500, 128, True, 1024),  # group 8, window 1024, S not a multiple of 128
+    (1, 2, 1, 77, 8, True, 0),        # the smallest tensor-core head dim
+    (1, 4, 2, 150, 36, True, 0),      # bf16 on the FMA route: D % 8 != 0
 ]
 
 
@@ -238,11 +247,28 @@ def _attn_inputs(b, hq, hkv, s, d, dtype, device, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal, window, dtype):
     q, k, v = _attn_inputs(b, hq, hkv, s, d, dtype, cuda, seed=s * d + hq)
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention.tc_launches, flash_attention.fma_launches
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
-    assert flash_attention.launches == before + 1
+    tc = tc_route(dtype, d)
+    assert (flash_attention.launches, flash_attention.tc_launches, flash_attention.fma_launches) \
+        == (before[0] + 1, before[1] + tc, before[2] + (not tc))
     assert got.dtype == dtype and got.shape == q.shape
     want = ref.mha_attention(q.float(), k.float(), v.float(), causal=causal, window=window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want, rtol=2.0 ** -8, atol=1e-4)
+
+
+@pytest.mark.parametrize("scale", [-0.1, 0.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_takes_a_scale_of_any_sign(cuda, scale, dtype):
+    """Both routes scale each logit before the mask and the row max, so a
+    negative scale (the max of the scaled logits is the min of the raw ones)
+    and a scale of 0 (masked keys stay at -inf) match the plain version."""
+    q, k, v = _attn_inputs(1, 4, 2, 300, 64, dtype, cuda, seed=7)
+    got = ops.flash_attention(q, k, v, causal=True, window=0, scale=scale)
+    want = ref.mha_attention(q.float(), k.float(), v.float(), causal=True, scale=scale)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     else:

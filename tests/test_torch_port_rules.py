@@ -8,8 +8,14 @@
   plain version (faked here with a CUDA-looking tensor and a loader that
   finds no built library), for all five kernels; ``attn_core`` on a CUDA
   tensor goes to the kernel at every prompt length.
+* ``flash_attention`` picks its route from dtype and head dim: bf16 with
+  D % 8 == 0 and D <= 128 reaches the tensor-core kernel's launch function,
+  f32 and bf16 at any other D the f32-FMA kernel's; each route moves its
+  own counter and the total; a tensor-core library that cannot be loaded
+  raises and never reaches the FMA kernel or the plain version.
 """
 import ast
+import math
 from pathlib import Path
 
 import numpy as np
@@ -261,6 +267,121 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(monkeypatch):
     with pytest.raises(ValueError, match="window"):
         f(z(1, 4, 8, 32), z(1, 2, 8, 32), z(1, 2, 8, 32), window=-1)
     assert _counts() == before
+
+
+def _flash_counts():
+    f = flash_mod.flash_attention
+    return f.launches, f.tc_launches, f.fma_launches
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Loads that hand back a launch function recording (library, symbol,
+    arguments) and returning success."""
+    calls = []
+
+    def load(name, symbol, argtypes):
+        def launch(*args):
+            assert len(args) == len(argtypes)
+            calls.append((name, symbol, args))
+            return 0
+
+        return launch
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(flash_mod, "_stream", lambda q: 0)
+    return calls
+
+
+def _qkv(d, dtype, s=5):
+    q = _FakeCuda(torch.zeros((1, 4, s, d), dtype=dtype))
+    kv = _FakeCuda(torch.zeros((1, 2, s, d), dtype=dtype))
+    return q, kv
+
+
+@pytest.mark.parametrize("d", [8, 32, 64, 72, 96, 128])
+def test_bf16_reaches_the_tensor_core_kernel(recorded, d):
+    q, kv = _qkv(d, torch.bfloat16)
+    before = _flash_counts()
+    out = flash_mod.flash_attention(q, kv, kv, causal=True, window=3)
+    assert [(n, s) for n, s, _ in recorded] == [("flash_attention_tc", "flash_attention_tc_launch")]
+    args = recorded[0][2]
+    assert args[4:11] == (1, 4, 2, 5, d, 1, 3)            # b, hq, hkv, s, d, causal, window
+    assert args[11] == pytest.approx(1.0 / math.sqrt(d))
+    assert out.shape == (1, 4, 5, d) and out.dtype == torch.bfloat16
+    assert _flash_counts() == (before[0] + 1, before[1] + 1, before[2])
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 8), (torch.float32, 64),
+                                     (torch.float32, 128), (torch.float32, 256),
+                                     (torch.bfloat16, 36), (torch.bfloat16, 200),
+                                     (torch.bfloat16, 1)])
+def test_other_calls_reach_the_fma_kernel(recorded, dtype, d):
+    q, kv = _qkv(d, dtype)
+    before = _flash_counts()
+    out = flash_mod.flash_attention(q, kv, kv, causal=False)
+    assert [(n, s) for n, s, _ in recorded] == [("flash_attention", "flash_attention_launch")]
+    assert recorded[0][2][12] == {torch.float32: 0, torch.bfloat16: 1}[dtype]
+    assert out.shape == (1, 4, 5, d) and out.dtype == dtype
+    assert _flash_counts() == (before[0] + 1, before[1], before[2] + 1)
+
+
+def test_route_is_picked_from_dtype_and_head_dim():
+    assert [d for d in range(1, 257) if flash_mod.tc_route(torch.bfloat16, d)] == \
+        list(range(8, 129, 8))
+    assert not any(flash_mod.tc_route(torch.float32, d) for d in range(1, 257))
+
+
+def test_model_attention_takes_the_routes(recorded):
+    """``ops.flash_attention`` and the model's ``attn_core`` route like the
+    wrapper: qwen3-32b's bf16 head dim of 128 to the tensor cores, f32 to
+    the FMA kernel."""
+    for dtype, name in ((torch.bfloat16, "flash_attention_tc"), (torch.float32, "flash_attention")):
+        q, kv = _qkv(128, dtype, s=3)
+        ops.flash_attention(q, kv, kv)
+        attn_mod.attn_core(q, kv, kv, causal=True)
+        assert [n for n, _, _ in recorded[-2:]] == [name, name]
+
+
+def test_missing_tensor_core_library_raises(monkeypatch):
+    """A bf16 CUDA call whose tensor-core library cannot be built raises; it
+    reaches neither the FMA kernel nor the plain version, and counts
+    nothing."""
+    loaded = []
+
+    def load(name, symbol, argtypes):
+        loaded.append(name)
+        if name == "flash_attention_tc":
+            raise RuntimeError("repro_torch kernel build failed: no tensor-core library")
+        return lambda *a: pytest.fail("reached the FMA kernel")
+
+    monkeypatch.setattr(_build, "load", load)
+    called = []
+    monkeypatch.setattr(ops.ref, "mha_attention", lambda *a, **k: called.append(a))
+    monkeypatch.setattr(attn_mod, "_attn_core_plain", lambda *a, **k: called.append(a))
+    before = _flash_counts()
+    for d in (64, 128):
+        q, kv = _qkv(d, torch.bfloat16)
+        with pytest.raises(RuntimeError, match="no tensor-core library"):
+            flash_mod.flash_attention(q, kv, kv)
+        with pytest.raises(RuntimeError, match="no tensor-core library"):
+            ops.flash_attention(q, kv, kv)
+        with pytest.raises(RuntimeError, match="no tensor-core library"):
+            attn_mod.attn_core(q, kv, kv, causal=True)
+    assert set(loaded) == {"flash_attention_tc"}
+    assert not called
+    assert _flash_counts() == before
+
+
+def test_failed_tensor_core_launch_raises(monkeypatch):
+    """A launch that returns a CUDA error raises and counts nothing."""
+    monkeypatch.setattr(_build, "load", lambda name, symbol, argtypes: lambda *a: 1)
+    monkeypatch.setattr(flash_mod, "_stream", lambda q: 0)
+    before = _flash_counts()
+    q, kv = _qkv(128, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="tensor-core kernel launch failed"):
+        flash_mod.flash_attention(q, kv, kv)
+    assert _flash_counts() == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -12,10 +12,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    path's shapes and larger ones, with the stated tolerances, and their
    times beside the plain version's, the bound and a library call; the
    card's floor per launch, from an empty kernel launched back to back;
+   and ``regret_scan`` (the whole regret harness in one launch) against the
+   per-round route with the plain detector on nine short edge runs (a table
+   env, S=1, alpha=0.2, the geometric grid, H=33 with restarts, N=30 M=20
+   stride 1, N=32, stride 1e9, the recompute detector);
 3. the Fig. 2 AoI-regret path: GLR-CUCB (history 1024, detector stride 5)
-   on a piecewise env with N=5, M=2 and 5 breakpoints, T=20000 rounds;
-   ``glr_step`` must launch T/5 times.  A 5000-round run is first held
-   against the same run on the CPU (plain versions);
+   on a piecewise env with N=5, M=2 and 5 breakpoints, T=20000 rounds, on
+   both routes in turns (scan, rounds, scan): the scan route must launch
+   ``regret_scan`` once and no ``glr_step``, the per-round route
+   (``impl="rounds"``) ``glr_step`` T/5 times, and the two must agree bit
+   for bit (schedule, restarts, regret curve, AoI, success rate, final
+   state; the variance sums at rtol 1e-6); both routes' ms/round are
+   printed.  A 5000-round run of the scan route is first held against the
+   same run on the CPU (plain versions);
 4. the Fig. 3 asynchronous-FL path: N=30 channels, M=20 clients, a skewed
    piecewise env, the MLP 48->96->10, E=3, B=16, lr 0.15, GLR-CUCB
    (history 256) with adaptive matching, 150 rounds; ``glr_step`` and
@@ -30,8 +39,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``weighted_aggregate`` 150 times in the others.  Three rounds of two
    runs are first held against the same rounds on the CPU;
 6. the Fig. 2 path with ``detector_impl="recompute"`` on phase 3's env and
-   uniforms: ``glr_scan`` must launch T/5 times, and the schedule,
-   restarts and regret must equal phase 3's streaming run bit for bit;
+   uniforms, on both routes as in phase 3 (``glr_scan`` T/5 times on the
+   rounds); the recompute scan must equal phase 3's streaming scan bit for
+   bit;
 7. the model zoo's serving path on qwen3-32b at full width: (a) 2 layers
    in f32, the prefill of one 2048-token prompt through the kernel route
    against the plain chunked route, then 12 teacher-forced decode steps
@@ -76,6 +86,7 @@ KL_SPLIT_FLOPS = 32            # f32 operations per evaluated GLR split
 RANK_PAIR_OPS = 4              # lane operations per rank test: two compares, a select, an add
 FIG2_ROUNDS = 20000            # the paper's Fig. 2 horizon (benchmarks/run.py:175)
 FIG2_REF_ROUNDS = 5000         # the card-vs-CPU reference run of Fig. 2
+SCAN_EDGE_ROUNDS = 1500        # each edge run of regret_scan against the rounds route (phase 2)
 FIG3_ROUNDS = 150              # the paper's Fig. 3 large-scale rounds (benchmarks/run.py:744-760)
 FIG3_REF_ROUNDS = 3            # the card-vs-CPU reference rounds of Fig. 3
 FIG3_REF_MAX_ROUNDS = 12       # ... extended, under attack, until a corrupted row is aggregated
@@ -88,7 +99,7 @@ SERVE_LAYERS = 64              # qwen3-32b's full depth: 61.0 GiB of bf16 weight
 SERVE_REF_LAYERS = 2           # depth of the f32 reference model (full width)
 DECODE_REF_STEPS = 12          # teacher-forced decode steps against the prefill
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
-                "flash_attention")
+                "flash_attention", "regret_scan")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
 COUNTERS = KERNEL_NAMES + FLASH_ROUTES
 
@@ -111,12 +122,13 @@ def kernel_wrappers():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.glr_scan import glr_scan
     from repro_torch.kernels.glr_step import glr_step
+    from repro_torch.kernels.regret_scan import regret_scan
     from repro_torch.kernels.robust_agg import robust_trimmed
     from repro_torch.kernels.weighted_aggregate import weighted_aggregate
 
     return dict(glr_step=glr_step, weighted_aggregate=weighted_aggregate,
                 robust_trimmed=robust_trimmed, glr_scan=glr_scan,
-                flash_attention=flash_attention)
+                flash_attention=flash_attention, regret_scan=regret_scan)
 
 
 def reset_launches():
@@ -660,6 +672,199 @@ def check_flash_attention(torch, gen, floor_ms):
 
 
 # ---------------------------------------------------------------------------
+# the Fig. 2 harness's two routes: one regret_scan launch against the rounds
+# ---------------------------------------------------------------------------
+
+STATE_FIELDS = ("mu_tilde", "counts", "tau", "hist", "restarts", "cum", "total", "base")
+BITWISE_OUT = ("channels", "restarts", "regret", "final_regret", "aoi_pi", "aoi_star",
+               "success_rate")
+VAR_OUT = ("cum_aoi_var", "final_cum_aoi_var", "oracle_cum_aoi_var")
+
+
+def compare_routes(torch, a, b, label):
+    """Two runs of the harness: schedule, restarts, regret, AoI, success rate
+    and the final GLR-CUCB state bit for bit; the variance sums at rtol 1e-6
+    (the kernel adds the M squared deviations in another order than torch's
+    reduction: equal bits for M <= 2).  Returns the variance sums' largest
+    absolute difference."""
+    for k in BITWISE_OUT:
+        check(torch.equal(a[k], b[k]), f"{label}: {k} not bitwise equal")
+    sa, sb = a["final_sched_state"], b["final_sched_state"]
+    for f in STATE_FIELDS:
+        check(torch.equal(getattr(sa, f), getattr(sb, f)), f"{label}: final state {f} differs")
+    for k in VAR_OUT:
+        check(torch.allclose(a[k], b[k], rtol=1e-6, atol=0), f"{label}: {k} beyond rtol 1e-6")
+    return max(float((a[k] - b[k]).abs().max()) for k in VAR_OUT)
+
+
+def scan_edge_cases(seed, device, rounds):
+    """Short runs at the kernel's edges: (label, GLRCUCB, env, rounds).  The
+    envs alternate each channel's mean between two values every 250 rounds,
+    so the detectors restart several times."""
+    import numpy as np
+
+    from repro_torch.core.bandits import GLRCUCB
+    from repro_torch.core.channels import make_piecewise, make_stationary, table_env
+
+    rng = np.random.default_rng(seed)
+
+    def flipping(n):
+        a = rng.random(n).astype(np.float32)
+        segs = -(-rounds // 250)
+        means = np.stack([a if s % 2 == 0 else 1.0 - a for s in range(segs)])
+        return make_piecewise(means, [250 * s for s in range(1, segs)], device=device)
+
+    table = np.repeat(flipping(5).means.cpu().numpy(), 250, axis=0)[:rounds]
+    table = table + rng.uniform(-0.05, 0.05, table.shape).astype(np.float32)
+    fast = dict(delta=0.1, min_samples=4)
+    return [
+        ("table", GLRCUCB(5, 2, history=64, detector_stride=5, **fast),
+         table_env(table.clip(0.0, 1.0), device=device)),
+        ("stationary S=1", GLRCUCB(5, 2, history=1024, detector_stride=5),
+         make_stationary(rng.random(5).astype(np.float32), device=device)),
+        ("alpha=0.2", GLRCUCB(5, 2, history=64, detector_stride=5, alpha=0.2, **fast), flipping(5)),
+        ("geometric", GLRCUCB(5, 2, history=256, split_grid="geometric", **fast), flipping(5)),
+        ("H=33 restarts", GLRCUCB(5, 2, history=33, **fast), flipping(5)),
+        ("N=30 M=20 H=256 stride 1", GLRCUCB(30, 20, history=256, **fast), flipping(30)),
+        ("N=32 M=8 H=1024", GLRCUCB(32, 8, history=1024, detector_stride=5, **fast), flipping(32)),
+        ("stride 1e9 (cucb-static)", GLRCUCB(5, 2, history=64, detector_stride=10**9), flipping(5)),
+        ("recompute H=33", GLRCUCB(5, 2, history=33, detector_impl="recompute", **fast),
+         flipping(5)),
+    ]
+
+
+def check_regret_scan(torch, seed):
+    """Phase 2: the scan kernel against the per-round route on short edge
+    runs; the streaming rounds with ``detector_backend="torch"`` (every op a
+    plain one on the card), the recompute rounds through ``glr_scan``."""
+    import dataclasses
+
+    from repro_torch.core.regret import simulate_aoi_regret
+    from repro_torch.kernels.regret_scan import regret_scan
+
+    rounds = SCAN_EDGE_ROUNDS
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for label, sched, env in scan_edge_cases(seed, "cuda", rounds):
+        u = torch.rand((rounds, 2, sched.n_channels), generator=gen, device="cuda")
+        before = regret_scan.launches
+        scan = simulate_aoi_regret(sched, env, rounds, uniforms=u, return_state=True, impl="scan")
+        check(regret_scan.launches == before + 1, f"regret_scan {label}: no launch")
+        plain = sched if sched.detector_impl == "recompute" else \
+            dataclasses.replace(sched, detector_backend="torch")
+        rounds_out = simulate_aoi_regret(plain, env, rounds, uniforms=u, return_state=True,
+                                         impl="rounds")
+        check(regret_scan.launches == before + 1,
+              f"regret_scan {label}: the rounds route launched it")
+        torch.cuda.synchronize()
+        compare_routes(torch, scan, rounds_out, f"regret_scan {label}")
+        line(f"  regret_scan {label}: T={rounds} restarts={int(scan['restarts'])} "
+             f"regret={float(scan['final_regret']):.0f}, equal to the rounds route ok")
+
+
+def timed_run(torch, fn):
+    """(output, seconds) of one run that ends in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def scan_bound_ms(sched, rounds, splits):
+    """The least time of a scan run: the GLR splits it evaluated at
+    ``KL_SPLIT_FLOPS`` each, against its bytes (uniforms in, schedule and
+    curves out, the state in and out)."""
+    n, m, h = sched.n_channels, sched.n_clients, sched.history
+    nbytes = rounds * 2 * n * 4 + rounds * m * 8 + 2 * rounds * 4 + 2 * (n * h * 4 + 4 * n * 4 + 8)
+    return two_way_bound(nbytes, KL_SPLIT_FLOPS * splits, F32_FLOPS)
+
+
+def fig2_routes(torch, label, sched, env, uniforms):
+    """The T = FIG2_ROUNDS run on both routes, in turns scan, rounds, scan:
+    launch counts, bit-for-bit equality and each route's ms/round.  Returns
+    (the scan's output, summed launches, the scan's kernel-line fields)."""
+    from repro_torch.core.regret import simulate_aoi_regret
+    from repro_torch.kernels.regret_scan import regret_scan
+
+    rounds = uniforms.shape[0]
+    kernel = "glr_scan" if sched.detector_impl == "recompute" else "glr_step"
+    run = lambda impl: simulate_aoi_regret(sched, env, rounds, uniforms=uniforms,
+                                           return_state=True, impl=impl)
+    reset_launches()
+    scan, secs_scan = timed_run(torch, lambda: run(None))
+    scan_launches = read_launches()
+    splits = int(regret_scan.splits)
+    check(scan_launches["regret_scan"] == 1 and scan_launches[kernel] == 0
+          and scan_launches["glr_step"] + scan_launches["glr_scan"] == 0,
+          f"{label} scan: launches {scan_launches}, expected regret_scan once and no {kernel}")
+    reset_launches()
+    rounds_out, secs_rounds = timed_run(torch, lambda: run("rounds"))
+    rounds_launches = read_launches()
+    check(rounds_launches[kernel] == rounds // sched.detector_stride
+          and rounds_launches["regret_scan"] == 0,
+          f"{label} rounds: {kernel} launched {rounds_launches[kernel]} times, expected "
+          f"{rounds // sched.detector_stride}, regret_scan {rounds_launches['regret_scan']}")
+    _, secs_scan_again = timed_run(torch, lambda: run(None))
+    err = compare_routes(torch, scan, rounds_out, f"{label} scan vs rounds")
+    bound, bound_by = scan_bound_ms(sched, rounds, splits)
+    ms_scan, ms_scan_again, ms_rounds = secs_scan * 1e3, secs_scan_again * 1e3, secs_rounds * 1e3
+    line(f"  {label} scan route: T={rounds} {ms_scan:.3f} ms a run ({ms_scan / rounds:.6f} "
+         f"ms/round), again {ms_scan_again:.3f} ms; regret_scan.launches="
+         f"{scan_launches['regret_scan']}, {splits} GLR splits, bound {bound:.2e} ms ({bound_by})")
+    line(f"  {label} rounds route: T={rounds} {ms_rounds:.1f} ms a run ({ms_rounds / rounds:.4f} "
+         f"ms/round), {ms_rounds / ms_scan:.0f}x the scan's; {kernel}.launches="
+         f"{rounds_launches[kernel]}")
+    line(f"  {label}: schedule, restarts={int(scan['restarts'])}, regret, AoI, success rate and "
+         f"final state of the two routes bitwise equal, variance sums within rtol 1e-6")
+    launches = {k: scan_launches[k] + rounds_launches[k] for k in COUNTERS}
+    fields = dict(scan_source="src/repro_torch/kernels/csrc/regret_scan.cu",
+                  scan_launches=scan_launches["regret_scan"], scan_rounds=rounds,
+                  scan_ms=ms_scan, scan_ms_again=ms_scan_again, scan_ms_per_round=ms_scan / rounds,
+                  scan_plain_ms=ms_rounds, scan_bound_ms=bound, scan_bound_by=bound_by,
+                  scan_splits=splits, scan_max_abs_err=err)
+    return scan, launches, fields
+
+
+def scan_chain_cost(torch, sched, env, uniforms, ms_stride):
+    """What a scan round costs without and with detection: the same run at
+    detector stride 1e9 (a detection at round 0 only: the per-round
+    dependency chain of warp 0 alone) and 1 (a detection every round),
+    beside the run's own stride.  Per-round chain = t(1e9) / T; per
+    detection round = (t(1) - t(1e9)) / (T - 1)."""
+    import dataclasses
+
+    from repro_torch.core.regret import simulate_aoi_regret
+
+    rounds = uniforms.shape[0]
+    ms = {}
+    for stride in (10**9, 1):
+        s = dataclasses.replace(sched, detector_stride=stride)
+        _, secs = timed_run(torch, lambda: simulate_aoi_regret(s, env, rounds, uniforms=uniforms))
+        ms[stride] = secs * 1e3
+    chain_us = ms[10**9] / rounds * 1e3
+    detect_us = (ms[1] - ms[10**9]) / (rounds - 1) * 1e3
+    line(f"  fig2 scan chain: T={rounds} stride 1e9 {ms[10**9]:.3f} ms, stride "
+         f"{sched.detector_stride} {ms_stride:.3f} ms, stride 1 {ms[1]:.3f} ms: the per-round "
+         f"chain {chain_us:.3f} us a round, a detection round {detect_us:.3f} us more")
+
+
+def scan_call_cost(torch, sched, env, uniforms, ms_per_round, rounds=500, calls=20):
+    """The scan route's fixed cost a call on the host: ``calls`` runs of
+    ``rounds`` rounds (the profile window's length), each ending in a
+    synchronize, against ``rounds`` x the full run's time a round."""
+    from repro_torch.core.regret import simulate_aoi_regret
+
+    u = uniforms[:rounds].contiguous()
+    run = lambda: simulate_aoi_regret(sched, env, rounds, uniforms=u, collect_curve=False)
+    timed_run(torch, run)
+    ms_call = sum(timed_run(torch, run)[1] for _ in range(calls)) / calls * 1e3
+    kernel_ms = rounds * ms_per_round
+    line(f"  fig2 scan call: {rounds} rounds {ms_call:.4f} ms a call (mean of {calls}, each "
+         f"synchronized), {rounds} x {ms_per_round:.6f} ms = {kernel_ms:.4f} ms of rounds: "
+         f"{ms_call - kernel_ms:.4f} ms fixed a call (state init, checks, allocation, launch)")
+
+
+# ---------------------------------------------------------------------------
 # phase 3: Fig. 2 AoI-regret path
 # ---------------------------------------------------------------------------
 
@@ -667,7 +872,7 @@ def fig2(torch, seed):
     from repro_torch.core.bandits import GLRCUCB
     from repro_torch.core.channels import make_scenario
     from repro_torch.core.regret import simulate_aoi_regret, sublinearity_index
-    from repro_torch.kernels.glr_step import glr_step
+    from repro_torch.kernels.regret_scan import regret_scan
 
     n, m = 5, 2
     sched = GLRCUCB(n, m, history=1024, detector_stride=5)
@@ -678,39 +883,38 @@ def fig2(torch, seed):
     line("  fig2 env: " + json.dumps({"means": env.means.cpu().tolist(),
                                       "breaks": env.breaks.cpu().tolist()}))
 
-    # reference: a shorter run on the card (fused kernel path) equals the
-    # same run on the CPU (plain split path) on the same uniforms
+    # reference: a shorter run on the card (the scan kernel) equals the same
+    # run on the CPU (the plain per-round loop) on the same uniforms
     t_ref = FIG2_REF_ROUNDS             # typically passes a breakpoint and a restart
     u = torch.rand((t_ref, 2, n), generator=gen, device="cuda")
+    before = regret_scan.launches
     card = simulate_aoi_regret(sched, env, t_ref, uniforms=u)
+    check(regret_scan.launches == before + 1, "fig2 reference: the card run did not take the scan")
     cpu = simulate_aoi_regret(sched, env.to("cpu"), t_ref, uniforms=u.cpu(), device="cpu")
     check(torch.equal(card["channels"].cpu(), cpu["channels"]), "fig2: card schedule != CPU schedule")
     check(int(card["restarts"]) == int(cpu["restarts"]), "fig2: card restarts != CPU restarts")
     check(torch.equal(card["regret"].cpu(), cpu["regret"]), "fig2: card regret != CPU regret")
-    line(f"  fig2 reference: {t_ref} rounds on the card equal the CPU run "
+    line(f"  fig2 reference: {t_ref} rounds of the scan route on the card equal the CPU run "
          f"(schedule, restarts={int(cpu['restarts'])}, regret={float(cpu['final_regret']):.0f})")
 
     # drawn as simulate_aoi_regret would draw them from gen; kept for phase 6
     uniforms = torch.rand((rounds, 2, n), generator=gen, device="cuda")
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = simulate_aoi_regret(sched, env, rounds, uniforms=uniforms)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = read_launches()
-    check(launches["glr_step"] == rounds // 5,
-          f"fig2: glr_step launched {launches['glr_step']} times, expected {rounds // 5}")
+    out, launches, scan_fields = fig2_routes(torch, "fig2", sched, env, uniforms)
     regret = out["regret"]
     check(regret.shape == (rounds,) and bool(torch.isfinite(regret).all()), "fig2: regret not finite")
-    profile_window(torch, "fig2", lambda: simulate_aoi_regret(
+    scan_chain_cost(torch, sched, env, uniforms, scan_fields["scan_ms"])
+    scan_call_cost(torch, sched, env, uniforms, scan_fields["scan_ms_per_round"])
+    profile_window(torch, "fig2 rounds route", lambda: simulate_aoi_regret(
+        sched, env, 500, generator=gen, collect_curve=False, impl="rounds"), 500)
+    profile_window(torch, "fig2 scan route", lambda: simulate_aoi_regret(
         sched, env, 500, generator=gen, collect_curve=False), 500)
+    profile_window(torch, "fig2 scan route", lambda: simulate_aoi_regret(
+        sched, env, rounds, uniforms=uniforms), rounds)
     sub = float(sublinearity_index(regret))
     line(f"  fig2: T={rounds} final_regret={float(out['final_regret']):.1f} "
          f"restarts={int(out['restarts'])} sublinearity_index={sub:.4f} "
-         f"success_rate={float(out['success_rate']):.4f} seconds={secs:.2f} "
-         f"({secs / rounds * 1e3:.3f} ms/round) glr_step.launches={launches['glr_step']}")
-    return launches, dict(env=env, uniforms=uniforms, out=out, n=n, m=m)
+         f"success_rate={float(out['success_rate']):.4f}")
+    return launches, dict(env=env, uniforms=uniforms, out=out, n=n, m=m, scan=scan_fields)
 
 
 # ---------------------------------------------------------------------------
@@ -719,34 +923,23 @@ def fig2(torch, seed):
 
 def fig2_recompute(torch, f2):
     """Phase 3's run again with ``detector_impl="recompute"`` on the same
-    env and uniforms: every decision must be the same, bit for bit."""
+    env and uniforms, on both routes: every decision must equal the
+    streaming scan's, bit for bit."""
     from repro_torch.core.bandits import GLRCUCB
-    from repro_torch.core.regret import simulate_aoi_regret
 
-    rounds = FIG2_ROUNDS
     sched = GLRCUCB(f2["n"], f2["m"], history=1024, detector_stride=5, detector_impl="recompute")
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = simulate_aoi_regret(sched, f2["env"], rounds, uniforms=f2["uniforms"])
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = read_launches()
-    check(launches["glr_scan"] == rounds // 5,
-          f"fig2 recompute: glr_scan launched {launches['glr_scan']} times, expected {rounds // 5}")
-    check(launches["glr_step"] == 0, "fig2 recompute: the streaming kernel ran")
+    out, launches, scan_fields = fig2_routes(torch, "fig2 recompute", sched, f2["env"],
+                                             f2["uniforms"])
     ref = f2["out"]
-    check(torch.equal(out["channels"], ref["channels"]),
-          "fig2 recompute: schedule differs from the streaming run")
-    check(int(out["restarts"]) == int(ref["restarts"]),
-          f"fig2 recompute: {int(out['restarts'])} restarts, streaming {int(ref['restarts'])}")
-    check(torch.equal(out["regret"], ref["regret"]),
-          "fig2 recompute: regret differs from the streaming run")
-    line(f"  fig2 recompute: T={rounds} schedule, restarts={int(out['restarts'])} and regret "
-         f"{float(out['final_regret']):.1f} bitwise equal to the streaming run; "
-         f"seconds={secs:.2f} ({secs / rounds * 1e3:.3f} ms/round) "
-         f"glr_scan.launches={launches['glr_scan']}")
-    return launches
+    for k in BITWISE_OUT + VAR_OUT:
+        check(torch.equal(out[k], ref[k]), f"fig2 recompute: {k} differs from the streaming scan")
+    for f in ("mu_tilde", "counts", "tau", "restarts"):
+        check(torch.equal(getattr(out["final_sched_state"], f),
+                          getattr(ref["final_sched_state"], f)),
+              f"fig2 recompute: final {f} differs from the streaming scan")
+    line(f"  fig2 recompute: schedule, restarts={int(out['restarts'])}, regret "
+         f"{float(out['final_regret']):.1f}, AoI and variances bitwise equal to the streaming scan")
+    return launches, scan_fields
 
 
 # ---------------------------------------------------------------------------
@@ -1144,9 +1337,10 @@ def serve_path(torch, seed, n_layers):
 
 
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
-                fa_t):
+                fa_t, fig2_scan, recompute_scan):
     """The entries of the kernels line: launches from the paths, the rest
-    from phase 2."""
+    from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
+    (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -1160,11 +1354,12 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               tenants_replaces="src/repro/kernels/glr_step.py:210",
               tenants_shape=[256, 16, 1024], tenants_ms=tenants["ms"],
               tenants_plain_ms=tenants["plain_ms"], tenants_bound_ms=tenants["bound_ms"],
-              tenants_bound_by=tenants["bound_by"]),
+              tenants_bound_by=tenants["bound_by"], **fig2_scan),
         entry("weighted_aggregate", "src/repro/kernels/weighted_aggregate.py:47", wa_err,
               wa_t["fig3"]),
         entry("robust_trimmed", "src/repro/kernels/robust_agg.py:73", rt_err, rt_t["fig3"]),
-        entry("glr_scan", "src/repro/kernels/glr_scan.py:70", gs_err, gs_t["fig2"]),
+        entry("glr_scan", "src/repro/kernels/glr_scan.py:70", gs_err, gs_t["fig2"],
+              **recompute_scan),
         entry("flash_attention", "src/repro/kernels/flash_attention.py:123", fa_err,
               fa_t["model"], source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
               shape_b_hq_hkv_s_d=[4, 64, 8, SERVE_PROMPT, 128], causal=True,
@@ -1226,6 +1421,7 @@ def main(argv=None) -> int:
             wa_err, wa_t = check_weighted_aggregate(torch, gen, floor_ms)
             rt_err, rt_t = check_robust_trimmed(torch, gen, floor_ms)
             gs_err, gs_t = check_glr_scan(torch, gen, floor_ms)
+            check_regret_scan(torch, args.seed)
             fa_err, fa_t = check_flash_attention(torch, gen, floor_ms)
             # the checks' gigabytes go back to the driver before the timed paths
             peak = torch.cuda.max_memory_reserved() / 2 ** 30
@@ -1241,7 +1437,8 @@ def main(argv=None) -> int:
         line("[5] Fig. 3 path under Byzantine faults, robust aggregation")
         robust_launches = fig3_robust(torch, S, args.seed, clean_acc)
         line("[6] Fig. 2 path, recompute detector")
-        recompute_launches = fig2_recompute(torch, f2)
+        recompute_launches, recompute_scan = fig2_recompute(torch, f2)
+        fig2_scan = f2["scan"]
         del f2, S
         release(torch)
         line("[7] serving path: qwen3-32b prefill and greedy decode")
@@ -1261,7 +1458,8 @@ def main(argv=None) -> int:
     line(smi)
     if not args.paths:
         line(json.dumps({"kernels": kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err,
-                                                rt_t, gs_err, gs_t, fa_err, fa_t)}))
+                                                rt_t, gs_err, gs_t, fa_err, fa_t, fig2_scan,
+                                                recompute_scan)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -5,11 +5,13 @@ channel environment for T rounds (the paper's Fig. 2):
 
     R_pi(T) = sum_i sum_t E[ a_i^pi(t) - a_i^*(t) ]
 
-Twin of ``repro/core/regret.py``, with a Python loop for ``lax.scan``.
-Each round consumes two (N,) f32 uniforms, ``u[t, 0]`` for the channel
-draw and ``u[t, 1]`` for the policy, as the JAX harness splits each round
-key into ``k_env, k_sel``.  The loop never waits on the device: the round
-index is a Python int and every decision stays a tensor.
+Twin of ``repro/core/regret.py``.  Its ``lax.scan`` over the horizon has
+two counterparts: on the card, GLR-CUCB's whole run is one launch of the
+``regret_scan`` kernel; elsewhere a Python loop, which is that kernel's
+plain version.  Each round consumes two (N,) f32 uniforms, ``u[t, 0]`` for
+the channel draw and ``u[t, 1]`` for the policy, as the JAX harness splits
+each round key into ``k_env, k_sel``.  The loop never waits on the device:
+the round index is a Python int and every decision stays a tensor.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from repro_torch.core.bandits.base import init_with_hp
 from repro_torch.core.bandits.oracle import oracle_assign
 from repro_torch.core.channels import ChannelEnv, ChannelProcess
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels import regret_scan as _rs
 
 
 def policy_round(scheduler, sched_state, aoi, t: int, u_sel, ch_states):
@@ -38,6 +42,9 @@ def policy_round(scheduler, sched_state, aoi, t: int, u_sel, ch_states):
     return sched_state, aoi, channels, rewards
 
 
+IMPLS = (None, "scan", "rounds")
+
+
 def simulate_aoi_regret(
     scheduler,
     env,
@@ -48,12 +55,20 @@ def simulate_aoi_regret(
     hp=None,
     return_state: bool = False,
     device=None,
+    impl: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """Simulate ``scheduler`` vs the oracle for ``horizon`` rounds.
 
     ``env`` is a ``ChannelEnv`` or a ``ChannelProcess`` (realized here from
     ``generator``).  The randomness is ``uniforms`` (T, 2, N) when given,
     else drawn from ``generator`` on ``device`` (default ``cuda``).
+
+    ``impl`` picks the route: ``"scan"``, one launch of the ``regret_scan``
+    kernel for all T rounds (raises ``ValueError`` naming the condition
+    where ``kernels.regret_scan.refusal`` refuses the run); ``"rounds"``, the
+    per-round loop (on the card through ``ops.glr_step``/``ops.glr_scan``);
+    ``None``, the scan wherever ``refusal`` accepts the run, else the loop.
+    The choice reads only types, fields and shapes: no device sync.
 
     Returns a dict with ``regret`` ((T,) cumulative AoI-regret curve, or the
     final scalar), ``final_regret``, ``cum_aoi_var`` / ``final_cum_aoi_var``
@@ -62,13 +77,15 @@ def simulate_aoi_regret(
     ``restarts`` for restart-counting detectors, ``channels`` ((T, M), the
     policy's schedule) and, with ``return_state``, ``final_sched_state``.
     """
+    if impl not in IMPLS:
+        raise ValueError(f"simulate_aoi_regret: unknown impl {impl!r}; use one of {IMPLS}")
     dev = resolve_device(device)
     if isinstance(env, ChannelProcess):
         env = env.realize(generator, device=dev)
     if not isinstance(env, ChannelEnv):
         raise TypeError(f"simulate_aoi_regret: env must be a ChannelEnv, got {type(env)}")
     env = env.to(dev)
-    n, m = env.n_channels, scheduler.n_clients
+    n = env.n_channels
     if uniforms is None:
         uniforms = torch.rand((horizon, 2, n), generator=generator, device=dev)
     elif tuple(uniforms.shape) != (horizon, 2, n):
@@ -76,8 +93,23 @@ def simulate_aoi_regret(
             f"simulate_aoi_regret: uniforms must be ({horizon}, 2, {n}), "
             f"got {tuple(uniforms.shape)}")
     uniforms = uniforms.to(device=dev, dtype=torch.float32)
-
     sched_state = init_with_hp(scheduler, dev, hp)
+    if impl != "rounds":
+        refusal = _rs.refusal(scheduler, env, sched_state, uniforms)
+        if refusal is None:
+            return ops.regret_scan(scheduler, env, sched_state, uniforms, collect_curve,
+                                   return_state)
+        if impl == "scan":
+            raise ValueError(f"simulate_aoi_regret: impl='scan' does not apply: {refusal}")
+    return _simulate_rounds(scheduler, env, sched_state, uniforms, collect_curve, return_state)
+
+
+def _simulate_rounds(scheduler, env, sched_state, uniforms, collect_curve: bool,
+                     return_state: bool) -> Dict[str, torch.Tensor]:
+    """The per-round loop from ``sched_state`` over the rounds of
+    ``uniforms`` (T, 2, N): the plain version of the ``regret_scan`` kernel."""
+    dev = uniforms.device
+    horizon, n, m = uniforms.shape[0], env.n_channels, scheduler.n_clients
     aoi_pi, aoi_star = init_aoi(m, dev), init_aoi(m, dev)
     zero = torch.zeros((), device=dev)
     cum_regret, cum_var_pi, cum_var_star, successes = zero, zero, zero, zero

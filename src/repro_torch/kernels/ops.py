@@ -15,6 +15,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import glr_scan as _gsc
 from repro_torch.kernels import glr_step as _gs
 from repro_torch.kernels import ref as ref  # re-export the plain versions
+from repro_torch.kernels import regret_scan as _rs
 from repro_torch.kernels import robust_agg as _ra
 from repro_torch.kernels import weighted_aggregate as _wa
 
@@ -81,6 +82,20 @@ def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     if hist.device.type != "cpu":
         raise ValueError(f"glr_scan: no kernel for device {hist.device}")
     return ref.glr_scan(hist, counts)
+
+
+def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bool = True,
+                return_state: bool = False):
+    """GLR-CUCB's AoI-regret harness over the T rounds of ``uniforms`` (T, 2, N)
+    from ``state``: on CUDA one launch of ``csrc/regret_scan.cu``; on the CPU
+    its plain version, the per-round loop.  Returns the dict of
+    ``simulate_aoi_regret``."""
+    if uniforms.is_cuda:
+        return _rs.regret_scan(scheduler, env, state, uniforms, collect_curve, return_state)
+    if uniforms.device.type != "cpu":
+        raise ValueError(f"regret_scan: no kernel for device {uniforms.device}")
+    from repro_torch.core.regret import _simulate_rounds   # the plain version imports ops
+    return _simulate_rounds(scheduler, env, state, uniforms, collect_curve, return_state)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,

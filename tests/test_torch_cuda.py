@@ -24,8 +24,14 @@ in bf16 to the plain version on the same inputs in f32, at rtol 2**-8 (the
 output's one rounding to bf16 is at most 2**-9 relative) and atol 1e-4;
 bf16 with D % 8 == 0 and D <= 128 must take the tensor-core route (which
 splits P into two bf16 terms to stay inside that tolerance), every other
-call the FMA route.
+call the FMA route.  ``regret_scan`` (a whole regret-harness run in one
+launch) equals the per-round route with the plain detector bit for bit in
+schedule, restarts, regret, AoI, success rate and final state; the
+variance sums at rtol 1e-6 (the kernel adds the M squared deviations in
+another order than torch's reduction).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -33,10 +39,13 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.aggregation import make_aggregator  # noqa: E402
 from repro_torch.core.bandits import GLRCUCB  # noqa: E402
+from repro_torch.core.channels import make_piecewise, make_stationary, table_env  # noqa: E402
+from repro_torch.core.regret import simulate_aoi_regret  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, tc_route  # noqa: E402
 from repro_torch.kernels.glr_scan import glr_scan  # noqa: E402
 from repro_torch.kernels.glr_step import glr_step  # noqa: E402
+from repro_torch.kernels.regret_scan import regret_scan  # noqa: E402
 from repro_torch.kernels.robust_agg import robust_trimmed  # noqa: E402
 from repro_torch.kernels.weighted_aggregate import weighted_aggregate  # noqa: E402
 
@@ -294,3 +303,78 @@ def test_attn_core_takes_the_kernel_at_every_length(cuda):
         assert flash_attention.launches == before + 1
         torch.testing.assert_close(y, y2, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(g, g2, rtol=1e-4, atol=1e-4)
+
+
+_SCAN_T = 2500
+_FAST = dict(delta=0.1, min_samples=4)
+# label -> (GLRCUCB arguments, env kind); every env but "stationary" flips each
+# channel's mean every 250 rounds, so the detectors restart several times
+# (but at stride 1e9, which tests round 0 only)
+_SCAN_CASES = {
+    "table": (dict(n=5, m=2, history=64, detector_stride=5, **_FAST), "table"),
+    "stationary": (dict(n=5, m=2, history=1024, detector_stride=5), "stationary"),
+    "alpha": (dict(n=5, m=2, history=64, detector_stride=5, alpha=0.2, **_FAST), "flip"),
+    "geometric": (dict(n=5, m=2, history=256, split_grid="geometric", **_FAST), "flip"),
+    "h33": (dict(n=5, m=2, history=33, **_FAST), "flip"),
+    "n30_m20_stride1": (dict(n=30, m=20, history=256, **_FAST), "flip"),
+    "n32": (dict(n=32, m=8, history=1024, detector_stride=5, **_FAST), "flip"),
+    "static_stride": (dict(n=5, m=2, history=64, detector_stride=10**9), "flip"),
+    "recompute_h33": (dict(n=5, m=2, history=33, detector_impl="recompute", **_FAST), "flip"),
+    "recompute_table": (dict(n=5, m=3, history=64, detector_stride=3, detector_impl="recompute",
+                             **_FAST), "table"),
+}
+
+
+def _scan_env(kind, n, rng, device):
+    a = rng.random(n).astype(np.float32)
+    if kind == "stationary":
+        return make_stationary(a, device=device)
+    segs = -(-_SCAN_T // 250)
+    means = np.stack([a if s % 2 == 0 else 1.0 - a for s in range(segs)])
+    if kind == "table":
+        table = np.repeat(means, 250, axis=0)[:_SCAN_T]
+        table = table + rng.uniform(-0.05, 0.05, table.shape).astype(np.float32)
+        return table_env(table.clip(0.0, 1.0), device=device)
+    return make_piecewise(means, [250 * s for s in range(1, segs)], device=device)
+
+
+@pytest.mark.parametrize("case", list(_SCAN_CASES))
+def test_regret_scan_matches_rounds(cuda, case):
+    """One ``regret_scan`` launch against the per-round route on the card:
+    the streaming rounds with ``detector_backend="torch"`` (plain ops), the
+    recompute rounds through ``glr_scan``."""
+    cfg, kind = _SCAN_CASES[case]
+    cfg = dict(cfg)
+    sched = GLRCUCB(cfg.pop("n"), cfg.pop("m"), **cfg)
+    rng = np.random.default_rng(11)
+    env = _scan_env(kind, sched.n_channels, rng, cuda)
+    u = torch.from_numpy(rng.random((_SCAN_T, 2, sched.n_channels)).astype(np.float32)).to(cuda)
+    before = regret_scan.launches, glr_step.launches
+    got = simulate_aoi_regret(sched, env, _SCAN_T, uniforms=u, return_state=True)
+    assert (regret_scan.launches, glr_step.launches) == (before[0] + 1, before[1])
+    plain = sched if sched.detector_impl == "recompute" else \
+        dataclasses.replace(sched, detector_backend="torch")
+    want = simulate_aoi_regret(plain, env, _SCAN_T, uniforms=u, return_state=True, impl="rounds")
+    assert regret_scan.launches == before[0] + 1
+    if kind != "stationary" and sched.detector_stride < _SCAN_T:
+        assert int(want["restarts"]) > 0
+    for k in ("channels", "restarts", "regret", "final_regret", "aoi_pi", "aoi_star",
+              "success_rate"):
+        assert torch.equal(got[k], want[k]), k
+    gs, ws = got["final_sched_state"], want["final_sched_state"]
+    for f in ("mu_tilde", "counts", "tau", "hist", "restarts", "cum", "total", "base"):
+        assert torch.equal(getattr(gs, f), getattr(ws, f)), f
+    for k in ("cum_aoi_var", "final_cum_aoi_var", "oracle_cum_aoi_var"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=0)
+
+
+def test_fig2_rounds_route_launches_glr_step(cuda):
+    """``impl="rounds"`` keeps the standalone detector kernel: T/stride
+    ``glr_step`` launches and no ``regret_scan``."""
+    sched = GLRCUCB(5, 2, history=64, detector_stride=5)
+    rng = np.random.default_rng(3)
+    env = _scan_env("flip", 5, rng, cuda)
+    u = torch.from_numpy(rng.random((500, 2, 5)).astype(np.float32)).to(cuda)
+    before = regret_scan.launches, glr_step.launches
+    simulate_aoi_regret(sched, env, 500, uniforms=u, impl="rounds")
+    assert (regret_scan.launches, glr_step.launches) == (before[0], before[1] + 100)

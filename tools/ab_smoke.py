@@ -23,7 +23,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-# chip_smoke.py's path lines: "  fig2: T=20000 ... (1.676 ms/round)" and
+# chip_smoke.py's path lines: "  fig2 scan route: T=20000 ... (0.0020 ms/round)" and
 # "  fig3 ...: ... seconds/round=0.0152"; a run that yields none is an error
 _MS = re.compile(r"^  (fig[23][^:]*): .*\((\d+\.\d+) ms/round\)")
 _S = re.compile(r"^  (fig3[^:]*): .*seconds/round=(\d+\.\d+)")

@@ -12,6 +12,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    path's shapes and larger ones, with the stated tolerances, and their
    times beside the plain version's, the bound and a library call; the
    card's floor per launch, from an empty kernel launched back to back;
+   ``weighted_aggregate`` bitwise against the row-order sum at every load
+   width, and ``robust_trimmed``'s median bitwise on rows of NaN, +-inf,
+   +-0 and ties; for both, kernel and library call timed back to back in
+   one window each and again in interleaved turns, device time from a
+   trace, and at the Fig. 3 shape the host split of one call (checks, load, allocation, stream lookup, ``ctypes``
+   call); ``robust_trimmed``'s bound at 1 instruction an ordered pair,
+   the older 4-op bound beside it;
    and ``regret_scan`` (the whole regret harness in one launch) against the
    per-round route with the plain detector on nine short edge runs (a table
    env, S=1, alpha=0.2, the geometric grid, H=33 with restarts, N=30 M=20
@@ -83,7 +90,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 F32_LANE_OPS = F32_FLOPS / 2   # FP32 lane instructions a second (an FMA counts 2 flops)
 KL_SPLIT_FLOPS = 32            # f32 operations per evaluated GLR split
-RANK_PAIR_OPS = 4              # lane operations per rank test: two compares, a select, an add
+RANK_PAIR_OPS = 1              # lane instructions per ordered pair: the least a rank count issues
+OLD_RANK_PAIR_OPS = 4          # the bound stated before: two compares, a select, an add
+HOST_SPLIT_CALLS = 10_000      # calls averaged in each host-split piece
 FIG2_ROUNDS = 20000            # the paper's Fig. 2 horizon (benchmarks/run.py:175)
 FIG2_REF_ROUNDS = 5000         # the card-vs-CPU reference run of Fig. 2
 SCAN_EDGE_ROUNDS = 1500        # each edge run of regret_scan against the rounds route (phase 2)
@@ -168,11 +177,9 @@ def time_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def profile_window(torch, label, fn, rounds):
-    """Trace ``fn`` (``rounds`` rounds of a loop) with ``torch.profiler`` and
-    print the device's busy share of the wall time, kernels launched per
-    round and the kernels that take the most device time.  Returns the
-    device time by kernel name in us ({} when the trace has none)."""
+def trace_kernels(torch, fn):
+    """Run ``fn`` once under ``torch.profiler``: (the device kernels of the
+    exported trace, the wall time in us)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -189,7 +196,65 @@ def profile_window(torch, label, fn, rounds):
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
         events = json.loads(trace.read_text()).get("traceEvents", [])
-    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    return [e for e in events if e.get("cat") == "kernel" and "dur" in e], wall_us
+
+
+def device_ms(torch, fn, calls):
+    """Device time a call of ``fn``: the kernel intervals of ``calls``
+    back-to-back calls in a ``torch.profiler`` trace, summed, over
+    ``calls`` (every kernel a call launches counts).  None when the trace
+    holds no kernel."""
+    fn()
+    kernels, _ = trace_kernels(torch, lambda: [fn() for _ in range(calls)])
+    return sum(float(e["dur"]) for e in kernels) / calls / 1e3 if kernels else None
+
+
+def host_split(torch, label, pieces, whole, calls=HOST_SPLIT_CALLS, chunk=500):
+    """Mean host microseconds a call of each piece of a wrapper and of the
+    whole wrapper call, by ``time.perf_counter`` over ``calls`` calls in
+    chunks of ``chunk``; the device catches up between chunks (untimed), so
+    the launch queue never fills and the host never waits for the device.
+    Prints one line; returns {piece: us}."""
+    def per_call(fn):
+        fn()
+        total = 0.0
+        for _ in range(calls // chunk):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(chunk):
+                fn()
+            total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return total / (calls // chunk * chunk) * 1e6
+
+    split = {name: per_call(fn) for name, fn in pieces.items()}
+    split["whole call"] = per_call(whole)
+    parts = sum(v for k, v in split.items() if k != "whole call")
+    line(f"  {label} host split, mean of {calls} calls: "
+         + ", ".join(f"{k} {v:.3f} us" for k, v in split.items() if k != "whole call")
+         + f"; pieces {parts:.3f} us, whole call {split['whole call']:.3f} us "
+         f"(the rest: data_ptr reads, the counter, the error test)")
+    return split
+
+
+def turns_ms(torch, fns, iters, turns=3):
+    """``time_ms`` of each of ``fns`` ({label: fn}), taken in turns
+    (a, b, a, b, ...) ``turns`` times: {label: [ms of each turn]}.  A host-
+    bound call moves by tens of percent between back-to-back windows; the
+    turns show that spread beside the single window of ``time_ms``."""
+    out = {k: [] for k in fns}
+    for _ in range(turns):
+        for k, fn in fns.items():
+            out[k].append(time_ms(torch, fn, iters))
+    return out
+
+
+def profile_window(torch, label, fn, rounds):
+    """Trace ``fn`` (``rounds`` rounds of a loop) with ``torch.profiler`` and
+    print the device's busy share of the wall time, kernels launched per
+    round and the kernels that take the most device time.  Returns the
+    device time by kernel name in us ({} when the trace has none)."""
+    kernels, wall_us = trace_kernels(torch, fn)
     if not kernels:
         line(f"  profile {label}: no device kernels in the trace; device busy share not measured")
         return {}
@@ -353,44 +418,87 @@ def scale_like_main_path(torch, m, gen):
     return mask * zeta * (m / mask.sum())
 
 
-def check_weighted_aggregate(torch, gen, floor_ms):
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.weighted_aggregate import weighted_aggregate as kernel
+def row_order_sum(torch, upd, scale):
+    """``acc = acc + scale[r] * x[r]``, r = 0..M-1, one rounded product and
+    one rounded add a row: the kernel's own order and rounding."""
+    acc = torch.zeros(upd.shape[1], device=upd.device)
+    for r in range(upd.shape[0]):
+        acc = acc + scale[r] * upd[r].float()
+    return acc
 
+
+def check_weighted_aggregate(torch, gen, floor_ms):
+    """Kernel against plain (rtol 1e-5 / atol 1e-6: torch's ``sum`` may add
+    in another order) and bitwise against the row-order sum, at every load
+    width: (20, 5674) and (64, 2^24 + 2) 8-byte f32 rows, (64, 2^24) 16-byte,
+    (64, 2^24 + 3) 4-byte.  Times at the Fig. 3 shape and both large ones:
+    per call back to back (host included), device time from a trace, the
+    plain version, ``scale @ updates``; the host split of one call."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import weighted_aggregate as wa_mod
+
+    kernel = wa_mod.weighted_aggregate
+    shapes = {"fig3": (20, 5674), "large": (64, 2 ** 24), "large_ragged": (64, 2 ** 24 + 2)}
     max_err = 0.0
-    for m, p in ((20, 5674), (64, 2 ** 24 + 3), (64, 2 ** 24)):
+    for m, p in (shapes["fig3"], (64, 2 ** 24 + 3), shapes["large"], shapes["large_ragged"]):
         for dtype in (torch.float32, torch.bfloat16):
             upd = torch.randn((m, p), generator=gen, device="cuda").to(dtype)
             scale = scale_like_main_path(torch, m, gen)
             got = ops.weighted_aggregate(upd, scale)
             want = ref.weighted_aggregate(upd, scale)
+            rows = row_order_sum(torch, upd, scale)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
-            check(got.dtype == torch.float32 and got.shape == (p,), "weighted_aggregate: shape/dtype")
+            check(got.dtype == torch.float32 and got.shape == (p,),
+                  "weighted_aggregate: shape/dtype")
             check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
                   f"weighted_aggregate ({m}, {p}) {dtype}: beyond rtol 1e-5 / atol 1e-6 ({err})")
+            check(torch.equal(got, rows),
+                  f"weighted_aggregate ({m}, {p}) {dtype}: not bitwise equal to the row-order sum")
             max_err = max(max_err, err)
             line(f"  weighted_aggregate ({m}, {p}) {str(dtype).split('.')[-1]}: "
-                 f"max_abs_err={err:.3e} ok")
-            del upd, got, want
+                 f"max_abs_err={err:.3e} vs plain, bitwise equal to the row-order sum ok")
+            del upd, got, want, rows
 
     timings = {}
-    for m, p, label in ((20, 5674, "fig3"), (64, 2 ** 24, "large")):
+    for label, (m, p) in shapes.items():
         upd = torch.randn((m, p), generator=gen, device="cuda")
         scale = scale_like_main_path(torch, m, gen)
-        iters = 2000 if p < 10 ** 6 else 20
-        ms = time_ms(torch, lambda: kernel(upd, scale), iters)
-        plain_ms = time_ms(torch, lambda: ref.weighted_aggregate(upd, scale), iters)
-        library_ms = time_ms(torch, lambda: scale @ upd, iters)
+        small = p < 10 ** 6
+        iters = 2000 if small else 20
+        call, library = lambda: kernel(upd, scale), lambda: scale @ upd
+        t = dict(ms=time_ms(torch, call, iters),
+                 plain_ms=time_ms(torch, lambda: ref.weighted_aggregate(upd, scale), iters),
+                 library_ms=time_ms(torch, library, iters))
+        turns = turns_ms(torch, {"kernel": call, "library": library}, iters)
+        t.update(turns_ms=turns["kernel"], library_turns_ms=turns["library"],
+                 device_ms=device_ms(torch, call, 100 if small else 10),
+                 library_device_ms=device_ms(torch, library, 100 if small else 10))
         nbytes = m * p * 4 + m * 4 + p * 4
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * m * p / F32_FLOPS * 1e3
-        bound, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                              library_ms=library_ms)
-        line(f"  weighted_aggregate time {label} ({m}, {p}) f32: kernel {ms:.4f} ms, "
-             f"plain {plain_ms:.4f} ms, library (scale @ updates) {library_ms:.4f} ms, "
-             f"bound {bound:.4f} ms ({bound_by}), launch floor {floor_ms:.5f} ms, "
-             f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
+        t["bound_ms"], t["bound_by"] = two_way_bound(nbytes, 2 * m * p, F32_FLOPS)
+        timings[label] = t
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+        each = lambda xs: " / ".join(f"{x:.4f}" for x in xs)
+        line(f"  weighted_aggregate time {label} ({m}, {p}) f32: kernel {t['ms']:.4f} ms, "
+             f"plain {t['plain_ms']:.4f} ms, library (scale @ updates) {t['library_ms']:.4f} ms, "
+             f"per call back to back, one window each; interleaved turns: kernel "
+             f"{each(t['turns_ms'])}, library {each(t['library_turns_ms'])}; device time: "
+             f"kernel {fmt(t['device_ms'])}, library {fmt(t['library_device_ms'])}; bound "
+             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), launch floor {floor_ms:.5f} ms, "
+             f"{nbytes / (t['ms'] * 1e-3) / 1e9:.1f} GB/s")
+        if label == "fig3":
+            dev = upd.get_device()
+            fn = _build.load("weighted_aggregate", "weighted_aggregate_launch", wa_mod._ARGTYPES)
+            out = torch.empty(p, device="cuda")
+            args = (upd.data_ptr(), scale.data_ptr(), out.data_ptr(), m, p, 0, _build.stream(dev))
+            t["host_split_us"] = host_split(torch, f"weighted_aggregate ({m}, {p}) f32", {
+                "checks": lambda: wa_mod._checked(upd, scale),
+                "load": lambda: _build.load("weighted_aggregate", "weighted_aggregate_launch",
+                                            wa_mod._ARGTYPES),
+                "output allocation": lambda: upd.new_empty(p, dtype=torch.float32),
+                "stream lookup": lambda: _build.stream(dev),
+                "ctypes call + launch": lambda: fn(*args),
+            }, lambda: kernel(upd, scale))
         del upd
     return max_err, timings
 
@@ -408,14 +516,40 @@ def trim_inputs(torch, m, p, dtype, mask_kind, gen):
     return x, mask
 
 
+def special_trim_inputs(torch, m, p, dtype, mask_kind, gen):
+    """Values drawn from NaN, +-inf, +-0 and ties; every row holds each of
+    them in its first columns; the mask random (about 60 %) or full."""
+    table = torch.tensor([float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1.0, -1.0,
+                          0.5, 0.5, 2.5], device="cuda")
+    idx = torch.randint(0, len(table), (m, p), generator=gen, device="cuda")
+    idx[:, :len(table)] = (torch.arange(m, device="cuda")[:, None]
+                           + torch.arange(len(table), device="cuda")) % len(table)
+    mask = torch.ones(m, device="cuda") if mask_kind == "full" else \
+        (torch.rand(m, generator=gen, device="cuda") < 0.6).to(torch.float32)
+    return table[idx].to(dtype), mask
+
+
+def same_bits(torch, a, b):
+    """Equal bit for bit, NaN where the other has NaN (any payload) and the
+    sign of every zero included."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and \
+        bool(torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
 def check_robust_trimmed(torch, gen, floor_ms):
     """Kernel against plain: the median (k = floor((n-1)/2), at most two
     kept values) bitwise; the trimmed mean (k = 0 and k between) within
     M * 2**-24 * max|x|, the rounding of any order of at most M adds
-    divided by their count."""
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.robust_agg import robust_trimmed as kernel
+    divided by their count; on rows of NaN, +-inf, +-0 and ties the median
+    bitwise, sign of zero and NaN included.  Times at the Fig. 3 shape and
+    64 x (2^22 + 3): per call back to back, device time from a trace, the
+    plain version, ``torch.sort`` + kept-slice mean; the host split; the
+    bound at ``RANK_PAIR_OPS`` with the older ``OLD_RANK_PAIR_OPS`` beside."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import robust_agg as rt_mod
 
+    kernel = rt_mod.robust_trimmed
     max_err = 0.0
     for m, p in ((20, 5674), (64, 2 ** 22 + 3)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -435,7 +569,7 @@ def check_robust_trimmed(torch, gen, floor_ms):
                           "robust_trimmed: shape/dtype")
                     err = float((got - want).abs().max())
                     if k == med:
-                        check(torch.equal(got, want),
+                        check(same_bits(torch, got, want),
                               f"robust_trimmed ({m}, {p}) {dtype} {mask_kind}: median not bitwise")
                     else:
                         check(err <= tol, f"robust_trimmed ({m}, {p}) {dtype} {mask_kind} k={k}: "
@@ -449,6 +583,19 @@ def check_robust_trimmed(torch, gen, floor_ms):
                      f"n={n_int}: median bitwise, max_abs_err {', '.join(errs)} "
                      f"(bound {tol:.1e}) ok")
                 del x
+    for m, p in ((20, 5674), (9, 4099), (33, 4099), (64, 4099)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for mask_kind in ("random", "full"):
+                x, mask = special_trim_inputs(torch, m, p, dtype, mask_kind, gen)
+                n = mask.sum()
+                kt = torch.floor((n - 1.0) / 2.0).clamp_min(0.0)
+                got, want = ops.robust_trimmed(x, mask, n, kt), ref.robust_trimmed(x, mask, n, kt)
+                check(same_bits(torch, got, want), f"robust_trimmed special values ({m}, {p}) "
+                                                   f"{dtype} {mask_kind}: median not bitwise")
+                line(f"  robust_trimmed special values ({m}, {p}) {str(dtype).split('.')[-1]} "
+                     f"mask={mask_kind} n={int(n)}: NaN, +-inf, +-0 and ties, median bitwise "
+                     f"({int(torch.isnan(want).sum())} NaN and {int((want == 0).sum())} zeros "
+                     f"in the output) ok")
 
     timings = {}
     for m, p, label in ((20, 5674, "fig3"), (64, 2 ** 22 + 3, "large")):
@@ -457,22 +604,49 @@ def check_robust_trimmed(torch, gen, floor_ms):
         k = torch.floor((n - 1.0) / 2.0)              # the median, as on the main path
         lo, hi = (m - 1) // 2, m - (m - 1) // 2
         small = p < 10 ** 6
-        ms = time_ms(torch, lambda: kernel(x, mask, n, k), 2000 if small else 20)
-        plain_ms = time_ms(torch, lambda: ref.robust_trimmed(x, mask, n, k), 200 if small else 3)
+        call = lambda: kernel(x, mask, n, k)
         library = lambda: torch.sort(x, dim=0).values[lo:hi].mean(dim=0)
-        library_ms = time_ms(torch, library, 2000 if small else 10)
+        t = dict(ms=time_ms(torch, call, 2000 if small else 20),
+                 plain_ms=time_ms(torch, lambda: ref.robust_trimmed(x, mask, n, k),
+                                  200 if small else 3),
+                 library_ms=time_ms(torch, library, 2000 if small else 10))
+        turns = turns_ms(torch, {"kernel": call, "library": library}, 2000 if small else 10)
+        t.update(turns_ms=turns["kernel"], library_turns_ms=turns["library"],
+                 device_ms=device_ms(torch, call, 100 if small else 10),
+                 library_device_ms=device_ms(torch, library, 100 if small else 10))
         same = bool(torch.equal(library(), kernel(x, mask, n, k)))
         nbytes = m * p * 4 + m * 4 + 8 + p * 4
         pairs = m * m * p                              # every row participates
-        bound, bound_by = two_way_bound(nbytes, RANK_PAIR_OPS * pairs, F32_LANE_OPS)
-        timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                              library_ms=library_ms)
-        line(f"  robust_trimmed time {label} ({m}, {p}) f32 median: kernel {ms:.4f} ms, "
-             f"plain {plain_ms:.4f} ms, library (sort + kept-slice mean) {library_ms:.4f} ms "
-             f"(equal to the kernel: {same}), bound {bound:.4f} ms ({bound_by}: {pairs:.3e} "
-             f"pair tests x {RANK_PAIR_OPS} ops / {F32_LANE_OPS:.3g} lane ops/s; bytes "
-             f"{nbytes / HBM_BYTES_PER_S * 1e3:.2e} ms), launch floor {floor_ms:.5f} ms, "
-             f"{RANK_PAIR_OPS * pairs / (ms * 1e-3) / 1e12:.2f} T lane ops/s")
+        t["bound_ms"], t["bound_by"] = two_way_bound(nbytes, RANK_PAIR_OPS * pairs, F32_LANE_OPS)
+        old_bound, _ = two_way_bound(nbytes, OLD_RANK_PAIR_OPS * pairs, F32_LANE_OPS)
+        timings[label] = t
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+        each = lambda xs: " / ".join(f"{x:.4f}" for x in xs)
+        line(f"  robust_trimmed time {label} ({m}, {p}) f32 median: kernel {t['ms']:.4f} ms, "
+             f"plain {t['plain_ms']:.4f} ms, library (sort + kept-slice mean) "
+             f"{t['library_ms']:.4f} ms (equal to the kernel: {same}), per call back to back, "
+             f"one window each; interleaved turns: kernel {each(t['turns_ms'])}, library "
+             f"{each(t['library_turns_ms'])}; "
+             f"device time: kernel {fmt(t['device_ms'])}, library {fmt(t['library_device_ms'])}; "
+             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {pairs:.3e} ordered pairs x "
+             f"{RANK_PAIR_OPS} instruction / {F32_LANE_OPS:.3g} lane instructions/s; bytes "
+             f"{nbytes / HBM_BYTES_PER_S * 1e3:.2e} ms), the older {OLD_RANK_PAIR_OPS}-op bound "
+             f"{old_bound:.4f} ms, launch floor {floor_ms:.5f} ms, "
+             f"{pairs / (t['ms'] * 1e-3) / 1e12:.2f} T pairs/s")
+        if label == "fig3":
+            dev = x.get_device()
+            fn = _build.load("robust_trimmed", "robust_trimmed_launch", rt_mod._ARGTYPES)
+            out = torch.empty(p, device="cuda")
+            args = (x.data_ptr(), mask.data_ptr(), n.data_ptr(), k.data_ptr(), out.data_ptr(),
+                    m, p, 0, _build.stream(dev))
+            t["host_split_us"] = host_split(torch, f"robust_trimmed ({m}, {p}) f32", {
+                "checks": lambda: rt_mod._checked(x, mask, n, k),
+                "load": lambda: _build.load("robust_trimmed", "robust_trimmed_launch",
+                                            rt_mod._ARGTYPES),
+                "output allocation": lambda: x.new_empty(p, dtype=torch.float32),
+                "stream lookup": lambda: _build.stream(dev),
+                "ctypes call + launch": lambda: fn(*args),
+            }, lambda: kernel(x, mask, n, k))
         del x
     return max_err, timings
 
@@ -1356,8 +1530,20 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               tenants_plain_ms=tenants["plain_ms"], tenants_bound_ms=tenants["bound_ms"],
               tenants_bound_by=tenants["bound_by"], **fig2_scan),
         entry("weighted_aggregate", "src/repro/kernels/weighted_aggregate.py:47", wa_err,
-              wa_t["fig3"]),
-        entry("robust_trimmed", "src/repro/kernels/robust_agg.py:73", rt_err, rt_t["fig3"]),
+              wa_t["fig3"], shape=[20, 5674], turns_ms=wa_t["fig3"]["turns_ms"],
+              library_turns_ms=wa_t["fig3"]["library_turns_ms"],
+              device_ms=wa_t["fig3"]["device_ms"],
+              library_device_ms=wa_t["fig3"]["library_device_ms"],
+              host_split_us=wa_t["fig3"]["host_split_us"],
+              large=dict(shape=[64, 2 ** 24], **wa_t["large"]),
+              large_ragged=dict(shape=[64, 2 ** 24 + 2], **wa_t["large_ragged"])),
+        entry("robust_trimmed", "src/repro/kernels/robust_agg.py:73", rt_err, rt_t["fig3"],
+              shape=[20, 5674], turns_ms=rt_t["fig3"]["turns_ms"],
+              library_turns_ms=rt_t["fig3"]["library_turns_ms"],
+              device_ms=rt_t["fig3"]["device_ms"],
+              library_device_ms=rt_t["fig3"]["library_device_ms"],
+              host_split_us=rt_t["fig3"]["host_split_us"],
+              large=dict(shape=[64, 2 ** 22 + 3], **rt_t["large"])),
         entry("glr_scan", "src/repro/kernels/glr_scan.py:70", gs_err, gs_t["fig2"],
               **recompute_scan),
         entry("flash_attention", "src/repro/kernels/flash_attention.py:123", fa_err,

@@ -8,6 +8,11 @@ at first use, from the sources in this package only, into
 file name carries a hash of its source, the shared headers of ``csrc/``
 (``*.cuh``) and the flags, so an edited kernel is rebuilt and a stale one
 is never loaded.  A failed build raises.
+
+The launch path is the host cost of every kernel call: ``load`` hands back
+a cached function whose ``argtypes`` were set once, when its library was
+loaded, and ``stream`` reads PyTorch's current stream as a raw pointer
+without building a ``torch.cuda.Stream`` object.
 """
 from __future__ import annotations
 
@@ -20,6 +25,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan", "flash_attention",
@@ -30,6 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, ctypes._CFuncPtr] = {}      # by symbol: loaded, argtypes set
 
 
 def _nvcc() -> str:
@@ -88,15 +96,27 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 
 
 def load(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
-    """The C launch function ``symbol`` of kernel ``name``, building the
-    library first if needed.  Every launch function returns the
+    """The C launch function ``symbol`` of kernel ``name``, ready to call.
+    The first call builds the library if needed, loads it and sets the
+    function's ``argtypes`` and ``restype``; every later call returns the
+    same function from a cache.  Every launch function returns the
     ``cudaGetLastError()`` code after its launch (0 = success)."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
-    fn = getattr(lib, symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn = _FNS.get(symbol)
+    if fn is None:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LIBS[name] = lib
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FNS[symbol] = fn
     return fn
+
+
+def stream(device_index: int) -> int:
+    """The ``cudaStream_t`` of PyTorch's current stream on CUDA device
+    ``device_index``, as an int: the stream a ``torch.cuda.stream(s)``
+    context has set, else the default stream, read afresh on every call."""
+    return torch._C._cuda_getCurrentRawStream(device_index)

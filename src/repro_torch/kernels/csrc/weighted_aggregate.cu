@@ -6,99 +6,164 @@
 //
 // Each thread owns VEC neighbouring columns and walks the M rows in order,
 // accumulating in f32; neighbouring threads read neighbouring addresses, so
-// every row is read as one coalesced sweep.  VEC = 4 uses 16-byte loads for
-// f32 and 8-byte loads (4 values) for bf16; it needs P % 4 == 0 so that every
-// row starts 16-byte aligned, and the wrapper falls back to VEC = 1 (4- or
-// 2-byte coalesced loads) for ragged P.  The M scales are read once into
-// shared memory.  No atomics: each output has one owner, and the sum runs
-// m = 0..M-1 with the product rounded before the add (no FMA contraction),
-// the same rounding as the plain version's `sum(scale[:, None] * x, 0)`.
+// every row is read as one coalesced sweep.  The launcher picks VEC from the
+// alignment every row shares: VEC = 4 (16-byte f32 / 8-byte bf16 loads) when
+// P % 4 == 0 and the base is aligned to that width, VEC = 2 (8-byte f32 /
+// 4-byte bf16 loads) when P is even and the base is aligned to that width,
+// VEC = 1 otherwise.  The Fig. 3 shape (P = 5674 = 2 mod 4) takes VEC = 2:
+// its f32 rows start 8-byte aligned (4 * 5674 = 8 mod 16), so 8-byte loads
+// cover every row whole, with no per-row head or tail; a warp's 8-byte loads
+// are 256 contiguous bytes, whole sectors, the same traffic as 16-byte ones.
+//
+// The rows go in chunks of kChunk = 16: a chunk's loads of updates and its
+// scales (broadcast, read-only path) are issued together into registers,
+// then added in row order, so a thread waits about one memory latency a
+// chunk instead of one a row.  No shared memory and no barrier.  No atomics: each output has one
+// owner, and the sum runs m = 0..M-1 with the product rounded before the add
+// (no FMA contraction), the rounding of `acc = acc + scale[m] * x[m]`; the
+// result is deterministic.
 //
 // What bounds it on the H100: memory.  M*P*sizeof(dtype) bytes in, 4*P out,
 // 2*M*P flops; at 3.35 TB/s the card needs M*P*sizeof/3.35e12 s for the
 // reads, far above the flop time.  The design reads each update element
-// exactly once with wide coalesced loads.  At the Fig. 3 size (20 x 5674)
-// the launch is latency bound (454 KB of input).
+// exactly once with wide coalesced loads.  At the Fig. 3 size (20 x 5674,
+// 454 KB) the call is bound by launch latency: the launcher shrinks the
+// block (256 threads down to 32) until the grid has at least two blocks an
+// SM or one warp a block, so the load latency is spread over the SMs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
+constexpr int kMinThreads = 32;
+constexpr int kChunk = 16;                     // rows whose loads go out together
+constexpr long long kSpreadBlocks = 2 * 132;   // two blocks on each of the H100's 132 SMs
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ void load4(const T* p, float (&x)[4]);
+template <typename T, int VEC>
+__device__ __forceinline__ void load(const T* p, float (&x)[VEC]);
 
 template <>
-__device__ __forceinline__ void load4<float>(const float* p, float (&x)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ void load<float, 4>(const float* p, float (&x)[4]) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
   x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
 }
 
 template <>
-__device__ __forceinline__ void load4<__nv_bfloat16>(const __nv_bfloat16* p, float (&x)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
+__device__ __forceinline__ void load<float, 2>(const float* p, float (&x)[2]) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  x[0] = v.x; x[1] = v.y;
+}
+
+template <>
+__device__ __forceinline__ void load<float, 1>(const float* p, float (&x)[1]) { x[0] = __ldg(p); }
+
+template <>
+__device__ __forceinline__ void load<__nv_bfloat16, 4>(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
   const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
   x[0] = __low2float(lo); x[1] = __high2float(lo);
   x[2] = __low2float(hi); x[3] = __high2float(hi);
 }
 
-template <typename T, int VEC>
-__global__ void weighted_aggregate_kernel(const T* __restrict__ upd, const float* __restrict__ scale,
-                                          float* __restrict__ out, int m, long long p) {
-  extern __shared__ float s_scale[];
-  for (int i = threadIdx.x; i < m; i += blockDim.x) s_scale[i] = scale[i];
-  __syncthreads();
+template <>
+__device__ __forceinline__ void load<__nv_bfloat16, 2>(const __nv_bfloat16* p, float (&x)[2]) {
+  const unsigned int v = __ldg(reinterpret_cast<const unsigned int*>(p));
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  x[0] = __low2float(b); x[1] = __high2float(b);
+}
 
-  const long long col = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
-  if (col >= p) return;
+template <>
+__device__ __forceinline__ void load<__nv_bfloat16, 1>(const __nv_bfloat16* p, float (&x)[1]) {
+  x[0] = __bfloat162float(p[0]);
+}
+
+template <int VEC>
+__device__ __forceinline__ void store(float* p, const float (&acc)[VEC]) {
   if constexpr (VEC == 4) {
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int r = 0; r < m; ++r) {
-      float x[4];
-      load4<T>(upd + static_cast<long long>(r) * p + col, x);
-      const float sc = s_scale[r];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(sc, x[k]));
-    }
-    *reinterpret_cast<float4*>(out + col) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(p) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(acc[0], acc[1]);
   } else {
-    float acc = 0.0f;
-    for (int r = 0; r < m; ++r)
-      acc = __fadd_rn(acc, __fmul_rn(s_scale[r], to_f32(upd[static_cast<long long>(r) * p + col])));
-    out[col] = acc;
+    p[0] = acc[0];
   }
 }
 
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kMaxThreads)
+weighted_aggregate_kernel(const T* __restrict__ upd, const float* __restrict__ scale,
+                          float* __restrict__ out, int m, long long p) {
+  const long long col = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
+  if (col >= p) return;
+  const T* src = upd + col;
+  float acc[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+  for (int r0 = 0; r0 < m; r0 += kChunk) {
+    float x[kChunk][VEC];
+    float s[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {           // the chunk's loads, all in flight together
+      if (r0 + k < m) {
+        load<T, VEC>(src + static_cast<long long>(r0 + k) * p, x[k]);
+        s[k] = __ldg(scale + r0 + k);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {           // then the adds, in row order
+      if (r0 + k < m) {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) acc[v] = __fadd_rn(acc[v], __fmul_rn(s[k], x[k][v]));
+      }
+    }
+  }
+  store<VEC>(out + col, acc);
+}
+
+template <typename T, int VEC>
+void run(const void* upd, const float* scale, float* out, int m, long long p, unsigned blocks,
+         int threads, cudaStream_t s) {
+  weighted_aggregate_kernel<T, VEC><<<blocks, threads, 0, s>>>(static_cast<const T*>(upd), scale,
+                                                                out, m, p);
+}
+
 template <typename T>
-int launch(const void* upd, const float* scale, float* out, int m, long long p, int vec,
-           cudaStream_t s) {
-  const size_t smem = static_cast<size_t>(m) * sizeof(float);
-  const long long per_block = static_cast<long long>(kThreads) * vec;
-  const long long blocks = (p + per_block - 1) / per_block;
+int launch(const void* upd, const float* scale, float* out, int m, long long p, cudaStream_t s) {
+  const auto base = reinterpret_cast<std::uintptr_t>(upd);
+  int vec = 1;
+  if (p % 4 == 0 && base % (4 * sizeof(T)) == 0) {
+    vec = 4;
+  } else if (p % 2 == 0 && base % (2 * sizeof(T)) == 0) {
+    vec = 2;
+  }
+  const long long owners = (p + vec - 1) / vec;
+  int threads = kMaxThreads;
+  while (threads > kMinThreads && (owners + threads - 1) / threads < kSpreadBlocks) threads /= 2;
+  const long long blocks = (owners + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const auto b = static_cast<unsigned>(blocks);
   if (vec == 4) {
-    weighted_aggregate_kernel<T, 4><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
-        static_cast<const T*>(upd), scale, out, m, p);
+    run<T, 4>(upd, scale, out, m, p, b, threads, s);
+  } else if (vec == 2) {
+    run<T, 2>(upd, scale, out, m, p, b, threads, s);
   } else {
-    weighted_aggregate_kernel<T, 1><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
-        static_cast<const T*>(upd), scale, out, m, p);
+    run<T, 1>(upd, scale, out, m, p, b, threads, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  vec: 4 (P % 4 == 0, 16-byte aligned base) or 1.
+// dtype: 0 = f32, 1 = bf16.  The load width is chosen here from P and the
+// base pointer's alignment.
 extern "C" int weighted_aggregate_launch(const void* upd, const float* scale, float* out, int m,
-                                         long long p, int dtype, int vec, void* stream) {
-  if (m <= 0 || p <= 0 || (vec != 1 && vec != 4)) return static_cast<int>(cudaErrorInvalidValue);
+                                         long long p, int dtype, void* stream) {
+  if (m <= 0 || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(upd, scale, out, m, p, vec, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(upd, scale, out, m, p, vec, s);
+  if (dtype == 0) return launch<float>(upd, scale, out, m, p, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(upd, scale, out, m, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

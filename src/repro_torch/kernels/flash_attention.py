@@ -95,7 +95,7 @@ def tc_route(dtype: torch.dtype, d: int) -> bool:
 
 
 def _stream(q: torch.Tensor) -> int:
-    return torch.cuda.current_stream(q.device).cuda_stream
+    return _build.stream(q.get_device())
 
 
 def _launch(route, q, k, v, causal, window, scale):

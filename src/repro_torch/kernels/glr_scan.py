@@ -45,7 +45,7 @@ def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     fn = _build.load("glr_scan", "glr_scan_launch", _ARGTYPES)
     out = torch.empty((rows,), dtype=torch.float32, device=hist.device)
     err = fn(hist.data_ptr(), counts.data_ptr(), out.data_ptr(), rows, h,
-             torch.cuda.current_stream(hist.device).cuda_stream)
+             _build.stream(hist.get_device()))
     if err != 0:
         raise RuntimeError(f"glr_scan: kernel launch failed (cudaError {err})")
     glr_scan.launches += 1

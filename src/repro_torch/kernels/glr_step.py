@@ -67,7 +67,7 @@ def glr_step(cum, total, base, counts, r_vec, sched, split_grid: str = "all"):
     err = fn(cum.data_ptr(), total.data_ptr(), base.data_ptr(), counts.data_ptr(),
              r_vec.data_ptr(), sched.data_ptr(), cum_out.data_ptr(), total_out.data_ptr(),
              base_out.data_ptr(), stat_out.data_ptr(), rows, h,
-             int(split_grid == "geometric"), torch.cuda.current_stream(dev).cuda_stream)
+             int(split_grid == "geometric"), _build.stream(cum.get_device()))
     if err != 0:
         raise RuntimeError(f"glr_step: kernel launch failed (cudaError {err})")
     glr_step.launches += 1

@@ -35,7 +35,7 @@ _FORMS = ("segments", "table")
 
 
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    return _build.stream(x.get_device())
 
 
 def _check(name, x, dtype, shape, device):

@@ -7,8 +7,11 @@ are compiled by ``nvcc`` for sm_90a at first use).  On the card:
 
 Tolerances: the carried prefix state is bitwise for {0, 1} rewards; the
 GLR statistic goes through CUDA's ``logf``, rtol 1e-5; the aggregation sums
-the same rounded products in row order, rtol 1e-5 / atol 1e-6.  The
-coordinate median sums at most two kept values: bitwise.  The trimmed mean
+the same rounded products in row order, rtol 1e-5 / atol 1e-6 against the
+plain version (whose ``sum`` may take another order) and bitwise against a
+row-order sum ``acc = acc + scale[r] * x[r]`` (every load width, row
+chunk and base alignment).  The coordinate median sums at most two kept
+values: bitwise, NaN, +-inf and +-0 rows included.  The trimmed mean
 adds the kept values in row order like the plain version; it is held to
 |kernel - plain| <= M * 2**-24 * max|x| (any summation order of at most M
 kept values, divided by their count).  ``glr_scan`` is bitwise on {0, 1}
@@ -152,6 +155,113 @@ def test_robust_trimmed_kernel_matches_plain(cuda, m, p, mask_kind, dtype):
             assert float((got - want).abs().max()) <= bound, k
         if n_int == 0:
             assert not bool(got.any())
+
+
+_WA_M = (1, 8, 9, 16, 17, 32, 33, 64)            # both sides of the kernel's 16-row chunk edges
+
+
+def _row_order_sum(upd, scale):
+    acc = torch.zeros(upd.shape[1], device=upd.device)
+    for r in range(upd.shape[0]):
+        acc = acc + scale[r] * upd[r].float()
+    return acc
+
+
+@pytest.mark.parametrize("p", [5674, 2**20 + 2, 4096, 1, 3])
+@pytest.mark.parametrize("m", _WA_M)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weighted_aggregate_equals_row_order_sum(cuda, p, m, offset, dtype):
+    """Bitwise against the row-order sum at every load width (P % 4 == 0,
+    P even, P odd), on both sides of each 16-row chunk's edge, with a base
+    pointer 16-byte aligned and one element past it (a contiguous view)."""
+    gen = torch.Generator(device=cuda).manual_seed(m * 7 + p)
+    buf = torch.randn(m * p + offset, generator=gen, device=cuda).to(dtype)
+    upd = buf[offset:].view(m, p)
+    assert upd.is_contiguous() and (upd.data_ptr() % 16 == 0) == (offset == 0)
+    scale = torch.rand((m,), generator=gen, device=cuda) * 2.0 - 0.5
+    before = weighted_aggregate.launches
+    got = ops.weighted_aggregate(upd, scale)
+    assert weighted_aggregate.launches == before + 1
+    assert torch.equal(got, _row_order_sum(upd, scale))
+
+
+_TRIM_M = (1, 2, 8, 9, 16, 17, 32, 33, 63, 64)
+_SPECIAL = (float("nan"), float("inf"), float("-inf"), 0.0, -0.0, 1.0, -1.0, 0.5, 0.5, 2.5)
+
+
+def _special_inputs(m, p, mask_kind, dtype, device, seed):
+    """Values drawn from NaN, +-inf, +-0 and ties; each row holds every one
+    of them in its first columns."""
+    rng = np.random.default_rng(seed)
+    table = np.array(_SPECIAL, np.float32)
+    x = rng.choice(table, size=(m, p))
+    x[:, :len(table)] = table[(np.arange(m)[:, None] + np.arange(len(table))) % len(table)]
+    mask = np.ones(m, np.float32) if mask_kind == "full" else \
+        (rng.random(m) < 0.6).astype(np.float32)
+    return torch.from_numpy(x).to(device, dtype), torch.from_numpy(mask).to(device)
+
+
+def _same_bits(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    zero = want == 0
+    assert torch.equal(torch.signbit(got[zero]), torch.signbit(want[zero]))
+
+
+@pytest.mark.parametrize("m", _TRIM_M)
+@pytest.mark.parametrize("mask_kind", ["random", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_robust_trimmed_special_values(cuda, m, mask_kind, dtype):
+    """NaN, +-inf, +-0 and ties, in rows that participate and rows that do
+    not: the median bitwise (the sign of zero too), the trimmed mean within
+    M * 2**-24 * max|x| over the finite values, at every register bucket's
+    edge."""
+    x, mask = _special_inputs(m, 3001, mask_kind, dtype, cuda, seed=m)
+    n = mask.sum()
+    n_int = int(n)
+    finite = x.float()[torch.isfinite(x.float())]
+    bound = m * 2.0 ** -24 * float(finite.abs().max())
+    med = max(n_int - 1, 0) // 2
+    for k in sorted({0, med // 2, med}):
+        kt = torch.tensor(float(k), device=cuda)
+        before = robust_trimmed.launches
+        got = ops.robust_trimmed(x, mask, n, kt)
+        assert robust_trimmed.launches == before + 1
+        want = ref.robust_trimmed(x, mask, n, kt)
+        if k == med:
+            _same_bits(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=bound, equal_nan=True)
+
+
+@pytest.mark.parametrize("kernel", ["weighted_aggregate", "robust_trimmed"])
+def test_aggregation_runs_on_the_current_stream(cuda, kernel):
+    """Under ``torch.cuda.stream(s)`` the kernel is ordered after what was
+    queued on ``s`` before it: ``s`` spins, then overwrites the input, then
+    the kernel reads it.  On any other stream the kernel would read the old
+    input while ``s`` still spins."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    m, p = 20, 5674
+    upd = torch.randn((m, p), generator=gen, device=cuda)
+    fresh = torch.randn((m, p), generator=gen, device=cuda)
+    scale = torch.rand((m,), generator=gen, device=cuda)
+    mask = torch.ones(m, device=cuda)
+    n, k = mask.sum(), torch.tensor(4.0, device=cuda)
+    if kernel == "weighted_aggregate":
+        launch, counter = (lambda u: ops.weighted_aggregate(u, scale)), weighted_aggregate
+    else:
+        launch, counter = (lambda u: ops.robust_trimmed(u, mask, n, k)), robust_trimmed
+    want = launch(fresh)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(100_000_000)
+        upd.copy_(fresh)
+        before = counter.launches
+        got = launch(upd)
+        assert counter.launches == before + 1
+    s.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_robust_aggregation_adds_no_host_sync(cuda):

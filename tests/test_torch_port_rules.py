@@ -450,3 +450,127 @@ def test_build_targets_follow_the_shared_header(monkeypatch, tmp_path):
     assert after["glr_step"] != before["glr_step"] and after["glr_scan"] != before["glr_scan"]
     for name in ("glr_step", "glr_scan"):
         assert '#include "glr_kl.cuh"' in (tmp_path / f"{name}.cu").read_text()
+
+
+def test_load_sets_argtypes_once_and_caches_the_function(monkeypatch):
+    """``_build.load`` builds and loads a library once, sets the function's
+    ``argtypes`` and ``restype`` once, and hands back the same function on
+    every later call (a fake library stands in for the ``ctypes.CDLL``)."""
+    import ctypes
+
+    sets, opened, built = [], [], []
+
+    class FakeFn:
+        def __setattr__(self, name, value):
+            sets.append(name)
+            object.__setattr__(self, name, value)
+
+    class FakeLib:
+        def __init__(self, path):
+            opened.append(path)
+            self.fns = {}
+
+        def __getattr__(self, symbol):
+            return self.fns.setdefault(symbol, FakeFn())
+
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_FNS", {})
+    monkeypatch.setattr(_build, "build", lambda names: built.append(list(names)) or {})
+    monkeypatch.setattr(_build.ctypes, "CDLL", FakeLib)
+    argtypes = [ctypes.c_void_p, ctypes.c_int]
+    first = _build.load("weighted_aggregate", "weighted_aggregate_launch", argtypes)
+    assert sorted(sets) == ["argtypes", "restype"]
+    assert first.argtypes == argtypes and first.argtypes is not argtypes
+    assert first.restype is ctypes.c_int
+    for _ in range(3):
+        assert _build.load("weighted_aggregate", "weighted_aggregate_launch", argtypes) is first
+    assert sorted(sets) == ["argtypes", "restype"]
+    assert built == [["weighted_aggregate"]] and len(opened) == 1
+    other = _build.load("weighted_aggregate", "other_launch", argtypes)   # same library
+    assert other is not first and len(opened) == 1 and len(built) == 1
+
+
+@pytest.fixture
+def agg_launches(monkeypatch):
+    """Loads that hand back a launch function recording (symbol, arguments)
+    and returning ``status``; the current stream reads as 4242 + index."""
+    calls, status = [], [0]
+
+    def load(name, symbol, argtypes):
+        def launch(*args):
+            assert len(args) == len(argtypes)
+            calls.append((symbol, args))
+            return status[0]
+
+        return launch
+
+    monkeypatch.setattr(_build, "load", load)
+    monkeypatch.setattr(_build, "stream", lambda index: 4242 + index)
+    return calls, status
+
+
+@pytest.mark.parametrize("dtype,code", [(torch.float32, 0), (torch.bfloat16, 1)])
+def test_aggregation_wrappers_launch_on_the_current_stream(agg_launches, dtype, code):
+    """Each call launches once, on the stream ``_build.stream`` reads for the
+    tensor's device, with (M, P, dtype code); each moves its counter by one."""
+    calls, _ = agg_launches
+    upd = _FakeCuda(torch.zeros((5, 9), dtype=dtype))
+    before = _counts()
+    for _ in range(2):
+        out = wagg_mod.weighted_aggregate(upd, _FakeCuda(torch.ones(5)))
+        assert out.shape == (9,) and out.dtype == torch.float32
+    one = _FakeCuda(torch.tensor(5.0))
+    out = robust_mod.robust_trimmed(upd, _FakeCuda(torch.ones(5)), one, one)
+    assert out.shape == (9,) and out.dtype == torch.float32
+    stream = 4242 + upd.get_device()
+    assert [s for s, _ in calls] == ["weighted_aggregate_launch"] * 2 + ["robust_trimmed_launch"]
+    assert all(args[-1] == stream for _, args in calls)
+    assert calls[0][1][3:6] == (5, 9, code) and calls[2][1][5:8] == (5, 9, code)
+    after = _counts()
+    assert (after[1] - before[1], after[2] - before[2]) == (2, 1)
+
+
+def test_failed_aggregation_launch_raises_and_counts_nothing(agg_launches):
+    _, status = agg_launches
+    status[0] = 700
+    before = _counts()
+    upd, one = _FakeCuda(torch.zeros((4, 8))), _FakeCuda(torch.tensor(4.0))
+    with pytest.raises(RuntimeError, match="weighted_aggregate: kernel launch failed"):
+        wagg_mod.weighted_aggregate(upd, _FakeCuda(torch.ones(4)))
+    with pytest.raises(RuntimeError, match="robust_trimmed: kernel launch failed"):
+        robust_mod.robust_trimmed(upd, _FakeCuda(torch.ones(4)), one, one)
+    assert _counts() == before
+
+
+def test_ops_hands_ready_tensors_to_the_wrappers_as_they_are(monkeypatch):
+    """``ops`` converts only what the kernel does not take: contiguous f32
+    arguments reach the wrappers as the very same objects (torch's
+    ``contiguous`` and ``to`` return their tensor when nothing changes),
+    and a strided or f64 argument arrives contiguous and f32."""
+    class Torchlike(_FakeCuda):
+        def to(self, *a, **k):
+            t = self._t.to(*a, **k)
+            return self if t is self._t else Torchlike(t)
+
+        def contiguous(self):
+            t = self._t.contiguous()
+            return self if t is self._t else Torchlike(t)
+
+    seen = []
+    monkeypatch.setattr(ops._wa, "weighted_aggregate", lambda *a: seen.append(a))
+    monkeypatch.setattr(ops._ra, "robust_trimmed", lambda *a: seen.append(a))
+    upd, scale = Torchlike(torch.zeros((3, 8))), Torchlike(torch.ones(3))
+    n, k = Torchlike(torch.tensor(3.0)), Torchlike(torch.tensor(1.0))
+    ops.weighted_aggregate(upd, scale)
+    ops.robust_trimmed(upd, scale, n, k)
+    assert all(a is b for a, b in zip(seen[0], (upd, scale)))
+    assert all(a is b for a, b in zip(seen[1], (upd, scale, n, k)))
+
+    seen.clear()
+    strided = Torchlike(torch.zeros((8, 3)).t())
+    wide = Torchlike(torch.ones(3, dtype=torch.float64))
+    ops.weighted_aggregate(strided, wide)
+    ops.robust_trimmed(strided, wide, Torchlike(torch.tensor(3.0, dtype=torch.float64)), k)
+    for args in seen:
+        assert args[0] is not strided and args[0].is_contiguous()
+        assert all(a.dtype == torch.float32 for a in args[1:])

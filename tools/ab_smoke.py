@@ -9,7 +9,11 @@ unpacked into a git-ignored directory).  Each run builds its own kernels
 from its own sources and must exit 0; its whole output goes to
 ``DIR/<label>.log`` (default ``build/ab``, git-ignored).  The table lists, for
 every path both runs report, the milliseconds a round (host clock around a
-run that ends in a synchronize), then each run's total seconds.
+run that ends in a synchronize), then each run's total seconds; below it,
+for every phase-2 kernel time line both runs print ("<kernel> time <shape>:
+kernel X ms, ..., library (<call>) Y ms"), the kernel's and the library
+call's milliseconds a call back to back, so two checkouts' kernels are
+compared on one card, each beside the library call of its own run.
 
 ``--paths`` passes ``--paths`` to both smokes, which then run their Fig. 2
 and Fig. 3 paths only, none of the kernel checks before them; both
@@ -28,11 +32,15 @@ from pathlib import Path
 _MS = re.compile(r"^  (fig[23][^:]*): .*\((\d+\.\d+) ms/round\)")
 _S = re.compile(r"^  (fig3[^:]*): .*seconds/round=(\d+\.\d+)")
 _TOTAL = re.compile(r"^  total seconds (\d+\.\d+)")
+# phase 2's "  weighted_aggregate time fig3 (20, 5674) f32: kernel 0.0228 ms, ..."
+_KERNEL = re.compile(r"^  (\w+ time [^:]*): kernel (\d+\.\d+) ms")
+_LIBRARY = re.compile(r"library \([^)]*\) (\d+\.\d+) ms")
 
 
 def parse(text):
-    """{path: ms a round} and the total seconds of one smoke run."""
-    rows, total = {}, None
+    """{path: ms a round}, the total seconds and {kernel time line: ms a
+    call} of one smoke run."""
+    rows, total, kernels = {}, None, {}
     for ln in text.splitlines():
         if m := _MS.match(ln):
             rows[m.group(1)] = float(m.group(2))
@@ -40,7 +48,11 @@ def parse(text):
             rows[m.group(1)] = float(m.group(2)) * 1e3
         elif m := _TOTAL.match(ln):
             total = float(m.group(1))
-    return rows, total
+        elif m := _KERNEL.match(ln):
+            kernels[m.group(1)] = float(m.group(2))
+            if lib := _LIBRARY.search(ln):
+                kernels[m.group(1) + ", library"] = float(lib.group(1))
+    return rows, total, kernels
 
 
 def main(argv=None) -> int:
@@ -78,6 +90,11 @@ def main(argv=None) -> int:
         print(f"{p} | " + " | ".join(f"{results[lb][0][p]:.3f}" for lb, _ in order))
     print("B only | " + ", ".join(sorted(set(results["B1"][0]) - set(paths))))
     print("total seconds | " + " | ".join(f"{results[lb][1]}" for lb, _ in order))
+    lines = [k for k in results["A1"][2] if all(k in r[2] for r in results.values())]
+    if lines:
+        print("kernel | " + " | ".join(f"{lb} ms a call" for lb, _ in order))
+        for k in lines:
+            print(f"{k} | " + " | ".join(f"{results[lb][2][k]:.4f}" for lb, _ in order))
     return 0
 
 

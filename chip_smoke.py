@@ -19,6 +19,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    trace, and at the Fig. 3 shape the host split of one call (checks, load, allocation, stream lookup, ``ctypes``
    call); ``robust_trimmed``'s bound at 1 instruction an ordered pair,
    the older 4-op bound beside it;
+   ``glr_step_tenants`` (the scheduler service's detector step, in place
+   on the slot state) against its plain version at the serving shapes
+   (R = 257 / B = 64, N = 16, H = 256; R = 10001 / B = 64, H = 64), all
+   rows live and detecting at (256, 16, 1024) beside the old functional
+   ``glr_step`` kernel, and at H = 33 and 130, with both bounds (bytes;
+   the FMA count or the split term's MUFU instructions, whose count a
+   split is a constant below), device time and, at the serving shape, the
+   host split of a call;
    and ``regret_scan`` (the whole regret harness in one launch) against the
    per-round route with the plain detector on nine short edge runs (a table
    env, S=1, alpha=0.2, the geometric grid, H=33 with restarts, N=30 M=20
@@ -55,7 +63,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    against ``apply``'s logits; (b) all 64 layers in bf16 (61.0 GiB of
    weights drawn on the card): ``make_prefill_step`` on 4 prompts of 2048
    tokens (``flash_attention`` must launch 64 times a prefill), then the
-   ``launch/serve.py`` loop, batch 8, context 2048, 32 tokens.
+   ``launch/serve.py`` loop, batch 8, context 2048, 32 tokens;
+8. the multi-tenant scheduler service at the JAX ``serve_suite``'s sizes
+   (``benchmarks/run.py:1380-1456``): GLR-CUCB N=16, M=4, H=256, stride 5;
+   (a) one tenant served 1000 rounds of ``offline_round_stream`` equals the
+   scan route of ``simulate_aoi_regret`` and the CPU run bit for bit, with
+   ``glr_step_tenants`` launched once a serve step; (b)
+   256 tenants, slot batch 64: the first 3 steps equal the CPU run bit for
+   bit; synchronous, serial (slots=1) and pipelined decisions a second
+   (best of 2), a Poisson episode at 80 % of the synchronous rate with
+   churn (p50/p99/p999 ms), the launches against the steps, one step under
+   ``set_sync_debug_mode("error")`` and a profiled 10-step window; (c) a
+   10^4-tenant server (H=64) whose first 64 requests equal the CPU run,
+   and its saturated rate; (d) ``run_served`` on phase 4's setup, 10
+   rounds equal to ``run()`` bit for bit.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -64,7 +85,7 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 128, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-7 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-8 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
 Every path runs at the paper's sizes, uncut.  Weights, envs and randomness
@@ -90,6 +111,15 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
 F32_LANE_OPS = F32_FLOPS / 2   # FP32 lane instructions a second (an FMA counts 2 flops)
 KL_SPLIT_FLOPS = 32            # f32 operations per evaluated GLR split
+H100_SMS = 132
+MUFU_PER_SM_CLOCK = 16         # special-function (MUFU) results a clock on each SM
+LANES_PER_SM_CLOCK = 128       # lane instructions issued a clock on each SM (4 x 32)
+# one GLR split term of csrc/glr_kl.cuh, loads and store included, counted once in
+# its sm_90a SASS (cuobjdump -sass; PERF.md gives the count's run), and the H100
+# SXM's maximum SM clock (nvidia-smi --query-gpu=clocks.max.sm, the same run)
+SPLIT_SASS = 336
+SPLIT_MUFU = 8
+SM_CLOCK_HZ = 1980e6
 RANK_PAIR_OPS = 1              # lane instructions per ordered pair: the least a rank count issues
 OLD_RANK_PAIR_OPS = 4          # the bound stated before: two compares, a select, an add
 HOST_SPLIT_CALLS = 10_000      # calls averaged in each host-split piece
@@ -107,8 +137,15 @@ SERVE_BATCH, SERVE_CONTEXT, SERVE_TOKENS = 8, 2048, 32   # the serve loop
 SERVE_LAYERS = 64              # qwen3-32b's full depth: 61.0 GiB of bf16 weights
 SERVE_REF_LAYERS = 2           # depth of the f32 reference model (full width)
 DECODE_REF_STEPS = 12          # teacher-forced decode steps against the prefill
+SCHED_CAPACITY, SCHED_SLOTS = 256, 64   # the serve suite's server (benchmarks/run.py:1380)
+SCHED_N, SCHED_M, SCHED_H = 16, 4, 256  # GLR-CUCB served (benchmarks/run.py:1384-1385)
+SCHED_PARITY_ROUNDS = 1000             # the single-tenant parity replay (:1381)
+SCHED_REQUESTS = 12 * SCHED_CAPACITY   # saturated and Poisson requests (:1382)
+SCHED_SERIAL_REQUESTS = 8 * SCHED_SLOTS   # the serial (slots=1) baseline's (:1383)
+SCHED_BIG_CAPACITY, SCHED_BIG_H = 10_000, 64   # the 10^4-tenant server (:1451-1455)
+SCHED_FL_ROUNDS = 10                   # run_served rounds on the Fig. 3 setup
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
-                "flash_attention", "regret_scan")
+                "flash_attention", "regret_scan", "glr_step_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
 COUNTERS = KERNEL_NAMES + FLASH_ROUTES
 
@@ -131,13 +168,15 @@ def kernel_wrappers():
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.glr_scan import glr_scan
     from repro_torch.kernels.glr_step import glr_step
+    from repro_torch.kernels.glr_step_tenants import glr_step_tenants
     from repro_torch.kernels.regret_scan import regret_scan
     from repro_torch.kernels.robust_agg import robust_trimmed
     from repro_torch.kernels.weighted_aggregate import weighted_aggregate
 
     return dict(glr_step=glr_step, weighted_aggregate=weighted_aggregate,
                 robust_trimmed=robust_trimmed, glr_scan=glr_scan,
-                flash_attention=flash_attention, regret_scan=regret_scan)
+                flash_attention=flash_attention, regret_scan=regret_scan,
+                glr_step_tenants=glr_step_tenants)
 
 
 def reset_launches():
@@ -393,19 +432,155 @@ def check_glr_step(torch, gen, floor_ms):
              f"bound {bound:.2e} ms ({bound_by}), launch floor {floor_ms:.5f} ms, "
              f"per call back to back")
 
-    # the tenant form (glr_step_tenants): G x N rows of one launch
-    shape = (256, 16, 1024)
-    args = glr_inputs(torch, shape, gen, True)
-    cum, total, base, counts, r_vec, sched = args
-    counts_i = counts.to(torch.int32)
-    flat = [a.reshape(-1, shape[-1]) if a.dim() == 3 else a.reshape(-1) for a in args]
-    ms = time_ms(torch, lambda: kernel(cum, total, base, counts_i, r_vec, sched), 200)
-    plain_ms = time_ms(torch, lambda: ref.glr_step(*flat), 10)
-    bound, bound_by = glr_bound_ms(torch, args, shape[-1], geometric=False)
-    timings["tenants"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
-    line(f"  glr_step_tenants time {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-         f"bound {bound:.4f} ms ({bound_by}), launch floor {floor_ms:.5f} ms, "
-         f"{2 * cum.numel() * 4 / (ms * 1e-3) / 1e9:.1f} GB/s of ring traffic")
+    return max_err, timings
+
+
+def tenants_inputs(torch, r, b, n, h, frac_detect, pad, gen, binary=True):
+    """A serve step's operands: slot state (R, N, H) across ring wraparound,
+    B distinct slots of which the last ``pad`` are padding rows on the
+    scratch slot R - 1 (not live), ``frac_detect`` of the live rows on a
+    detection round (at least one), a mixed ``sched``."""
+    dev = "cuda"
+    if binary:
+        cum = torch.randint(0, 2 * h, (r, n, h), generator=gen, device=dev).to(torch.float32)
+        total = torch.randint(0, 3 * h, (r, n), generator=gen, device=dev).to(torch.float32)
+        base = torch.randint(0, h, (r, n), generator=gen, device=dev).to(torch.float32)
+        r_vec = torch.randint(0, 2, (b, n), generator=gen, device=dev).to(torch.float32)
+    else:
+        cum = torch.sort(torch.rand((r, n, h), generator=gen, device=dev), dim=-1).values * h
+        total = torch.rand((r, n), generator=gen, device=dev) * 3 * h
+        base = torch.rand((r, n), generator=gen, device=dev)
+        r_vec = torch.rand((b, n), generator=gen, device=dev)
+    counts = torch.randint(0, 3 * h, (b, n), generator=gen, device=dev).to(torch.float32)
+    counts.view(-1)[:3] = torch.tensor([0.0, h - 1.0, float(h)], device=dev)[: counts.numel()]
+    slots = torch.randperm(r - 1 if r > b else r, generator=gen, device=dev)[:b].to(torch.int32)
+    live = torch.ones(b, dtype=torch.bool, device=dev)
+    if pad:
+        slots[-pad:] = r - 1
+        live[-pad:] = False
+    detect = (torch.rand(b, generator=gen, device=dev) < frac_detect) & live
+    detect[0] = True
+    sched = torch.rand((b, n), generator=gen, device=dev) < 0.7
+    return cum, total, base, slots, live, detect, counts, r_vec, sched
+
+
+def tenants_bound_ms(torch, args, geometric):
+    """The least time of one step on these inputs, in place: bytes
+    (detecting rows' rings read once, every live row's 17 bytes a channel,
+    6 bytes a row) over HBM, or operations, the larger of the FMA count
+    (32 a split) over the f32 rate and the split term's MUFU instructions
+    over 16 a clock on each of 132 SMs.  Returns (bound ms, bound_by, the
+    split count, {bytes, fma, mufu ms})."""
+    cum, total, base, slots, live, detect, counts, r_vec, sched = args
+    n, h = cum.shape[1:]
+    det = detect & live
+    splits = glr_split_count(torch, counts[det], sched[det], h, geometric)
+    nbytes = int(det.sum()) * n * h * 4 + int(live.sum()) * n * (16 + 1) + slots.numel() * 6
+    parts = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3,
+                 fma=KL_SPLIT_FLOPS * splits / F32_FLOPS * 1e3,
+                 mufu=splits * SPLIT_MUFU / (MUFU_PER_SM_CLOCK * H100_SMS * SM_CLOCK_HZ) * 1e3)
+    bound = max(parts.values())
+    return bound, "bytes" if parts["bytes"] >= bound else "operations", splits, parts
+
+
+def check_glr_step_tenants(torch, gen, floor_ms):
+    """The in-place serving kernel against ``ref.glr_step_tenants`` on the
+    same inputs: the slot state bitwise on {0, 1} rewards (rtol 1e-6 on
+    U[0, 1]), rows not live untouched, the statistic at rtol/atol 1e-5 with
+    -inf at the same places, both grids, at the serving shapes
+    (R = 257 / B = 64, N = 16, H = 256 and R = 10001 / B = 64, H = 64, a
+    fifth of the rows detecting, padding rows), all rows live and detecting
+    at (256, 16, 1024), and at H = 33 and H = 130 (scalar loads).  Times per
+    call back to back, device time from a trace, the old functional kernel
+    beside it at (256, 16, 1024), the plain version, both bounds; the split
+    term's issue time; at the serving shape the host split of a call."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import glr_step_tenants as gst_mod
+    from repro_torch.kernels.glr_step import glr_step as old_kernel
+
+    kernel = gst_mod.glr_step_tenants
+    cases = {"full": (256, 256, 16, 1024, 1.0, 0), "serve": (257, 64, 16, 256, 0.2, 5),
+             "big": (10001, 64, 16, 64, 0.2, 3), "h33": (20, 12, 5, 33, 0.6, 2),
+             "h130": (20, 12, 5, 130, 0.6, 2)}
+    max_err = 0.0
+    for label, (r, b, n, h, frac, pad) in cases.items():
+        for grid in ("all", "geometric"):
+            for binary in (True, False):
+                args = tenants_inputs(torch, r, b, n, h, frac, pad, gen, binary)
+                got_state = [x.clone() for x in args[:3]]
+                want_state = [x.clone() for x in args[:3]]
+                got = ops.glr_step_tenants(*got_state, *args[3:], split_grid=grid)
+                want = ref.glr_step_tenants(*want_state, *args[3:], split_grid=grid)
+                torch.cuda.synchronize()
+                where = f"glr_step_tenants ({r}, {b}, {n}, {h}) {grid}"
+                for g, w, name in zip(got_state, want_state, ("cum", "total", "base")):
+                    if binary:
+                        check(torch.equal(g, w), f"{where}: {name} not bitwise")
+                    else:
+                        check(torch.allclose(g, w, rtol=1e-6, atol=0), f"{where}: {name} beyond rtol 1e-6")
+                untouched = torch.ones(r, dtype=torch.bool, device="cuda")
+                untouched[args[3][args[4]].long()] = False
+                for g, x, name in zip(got_state, args[:3], ("cum", "total", "base")):
+                    check(torch.equal(g[untouched], x[untouched]), f"{where}: {name} of a row not live changed")
+                check(torch.equal(torch.isneginf(got), torch.isneginf(want)), f"{where}: -inf at other places")
+                fin = torch.isfinite(want)
+                check(torch.equal(fin, torch.isfinite(got)), f"{where}: non-finite stat")
+                err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+                check(torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-5),
+                      f"{where}: stat beyond rtol/atol 1e-5 (max err {err})")
+                max_err = max(max_err, err)
+                line(f"  {where} rewards={'{0,1}' if binary else 'U[0,1]'}: "
+                     f"{int(args[5].sum())}/{b} rows detecting, state "
+                     f"{'bitwise' if binary else 'rtol 1e-6'}, rows not live untouched, "
+                     f"stat max_abs_err={err:.3e} ok")
+
+    timings = {}
+    for label in ("full", "serve", "big"):
+        r, b, n, h, frac, pad = cases[label]
+        args = tenants_inputs(torch, r, b, n, h, frac, 0, gen, True)
+        cum, total, base, slots, live, detect, counts, r_vec, sched = args
+        counts_i = counts.to(torch.int32)
+        call = lambda: kernel(cum, total, base, slots, live, detect, counts_i, r_vec, sched)
+        small = label != "full"
+        t = dict(ms=time_ms(torch, call, 2000 if small else 500),
+                 plain_ms=time_ms(torch, lambda: ref.glr_step_tenants(*args), 50),
+                 device_ms=device_ms(torch, call, 100), library_ms=None)
+        bound, bound_by, splits, parts = tenants_bound_ms(torch, args, False)
+        issue_ms = splits * SPLIT_SASS / (LANES_PER_SM_CLOCK * H100_SMS * SM_CLOCK_HZ) * 1e3
+        t.update(bound_ms=bound, bound_by=bound_by, splits=splits,
+                 detecting_rows=int(detect.sum()))
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+        old = ""
+        if label == "full":
+            cum_o, total_o, base_o = cum.clone(), total.clone(), base.clone()
+            t["old_ms"] = time_ms(torch, lambda: old_kernel(cum_o, total_o, base_o, counts_i, r_vec,
+                                                           sched), 500)
+            old = f", old functional glr_step kernel {t['old_ms']:.4f} ms"
+        line(f"  glr_step_tenants time {label} ({r}, {b}, {n}, {h}), {t['detecting_rows']}/{b} "
+             f"rows detecting: kernel {t['ms']:.4f} ms{old}, plain {t['plain_ms']:.4f} ms, per "
+             f"call back to back, one window each; device time {fmt(t['device_ms'])}; bound "
+             f"{bound:.5f} ms ({bound_by}; bytes {parts['bytes']:.5f}, FMA {parts['fma']:.5f}, "
+             f"MUFU {parts['mufu']:.5f} ms over {splits} splits, {SPLIT_MUFU} MUFU a split); "
+             f"issue at {SPLIT_SASS} SASS instructions a split {issue_ms:.5f} ms (SM clock "
+             f"{SM_CLOCK_HZ / 1e6:.0f} MHz); launch floor {floor_ms:.5f} ms")
+        if label == "serve":
+            dev = cum.get_device()
+            fn = _build.load("glr_step_tenants", "glr_step_tenants_launch", gst_mod._ARGTYPES)
+            out = torch.empty((b, n), device="cuda")
+            ptrs = (cum.data_ptr(), total.data_ptr(), base.data_ptr(), slots.data_ptr(),
+                    live.data_ptr(), detect.data_ptr(), counts_i.data_ptr(), r_vec.data_ptr(),
+                    sched.data_ptr(), out.data_ptr(), b, n, r, h, 0, _build.stream(dev))
+            t["host_split_us"] = host_split(torch, f"glr_step_tenants ({r}, {b}, {n}, {h})", {
+                "checks": lambda: gst_mod._checked(cum, total, base, slots, live, detect,
+                                                   counts_i, r_vec, sched, "all"),
+                "load": lambda: _build.load("glr_step_tenants", "glr_step_tenants_launch",
+                                            gst_mod._ARGTYPES),
+                "output allocation": lambda: counts_i.new_empty((b, n), dtype=torch.float32),
+                "stream lookup": lambda: _build.stream(dev),
+                "ctypes call + launch": lambda: fn(*ptrs),
+            }, call)
+        timings[label] = t
+        del args, cum
     return max_err, timings
 
 
@@ -1510,8 +1685,229 @@ def serve_path(torch, seed, n_layers):
                           tok_s=SERVE_BATCH * SERVE_TOKENS / secs)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the multi-tenant scheduler service
+# ---------------------------------------------------------------------------
+
+def same_tree(torch, a, b):
+    """Every tensor leaf of two equal NamedTuple/dict structures bitwise
+    equal (compared on the CPU)."""
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return all(same_tree(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return all(same_tree(torch, a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def sched_parity(torch, sched, server, seed):
+    """(a) One tenant served 1000 rounds on ``offline_round_stream`` of a
+    piecewise env (N = 16, 3 breakpoints) equals ``simulate_aoi_regret``'s
+    scan route on the card and the same rounds served on the CPU, bit for
+    bit.  Returns the launches of the served run."""
+    from repro_torch.core.channels import make_scenario
+    from repro_torch.core.regret import offline_round_stream, simulate_aoi_regret
+    from repro_torch.kernels.regret_scan import regret_scan
+    from repro_torch.sim import SchedServer, ServeRequest
+
+    n, rounds = sched.n_channels, SCHED_PARITY_ROUNDS
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    env = make_scenario("piecewise", n_channels=n, horizon=rounds, n_breakpoints=3).realize(gen)
+    u = torch.rand((rounds, 2, n), generator=gen, device="cuda")
+    before = regret_scan.launches
+    off = simulate_aoi_regret(sched, env, rounds, uniforms=u, collect_curve=False,
+                              return_state=True)
+    check(regret_scan.launches == before + 1, "sched-serve parity: the offline run did not scan")
+    u_sel, states = (x.cpu().numpy() for x in offline_round_stream(env, u, rounds))
+    reqs = [ServeRequest("parity", states[t], u_sel[t]) for t in range(rounds)]
+    server.join("parity")
+    steps0 = server.stats()["steps"]
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for rq in reqs:
+        server.serve([rq])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    steps = server.stats()["steps"] - steps0
+    row = server.tenant_state("parity")
+    cpu = SchedServer(sched, capacity=4, slots=1, device="cpu")
+    cpu.join("parity")
+    for rq in reqs:
+        cpu.serve([rq])
+    cpu_row = cpu.tenant_state("parity")
+    check(same_tree(torch, off["final_sched_state"], row.sched_state),
+          "sched-serve parity: served state != the scan route's final state")
+    check(torch.equal(off["aoi_pi"].cpu(), row.aoi.cpu()), "sched-serve parity: AoI != the scan's")
+    check(same_tree(torch, row, cpu_row), "sched-serve parity: card row != the CPU run's row")
+    check(launches["glr_step_tenants"] == steps == rounds and launches["glr_step"] == 0,
+          f"sched-serve parity: launches {launches} over {steps} steps")
+    line(f"  sched-serve parity: {rounds} rounds of one tenant (slot batch {server.slots}) equal "
+         f"the scan route and the CPU run bit for bit (every state leaf, AoI, restarts="
+         f"{int(row.sched_state.restarts)}); glr_step_tenants launched "
+         f"{launches['glr_step_tenants']} times over {steps} steps, glr_step "
+         f"{launches['glr_step']} ({secs / rounds * 1e3:.4f} ms/step)")
+    server.leave("parity")
+    return launches
+
+
+def sched_serve(torch, seed):
+    """Phase 8: the JAX benchmark's ``serve_suite`` configuration
+    (``benchmarks/run.py:1380-1456``) at its sizes.  Returns the launches of
+    the served runs (each counted from zero) and the metrics."""
+    from collections import deque
+
+    import numpy as np
+
+    from repro_torch.core.bandits import GLRCUCB
+    from repro_torch.fl import AsyncFLTrainer
+    from repro_torch.launch.sched_serve import (make_traffic, pipelined_poisson_episode,
+                                                pipelined_throughput, saturated_throughput)
+    from repro_torch.sim import SchedServer, ServeRequest
+
+    c, b, n, m = SCHED_CAPACITY, SCHED_SLOTS, SCHED_N, SCHED_M
+    sched = GLRCUCB(n, m, history=SCHED_H, detector_stride=5, split_grid="auto")
+    server = SchedServer(sched, capacity=c, slots=b)
+    serial = SchedServer(sched, capacity=c, slots=1)
+    paths = [sched_parity(torch, sched, server, seed)]
+
+    # (b) the 256-tenant server: per-tenant gamma, the benchmark's traffic
+    n_req, n_serial = SCHED_REQUESTS, SCHED_SERIAL_REQUESTS
+    ids = [f"job-{i}" for i in range(c)]
+    cpu = SchedServer(sched, capacity=c, slots=b, device="cpu")
+    for i, tid in enumerate(ids):
+        hp = {"gamma": 0.8 + 0.4 * i / c}
+        server.join(tid, hp=hp)
+        cpu.join(tid, hp=hp)
+        serial.join(tid)
+    states, uniforms = make_traffic(c, n, max(n_req, n_serial), seed=seed)
+    req = lambda j: ServeRequest(ids[j % c], states[(j // c) % states.shape[0], j % c],
+                                 uniforms[j])
+    first = [req(j) for j in range(3 * b)]
+    got, want = server.serve(first), cpu.serve(first)
+    check(all(np.array_equal(x, y) for x, y in zip(got, want)),
+          "sched-serve 256: assignments of the first 3 steps != the CPU run's")
+    check(same_tree(torch, server._state, cpu._state),
+          "sched-serve 256: slot state after 3 steps != the CPU run's")
+    line(f"  sched-serve {c} tenants: the first 3 steps ({3 * b} requests) equal the CPU run bit "
+         f"for bit (assignments, every slot leaf)")
+    del cpu
+
+    st0, ser0 = server.stats(), serial.stats()
+    reset_launches()
+    rate = max(saturated_throughput(server, ids, states, uniforms, n_req) for _ in range(2))
+    serial_rate = max(saturated_throughput(serial, ids, states, uniforms, n_serial)
+                      for _ in range(2))
+    pipe_rate = max(pipelined_throughput(server, ids, states, uniforms, n_req) for _ in range(2))
+    server.warm()
+    lam = 0.8 * rate
+    arrivals = np.cumsum(np.random.default_rng(seed).exponential(1.0 / lam, size=n_req))
+    lat, wall, churn, depths = pipelined_poisson_episode(server, ids, states, uniforms, arrivals,
+                                                         churn_stride=8)
+    launches = read_launches()
+    paths.append(launches)
+    st1, ser1 = server.stats(), serial.stats()
+    steps = st1["steps"] - st0["steps"] + ser1["steps"] - ser0["steps"]
+    occupancy = (st1["served"] - st0["served"]) / max(st1["rows_dispatched"]
+                                                      - st0["rows_dispatched"], 1)
+    p50, p99, p999 = (float(x) * 1e3 for x in np.percentile(lat, [50, 99, 99.9]))
+    check(launches["glr_step_tenants"] == steps and launches["glr_step"] == 0,
+          f"sched-serve: glr_step_tenants launched {launches['glr_step_tenants']} times over "
+          f"{steps} steps; glr_step {launches['glr_step']}")
+    check(np.isfinite(lat).all() and (lat > 0).all(), "sched-serve: a latency is not positive")
+    line(f"  sched-serve saturated: sync {rate:.1f} decisions/s, serial (slots=1) "
+         f"{serial_rate:.1f} decisions/s, pipelined {pipe_rate:.1f} decisions/s (best of 2 "
+         f"each; pipelined/sync {pipe_rate / rate:.3f}x, sync/serial {rate / serial_rate:.2f}x) "
+         f"({b / rate * 1e3:.4f} ms/step)")
+    line(f"  sched-serve Poisson load 80% ({lam:.1f} req/s): served {n_req} requests in "
+         f"{wall:.3f} s ({n_req / wall:.1f} decisions/s), latency p50={p50:.3f} ms "
+         f"p99={p99:.3f} ms p999={p999:.3f} ms, queue depth mean={depths.mean():.2f} "
+         f"max={depths.max()}, batch_occupancy={occupancy:.3f}, churn_events={churn}, "
+         f"sizes_used={st1['sizes_used']}")
+    line(f"  sched-serve launches: glr_step_tenants {launches['glr_step_tenants']} over {steps} "
+         f"steps, glr_step {launches['glr_step']}")
+
+    # one steady step may not wait on the device
+    pending = deque(enumerate(req(j) for j in range(b)))
+    batch = server._take_batch(pending, b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inflight = server._dispatch(batch, b, False)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"sched-serve: a serve step synchronized with the device: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    server._retire(inflight)
+    line("  sched-serve: a steady step ran under torch.cuda.set_sync_debug_mode('error') with "
+         "no host sync ok")
+    window = [req(j) for j in range(10 * b)]
+    profile_window(torch, f"sched-serve {c}-tenant step (slot batch {b})",
+                   lambda: server.serve(window), 10)
+
+    # (c) 10^4 tenants, H = 64, unsharded
+    c2, n_req2 = SCHED_BIG_CAPACITY, 8 * b
+    sched2 = GLRCUCB(n, m, history=SCHED_BIG_H, detector_stride=5, split_grid="auto")
+    big = SchedServer(sched2, capacity=c2, slots=b)
+    big_cpu = SchedServer(sched2, capacity=c2, slots=b, device="cpu")
+    for i in range(c2):
+        big.join(i)
+        big_cpu.join(i)
+    rng = np.random.default_rng(seed + 3)
+    states2 = (rng.random((4, c2, n)) < 0.6).astype(np.float32)
+    uniforms2 = rng.random((n_req2, n)).astype(np.float32)
+    reqs2 = [ServeRequest(j % c2, states2[(j // c2) % 4, j % c2], uniforms2[j]) for j in range(b)]
+    reset_launches()
+    got = big.serve(reqs2)
+    want = big_cpu.serve(reqs2)
+    check(all(np.array_equal(x, y) for x, y in zip(got, want))
+          and same_tree(torch, big._state, big_cpu._state),
+          "sched-serve 10^4: the first 64 requests != the CPU run")
+    del big_cpu
+    big_rate = saturated_throughput(big, list(range(c2)), states2, uniforms2, n_req2)
+    paths.append(read_launches())
+    check(paths[-1]["glr_step_tenants"] == big.stats()["steps"] and paths[-1]["glr_step"] == 0,
+          f"sched-serve 10^4: launches {paths[-1]} over {big.stats()['steps']} steps")
+    line(f"  sched-serve {c2} tenants (H={SCHED_BIG_H}, unsharded): the first {b} requests equal "
+         f"the CPU run bit for bit; saturated {big_rate:.1f} decisions/s")
+    del big
+
+    # (d) run_served on phase 4's Fig. 3 setup
+    S = fig3_setup(torch, seed)
+    r = SCHED_FL_ROUNDS
+    tr = AsyncFLTrainer(S["cfg"], S["sched"], S["env"], S["loss_fn"])
+    ref_state, ref_m = tr.run(tr.init(S["params"]), S["bx"][:r], S["by"][:r],
+                              uniforms=S["uniforms"][:r])
+    fl_server = SchedServer(S["sched"], capacity=4, slots=4, use_matching=True,
+                            matcher_beta=S["cfg"].matcher_beta)
+    fl_server.join("fig3")
+    reset_launches()
+    state, mets = tr.run_served(tr.init(S["params"]), S["bx"][:r], S["by"][:r], fl_server, "fig3",
+                                uniforms=S["uniforms"][:r])
+    paths.append(read_launches())
+    check(paths[-1]["glr_step_tenants"] == fl_server.stats()["steps"] == r
+          and paths[-1]["glr_step"] == 0,
+          f"sched-serve fig3: launches {paths[-1]} over {fl_server.stats()['steps']} steps")
+    for f in ref_state._fields:
+        if f != "sched_state":
+            check(same_tree(torch, getattr(ref_state, f), getattr(state, f)),
+                  f"sched-serve fig3: run_served {f} != run()'s")
+    check(same_tree(torch, ref_state.sched_state, fl_server.tenant_state("fig3").sched_state),
+          "sched-serve fig3: the server's tenant state != run()'s sched_state")
+    check(all(torch.equal(ref_m[k], mets[k]) for k in ref_m), "sched-serve fig3: metrics differ")
+    line(f"  sched-serve fig3 run_served: {r} rounds (N={S['n']}, M={S['m']}, matching) equal "
+         f"run() bit for bit (every state leaf, the server's tenant state, metrics); "
+         f"glr_step_tenants launched {paths[-1]['glr_step_tenants']} times, once a step")
+    del S
+    launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
+    return launches, dict(rate=rate, serial_rate=serial_rate, pipe_rate=pipe_rate, p50_ms=p50,
+                          p99_ms=p99, p999_ms=p999, big_rate=big_rate)
+
+
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
-                fa_t, fig2_scan, recompute_scan):
+                fa_t, fig2_scan, recompute_scan, gst_err, gst_t):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
     (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6."""
@@ -1522,13 +1918,19 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                     library_ms=t.get("library_ms"), **extra)
 
-    tenants = glr_t["tenants"]
+    at = lambda t, shape: dict(shape_r_b_n_h=shape, **{k: t[k] for k in (
+        "ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "splits", "detecting_rows")
+        + (("old_ms",) if "old_ms" in t else ())})
+    serve = gst_t["serve"]
     return [
         entry("glr_step", "src/repro/kernels/glr_step.py:163", glr_err, glr_t["fig2"],
-              tenants_replaces="src/repro/kernels/glr_step.py:210",
-              tenants_shape=[256, 16, 1024], tenants_ms=tenants["ms"],
-              tenants_plain_ms=tenants["plain_ms"], tenants_bound_ms=tenants["bound_ms"],
-              tenants_bound_by=tenants["bound_by"], **fig2_scan),
+              **fig2_scan),
+        entry("glr_step_tenants", "src/repro/kernels/glr_step.py:210", gst_err, serve,
+              shape_r_b_n_h=[257, 64, 16, 256], device_ms=serve["device_ms"],
+              detecting_rows=serve["detecting_rows"], splits=serve["splits"],
+              host_split_us=serve["host_split_us"],
+              full=at(gst_t["full"], [256, 256, 16, 1024]),
+              big=at(gst_t["big"], [10001, 64, 16, 64])),
         entry("weighted_aggregate", "src/repro/kernels/weighted_aggregate.py:47", wa_err,
               wa_t["fig3"], shape=[20, 5674], turns_ms=wa_t["fig3"]["turns_ms"],
               library_turns_ms=wa_t["fig3"]["library_turns_ms"],
@@ -1564,7 +1966,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-7) only")
+                    help="build the kernels and run the paths (phases 3-8) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -1604,6 +2006,9 @@ def main(argv=None) -> int:
             gen = torch.Generator(device="cuda").manual_seed(args.seed)
             floor_ms, _ = launch_floor(torch)
             glr_err, glr_t = check_glr_step(torch, gen, floor_ms)
+            # its own generator: the checks after it keep the draws they had before it
+            gst_gen = torch.Generator(device="cuda").manual_seed(args.seed + 17)
+            gst_err, gst_t = check_glr_step_tenants(torch, gst_gen, floor_ms)
             wa_err, wa_t = check_weighted_aggregate(torch, gen, floor_ms)
             rt_err, rt_t = check_robust_trimmed(torch, gen, floor_ms)
             gs_err, gs_t = check_glr_scan(torch, gen, floor_ms)
@@ -1630,8 +2035,10 @@ def main(argv=None) -> int:
         line("[7] serving path: qwen3-32b prefill and greedy decode")
         serve_reference(torch, args.seed)
         serve_launches, _ = serve_path(torch, args.seed, SERVE_LAYERS)
+        line("[8] the multi-tenant scheduler service")
+        sched_launches, _ = sched_serve(torch, args.seed)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
-                 serve_launches)
+                 serve_launches, sched_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
         check(all(launches[k] > 0 for k in KERNEL_NAMES + ("flash_attention_tc",)),
               f"a kernel never launched: {launches}")
@@ -1645,7 +2052,7 @@ def main(argv=None) -> int:
     if not args.paths:
         line(json.dumps({"kernels": kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err,
                                                 rt_t, gs_err, gs_t, fa_err, fa_t, fig2_scan,
-                                                recompute_scan)}))
+                                                recompute_scan, gst_err, gst_t)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

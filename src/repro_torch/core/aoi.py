@@ -31,8 +31,9 @@ def mean_aoi(aoi: torch.Tensor) -> torch.Tensor:
 
 
 def aoi_variance(aoi: torch.Tensor) -> torch.Tensor:
-    """Eq. 37: V_t = sum_i (a_i - mean)^2 (sum, not mean — as in the paper)."""
-    return ((aoi - aoi.mean()) ** 2).sum()
+    """Eq. 37: V_t = sum_i (a_i - mean)^2 (sum, not mean — as in the paper),
+    over the last axis (the clients): () for (M,), (B,) for (B, M) rows."""
+    return ((aoi - aoi.mean(dim=-1, keepdim=True)) ** 2).sum(dim=-1)
 
 
 def normalized_aoi_variance(v_t: torch.Tensor, v_max: torch.Tensor) -> torch.Tensor:
@@ -41,7 +42,9 @@ def normalized_aoi_variance(v_t: torch.Tensor, v_max: torch.Tensor) -> torch.Ten
 
 
 def normalized_aoi(aoi: torch.Tensor, a_max: torch.Tensor) -> torch.Tensor:
-    """Eq. 38: a~_i(t) = a_i(t) / max historical AoI across clients/rounds."""
+    """Eq. 38: a~_i(t) = a_i(t) / max historical AoI across clients/rounds;
+    ``a_max`` is () for (M,) ``aoi``, (B,) for (B, M) rows."""
+    a_max = a_max[..., None]
     return torch.where(a_max > 0, aoi / a_max, 0.0)
 
 

@@ -47,7 +47,11 @@ def init_with_hp(sched, device, hp: Optional[Dict[str, Any]]) -> Any:
     return sched.init(device, hp=hp)
 
 
-def rotate_assignment(channels_sorted: torch.Tensor, t: int, m: int) -> torch.Tensor:
-    """Alg. 2 line 10: player j takes the ((j + t) mod M)-th best channel."""
+def rotate_assignment(channels_sorted: torch.Tensor, t, m: int) -> torch.Tensor:
+    """Alg. 2 line 10: player j takes the ((j + t) mod M)-th best channel.
+    ``t`` is an int, or a (B,) tensor with ``channels_sorted`` (B, M): each
+    row rotates by its own round."""
     j = torch.arange(m, device=channels_sorted.device)
+    if isinstance(t, torch.Tensor):
+        return channels_sorted.gather(-1, (j + t[..., None].to(torch.int64)) % m)
     return channels_sorted[(j + t) % m]

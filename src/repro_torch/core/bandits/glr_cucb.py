@@ -33,8 +33,16 @@ every detection round by ``ops.glr_scan`` (the CUDA kernel on the card,
 ``ref.glr_scan`` on the CPU).  It evaluates the dense split grid only.
 For {0, 1} rewards every prefix is an exact integer and both kernels
 share the split term (``csrc/glr_kl.cuh``), so the two detectors fire on
-the same rounds and give the same trajectories.  Twin of
-``repro/core/bandits/glr_cucb.py``.
+the same rounds and give the same trajectories.
+
+A batch of rows, each an independent tenant of the scheduler service
+(``repro_torch.sim.serve``; the JAX package ``vmap``s the single-tenant
+functions there): ``ucb``/``select``/``channel_scores``/``mean_scores``
+take state leaves with a leading (B,) axis and a (B,) int32 ``t``, and
+``update_rows`` updates B rows whose streaming detector state stays in the
+service's slot tensors (a ``SlotRing``), through ``ops.glr_step_tenants``
+in place.  Each row's bits are those of the single-tenant call on it.
+Twin of ``repro/core/bandits/glr_cucb.py``.
 """
 from __future__ import annotations
 
@@ -68,6 +76,21 @@ class GLRCUCBState(NamedTuple):
     total: torch.Tensor     # (N,) running stream total since restart
     base: torch.Tensor      # (N,) stream total just before the window's
                             # oldest sample (0 until the ring wraps)
+
+
+class SlotRing(NamedTuple):
+    """The streaming detector state of a batch of B rows, kept in place in
+    the scheduler service's slot tensors: ``cum`` (R, N, H) and ``total``/
+    ``base`` (R, N), of which the rows ``slots`` (B,) are updated where
+    ``live`` (B,) bool.  ``detect`` (B,) bool marks the rows on a detection
+    round (it implies live): only their rings are read."""
+
+    cum: torch.Tensor
+    total: torch.Tensor
+    base: torch.Tensor
+    slots: torch.Tensor
+    live: torch.Tensor
+    detect: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,51 +164,59 @@ class GLRCUCB(TracedHyperParams):
             base=torch.zeros((n,), **f32),
         )
 
-    def ucb(self, state: GLRCUCBState, t: int) -> torch.Tensor:
-        """Eq. 30: mu_tilde + gamma * sqrt(3 log(t - tau) / (2 D)); +inf unseen."""
+    def ucb(self, state: GLRCUCBState, t) -> torch.Tensor:
+        """Eq. 30: mu_tilde + gamma * sqrt(3 log(t - tau) / (2 D)); +inf unseen.
+
+        ``t`` is the round (an int), or a (B,) int32 tensor for a batch of
+        rows (state leaves with a leading (B,) axis); every element is
+        computed by the same operations either way."""
         since = (t - state.tau).to(torch.float32).clamp_min(2.0)
-        bonus = torch.sqrt(3.0 * torch.log(since) / (2.0 * state.counts.clamp_min(1.0)))
-        ucb = state.mu_tilde + state.hp["gamma"] * bonus
+        bonus = torch.sqrt(3.0 * torch.log(since)[..., None] / (2.0 * state.counts.clamp_min(1.0)))
+        ucb = state.mu_tilde + state.hp["gamma"][..., None] * bonus
         return torch.where(state.counts > 0, ucb, torch.inf)
 
-    def select(self, state: GLRCUCBState, t: int, u: torch.Tensor,
+    def select(self, state: GLRCUCBState, t, u: torch.Tensor,
                aoi: torch.Tensor) -> Tuple[torch.Tensor, None]:
         """The M channels of round ``t``.  ``u`` is the round's (N,) uniform
         draw: it breaks ties among unseen arms (scaled to 1e6 so it survives
         f32 rounding on top of the 1e9 stand-in for +inf); seen arms rank by
-        their Eq.-30 values alone.  The sort is stable, as ``jnp.argsort``."""
+        their Eq.-30 values alone.  The sort is stable, as ``jnp.argsort``.
+        For a batch of rows ``t`` is (B,) int32, ``u`` (B, N), and the
+        channels come back (B, M)."""
         n, m = self.n_channels, self.n_clients
         ucb = self.ucb(state, t)
         noise = torch.where(state.counts == 0, u * 1e6, 0.0)
         key = torch.where(torch.isinf(ucb), 1e9, ucb) + noise
-        top = torch.argsort(-key, stable=True)[:m]
+        top = torch.argsort(-key, dim=-1, stable=True)[..., :m]
         # forced exploration (Alg. 2 line 3): at rate alpha, channel
         # i = (t - tau) mod floor(N / alpha) is scheduled when i < N
         if self.alpha > 0:
             period = max(int(n / self.alpha), n)
             slot = ((t - state.tau) % period).to(top.dtype)
             forced = slot < n
-            present = (top == slot).any()
+            present = (top == slot[..., None]).any(-1)
             swapped = top.clone()
-            swapped[m - 1] = slot
-            top = torch.where(forced & ~present, swapped, top)
+            swapped[..., m - 1] = slot
+            top = torch.where((forced & ~present)[..., None], swapped, top)
         return rotate_assignment(top, t, m), None
 
-    def update(self, state: GLRCUCBState, t: int, channels: torch.Tensor,
-               rewards: torch.Tensor, aux: Any) -> GLRCUCBState:
-        n = self.n_channels
-        dev = state.counts.device
+    def _observe(self, state: GLRCUCBState, channels, rewards):
+        """The round's semi-bandit feedback folded into the means: returns
+        ``(sched, r_vec, d_prev, mu, counts)``, per channel of each row."""
         # sanitize: the GLR statistics assume Bernoulli rewards in [0, 1];
         # the identity on valid {0, 1} streams
         rewards = torch.where(torch.isfinite(rewards), rewards, 0.0).clamp(0.0, 1.0)
-        sched = torch.zeros((n,), dtype=torch.bool, device=dev).index_fill(0, channels, True)
-        r_vec = torch.zeros((n,), dtype=torch.float32, device=dev).index_put(
-            (channels,), rewards.to(torch.float32))
-
         d_prev = state.counts
+        sched = torch.zeros_like(d_prev, dtype=torch.bool).scatter(-1, channels, True)
+        r_vec = torch.zeros_like(d_prev).scatter(-1, channels, rewards.to(torch.float32))
         mu = torch.where(sched, (state.mu_tilde * d_prev + r_vec) / (d_prev + 1.0),
                          state.mu_tilde)
         counts = torch.where(sched, d_prev + 1.0, d_prev)
+        return sched, r_vec, d_prev, mu, counts
+
+    def update(self, state: GLRCUCBState, t: int, channels: torch.Tensor,
+               rewards: torch.Tensor, aux: Any) -> GLRCUCBState:
+        sched, r_vec, d_prev, mu, counts = self._observe(state, channels, rewards)
         stride_ok = t % self.detector_stride == 0
         if self.detector_impl == "streaming":
             hist = state.hist                # (N, 0): prefix-only detector
@@ -209,13 +240,46 @@ class GLRCUCB(TracedHyperParams):
         return GLRCUCBState(mu, counts, tau, hist, restarts, state.hp,
                             cum, total, base)
 
+    def update_rows(self, state: GLRCUCBState, t: torch.Tensor, channels: torch.Tensor,
+                    rewards: torch.Tensor, ring: SlotRing) -> GLRCUCBState:
+        """``update`` for a batch of B rows, each at its own round ``t`` (B,)
+        int32 and with its own detection flag (``ring.detect``).  ``state``
+        holds the rows' ``mu_tilde``/``counts`` (B, N), ``tau``/``restarts``
+        (B,) and ``hp`` of (B,) tensors; its ``hist``/``cum``/``total``/
+        ``base`` are not read: the streaming detector state stays in the
+        slot tensors of ``ring``, which this updates in place (the append,
+        then the restart's zeroed totals).  On CUDA every call is one
+        ``ops.glr_step_tenants`` launch, which reads only the detecting
+        rows' rings.  Never waits on the device.  Returns the rows' state,
+        whose detector leaves are the ring's."""
+        if self.detector_impl != "streaming":
+            raise ValueError("GLRCUCB.update_rows: the scheduler service runs the streaming "
+                             "detector only; detector_impl='recompute' is not served")
+        sched, r_vec, d_prev, mu, counts = self._observe(state, channels, rewards)
+        stats = ops.glr_step_tenants(ring.cum, ring.total, ring.base, ring.slots, ring.live,
+                                     ring.detect, d_prev, r_vec, sched,
+                                     split_grid=self.resolved_split_grid())
+        change = self._fire(stats, sched, counts, state.hp)
+        # restart, as in `update`; rows that do not restart write back what
+        # they read (every row that is not live among them)
+        rows = ring.slots.to(torch.int64)
+        for x in (ring.total, ring.base):
+            x.index_copy_(0, rows, x.index_select(0, rows).masked_fill(change[:, None], 0.0))
+        mu = mu.masked_fill(change[:, None], 0.0)
+        counts = counts.masked_fill(change[:, None], 0.0)
+        tau = torch.where(change, t, state.tau)
+        restarts = state.restarts + change.to(torch.int32)
+        return GLRCUCBState(mu, counts, tau, state.hist, restarts, state.hp,
+                            ring.cum, ring.total, ring.base)
+
     def _fire(self, stats, sched, counts, hp) -> torch.Tensor:
-        """Restart decision from per-channel statistics, () bool."""
+        """Restart decision from per-channel statistics: () bool, or (B,) for
+        a batch of rows."""
         n_valid = counts.clamp_max(float(self.history)).to(torch.int32)
-        thresh = glr_threshold(n_valid, hp["delta"])
+        thresh = glr_threshold(n_valid, hp["delta"][..., None])
         fire = (sched & (stats >= thresh)
-                & (n_valid.to(torch.float32) >= hp["min_samples"]))
-        return fire.any()
+                & (n_valid.to(torch.float32) >= hp["min_samples"][..., None]))
+        return fire.any(-1)
 
     def _detect_streaming(self, state, channels, sched, r_vec, d_prev, counts,
                           stride_ok: bool):
@@ -262,12 +326,12 @@ class GLRCUCB(TracedHyperParams):
         change = self._fire(stats, sched, counts, state.hp)
         return hist, state.cum, state.total, state.base, change
 
-    def channel_scores(self, state: GLRCUCBState, t: int) -> torch.Tensor:
+    def channel_scores(self, state: GLRCUCBState, t) -> torch.Tensor:
         """UCB values (Eq. 30) rank channels for the Sec.-V matcher."""
         ucb = self.ucb(state, t)
         return torch.where(torch.isinf(ucb), 1e9, ucb)
 
-    def mean_scores(self, state: GLRCUCBState, t: int) -> torch.Tensor:
+    def mean_scores(self, state: GLRCUCBState, t) -> torch.Tensor:
         """Historical empirical means (Eq. 31) — the matcher's rank source
         under ``"mean"``-hint scenarios."""
         return state.mu_tilde

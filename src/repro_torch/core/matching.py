@@ -14,6 +14,11 @@ decides which client gets which channel:
    priority.  Both sorts are stable, as ``jnp.argsort`` is: at round 0
    every priority is equal.
 
+Every function also takes a batch of rows, each an independent tenant of
+the scheduler service: state leaves (B,), per-client tensors (B, M),
+``channels`` (B, M), scores (B, N).  Each row's result equals the
+unbatched call on it.
+
 Twin of ``repro/core/matching.py``.
 """
 from __future__ import annotations
@@ -48,12 +53,13 @@ class AdaptiveMatcher:
         """lambda_i (Eq. 39) for every client + updated normalizer state."""
         v_t = aoi_variance(aoi)
         v_max = torch.maximum(state.v_max, v_t)
-        a_max = torch.maximum(state.a_max, aoi.max())
+        a_max = torch.maximum(state.a_max, aoi.amax(dim=-1))
         v_tilde = normalized_aoi_variance(v_t, v_max)
         a_tilde = normalized_aoi(aoi, a_max)
         beta_t = self.beta * v_tilde                                    # Eq. 40
-        c_norm = contrib / contrib.max().clamp_min(1e-12)               # scale-free mix
-        lam = (1.0 - beta_t) * c_norm + beta_t * a_tilde                # Eq. 39
+        c_norm = contrib / contrib.amax(dim=-1, keepdim=True).clamp_min(1e-12)  # scale-free mix
+        b = beta_t[..., None]
+        lam = (1.0 - b) * c_norm + b * a_tilde                          # Eq. 39
         return lam, MatcherState(v_max=v_max, a_max=a_max, beta_t=beta_t)
 
     def match(self, state: MatcherState, channels: torch.Tensor,
@@ -62,14 +68,15 @@ class AdaptiveMatcher:
         """Permute ``channels`` so client i receives its priority-matched
         channel; ``assignment[i]`` is client i's channel."""
         lam, new_state = self.priorities(state, contrib, aoi)
-        chan_rank = torch.argsort(-channel_scores[channels], stable=True)  # best channel first
-        client_rank = torch.argsort(-lam, stable=True)                     # best client first
-        assignment = torch.empty_like(channels)
-        assignment[client_rank] = channels[chan_rank]
+        # best channel first, best client first
+        chan_rank = torch.argsort(-channel_scores.gather(-1, channels), dim=-1, stable=True)
+        client_rank = torch.argsort(-lam, dim=-1, stable=True)
+        assignment = torch.empty_like(channels).scatter_(-1, client_rank,
+                                                         channels.gather(-1, chan_rank))
         return assignment, new_state
 
 
-def matcher_scores(scheduler, sched_state, t: int, env) -> torch.Tensor:
+def matcher_scores(scheduler, sched_state, t, env) -> torch.Tensor:
     """The (n_channels,) scores ``AdaptiveMatcher.match`` ranks channels by:
     the policy's historical means under ``"mean"``-hint scenarios, its
     native ``channel_scores`` otherwise."""

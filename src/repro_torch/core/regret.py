@@ -28,18 +28,42 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import regret_scan as _rs
 
 
-def policy_round(scheduler, sched_state, aoi, t: int, u_sel, ch_states):
+def policy_round(scheduler, sched_state, aoi, t, u_sel, ch_states, ring=None):
     """One policy-side round: select -> observe -> update -> AoI.
 
     ``ch_states`` is the (N,) realized channel-state vector for round ``t``;
     the observed rewards are its scheduled entries (semi-bandit feedback).
     Returns ``(sched_state, aoi, channels, rewards)``.
+
+    The batched twin, for the scheduler service: with ``ring`` (a
+    ``SlotRing``) the state leaves, ``aoi`` (B, M), ``u_sel`` and
+    ``ch_states`` (B, N) carry a tenant axis, ``t`` is (B,) int32, and the
+    update is ``scheduler.update_rows`` on the ring; each row's result
+    equals the unbatched round on it.
     """
     channels, aux = scheduler.select(sched_state, t, u_sel, aoi)
-    rewards = ch_states[channels]
-    sched_state = scheduler.update(sched_state, t, channels, rewards, aux)
+    rewards = ch_states.gather(-1, channels)
+    if ring is None:
+        sched_state = scheduler.update(sched_state, t, channels, rewards, aux)
+    else:
+        sched_state = scheduler.update_rows(sched_state, t, channels, rewards, ring)
     aoi = update_aoi(aoi, rewards > 0.5)
     return sched_state, aoi, channels, rewards
+
+
+def offline_round_stream(env, uniforms: torch.Tensor, horizon: int):
+    """The ``(u_sel, states)`` stream ``simulate_aoi_regret`` consumes:
+    ``u_sel[t]`` (N,) is round t's policy uniform ``uniforms[t, 1]`` and
+    ``states[t]`` (N,) the channel realization drawn from ``uniforms[t, 0]``,
+    both (T, N).  Serving this stream one request per round reproduces the
+    offline run of the same ``uniforms`` (T, 2, N) bit for bit.  The port's
+    envs are all open-loop, so ``sample`` is the draw.
+    """
+    if uniforms.shape[0] < horizon:
+        raise ValueError(f"offline_round_stream: {uniforms.shape[0]} rounds of uniforms, "
+                         f"horizon {horizon}")
+    states = torch.stack([env.sample(t, uniforms[t, 0]) for t in range(horizon)])
+    return uniforms[:horizon, 1], states
 
 
 IMPLS = (None, "scan", "rounds")

@@ -33,8 +33,8 @@ round draws two (N,) f32 uniforms, ``u_env`` for the channel states and
 ``k_env, k_sel``; with ``faults`` it also draws the family's
 ``n_uniforms(M)`` uniforms ``u_fault``, which stand for the JAX round's
 draws on ``fold_in(key, 0xFA17)`` (see ``repro_torch.core.faults``).
-Twin of ``repro/fl/round.py``; ``run_served`` and the batched engine are
-not ported.
+``run_served`` takes each round's schedule from a ``SchedServer``
+instead.  Twin of ``repro/fl/round.py``; the batched engine is not ported.
 """
 from __future__ import annotations
 
@@ -57,6 +57,7 @@ from repro_torch.core.contribution import (
 from repro_torch.core.matching import AdaptiveMatcher, MatcherState, matcher_scores
 from repro_torch.device import resolve_device
 from repro_torch.fl.client import local_sgd
+from repro_torch.sim.serve import ServeRequest
 from repro_torch.utils.tree import tree_flatten_concat, tree_unflatten_concat
 
 _MEAN = MeanAgg()
@@ -88,6 +89,19 @@ class AsyncFLState(NamedTuple):
     fault_state: torch.Tensor        # () fault-schedule carry (burst on/off; a
                                      # dead zero for memoryless families and
                                      # faultless trainers)
+
+
+class _RoundPre(NamedTuple):
+    """A round's state before the schedule is decided (Steps 1-2)."""
+
+    buffers: torch.Tensor          # (M, P) after the Eq.-6 carry
+    has_update: torch.Tensor       # (M,)
+    staleness: torch.Tensor        # (M,)
+    active: torch.Tensor           # (M,) clients that trained this round
+    dropped: Optional[torch.Tensor]  # (M,) fault drops, None without faults
+    local_losses: torch.Tensor     # (M,)
+    ch_states: torch.Tensor        # (N,) the round's channel realization
+    fault_state: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,45 +186,20 @@ class AsyncFLTrainer:
 
         return torch.func.vmap(one_client)(batches_x, batches_y)
 
-    def round(
-        self,
-        state: AsyncFLState,
-        batches_x: torch.Tensor,    # (M, E, B, ...)
-        batches_y: torch.Tensor,    # (M, E, B)
-        generator: Optional[torch.Generator] = None,
-        u_env: Optional[torch.Tensor] = None,
-        u_sel: Optional[torch.Tensor] = None,
-        u_fault: Optional[torch.Tensor] = None,
-    ) -> Tuple[AsyncFLState, Dict[str, torch.Tensor]]:
-        """One round.  The round's randomness is ``u_env``/``u_sel`` ((N,)
-        uniforms) and, with ``faults``, ``u_fault`` ((K,) uniforms,
-        ``K = n_fault_uniforms()``) when given, else drawn from
-        ``generator`` in that order."""
-        cfg, dev = self.cfg, self.device
-        m, n, k = cfg.n_clients, cfg.n_channels, self.n_fault_uniforms()
-        if (u_env is None) != (u_sel is None):
-            raise ValueError("round: pass both u_env and u_sel, or neither")
-        if k and (u_env is None) != (u_fault is None):
-            raise ValueError("round: with faults, pass u_env, u_sel and u_fault, or none")
-        if not k and u_fault is not None:
-            raise ValueError("round: u_fault given to a trainer without faults")
-        if u_env is None:
-            u_env, u_sel = torch.rand((2, n), generator=generator, device=dev)
-            if k:
-                u_fault = torch.rand((k,), generator=generator, device=dev)
-        env, t = self.env, state.t
-        batches_x = batches_x.to(dev)
-        batches_y = batches_y.to(dev)
-
+    def _round_pre(self, state: AsyncFLState, batches_x, batches_y, u_env, u_fault):
+        """Steps 1-2, the Eq.-6 carry and the round's channel realization:
+        everything before the schedule is decided."""
+        dev = self.device
         # ---- Steps 1-2: local training for clients in S_{t-1} ------------
-        fresh_updates, local_losses = self._local_updates(state.params, batches_x, batches_y)
+        fresh_updates, local_losses = self._local_updates(state.params, batches_x.to(dev),
+                                                          batches_y.to(dev))
 
         # ---- fault injection: between training and the Eq.-6 carry ---------
         # A dropped client neither refreshes its buffer nor transmits; the
         # faultless path multiplies by no all-ones mask (same values, fewer ops)
         if self.faults is not None:
             fresh_updates, dropped, fault_state = self.faults.inject_sched(
-                u_fault.to(dev), t, fresh_updates, state.fault_state, self._fault_params)
+                u_fault.to(dev), state.t, fresh_updates, state.fault_state, self._fault_params)
             active = state.last_success * (1.0 - dropped)
         else:
             dropped, fault_state = None, state.fault_state
@@ -218,27 +207,28 @@ class AsyncFLTrainer:
 
         # Eq. 6 via `where`: a corrupted fresh row must not leak NaN into an
         # inactive client's kept buffer (0 * NaN)
-        buffers = torch.where(active[:, None] > 0.5, fresh_updates, state.buffers)
-        has_update = torch.maximum(state.has_update, active)
-        staleness = torch.where(active > 0.5, 1.0, state.staleness + 1.0)
+        return _RoundPre(
+            buffers=torch.where(active[:, None] > 0.5, fresh_updates, state.buffers),
+            has_update=torch.maximum(state.has_update, active),
+            staleness=torch.where(active > 0.5, 1.0, state.staleness + 1.0),
+            active=active, dropped=dropped, local_losses=local_losses,
+            ch_states=self.env.sample_dyn(state.t, u_env.to(dev), state.env_state),
+            fault_state=fault_state)
 
-        # ---- Step 3: schedule + match + transmit ---------------------------
-        channels, aux = self.scheduler.select(state.sched_state, t, u_sel, state.aoi)
-        matcher = AdaptiveMatcher(cfg.matcher_beta)
-        if cfg.use_matching:
-            scores = matcher_scores(self.scheduler, state.sched_state, t, env)
-            assignment, matcher_state = matcher.match(
-                state.matcher_state, channels, scores, state.contrib, state.aoi)
-        else:
-            assignment = channels
-            _, matcher_state = matcher.priorities(state.matcher_state, state.contrib, state.aoi)
-        ch_states = env.sample_dyn(t, u_env.to(dev), state.env_state)
+    def _round_post(self, state: AsyncFLState, pre: "_RoundPre", assignment, matcher_state,
+                    sched_state) -> Tuple[AsyncFLState, Dict[str, torch.Tensor]]:
+        """Step 3 after the decision (transmit), Step 4 and the bookkeeping,
+        given the round's ``assignment``, post-step matcher state and
+        scheduler state."""
+        cfg, dev = self.cfg, self.device
+        m, n, t = cfg.n_clients, cfg.n_channels, state.t
+        buffers, has_update, staleness = pre.buffers, pre.has_update, pre.staleness
         sched_mask = torch.zeros((n,), device=dev).index_fill(0, assignment, 1.0)
-        env_state = env.interact_step(state.env_state, t, sched_mask)
-        success = (ch_states[assignment] > 0.5).to(torch.float32)
+        env_state = self.env.interact_step(state.env_state, t, sched_mask)
+        success = (pre.ch_states[assignment] > 0.5).to(torch.float32)
         success = success * has_update        # a client with no update yet can't help
-        if dropped is not None:
-            success = success * (1.0 - dropped)   # and a dropped one can't transmit
+        if pre.dropped is not None:
+            success = success * (1.0 - pre.dropped)   # and a dropped one can't transmit
 
         # ---- Step 4: quarantine gate + aggregate (Eq. 7, CUDA kernel) -------
         if cfg.quarantine:
@@ -280,10 +270,8 @@ class AsyncFLTrainer:
         has_update = has_update * row_ok
         last_success = torch.maximum(agg_mask, torch.maximum(bad_row, stale_reject))
 
-        # ---- bookkeeping: AoI, bandit, contribution, zeta -------------------
+        # ---- bookkeeping: AoI, contribution, zeta ---------------------------
         aoi = update_aoi(state.aoi, agg_mask > 0.5)
-        rewards = ch_states[assignment]
-        sched_state = self.scheduler.update(state.sched_state, t, assignment, rewards, aux)
         params_flat = tree_flatten_concat(params)
         contrib_buf = update_buffer(state.contrib_buf, agg_mask > 0.5, agg_buffers,
                                     params_flat.expand_as(buffers))
@@ -295,13 +283,13 @@ class AsyncFLTrainer:
             last_success=last_success, aoi=aoi, contrib_buf=contrib_buf,
             contrib=contrib, zeta=new_zeta, sched_state=sched_state,
             matcher_state=matcher_state, t=t + 1, env_state=env_state,
-            staleness=staleness, fault_state=fault_state,
+            staleness=staleness, fault_state=pre.fault_state,
         )
         # losses of clients that actually trained this round, kept finite
-        loss_ok = torch.isfinite(local_losses).to(torch.float32)
-        loss_w = active * loss_ok
+        loss_ok = torch.isfinite(pre.local_losses).to(torch.float32)
+        loss_w = pre.active * loss_ok
         metrics = {
-            "local_loss": (torch.where(loss_ok > 0.5, local_losses, 0.0) * active).sum()
+            "local_loss": (torch.where(loss_ok > 0.5, pre.local_losses, 0.0) * pre.active).sum()
             / loss_w.sum().clamp_min(1.0),
             "n_success": n_succ,
             "mean_aoi": aoi.mean(),
@@ -310,6 +298,54 @@ class AsyncFLTrainer:
             "zeta_max": new_zeta.max(),
         }
         return new_state, metrics
+
+    def _draw(self, generator, u_env, u_sel, u_fault, caller: str):
+        """The round's uniforms: as given, else drawn from ``generator``
+        in the order u_env, u_sel, u_fault."""
+        n, k = self.cfg.n_channels, self.n_fault_uniforms()
+        if (u_env is None) != (u_sel is None):
+            raise ValueError(f"{caller}: pass both u_env and u_sel, or neither")
+        if k and (u_env is None) != (u_fault is None):
+            raise ValueError(f"{caller}: with faults, pass u_env, u_sel and u_fault, or none")
+        if not k and u_fault is not None:
+            raise ValueError(f"{caller}: u_fault given to a trainer without faults")
+        if u_env is None:
+            u_env, u_sel = torch.rand((2, n), generator=generator, device=self.device)
+            if k:
+                u_fault = torch.rand((k,), generator=generator, device=self.device)
+        return u_env, u_sel, u_fault
+
+    def round(
+        self,
+        state: AsyncFLState,
+        batches_x: torch.Tensor,    # (M, E, B, ...)
+        batches_y: torch.Tensor,    # (M, E, B)
+        generator: Optional[torch.Generator] = None,
+        u_env: Optional[torch.Tensor] = None,
+        u_sel: Optional[torch.Tensor] = None,
+        u_fault: Optional[torch.Tensor] = None,
+    ) -> Tuple[AsyncFLState, Dict[str, torch.Tensor]]:
+        """One round.  The round's randomness is ``u_env``/``u_sel`` ((N,)
+        uniforms) and, with ``faults``, ``u_fault`` ((K,) uniforms,
+        ``K = n_fault_uniforms()``) when given, else drawn from
+        ``generator`` in that order."""
+        u_env, u_sel, u_fault = self._draw(generator, u_env, u_sel, u_fault, "round")
+        pre = self._round_pre(state, batches_x, batches_y, u_env, u_fault)
+
+        # ---- Step 3: schedule + match ---------------------------------------
+        t = state.t
+        channels, aux = self.scheduler.select(state.sched_state, t, u_sel, state.aoi)
+        matcher = AdaptiveMatcher(self.cfg.matcher_beta)
+        if self.cfg.use_matching:
+            scores = matcher_scores(self.scheduler, state.sched_state, t, self.env)
+            assignment, matcher_state = matcher.match(
+                state.matcher_state, channels, scores, state.contrib, state.aoi)
+        else:
+            assignment = channels
+            _, matcher_state = matcher.priorities(state.matcher_state, state.contrib, state.aoi)
+        rewards = pre.ch_states[assignment]
+        sched_state = self.scheduler.update(state.sched_state, t, assignment, rewards, aux)
+        return self._round_post(state, pre, assignment, matcher_state, sched_state)
 
     # ------------------------------------------------------------------ run
     def run(
@@ -346,5 +382,72 @@ class AsyncFLTrainer:
             state, mets = self.round(state, batches_x[i], batches_y[i],
                                      u_env=uniforms[i, 0], u_sel=uniforms[i, 1],
                                      u_fault=fault_uniforms[i] if k else None)
+            per_round.append(mets)
+        return state, {k: torch.stack([mm[k] for mm in per_round]) for k in per_round[0]}
+
+    # ------------------------------------------------- served (SchedServer)
+    def _validate_server(self, server) -> None:
+        m = self.cfg.n_clients
+        if not (self.cfg.use_matching and server.use_matching):
+            raise ValueError(
+                "run_served: requires use_matching=True on both the trainer cfg and the "
+                "SchedServer (the server's non-matching path owns AoI semantics the trainer "
+                "cannot override)")
+        if float(server.matcher_beta) != float(self.cfg.matcher_beta):
+            raise ValueError(f"run_served: matcher_beta mismatch (trainer "
+                             f"{self.cfg.matcher_beta}, server {server.matcher_beta})")
+        if (server.scheduler.n_channels != self.cfg.n_channels
+                or server.scheduler.n_clients != m):
+            raise ValueError(
+                f"run_served: server scheduler dims (N={server.scheduler.n_channels}, "
+                f"M={server.scheduler.n_clients}) do not match the trainer "
+                f"(N={self.cfg.n_channels}, M={m})")
+        want = "mean" if (getattr(self.env, "score_kind", "ucb") == "mean"
+                          and getattr(self.scheduler, "mean_scores", None) is not None) \
+            else "ucb"
+        if server.score_kind != want:
+            raise ValueError(f"run_served: this trainer's env routes matcher scores via "
+                             f"{want!r} but the server was built with "
+                             f"score_kind={server.score_kind!r}")
+
+    def run_served(self, state: AsyncFLState, batches_x: torch.Tensor, batches_y: torch.Tensor,
+                   server, tenant, generator: Optional[torch.Generator] = None,
+                   uniforms: Optional[torch.Tensor] = None,
+                   fault_uniforms: Optional[torch.Tensor] = None,
+                   ) -> Tuple[AsyncFLState, Dict[str, torch.Tensor]]:
+        """``run`` with the schedule taken from ``server`` (a
+        ``repro_torch.sim.SchedServer``).  Each round the trainer does Steps
+        1-2, posts its channel vector, selection uniform, contributions and
+        AoI as ``tenant``'s request, and finishes the round with the
+        returned assignment and matcher row; the policy state lives in the
+        server's tenant row (``state.sched_state`` is carried unchanged).
+        ``tenant`` must be joined (with this trainer's hp to reproduce
+        ``run()``, which it then does bit for bit).  The randomness is
+        ``run``'s.  Each round waits for the server's decision."""
+        self._validate_server(server)
+        r, n, k = int(batches_x.shape[0]), self.cfg.n_channels, self.n_fault_uniforms()
+        if int(batches_y.shape[0]) != r:
+            raise ValueError(f"run_served: batches_y leading axis {batches_y.shape[0]} != {r}")
+        if k and (uniforms is None) != (fault_uniforms is None):
+            raise ValueError("run_served: with faults, pass uniforms and fault_uniforms, "
+                             "or neither")
+        if uniforms is None:
+            uniforms = torch.rand((r, 2, n), generator=generator, device=self.device)
+            if k:
+                fault_uniforms = torch.rand((r, k), generator=generator, device=self.device)
+        elif tuple(uniforms.shape) != (r, 2, n):
+            raise ValueError(f"run_served: uniforms must be ({r}, 2, {n}), "
+                             f"got {tuple(uniforms.shape)}")
+        dev = self.device
+        per_round = []
+        for i in range(r):
+            pre = self._round_pre(state, batches_x[i], batches_y[i], uniforms[i, 0],
+                                  fault_uniforms[i] if k else None)
+            dec = server.serve_decisions([ServeRequest(
+                tenant, rewards=pre.ch_states.cpu().numpy(), u=uniforms[i, 1].cpu().numpy(),
+                contrib=state.contrib.cpu().numpy(), aoi=state.aoi.cpu().numpy())])[0]
+            mstate = MatcherState(*[torch.tensor(x, device=dev) for x in dec.matcher_state])
+            assignment = torch.as_tensor(dec.assignment, dtype=torch.int64).to(dev)
+            state, mets = self._round_post(state, pre, assignment, mstate, state.sched_state)
             per_round.append(mets)
         return state, {k: torch.stack([mm[k] for mm in per_round]) for k in per_round[0]}

@@ -18,9 +18,12 @@
 // the row is scanned twice: once for W, once for the statistics (the two
 // scans add in the same order, so their prefixes agree bit for bit and W
 // is the last prefix).  A warp-shuffle block max starting from -inf ends it.
-// On {0, 1} rewards every prefix is an exact integer whatever the order of
-// the adds; on real-valued ones the scan's order differs from the plain
-// version's sequential `cumsum` (compared at rtol 1e-5).
+// The scan adds in f64 and rounds each prefix (and W) to f32 once.  On
+// {0, 1} rewards every prefix is an exact integer whatever the order of
+// the adds, so the bits are those of an f32 scan; on real-valued ones a
+// prefix is within about half an ulp of the exact sum, where an f32 scan
+// in the block's order (not the plain version's sequential `cumsum`)
+// drifted by several ulps, and the split term amplifies that drift.
 //
 // What bounds it on the H100: at the paper's sizes (N = 5..30 rows,
 // H = 256..1024) the history is 5-120 KB and the work some 40 flops per
@@ -36,36 +39,37 @@ namespace {
 
 constexpr int kMaxThreads = 256;
 
-// inclusive scan of one float per thread across the block; `warp_tot`
-// holds 32 floats of shared memory.  Returns this thread's prefix and
-// writes the block's total to *block_total (every thread).
-__device__ __forceinline__ float block_inclusive_scan(float v, float* warp_tot, float* block_total) {
+// inclusive scan of one value per thread across the block, in f64;
+// `warp_tot` holds 32 doubles of shared memory.  Returns this thread's
+// prefix and writes the block's total to *block_total (every thread).
+__device__ __forceinline__ double block_inclusive_scan(double v, double* warp_tot,
+                                                       double* block_total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = (blockDim.x + 31) >> 5;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
-    const float up = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v = __fadd_rn(v, up);
+    const double up = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v = __dadd_rn(v, up);
   }
   __syncthreads();  // warp_tot may still be read from the previous chunk
   if (lane == 31) warp_tot[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    float t = lane < warps ? warp_tot[lane] : 0.0f;
+    double t = lane < warps ? warp_tot[lane] : 0.0;
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
-      const float up = __shfl_up_sync(0xffffffffu, t, off);
-      if (lane >= off) t = __fadd_rn(t, up);
+      const double up = __shfl_up_sync(0xffffffffu, t, off);
+      if (lane >= off) t = __dadd_rn(t, up);
     }
     if (lane < warps) warp_tot[lane] = t;  // inclusive scan of the warp totals
   }
   __syncthreads();
   *block_total = warp_tot[warps - 1];
-  return warp > 0 ? __fadd_rn(v, warp_tot[warp - 1]) : v;
+  return warp > 0 ? __dadd_rn(v, warp_tot[warp - 1]) : v;
 }
 
 __global__ void glr_scan_kernel(const float* __restrict__ hist, const int* __restrict__ counts,
                                 float* __restrict__ stat_out, int h) {
-  __shared__ float warp_tot[32];
+  __shared__ double warp_tot[32];
   __shared__ float warp_best[32];
   const int row = blockIdx.x;
   const float* x = hist + static_cast<size_t>(row) * h;
@@ -73,26 +77,26 @@ __global__ void glr_scan_kernel(const float* __restrict__ hist, const int* __res
   const float n_f = static_cast<float>(n);
 
   // pass 1: the window total W (the carry after the last chunk)
-  float carry = 0.0f;
+  double carry = 0.0;
   for (int c0 = 0; c0 < h; c0 += blockDim.x) {
     const int idx = c0 + threadIdx.x;
-    float chunk_total;
+    double chunk_total;
     block_inclusive_scan((idx < h && idx < n) ? x[idx] : 0.0f, warp_tot, &chunk_total);
-    carry = __fadd_rn(carry, chunk_total);
+    carry = __dadd_rn(carry, chunk_total);
   }
-  const float W = carry;
+  const float W = __double2float_rn(carry);
   const float mu_all = glr::window_mean(W, n_f);
 
   // pass 2: the same scan again, each prefix tested as a split
   float best = -__int_as_float(0x7f800000);  // -inf
-  carry = 0.0f;
+  carry = 0.0;
   for (int c0 = 0; c0 < h; c0 += blockDim.x) {
     const int idx = c0 + threadIdx.x;
-    float chunk_total;
-    const float pre = block_inclusive_scan((idx < h && idx < n) ? x[idx] : 0.0f, warp_tot,
-                                           &chunk_total);
-    const float P = __fadd_rn(carry, pre);
-    carry = __fadd_rn(carry, chunk_total);
+    double chunk_total;
+    const double pre = block_inclusive_scan((idx < h && idx < n) ? x[idx] : 0.0f, warp_tot,
+                                            &chunk_total);
+    const float P = __double2float_rn(__dadd_rn(carry, pre));
+    carry = __dadd_rn(carry, chunk_total);
     const int s = idx + 1;
     if (idx < h && s <= n - 1) {
       best = fmaxf(best, glr::split_stat(P, W, static_cast<float>(s), n_f, mu_all));

@@ -1,7 +1,8 @@
 // Fused streaming GLR detector step for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel `glr_step` / `glr_step_tenants`
-// (src/repro/kernels/glr_step.py, `_glr_step_math`).  Semantics of record:
+// Replaces the Pallas TPU kernel `glr_step` (src/repro/kernels/glr_step.py,
+// `_glr_step_math`); the scheduler service's tenant form, in place on its
+// slot state, is glr_step_tenants.cu.  Semantics of record:
 // `repro_torch.kernels.ref.glr_step`.
 //
 // Per row (one channel of one tenant) of the (R, H) prefix ring:

@@ -1,10 +1,12 @@
 """CUDA kernel wrapper: fused streaming GLR detector step.
 
-Replaces the Pallas TPU kernels ``glr_step`` and ``glr_step_tenants`` of
+Replaces the Pallas TPU kernel ``glr_step`` of
 ``src/repro/kernels/glr_step.py`` (``_glr_step_math``): per channel, the
 masked append into the (N, H) prefix ring and the sup of the two-sided
 Bernoulli-KL GLR statistic over the post-append window, in one launch.
-Source: ``csrc/glr_step.cu``; semantics of record: ``ref.glr_step``.
+Source: ``csrc/glr_step.cu``; semantics of record: ``ref.glr_step``.  The
+scheduler service's tenant form, in place on its slot state, is
+``glr_step_tenants.py``.
 
 What bounds it on the H100: launch latency.  At the paper's sizes
 (N = 5..30 channels, H = 256..1024) the ring is 5-120 KB, roughly
@@ -13,7 +15,7 @@ nanoseconds.  The design therefore fuses append and test into one launch
 with one thread block per row and no padding; a leading tenant axis
 (G, N, H) is just G*N rows of the same launch, so the tenant form needs no
 second kernel.  The kernel is functional (fresh outputs), like the plain
-version; writing the one appended slot in place is left for later.
+version.
 """
 from __future__ import annotations
 

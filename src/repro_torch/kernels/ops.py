@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import glr_scan as _gsc
 from repro_torch.kernels import glr_step as _gs
+from repro_torch.kernels import glr_step_tenants as _gst
 from repro_torch.kernels import ref as ref  # re-export the plain versions
 from repro_torch.kernels import regret_scan as _rs
 from repro_torch.kernels import robust_agg as _ra
@@ -48,6 +49,30 @@ def glr_step(cum, total, base, counts, r_vec, sched, split_grid: str = "all"):
     outs = ref.glr_step(cum.reshape(-1, h), flat(total), flat(base), flat(counts),
                         flat(r_vec), flat(sched), split_grid=split_grid)
     return (outs[0].reshape(cum.shape),) + tuple(o.reshape(rows_shape) for o in outs[1:])
+
+
+def glr_step_tenants(cum, total, base, slots, live, detect, counts, r_vec, sched,
+                     split_grid: str = "all"):
+    """The streaming GLR detector step over the scheduler service's slot
+    state, in place: ``cum`` (R, N, H), ``total``/``base`` (R, N) f32 are
+    updated for the rows ``slots`` (B,) where ``live`` (B,); returns the
+    statistics (B, N), -inf where ``detect`` (B,) is false.  ``counts``
+    (B, N) are the samples before the append (float or int), ``r_vec``
+    (B, N), ``sched`` (B, N) bool.  On CUDA one kernel launch, which never
+    moves the slot state (so it must be f32 and contiguous)."""
+    if split_grid not in _GLR_SPLIT_GRIDS:
+        raise ValueError(
+            f"glr_step_tenants: unknown split_grid {split_grid!r}; use one of {_GLR_SPLIT_GRIDS}")
+    if cum.is_cuda:
+        return _gst.glr_step_tenants(cum, total, base, slots.to(torch.int32).contiguous(),
+                                     live.contiguous(), detect.contiguous(),
+                                     counts.to(torch.int32).contiguous(),
+                                     r_vec.to(torch.float32).contiguous(),
+                                     sched.to(torch.bool).contiguous(), split_grid=split_grid)
+    if cum.device.type != "cpu":
+        raise ValueError(f"glr_step_tenants: no kernel for device {cum.device}")
+    return ref.glr_step_tenants(cum, total, base, slots, live, detect, counts, r_vec, sched,
+                                split_grid=split_grid)
 
 
 def weighted_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -143,6 +143,56 @@ def glr_step(cum, total, base, counts, r_vec, sched, split_grid: str = "all"):
 
 
 # ---------------------------------------------------------------------------
+# glr_step_tenants — the detector step over the scheduler service's slots,
+# in place
+# ---------------------------------------------------------------------------
+#
+# The slot state is cum (R, N, H), total/base (R, N); a serve step names B
+# rows by ``slots`` (B,).  Live slots are unique and no other row names a
+# live row's slot, so the writes below never collide (the rows that are not
+# live write back what they read).
+
+
+def glr_tenants_append(cum, total, base, slots, live, counts, r_vec, sched):
+    """``glr_stream_append`` for the rows ``slots`` where ``live``, in place
+    on the slot state; ``counts``/``r_vec``/``sched`` are (B, N).  Never
+    waits on the device."""
+    n_chan, h = cum.shape[1:]
+    idx = slots.to(torch.int64)
+    c_prev = counts.to(torch.int64)
+    w = torch.remainder(c_prev, h)                            # (B, N) ring position
+    rows = idx[:, None].expand_as(w)
+    chans = torch.arange(n_chan, device=cum.device)[None, :].expand_as(w)
+    evict = cum[rows, chans, w]
+    write = sched & live[:, None]
+    tot, bas = total.index_select(0, idx), base.index_select(0, idx)
+    base2 = torch.where(write & (c_prev >= h), evict, bas)
+    total2 = torch.where(write, tot + r_vec, tot)
+    cum.index_put_((rows, chans, w), torch.where(write, total2, evict))
+    total.index_copy_(0, idx, total2)
+    base.index_copy_(0, idx, base2)
+
+
+def glr_step_tenants(cum, total, base, slots, live, detect, counts, r_vec, sched,
+                     split_grid: str = "all"):
+    """The rows ``slots`` (B,) of the slot state go through ``glr_step``:
+    the append is written back in place where ``live`` (B,); the statistic
+    (B, N) is returned where ``detect`` (B,), -inf elsewhere.  ``counts``
+    (B, N) are the samples before the append.  Row for row equal to
+    ``glr_step`` on the gathered rows."""
+    glr_tenants_append(cum, total, base, slots, live, counts, r_vec, sched)
+    b, n_chan = counts.shape
+    h = cum.shape[-1]
+    idx = slots.to(torch.int64)
+    c2 = counts.to(torch.int64) + sched.to(torch.int64)
+    stats = glr_stream_stat(cum.index_select(0, idx).reshape(b * n_chan, h),
+                            total.index_select(0, idx).reshape(-1),
+                            base.index_select(0, idx).reshape(-1), c2.reshape(-1),
+                            split_grid).reshape(b, n_chan)
+    return torch.where((detect & live)[:, None], stats, -torch.inf)
+
+
+# ---------------------------------------------------------------------------
 # weighted_aggregate
 # ---------------------------------------------------------------------------
 

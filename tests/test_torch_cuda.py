@@ -31,7 +31,11 @@ call the FMA route.  ``regret_scan`` (a whole regret-harness run in one
 launch) equals the per-round route with the plain detector bit for bit in
 schedule, restarts, regret, AoI, success rate and final state; the
 variance sums at rtol 1e-6 (the kernel adds the M squared deviations in
-another order than torch's reduction).
+another order than torch's reduction).  ``glr_step_tenants`` (the
+scheduler service's detector step, in place on the slot state) is held to
+``ref.glr_step_tenants`` as ``glr_step`` is to its plain version, rows not
+live untouched; a served trace on the card equals the CPU server bit for
+bit, and a serve step makes no host sync.
 """
 import dataclasses
 
@@ -488,3 +492,113 @@ def test_fig2_rounds_route_launches_glr_step(cuda):
     before = regret_scan.launches, glr_step.launches
     simulate_aoi_regret(sched, env, 500, uniforms=u, impl="rounds")
     assert (regret_scan.launches, glr_step.launches) == (before[0], before[1] + 100)
+
+
+def _tenant_inputs(r, b, n, h, seed, binary):
+    """A serve step's operands: slot state (R, N, H), B distinct slots, the
+    last two rows padding on the scratch slot R - 1, a fifth of the live
+    rows detecting (at least one)."""
+    rng = np.random.default_rng(seed)
+    if binary:
+        cum = rng.integers(0, 2 * h, (r, n, h)).astype(np.float32)
+        r_vec = rng.integers(0, 2, (b, n)).astype(np.float32)
+    else:
+        cum = (np.sort(rng.random((r, n, h)), -1) * h).astype(np.float32)
+        r_vec = rng.random((b, n)).astype(np.float32)
+    total = rng.integers(0, 3 * h, (r, n)).astype(np.float32)
+    base = rng.integers(0, h, (r, n)).astype(np.float32)
+    counts = rng.integers(0, 3 * h, (b, n)).astype(np.int32)
+    slots = rng.permutation(r - 1)[:b].astype(np.int32)
+    live = np.ones(b, bool)
+    slots[-2:], live[-2:] = r - 1, False
+    detect = (rng.random(b) < 0.2) & live
+    detect[0] = True
+    sched = rng.random((b, n)) < 0.7
+    return [torch.from_numpy(a) for a in (cum, total, base, slots, live, detect, counts,
+                                          r_vec, sched)]
+
+
+@pytest.mark.parametrize("r,b,n,h", [(256, 250, 16, 1024), (257, 64, 16, 256),
+                                     (10001, 64, 16, 64), (20, 12, 5, 33), (20, 12, 5, 130)])
+@pytest.mark.parametrize("split_grid", ["all", "geometric"])
+@pytest.mark.parametrize("binary", [True, False], ids=["bernoulli", "uniform"])
+def test_glr_step_tenants_kernel_matches_plain(cuda, r, b, n, h, split_grid, binary):
+    """The in-place kernel against ``ref.glr_step_tenants`` on the same
+    inputs: the slot state bitwise on {0, 1} rewards (rtol 1e-6 on U[0, 1]),
+    rows not live untouched, the statistic at rtol/atol 1e-5 with -inf at
+    the same places; one launch."""
+    from repro_torch.kernels.glr_step_tenants import glr_step_tenants
+
+    args = _tenant_inputs(r, b, n, h, r + b + h, binary)
+    card = [a.to(cuda) for a in args]
+    before = glr_step_tenants.launches
+    got = ops.glr_step_tenants(*card, split_grid=split_grid).cpu()
+    assert glr_step_tenants.launches == before + 1
+    plain = [a.clone() for a in args[:3]]
+    want = ref.glr_step_tenants(*plain, *args[3:], split_grid=split_grid)
+    for g, w in zip(card[:3], plain):
+        if binary:
+            assert torch.equal(g.cpu(), w)
+        else:
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=0)
+    assert torch.equal(card[0][-1].cpu(), args[0][-1])            # the scratch slot
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("use_matching", [False, True], ids=["policy", "matched"])
+def test_served_tenants_on_the_card_equal_the_cpu(cuda, use_matching):
+    """Three tenants served 80 requests on the card equal the CPU server bit
+    for bit (assignments, every slot leaf but the matcher's normalizers,
+    held at rtol 1e-6); ``glr_step_tenants`` launches
+    once a step, ``glr_step`` never; a step does not wait on the device."""
+    from collections import deque
+
+    from repro_torch.kernels.glr_step_tenants import glr_step_tenants
+    from repro_torch.sim import SchedServer, ServeRequest
+
+    sched = GLRCUCB(8, 3, history=32, detector_stride=5, min_samples=4, delta=0.1)
+    servers = {dev: SchedServer(sched, capacity=4, slots=4, use_matching=use_matching,
+                                device=dev) for dev in ("cpu", cuda)}
+    rng = np.random.default_rng(7)
+    reqs = [ServeRequest(f"t{j % 3}", (rng.random(8) < 0.6).astype(np.float32),
+                         rng.random(8).astype(np.float32)) for j in range(80)]
+    out = {}
+    for dev, server in servers.items():
+        for i in range(3):
+            server.join(f"t{i}", hp={"gamma": 0.8 + 0.1 * i})
+        before = (glr_step_tenants.launches, glr_step.launches)
+        out[dev] = server.serve(reqs)
+    card = servers[cuda]
+    assert glr_step_tenants.launches - before[0] == card.stats()["steps"] > 0
+    assert glr_step.launches == before[1]
+    for a, b in zip(out["cpu"], out[cuda]):
+        np.testing.assert_array_equal(a, b)
+    for tid in ("t0", "t1", "t2"):
+        cpu_row, card_row = servers["cpu"].tenant_state(tid), card.tenant_state(tid)
+        for a, b in zip(_leaves(cpu_row._replace(matcher_state=None)),
+                        _leaves(card_row._replace(matcher_state=None))):
+            assert torch.equal(a, b.cpu())
+        # the matcher's AoI variance goes through torch's mean, which divides
+        # on the CPU and multiplies by 1/M on CUDA: v_max and beta_t at 1e-6
+        for a, b in zip(cpu_row.matcher_state, card_row.matcher_state):
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=0)
+    batch = card._take_batch(deque(enumerate(reqs[:3])), 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inflight = card._dispatch(batch, 4, False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    card._retire(inflight)
+
+
+def _leaves(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [x for f in tree for x in _leaves(f)]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]

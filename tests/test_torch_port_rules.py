@@ -72,7 +72,10 @@ SLICE_TWINS = ("core/aggregation.py", "core/faults.py", "core/channels/process.p
                "configs/qwen2_5_32b.py", "configs/qwen1_5_0_5b.py", "models/__init__.py",
                "models/layers.py", "models/kvcache.py", "models/attention.py",
                "models/transformer.py", "models/model.py", "launch/steps.py",
-               "launch/serve.py", "kernels/flash_attention.py")
+               "launch/serve.py", "kernels/flash_attention.py", "sim/__init__.py",
+               "sim/serve.py", "launch/sched_serve.py", "checkpoint/__init__.py",
+               "checkpoint/io.py", "core/matching.py", "core/aoi.py", "core/regret.py",
+               "core/bandits/base.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_TWINS)
@@ -574,3 +577,73 @@ def test_ops_hands_ready_tensors_to_the_wrappers_as_they_are(monkeypatch):
     for args in seen:
         assert args[0] is not strided and args[0].is_contiguous()
         assert all(a.dtype == torch.float32 for a in args[1:])
+
+
+def test_scheduler_service_defaults_to_cuda(no_cuda, capsys):
+    from repro_torch.launch import sched_serve
+    from repro_torch.sim import SchedServer
+    from repro_torch.sim.serve import init_slots
+
+    sched = GLRCUCB(5, 2, history=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SchedServer(sched)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_slots(sched, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sched_serve.main(["--tenants", "2", "--slots", "2", "--requests", "4"])
+    assert capsys.readouterr().out == ""
+    assert SchedServer(sched, device="cpu").device.type == "cpu"     # the explicit CPU request
+
+
+def _tenant_args(wrap):
+    """glr_step_tenants operands: slot state R=3, B=2 rows, N=2, H=8."""
+    z = lambda *shape, dtype=torch.float32: wrap(torch.zeros(shape, dtype=dtype))
+    return (z(3, 2, 8), z(3, 2), z(3, 2), z(2, dtype=torch.int32), z(2, dtype=torch.bool),
+            z(2, dtype=torch.bool), z(2, 2, dtype=torch.int32), z(2, 2),
+            z(2, 2, dtype=torch.bool))
+
+
+def test_glr_step_tenants_never_falls_back_to_the_plain_version(monkeypatch):
+    """A CUDA tensor reaches the in-place kernel's loader and raises when
+    there is no library; the plain version is never called and nothing
+    counts."""
+    from repro_torch.kernels import glr_step_tenants as gst_mod
+
+    def missing(*a, **k):
+        raise RuntimeError("repro_torch kernel build failed: no library")
+
+    monkeypatch.setattr(_build, "load", missing)
+    called = []
+    for name in ("glr_step_tenants", "glr_tenants_append", "glr_step"):
+        monkeypatch.setattr(ops.ref, name, lambda *a, **k: called.append(a))
+    before = gst_mod.glr_step_tenants.launches
+    for grid in ("all", "geometric"):
+        with pytest.raises(RuntimeError, match="no library"):
+            ops.glr_step_tenants(*_tenant_args(_FakeCuda), split_grid=grid)
+        with pytest.raises(RuntimeError, match="no library"):
+            gst_mod.glr_step_tenants(*_tenant_args(_FakeCuda), split_grid=grid)
+    assert not called
+    assert gst_mod.glr_step_tenants.launches == before
+
+
+def test_glr_step_tenants_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """CPU tensors, wrong dtypes and shapes are refused before the loader."""
+    from repro_torch.kernels import glr_step_tenants as gst_mod
+
+    monkeypatch.setattr(_build, "load", lambda *a, **k: pytest.fail("reached the loader"))
+    f = gst_mod.glr_step_tenants
+    before = f.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        f(*_tenant_args(lambda t: t))
+    args = list(_tenant_args(_FakeCuda))
+    bad_slots = list(args)
+    bad_slots[3] = _FakeCuda(torch.zeros(2, dtype=torch.int64))
+    with pytest.raises(TypeError, match="slots"):
+        f(*bad_slots)
+    bad_total = list(args)
+    bad_total[1] = _FakeCuda(torch.zeros(4, 2))
+    with pytest.raises(ValueError, match="total"):
+        f(*bad_total)
+    with pytest.raises(ValueError, match="split_grid"):
+        f(*args, split_grid="dense")
+    assert f.launches == before

@@ -29,7 +29,7 @@ from pathlib import Path
 
 # chip_smoke.py's path lines: "  fig2 scan route: T=20000 ... (0.0020 ms/round)" and
 # "  fig3 ...: ... seconds/round=0.0152"; a run that yields none is an error
-_MS = re.compile(r"^  (fig[23][^:]*): .*\((\d+\.\d+) ms/round\)")
+_MS = re.compile(r"^  ((?:fig[23]|sched-serve)[^:]*): .*\((\d+\.\d+) ms/(?:round|step)\)")
 _S = re.compile(r"^  (fig3[^:]*): .*seconds/round=(\d+\.\d+)")
 _TOTAL = re.compile(r"^  total seconds (\d+\.\d+)")
 # phase 2's "  weighted_aggregate time fig3 (20, 5674) f32: kernel 0.0228 ms, ..."

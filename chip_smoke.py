@@ -76,7 +76,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``set_sync_debug_mode("error")`` and a profiled 10-step window; (c) a
    10^4-tenant server (H=64) whose first 64 requests equal the CPU run,
    and its saturated rate; (d) ``run_served`` on phase 4's setup, 10
-   rounds equal to ``run()`` bit for bit.
+   rounds equal to ``run()`` bit for bit;
+9. the paper's baseline rows at their widths: (a) Fig. 2a's fifteen
+   (``benchmarks/run.py:182-224``, N=5, M=2): nine policies on a piecewise
+   env with 5 breakpoints, six on the adversarial table (flip_prob 0.002);
+   the three ``regret_scan`` takes (piecewise glr-cucb and cucb-static,
+   adversarial glr-cucb) at T=20000 on the scan route, the other twelve on
+   the per-round route at T=2000 (the cut: that route is host-bound), each
+   with regret, sublinearity index, growth exponent, ms/round, route and
+   counters, and its first 500 rounds held against the CPU run (bitwise;
+   channel-aware and M-Exp3 rows may fork only at a near-tie); (b) Fig.
+   3/4's ten rows (``:744-786``), 150 rounds, one seed each (the cut):
+   random, channel-aware and Lyapunov on phase 4's problem, those and
+   M-Exp3 with and without matching on an adversarial N=6, M=4 problem,
+   each with accuracy, cumulative AoI variance and s/round, three rounds
+   held against the CPU run as in phase 4.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -85,10 +99,11 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 128, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-8 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-9 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
-Every path runs at the paper's sizes, uncut.  Weights, envs and randomness
+Every path runs at the paper's sizes, uncut but for phase 9's two cuts,
+which it prints.  Weights, envs and randomness
 are made on the card from ``--seed``; the Fig. 3 data is the benchmark's
 synthetic problem, made on the host from seeds offset by ``--seed`` (seed
 0 gives the benchmark's own data).  The last line is
@@ -144,6 +159,10 @@ SCHED_REQUESTS = 12 * SCHED_CAPACITY   # saturated and Poisson requests (:1382)
 SCHED_SERIAL_REQUESTS = 8 * SCHED_SLOTS   # the serial (slots=1) baseline's (:1383)
 SCHED_BIG_CAPACITY, SCHED_BIG_H = 10_000, 64   # the 10^4-tenant server (:1451-1455)
 SCHED_FL_ROUNDS = 10                   # run_served rounds on the Fig. 3 setup
+FIG2A_ROUNDS_CUT = 2000        # Fig. 2a rows on the per-round route (phase 9): T, cut from 20000
+FIG2A_REF_ROUNDS = 500         # their card-vs-CPU rounds
+FORKING_ROWS = ("channel-aware", "m-exp3", "aa-m-exp3")   # draws through log/exp: may fork
+FORK_REL_TIE = 1e-5            # ... only at a near-tie this close, relative
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention", "regret_scan", "glr_step_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
@@ -1295,19 +1314,23 @@ def fig2_recompute(torch, f2):
 # phase 4: Fig. 3 asynchronous-FL path
 # ---------------------------------------------------------------------------
 
-def fig3_setup(torch, seed):
+def fig3_setup(torch, seed, n=30, m=20, adversarial=False):
     """The Fig. 3 problem at the paper's size: data, the 5,674-param MLP,
-    the skewed piecewise env, the config, GLR-CUCB and the uniforms."""
+    the skewed piecewise env, the config, GLR-CUCB and the uniforms.  With
+    ``adversarial`` the env is the extremely non-stationary regime's
+    (``random_adversarial_env``, flip_prob 0.01, at the paper's small scale
+    N = 6, M = 4: ``benchmarks/run.py:770-776``); the draws before the env
+    are those of the default."""
     import numpy as np
     from torch import nn
     from torch.nn import functional as F
 
     from repro_torch.core.bandits import GLRCUCB
-    from repro_torch.core.channels import make_piecewise
+    from repro_torch.core.channels import make_piecewise, random_adversarial_env
     from repro_torch.data import FederatedLoader, SyntheticClassification, dirichlet_partition
     from repro_torch.fl import AsyncFLConfig
 
-    n, m, dim, hidden, classes, spc = 30, 20, 48, 96, 10, 192
+    dim, hidden, classes, spc = 48, 96, 10, 192
     rounds = FIG3_ROUNDS
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
 
@@ -1349,12 +1372,16 @@ def fig3_setup(torch, seed):
                 @ state.params["w2"] + state.params["b2"]
             return float((logits.argmax(1) == tey).float().mean())
 
-    # the skewed piecewise env: Good channels are rare (means ~ u^4)
-    means = 0.03 + (0.95 - 0.03) * torch.rand((5, n), generator=gen, device="cuda") ** 4.0
-    breaks = torch.linspace(0, rounds, 6, device="cuda")[1:-1].to(torch.int64)
+    if adversarial:
+        env = random_adversarial_env(gen, n, rounds, flip_prob=0.01)
+    else:
+        # the skewed piecewise env: Good channels are rare (means ~ u^4)
+        means = 0.03 + (0.95 - 0.03) * torch.rand((5, n), generator=gen, device="cuda") ** 4.0
+        breaks = torch.linspace(0, rounds, 6, device="cuda")[1:-1].to(torch.int64)
+        env = make_piecewise(means, breaks)
     return dict(
         n=n, m=m, rounds=rounds, bx=bx, by=by, params=params, loss_fn=loss_fn,
-        accuracy=accuracy, env=make_piecewise(means, breaks),
+        accuracy=accuracy, env=env,
         cfg=AsyncFLConfig(n_clients=m, n_channels=n, local_epochs=3, client_lr=0.15,
                           server_lr=0.15, use_matching=True, use_zeta=True),
         sched=GLRCUCB(n, m, history=256),
@@ -1906,6 +1933,229 @@ def sched_serve(torch, seed):
                           p99_ms=p99, p999_ms=p999, big_rate=big_rate)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the paper's baseline rows (Fig. 2a, Fig. 3/4)
+# ---------------------------------------------------------------------------
+
+def fig2a_policies(n, m, adversarial):
+    """Fig. 2a's rows, (name, scheduler), as ``benchmarks/run.py:182-207``:
+    nine on the piecewise env, six on the adversarial one (M-Exp3 with the
+    Exp3.S sharing term there)."""
+    from repro_torch.core.bandits import (GLRCUCB, AoIAware, ChannelAwareAsync, LyapunovSched,
+                                          MExp3, RandomScheduler, RoundRobinScheduler)
+
+    def glr(stride=5):
+        return GLRCUCB(n, m, history=1024, detector_stride=stride)
+
+    if not adversarial:
+        return [("random", RandomScheduler(n, m)), ("round-robin", RoundRobinScheduler(n, m)),
+                ("channel-aware", ChannelAwareAsync(n, m)), ("lyapunov", LyapunovSched(n, m)),
+                ("glr-cucb", glr()), ("cucb-static", glr(10 ** 9)),
+                ("aa-glr-cucb", AoIAware(glr())), ("m-exp3", MExp3(n, m, gamma=0.5)),
+                ("aa-m-exp3", AoIAware(MExp3(n, m, gamma=0.5)))]
+    return [("random", RandomScheduler(n, m)), ("channel-aware", ChannelAwareAsync(n, m)),
+            ("lyapunov", LyapunovSched(n, m)),
+            ("m-exp3", MExp3(n, m, gamma=0.5, share_alpha=1e-3)),
+            ("aa-m-exp3", AoIAware(MExp3(n, m, gamma=0.5, share_alpha=1e-3))),
+            ("glr-cucb", glr())]
+
+
+def baseline_near_tie(torch, sched, state, t, u, aoi, rel=FORK_REL_TIE):
+    """Whether round ``t``'s selection from ``state`` sits on a near-tie
+    (``rel`` relative) where the card's and the CPU's ``log``/``exp`` may
+    decide apart: channel-aware's perturbed scores, M-Exp3's draw against a
+    CDF boundary, AoI-Aware's threshold (then its base's)."""
+    from repro_torch.core.bandits import AoIAware, ChannelAwareAsync, MExp3
+
+    def close(a, b):
+        return abs(float(a) - float(b)) <= rel * max(abs(float(a)), abs(float(b)))
+
+    if isinstance(sched, AoIAware):
+        mu_hat = state.mu_sum / state.pulls.clamp_min(1.0)
+        h_t = state.hp["threshold_scale"] / mu_hat.max().clamp_min(1e-6)
+        return close(aoi.max(), h_t) or baseline_near_tie(torch, sched.base, state.base, t, u,
+                                                          aoi, rel)
+    if isinstance(sched, ChannelAwareAsync):
+        g = -torch.log(-torch.log((u * (1.0 - 1e-12) + 1e-12).clamp_min(1e-12)))
+        top = torch.sort(torch.log(sched._weights(state)) + g, descending=True).values
+        return any(close(top[i], top[i + 1]) for i in range(sched.n_clients))
+    if isinstance(sched, MExp3):
+        cdf = torch.cumsum(sched._probs(state), 0)
+        r = cdf[-1] * (1.0 - u[0])
+        return bool(((cdf - r).abs() <= rel * r.abs()).any())
+    return False
+
+
+def fig2a_reference(torch, label, name, sched, env, u):
+    """The first ``FIG2A_REF_ROUNDS`` rounds of a Fig. 2a row on the card
+    (its route) against the CPU run on the same uniforms: schedule, AoI,
+    regret and counters bit for bit; only a row whose draw goes through
+    ``log``/``exp`` (``FORKING_ROWS``) may fork, and only at a near-tie, with
+    everything equal before it.  Returns (what held, the card's output)."""
+    from repro_torch.core.regret import policy_round, simulate_aoi_regret
+
+    r = FIG2A_REF_ROUNDS
+    card = simulate_aoi_regret(sched, env, r, uniforms=u[:r], return_state=True)
+    cpu_env, cpu_u = env.to("cpu"), u[:r].cpu()
+    cpu = simulate_aoi_regret(sched, cpu_env, r, uniforms=cpu_u, device="cpu")
+    differ = (card["channels"].cpu() != cpu["channels"]).any(1).nonzero()
+    if differ.numel() == 0:
+        for k in ("regret", "aoi_pi", "aoi_star", "restarts", "exploit_rounds"):
+            if k in cpu:
+                check(torch.equal(card[k].cpu(), cpu[k]), f"{label}: card {k} != CPU {k}")
+        return "equal the CPU run (schedule, AoI, regret, counters)", card
+    t0 = int(differ[0])
+    check(name in FORKING_ROWS, f"{label}: the card's schedule forks from the CPU run's at "
+          f"round {t0}; only a draw through log/exp may fork")
+    check(torch.equal(card["regret"][:t0].cpu(), cpu["regret"][:t0]),
+          f"{label}: the regret differs before the fork at round {t0}")
+    state, aoi = sched.init("cpu"), torch.ones(sched.n_clients)
+    for t in range(t0):
+        state, aoi, _, _ = policy_round(sched, state, aoi, t, cpu_u[t, 1],
+                                        cpu_env.sample(t, cpu_u[t, 0]))
+    check(baseline_near_tie(torch, sched, state, t0, cpu_u[t0, 1], aoi),
+          f"{label}: the schedule forks at round {t0} without a near-tie "
+          f"({FORK_REL_TIE} relative)")
+    return (f"equal the CPU run up to round {t0}, where they fork at a near-tie within "
+            f"{FORK_REL_TIE} relative"), card
+
+
+def fig2a_rows(torch, seed):
+    """Phase 9 (a): Fig. 2a's fifteen rows at N = 5, M = 2.  The rows the
+    scan takes run at the paper's T; the others the per-round route at
+    ``FIG2A_ROUNDS_CUT`` on envs realized at that horizon.  Returns the
+    launches of the timed runs."""
+    from repro_torch.core.bandits import GLRCUCB, AoIAware
+    from repro_torch.core.bandits.base import init_with_hp
+    from repro_torch.core.channels import random_adversarial_env, random_piecewise_env
+    from repro_torch.core.regret import (regret_growth_exponent, simulate_aoi_regret,
+                                         sublinearity_index)
+    from repro_torch.kernels.regret_scan import refusal
+
+    n, m, cut = 5, 2, FIG2A_ROUNDS_CUT
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    envs = {}
+    for horizon in (FIG2_ROUNDS, cut):
+        envs["piecewise", horizon] = random_piecewise_env(gen, n, horizon, 5)
+        envs["adversarial", horizon] = random_adversarial_env(gen, n, horizon, flip_prob=0.002)
+    line(f"  fig2a cut: the rows regret_scan does not take run the per-round route at T={cut} "
+         f"of the paper's {FIG2_ROUNDS}, on envs realized at T={cut} (piecewise: 5 breakpoints; "
+         f"adversarial: flip_prob 0.002 a round): that route is host-bound at ~1-2 ms a round, "
+         f"12 x {FIG2_ROUNDS} rounds would take ~6 min")
+    counted = []
+    for kind in ("piecewise", "adversarial"):
+        for name, sched in fig2a_policies(n, m, kind == "adversarial"):
+            u_full = torch.rand((FIG2_ROUNDS, 2, n), generator=gen, device="cuda")
+            why = refusal(sched, envs[kind, FIG2_ROUNDS], init_with_hp(sched, "cuda", None),
+                          u_full)
+            rounds = FIG2_ROUNDS if why is None else cut
+            env, u = envs[kind, rounds], u_full[:rounds].contiguous()
+            label = f"fig2a {kind}/{name}"
+            how, card_ref = fig2a_reference(torch, label, name, sched, env, u)
+            reset_launches()
+            out, secs = timed_run(torch, lambda: simulate_aoi_regret(sched, env, rounds,
+                                                                    uniforms=u))
+            counted.append(read_launches())
+            route = "scan" if why is None else "rounds"
+            check(counted[-1]["regret_scan"] == (why is None),
+                  f"{label}: regret_scan launched {counted[-1]['regret_scan']} times on the "
+                  f"{route} route")
+            detect = (isinstance(sched, AoIAware) and isinstance(sched.base, GLRCUCB))
+            check(counted[-1]["glr_step"] == (rounds // 5 if detect else 0),
+                  f"{label}: glr_step launched {counted[-1]['glr_step']} times")
+            check(torch.equal(out["channels"][:FIG2A_REF_ROUNDS], card_ref["channels"]),
+                  f"{label}: the timed run's first rounds differ from the reference run's")
+            regret = out["regret"]
+            check(regret.shape == (rounds,) and bool(torch.isfinite(regret).all()),
+                  f"{label}: regret not finite")
+            counters = " ".join(f"{k}={int(out[k])}" for k in ("restarts", "exploit_rounds")
+                                if k in out)
+            line(f"  {label}: route={route} T={rounds} final_regret="
+                 f"{float(out['final_regret']):.1f} sublinearity_index="
+                 f"{float(sublinearity_index(regret)):.4f} growth_exp="
+                 f"{regret_growth_exponent(regret):.4f} ({secs / rounds * 1e3:.6f} ms/round) "
+                 f"{counters}; its first {FIG2A_REF_ROUNDS} rounds {how}")
+            if why is None:
+                # the same policy at the cut, for comparing with the per-round rows
+                at_cut = simulate_aoi_regret(sched, envs[kind, cut], cut,
+                                             uniforms=u_full[:cut].contiguous())
+                line(f"    {label} at the cut: T={cut} final_regret="
+                     f"{float(at_cut['final_regret']):.1f} restarts={int(at_cut['restarts'])}")
+            else:
+                line(f"    {label}: the scan does not take it ({why})")
+            if (kind, name) == ("adversarial", "m-exp3"):
+                profile_window(torch, f"{label} rounds route", lambda: simulate_aoi_regret(
+                    sched, env, 200, uniforms=u[:200], collect_curve=False), 200)
+    return {k: sum(p[k] for p in counted) for k in COUNTERS}
+
+
+def fig34_rows(torch, seed):
+    """Phase 9 (b): the Fig. 3/4 baseline rows (``benchmarks/run.py:744-786``),
+    ``FIG3_ROUNDS`` rounds and one seed a row: random, channel-aware and
+    Lyapunov on phase 4's N = 30, M = 20 problem; those and M-Exp3 with and
+    without matching on the adversarial N = 6, M = 4 problem.  Returns the
+    launches of the timed runs."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.bandits import ChannelAwareAsync, LyapunovSched, MExp3, RandomScheduler
+    from repro_torch.fl import AsyncFLTrainer
+
+    line(f"  fig3/4 cut: one seed a row, {FIG3_ROUNDS} rounds (the JAX benchmark runs 8 seeds "
+         f"through the batched FL engine, which the port does not have yet)")
+    counted = []
+    for kind in ("piecewise", "adversarial"):
+        S = (fig3_setup(torch, seed) if kind == "piecewise"
+             else fig3_setup(torch, seed, n=6, m=4, adversarial=True))
+        n, m, rounds = S["n"], S["m"], S["rounds"]
+        rows = [("random", RandomScheduler(n, m), False),
+                ("channel-aware", ChannelAwareAsync(n, m), False),
+                ("lyapunov", LyapunovSched(n, m), False)]
+        if kind == "adversarial":
+            rows += [("m-exp3", MExp3(n, m, share_alpha=1e-3), False),
+                     ("m-exp3+aware", MExp3(n, m, share_alpha=1e-3), True)]
+        for name, sched, match in rows:
+            label = f"fig3 {kind}/{name}"
+            R = dict(S, sched=sched, cfg=dataclasses.replace(S["cfg"], use_matching=match,
+                                                             use_zeta=match))
+            fig3_reference(torch, R, label)
+            tr = AsyncFLTrainer(R["cfg"], sched, R["env"], R["loss_fn"])
+            reset_launches()
+            (state, mets), secs = timed_run(torch, lambda: tr.run(
+                tr.init(R["params"]), R["bx"], R["by"], uniforms=R["uniforms"]))
+            counted.append(read_launches())
+            check(counted[-1]["weighted_aggregate"] == rounds and counted[-1]["glr_step"] == 0,
+                  f"{label}: launches {counted[-1]}, expected weighted_aggregate {rounds} times")
+            acc = R["accuracy"](state)
+            var = float(mets["aoi_var"].sum())
+            check(bool(torch.isfinite(mets["local_loss"]).all()) and np.isfinite(acc)
+                  and np.isfinite(var), f"{label}: loss, accuracy or AoI variance not finite")
+            line(f"  {label}: N={n} M={m} matching={match} rounds={rounds} test_acc={acc:.4f} "
+                 f"cum_aoi_var={var:.2f} seconds/round={secs / rounds:.6f} "
+                 f"weighted_aggregate.launches={counted[-1]['weighted_aggregate']}")
+            if name == "m-exp3+aware":     # from round 0: the table ends at round 150
+                profile_window(torch, label, lambda: tr.run(
+                    tr.init(R["params"]), R["bx"][:10], R["by"][:10],
+                    uniforms=R["uniforms"][:10]), 10)
+        del S
+    return {k: sum(p[k] for p in counted) for k in COUNTERS}
+
+
+def baselines(torch, seed):
+    """Phase 9: the paper's baseline rows on the card.  Returns the launches
+    of the timed runs; every kernel of the slice must show one."""
+    t0 = time.perf_counter()
+    paths = (fig2a_rows(torch, seed), fig34_rows(torch, seed))
+    launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
+    check(all(launches[k] > 0 for k in ("regret_scan", "glr_step", "weighted_aggregate")),
+          f"phase 9: a kernel of the slice never launched: {launches}")
+    line(f"  phase 9 launches: regret_scan {launches['regret_scan']}, glr_step "
+         f"{launches['glr_step']}, weighted_aggregate {launches['weighted_aggregate']}; "
+         f"wall {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
                 fa_t, fig2_scan, recompute_scan, gst_err, gst_t):
     """The entries of the kernels line: launches from the paths, the rest
@@ -1966,7 +2216,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-8) only")
+                    help="build the kernels and run the paths (phases 3-9) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -2037,8 +2287,10 @@ def main(argv=None) -> int:
         serve_launches, _ = serve_path(torch, args.seed, SERVE_LAYERS)
         line("[8] the multi-tenant scheduler service")
         sched_launches, _ = sched_serve(torch, args.seed)
+        line("[9] the paper's baseline rows: Fig. 2a and Fig. 3/4")
+        baseline_launches = baselines(torch, args.seed)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
-                 serve_launches, sched_launches)
+                 serve_launches, sched_launches, baseline_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
         check(all(launches[k] > 0 for k in KERNEL_NAMES + ("flash_attention_tc",)),
               f"a kernel never launched: {launches}")

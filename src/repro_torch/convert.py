@@ -16,7 +16,22 @@ import numpy as np
 import torch
 
 from repro_torch.core.aggregation import Aggregator, registered_aggregators
-from repro_torch.core.bandits.glr_cucb import GLRCUCBState
+from repro_torch.core.bandits import (
+    GLRCUCB,
+    AoIAware,
+    AoIAwareState,
+    ChannelAwareAsync,
+    ChannelAwareState,
+    GLRCUCBState,
+    LyapunovSched,
+    LyapunovState,
+    MExp3,
+    MExp3State,
+    RandomScheduler,
+    RandomState,
+    RoundRobinScheduler,
+    RRState,
+)
 from repro_torch.core.channels.base import ChannelEnv
 from repro_torch.core.contribution import ContributionBuffer
 from repro_torch.core.faults import FaultProcess, registered_faults
@@ -56,14 +71,47 @@ def channel_env(form: str, means, breaks, table, score_kind: str = "ucb",
                       tensor(table, dev).to(torch.float32), score_kind)
 
 
+def _get(src, f):
+    """Field ``f`` of a state: an attribute, or a key of a dict (the form
+    ``to_numpy`` gives)."""
+    return src[f] if isinstance(src, Mapping) else getattr(src, f)
+
+
 def _fields(cls, src, device, **nested):
-    return cls(**{f: nested[f] if f in nested else tensor(getattr(src, f), device)
+    return cls(**{f: nested[f] if f in nested else tensor(_get(src, f), device)
                   for f in cls._fields})
+
+
+def _hp(src, device):
+    """A state's ``hp`` dict on ``device``; a nested dict stays nested."""
+    return {k: _hp(v, device) if isinstance(v, Mapping) else tensor(v, device)
+            for k, v in src.items()}
 
 
 def glr_cucb_state(src, device=None) -> GLRCUCBState:
     """A ``GLRCUCBState`` from an object with the same fields."""
-    return _fields(GLRCUCBState, src, device, hp=params(src.hp, device))
+    return _fields(GLRCUCBState, src, device, hp=_hp(_get(src, "hp"), device))
+
+
+_STATES = {GLRCUCB: GLRCUCBState, MExp3: MExp3State, RandomScheduler: RandomState,
+           RoundRobinScheduler: RRState, ChannelAwareAsync: ChannelAwareState,
+           LyapunovSched: LyapunovState}
+
+
+def sched_state(scheduler, src, device=None):
+    """The port's state of ``scheduler`` (a port policy) from the JAX state
+    of its twin: a JAX ``NamedTuple`` of arrays or the dict of numpy arrays
+    ``to_numpy`` gives.  AoI-Aware's nested base state and ``hp`` come
+    across with it; integer leaves keep their dtype."""
+    if isinstance(scheduler, AoIAware):
+        return _fields(AoIAwareState, src, device,
+                       base=sched_state(scheduler.base, _get(src, "base"), device),
+                       hp=_hp(_get(src, "hp"), device))
+    cls = _STATES.get(type(scheduler))
+    if cls is None:
+        raise ValueError(f"convert.sched_state: no port state for {type(scheduler).__name__}")
+    nested = {"hp": _hp(_get(src, "hp"), device)} if "hp" in cls._fields else {}
+    return _fields(cls, src, device, **nested)
 
 
 def matcher_state(src, device=None) -> MatcherState:
@@ -74,13 +122,16 @@ def contribution_buffer(src, device=None) -> ContributionBuffer:
     return _fields(ContributionBuffer, src, device)
 
 
-def async_fl_state(src, device=None) -> AsyncFLState:
-    """An ``AsyncFLState`` from the JAX trainer's state (its GLR-CUCB
-    scheduler state and fault-schedule carry included)."""
+def async_fl_state(src, device=None, scheduler=None) -> AsyncFLState:
+    """An ``AsyncFLState`` from the JAX trainer's state (its scheduler state
+    and fault-schedule carry included).  ``scheduler`` is the port's policy
+    (default: the state is GLR-CUCB's)."""
+    sched = (glr_cucb_state(src.sched_state, device) if scheduler is None
+             else sched_state(scheduler, src.sched_state, device))
     return _fields(AsyncFLState, src, device,
                    params=params(src.params, device),
                    contrib_buf=contribution_buffer(src.contrib_buf, device),
-                   sched_state=glr_cucb_state(src.sched_state, device),
+                   sched_state=sched,
                    matcher_state=matcher_state(src.matcher_state, device),
                    t=int(np.array(src.t)))
 

@@ -27,7 +27,13 @@ def update_aoi(aoi: torch.Tensor, success: torch.Tensor) -> torch.Tensor:
 
 
 def mean_aoi(aoi: torch.Tensor) -> torch.Tensor:
-    return aoi.mean()
+    """The mean over the clients (last axis), correctly rounded to f32 on
+    every device.  On CUDA torch's f32 ``mean`` multiplies by 1/M in f32,
+    which parts from the CPU's (and JAX's) division by an ulp on some AoI
+    vectors (62 / 20 gives 3.1000001); an f64 mean of integer AoIs is
+    within an f64 ulp of k / M, which is never an f32 rounding midpoint,
+    so its one rounding to f32 is the correctly rounded quotient."""
+    return aoi.mean(dim=-1, dtype=torch.float64).to(torch.float32)
 
 
 def aoi_variance(aoi: torch.Tensor) -> torch.Tensor:

@@ -51,7 +51,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.bandits.base import TracedHyperParams, rotate_assignment
+from repro_torch.core.bandits.base import TracedHyperParams, hp_tensors, rotate_assignment
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 
@@ -150,8 +150,7 @@ class GLRCUCB(TracedHyperParams):
         n, h = self.n_channels, self.history
         streaming = self.detector_impl == "streaming"
         f32 = dict(dtype=torch.float32, device=dev)
-        hp = self.params(dev) if hp is None else {
-            k: torch.as_tensor(v, **f32) for k, v in hp.items()}
+        hp = self.params(dev) if hp is None else hp_tensors(hp, dev)
         return GLRCUCBState(
             mu_tilde=torch.zeros((n,), **f32),
             counts=torch.zeros((n,), **f32),

@@ -1,5 +1,6 @@
 """Non-stationary wireless channel scenarios (Sec. II-B): the canonical
-``ChannelEnv`` forms and the stationary / piecewise scenario families."""
+``ChannelEnv`` forms, the stationary / piecewise / adversarial scenario
+families and the legacy ``random_*_env`` shims."""
 from repro_torch.core.channels.base import (
     FORM_SEGMENTS,
     FORM_TABLE,
@@ -14,11 +15,17 @@ from repro_torch.core.channels.process import (
     make_scenario,
     register_scenario,
 )
-from repro_torch.core.channels.families import PiecewiseProcess, StationaryProcess
+from repro_torch.core.channels.families import (
+    AdversarialProcess,
+    PiecewiseProcess,
+    StationaryProcess,
+    random_adversarial_env,
+    random_piecewise_env,
+)
 
 __all__ = [
     "ChannelEnv", "FORM_SEGMENTS", "FORM_TABLE", "segment_env", "table_env",
     "make_stationary", "make_piecewise", "ChannelProcess", "make_scenario",
-    "register_scenario", "StationaryProcess",
-    "PiecewiseProcess",
+    "register_scenario", "StationaryProcess", "PiecewiseProcess", "AdversarialProcess",
+    "random_piecewise_env", "random_adversarial_env",
 ]

@@ -7,11 +7,12 @@ channel environment for T rounds (the paper's Fig. 2):
 
 Twin of ``repro/core/regret.py``.  Its ``lax.scan`` over the horizon has
 two counterparts: on the card, GLR-CUCB's whole run is one launch of the
-``regret_scan`` kernel; elsewhere a Python loop, which is that kernel's
-plain version.  Each round consumes two (N,) f32 uniforms, ``u[t, 0]`` for
-the channel draw and ``u[t, 1]`` for the policy, as the JAX harness splits
-each round key into ``k_env, k_sel``.  The loop never waits on the device:
-the round index is a Python int and every decision stays a tensor.
+``regret_scan`` kernel; every other policy, and every run elsewhere, a
+Python loop, which is that kernel's plain version.  Each round consumes
+two (N,) f32 uniforms, ``u[t, 0]`` for the channel draw and ``u[t, 1]``
+for the policy, as the JAX harness splits each round key into ``k_env,
+k_sel``.  The loop never waits on the device: the round index is a Python
+int and every decision stays a tensor.
 """
 from __future__ import annotations
 
@@ -98,8 +99,9 @@ def simulate_aoi_regret(
     final scalar), ``final_regret``, ``cum_aoi_var`` / ``final_cum_aoi_var``
     (the policy's cumulative AoI variance, Fig. 4), ``oracle_cum_aoi_var``,
     ``aoi_pi`` / ``aoi_star`` (final per-client AoI), ``success_rate``,
-    ``restarts`` for restart-counting detectors, ``channels`` ((T, M), the
-    policy's schedule) and, with ``return_state``, ``final_sched_state``.
+    ``restarts`` for restart-counting detectors (also under AoI-Aware),
+    ``exploit_rounds`` for AoI-Aware, ``channels`` ((T, M), the policy's
+    schedule) and, with ``return_state``, ``final_sched_state``.
     """
     if impl not in IMPLS:
         raise ValueError(f"simulate_aoi_regret: unknown impl {impl!r}; use one of {IMPLS}")
@@ -172,10 +174,23 @@ def _simulate_rounds(scheduler, env, sched_state, uniforms, collect_curve: bool,
         "success_rate": successes / (horizon * m),
         "channels": schedule,
     }
-    if hasattr(sched_state, "restarts"):
-        out["restarts"] = sched_state.restarts
+    out.update(state_counters(sched_state))
     if return_state:
         out["final_sched_state"] = sched_state
+    return out
+
+
+def state_counters(sched_state) -> Dict[str, torch.Tensor]:
+    """The policy's counters: GLR-CUCB's ``restarts``, AoI-Aware's
+    ``exploit_rounds``, each read from the state or, through ``base``, from
+    the state of the policy it wraps."""
+    out = {}
+    for name in ("restarts", "exploit_rounds"):
+        state = sched_state
+        while isinstance(state, tuple) and not hasattr(state, name):
+            state = getattr(state, "base", None)
+        if isinstance(state, tuple):
+            out[name] = getattr(state, name)
     return out
 
 

@@ -44,7 +44,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.aggregation import MeanAgg
-from repro_torch.core.aoi import aoi_variance, init_aoi, update_aoi
+from repro_torch.core.aoi import aoi_variance, init_aoi, mean_aoi, update_aoi
 from repro_torch.core.bandits.base import init_with_hp
 from repro_torch.core.channels import ChannelEnv
 from repro_torch.core.contribution import (
@@ -292,7 +292,7 @@ class AsyncFLTrainer:
             "local_loss": (torch.where(loss_ok > 0.5, pre.local_losses, 0.0) * pre.active).sum()
             / loss_w.sum().clamp_min(1.0),
             "n_success": n_succ,
-            "mean_aoi": aoi.mean(),
+            "mean_aoi": mean_aoi(aoi),
             "aoi_var": aoi_variance(aoi),
             "beta_t": matcher_state.beta_t,
             "zeta_max": new_zeta.max(),

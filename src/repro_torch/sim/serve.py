@@ -305,7 +305,9 @@ class SchedServer:
                  score_kind: str = "ucb", shard: bool = False, mesh=None, device=None):
         if not isinstance(scheduler, GLRCUCB):
             raise ValueError(f"SchedServer: only GLR-CUCB is served by the port, got "
-                             f"{type(scheduler).__name__}")
+                             f"{type(scheduler).__name__}; M-Exp3, AoI-Aware, random, "
+                             "round-robin, channel-aware and Lyapunov are ported but not "
+                             "served yet")
         if scheduler.detector_impl != "streaming":
             raise ValueError("SchedServer: the service runs the streaming detector; "
                              "detector_impl='recompute' is not served")

@@ -35,7 +35,10 @@ another order than torch's reduction).  ``glr_step_tenants`` (the
 scheduler service's detector step, in place on the slot state) is held to
 ``ref.glr_step_tenants`` as ``glr_step`` is to its plain version, rows not
 live untouched; a served trace on the card equals the CPU server bit for
-bit, and a serve step makes no host sync.
+bit, and a serve step makes no host sync.  The baseline policies' runs on
+the per-round route equal the CPU runs bit for bit (a draw through
+``log``/``exp`` may fork only at a near-tie within 1e-5 relative), and the
+mean AoI is the correctly rounded f32 quotient on both devices.
 """
 import dataclasses
 
@@ -602,3 +605,90 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# the baselines (phase 9 of chip_smoke.py): the per-round route on the card
+# ---------------------------------------------------------------------------
+
+_BASELINE_T = 300
+
+
+def _baselines(n, m):
+    from repro_torch.core.bandits import (AoIAware, ChannelAwareAsync, LyapunovSched, MExp3,
+                                          RandomScheduler, RoundRobinScheduler)
+
+    return {"random": RandomScheduler(n, m), "round-robin": RoundRobinScheduler(n, m),
+            "lyapunov": LyapunovSched(n, m), "channel-aware": ChannelAwareAsync(n, m),
+            "m-exp3": MExp3(n, m, share_alpha=1e-3),
+            "aa-glr-cucb": AoIAware(GLRCUCB(n, m, history=64, detector_stride=5)),
+            "aa-m-exp3": AoIAware(MExp3(n, m))}
+
+
+def _draw_near_tie(sched, state, u, rel=1e-5):
+    """A draw that the card's and the CPU's ``log``/``exp`` may decide apart:
+    channel-aware's perturbed scores or M-Exp3's CDF within ``rel``."""
+    from repro_torch.core.bandits import AoIAware, ChannelAwareAsync, MExp3
+
+    if isinstance(sched, AoIAware):
+        return _draw_near_tie(sched.base, state.base, u, rel)
+    if isinstance(sched, ChannelAwareAsync):
+        g = -torch.log(-torch.log((u * (1.0 - 1e-12) + 1e-12).clamp_min(1e-12)))
+        top = torch.sort(torch.log(sched._weights(state)) + g, descending=True).values
+        return bool(((top[:-1] - top[1:]).abs() <= rel * top[:-1].abs()).any())
+    if isinstance(sched, MExp3):
+        cdf = torch.cumsum(sched._probs(state), 0)
+        r = cdf[-1] * (1.0 - u[0])
+        return bool(((cdf - r).abs() <= rel * r.abs()).any())
+    return False
+
+
+@pytest.mark.parametrize("env_kind", ["piecewise", "adversarial"])
+@pytest.mark.parametrize("name", list(_baselines(5, 2)))
+def test_baseline_rounds_on_the_card_equal_the_cpu(cuda, name, env_kind):
+    """A baseline's run on the card (the per-round route: the scan takes
+    only GLR-CUCB) equals the CPU run on the same uniforms: schedule, AoI,
+    regret and counters bit for bit.  Only a draw through ``log``/``exp``
+    (channel-aware, M-Exp3) may fork, at a near-tie within 1e-5 relative;
+    AoI-Aware over GLR-CUCB launches ``glr_step`` every fifth round."""
+    from repro_torch.core.channels import random_adversarial_env, random_piecewise_env
+    from repro_torch.core.regret import policy_round
+
+    sched = _baselines(5, 2)[name]
+    gen = torch.Generator().manual_seed(4)
+    make = random_piecewise_env if env_kind == "piecewise" else random_adversarial_env
+    env = make(gen, 5, _BASELINE_T, 3, device="cpu") if env_kind == "piecewise" else \
+        make(gen, 5, _BASELINE_T, flip_prob=0.02, device="cpu")
+    u = torch.rand((_BASELINE_T, 2, 5), generator=gen)
+    before = regret_scan.launches, glr_step.launches
+    got = simulate_aoi_regret(sched, env.to(cuda), _BASELINE_T, uniforms=u.to(cuda))
+    detects = _BASELINE_T // 5 if name == "aa-glr-cucb" else 0
+    assert (regret_scan.launches, glr_step.launches) == (before[0], before[1] + detects)
+    want = simulate_aoi_regret(sched, env, _BASELINE_T, uniforms=u, device="cpu")
+    differ = (got["channels"].cpu() != want["channels"]).any(1).nonzero()
+    if differ.numel():
+        t0 = int(differ[0])
+        assert name in ("channel-aware", "m-exp3", "aa-m-exp3"), (name, t0)
+        state, aoi = sched.init("cpu"), torch.ones(2)
+        for t in range(t0):
+            state, aoi, _, _ = policy_round(sched, state, aoi, t, u[t, 1], env.sample(t, u[t, 0]))
+        assert _draw_near_tie(sched, state, u[t0, 1]), (name, t0)
+        assert torch.equal(got["regret"][:t0].cpu(), want["regret"][:t0])
+        return
+    for k in ("channels", "regret", "aoi_pi", "aoi_star", "restarts", "exploit_rounds"):
+        if k in want:
+            assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_mean_aoi_is_correctly_rounded_on_the_card(cuda):
+    """62 / 20: torch's CUDA ``mean`` (a multiply by 1/20) gives 3.1000001;
+    the port's ``mean_aoi`` gives the correctly rounded 3.0999999, as the
+    CPU and JAX do."""
+    from repro_torch.core.aoi import mean_aoi
+
+    aoi = torch.tensor([3.0] * 18 + [4.0, 4.0])
+    want = torch.tensor(np.float32(62.0 / 20.0))
+    assert torch.equal(mean_aoi(aoi), want)
+    assert torch.equal(mean_aoi(aoi.to(cuda)).cpu(), want)
+    rows = torch.stack([aoi, aoi.flip(0)]).to(cuda)
+    assert torch.equal(mean_aoi(rows).cpu(), torch.stack([want, want]))

@@ -30,7 +30,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    and ``regret_scan`` (the whole regret harness in one launch) against the
    per-round route with the plain detector on nine short edge runs (a table
    env, S=1, alpha=0.2, the geometric grid, H=33 with restarts, N=30 M=20
-   stride 1, N=32, stride 1e9, the recompute detector);
+   stride 1, N=32, stride 1e9, the recompute detector), and its batch form
+   (one launch, one block a run) against the batched per-round route at
+   B = 24 (own envs and uniforms) and B = 133 (one shared env and stream, a
+   per-run gamma x delta grid, the recompute detector); ``glr_scan`` on
+   real-valued histories inside ``ref.glr_scan_bounds``, the split term's
+   derived forward error;
 3. the Fig. 2 AoI-regret path: GLR-CUCB (history 1024, detector stride 5)
    on a piecewise env with N=5, M=2 and 5 breakpoints, T=20000 rounds, on
    both routes in turns (scan, rounds, scan): the scan route must launch
@@ -90,7 +95,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    random, channel-aware and Lyapunov on phase 4's problem, those and
    M-Exp3 with and without matching on an adversarial N=6, M=4 problem,
    each with accuracy, cumulative AoI variance and s/round, three rounds
-   held against the CPU run as in phase 4.
+   held against the CPU run as in phase 4;
+10. the batched engine (``repro_torch.sim``) at the JAX benchmark's sizes:
+   (a) fig2c on GLR-CUCB (N=5, M=2, H=1024, stride 5), 24 seeds at
+   T=20000, each its own piecewise env with 5 breakpoints and its own
+   uniforms, as one ``regret_scan`` launch, each run equal to its
+   single-run scan bit for bit; (b) the hp_grid, 16 gamma x delta points,
+   as one ``sweep`` bucket and one launch, each point equal to its serial
+   run; (c) the fill of the card: B = 1, 8, 132, 264, 528 runs on one
+   shared env, ms a launch and a run-round beside the bound and the latency
+   chain, and the occupancy the runtime reports; (d) fig2c on M-Exp3, N in
+   {4, 5, 6, 7}, 24 seeds with their own adversarial tables (flip_prob
+   0.002) and one shared stream (as the JAX benchmark), on the batched
+   per-round route cut to T=2000, seeds 0 and 23 equal to their serial runs
+   over 500 rounds; (e) Fig. 2a's fifteen rows x 4 seeds at T=2000 as one
+   ``sweep`` (15 buckets), each row's seed 0 equal to phase 9's run; (f) a
+   recompute-detector bucket of 8 seeds at T=20000 on the scan; (g)
+   ``sweep(shard=True)`` equal to ``sweep()`` for a bucket of 5.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -99,11 +120,11 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 128, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-9 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-10 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
-Every path runs at the paper's sizes, uncut but for phase 9's two cuts,
-which it prints.  Weights, envs and randomness
+Every path runs at the paper's sizes, uncut but for phase 9's two cuts
+and phase 10's per-round cut (T=2000), which they print.  Weights, envs and randomness
 are made on the card from ``--seed``; the Fig. 3 data is the benchmark's
 synthetic problem, made on the host from seeds offset by ``--seed`` (seed
 0 gives the benchmark's own data).  The last line is
@@ -162,6 +183,13 @@ SCHED_FL_ROUNDS = 10                   # run_served rounds on the Fig. 3 setup
 FIG2A_ROUNDS_CUT = 2000        # Fig. 2a rows on the per-round route (phase 9): T, cut from 20000
 FIG2A_REF_ROUNDS = 500         # their card-vs-CPU rounds
 FORKING_ROWS = ("channel-aware", "m-exp3", "aa-m-exp3")   # draws through log/exp: may fork
+FIG2C_SEEDS = 24               # fig2c's seeds per N (benchmarks/run.py:262)
+HP_GAMMAS = (0.5, 0.75, 1.0, 1.25)      # the hp_grid's 16 points (benchmarks/run.py:440-442)
+HP_DELTAS = (1e-4, 1e-3, 1e-2, 1e-1)
+FILL_BATCHES = (1, 8, 132, 264, 528)    # runs a regret_scan launch in phase 10 (c)
+FIG2A_SEEDS = 4                # seeds a Fig. 2a row in phase 10's sweep (e)
+RECOMPUTE_SEEDS = 8            # the recompute bucket of phase 10 (f)
+SHARD_BATCH = 5                # the uneven bucket of phase 10 (g)
 FORK_REL_TIE = 1e-5            # ... only at a near-tie this close, relative
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention", "regret_scan", "glr_step_tenants")
@@ -847,11 +875,10 @@ def check_robust_trimmed(torch, gen, floor_ms):
 
 def check_glr_scan(torch, gen, floor_ms):
     """Kernel against plain: bitwise on {0, 1} histories (exact integer
-    prefixes).  On real-valued ones the block scan adds in another order
-    than ``torch.cumsum``, and the split term amplifies a prefix's rounding
-    near the window mean, so both are held against the plain version in
-    f64: the kernel's largest error at most twice the plain f32 version's,
-    plus 1e-6 of the largest statistic."""
+    prefixes).  On real-valued ones the kernel rounds each prefix and the
+    window total once from an f64 scan, and its statistic must land inside
+    ``ref.glr_scan_bounds``: the split term's derived forward error around
+    the exact statistic (per row, the max over splits of value +- bound)."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.glr_scan import glr_scan as kernel
 
@@ -879,13 +906,18 @@ def check_glr_scan(torch, gen, floor_ms):
                 check(torch.equal(got, want), f"glr_scan ({n}, {h}) {{0,1}}: not bitwise ({err})")
                 how = "bitwise"
             else:
-                exact = ref.glr_scan(hist.double(), counts)[fin]
-                e_kernel = float((got[fin].double() - exact).abs().max())
-                e_plain = float((want[fin].double() - exact).abs().max())
-                tol = 2.0 * e_plain + 1e-6 * float(exact.abs().max())
-                check(e_kernel <= tol, f"glr_scan ({n}, {h}) real: error vs f64 {e_kernel:.3e} "
-                                       f"above {tol:.3e} (plain f32's {e_plain:.3e})")
-                how = f"vs f64: kernel {e_kernel:.3e}, plain {e_plain:.3e}"
+                exact = ref.glr_scan(hist.double(), counts)[fin].cpu()
+                lo, hi = (b[fin.cpu()] for b in ref.glr_scan_bounds(hist.cpu(), counts.cpu()))
+                k64 = got[fin].double().cpu()
+                inside = (k64 >= lo) & (k64 <= hi)
+                half = (hi - lo) / 2
+                share = float(((k64 - exact).abs() / half).max())
+                check(bool(inside.all()), f"glr_scan ({n}, {h}) real: {int((~inside).sum())} rows "
+                                          f"outside the derived bound ({share:.3f} of its half-width)")
+                e_plain = float((want[fin].double().cpu() - exact).abs().max())
+                how = (f"inside the derived bound (kernel's error vs f64 at most {share:.3f} of the "
+                       f"bound's half-width, max half-width {float(half.max()):.3e}; plain f32's "
+                       f"error {e_plain:.3e})")
             max_err = max(max_err, err)
             line(f"  glr_scan ({n}, {h}) history={'{0,1}' if binary else 'U[0,1]'}: "
                  f"{how}, max_abs_err={err:.3e} ok")
@@ -1129,6 +1161,69 @@ def check_regret_scan(torch, seed):
              f"regret={float(scan['final_regret']):.0f}, equal to the rounds route ok")
 
 
+def flipping_env(rng, n, rounds, device):
+    """A piecewise env whose channel means alternate between two draws every
+    250 rounds (the detectors restart several times)."""
+    from repro_torch.core.channels import make_piecewise
+
+    import numpy as np
+
+    a = rng.random(n).astype(np.float32)
+    segs = -(-rounds // 250)
+    means = np.stack([a if s % 2 == 0 else 1.0 - a for s in range(segs)])
+    return make_piecewise(means, [250 * s for s in range(1, segs)], device=device)
+
+
+def check_regret_scan_batch(torch, seed):
+    """Phase 2: the scan with a run axis against its plain version, the
+    batched per-round loop, at two batches: B = 24 runs of their own envs
+    and uniforms (streaming; the plain detector on the rounds), and B = 133
+    runs (more than one wave of the card's blocks) sharing one env and one
+    stream with a per-run gamma x delta grid (recompute).  Returns the
+    variance sums' largest absolute difference."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.bandits import GLRCUCB
+    from repro_torch.core.bandits.base import stack_params
+    from repro_torch.core.channels import stack_envs
+    from repro_torch.kernels.regret_scan import regret_scan
+    from repro_torch.sim import simulate_aoi_regret_batch
+
+    rounds, err = SCAN_EDGE_ROUNDS, 0.0
+    rng = np.random.default_rng(seed + 33)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 33)
+    fast = dict(delta=0.1, min_samples=4)
+    for label, b, shared, impl in (("B=24 own envs", 24, False, "streaming"),
+                                   ("B=133 shared env, hp grid", 133, True, "recompute")):
+        sched = GLRCUCB(5, 2, history=64, detector_stride=5, detector_impl=impl, **fast)
+        if shared:
+            grid = [sched.replace_traced(gamma=float(g), delta=float(d))
+                    for g, d in zip(rng.uniform(0.3, 1.5, b), rng.uniform(1e-3, 0.2, b))]
+            kw = dict(envs=flipping_env(rng, 5, rounds, "cuda"), env_axis=None,
+                      uniforms=torch.rand((rounds, 2, 5), generator=gen, device="cuda"),
+                      uniforms_axis=None, hparams=stack_params(grid, "cuda"), hp_axis=0)
+        else:
+            kw = dict(envs=stack_envs([flipping_env(rng, 5, rounds, "cuda") for _ in range(b)]),
+                      uniforms=torch.rand((b, rounds, 2, 5), generator=gen, device="cuda"))
+        before = regret_scan.launches
+        scan = simulate_aoi_regret_batch(sched, horizon=rounds, return_state=True, impl="scan",
+                                         **kw)
+        check(regret_scan.launches == before + 1, f"regret_scan batch {label}: not one launch")
+        plain = sched if impl == "recompute" else dataclasses.replace(sched,
+                                                                      detector_backend="torch")
+        rounds_out = simulate_aoi_regret_batch(plain, horizon=rounds, return_state=True,
+                                               impl="rounds", **kw)
+        check(regret_scan.launches == before + 1,
+              f"regret_scan batch {label}: the rounds route launched it")
+        torch.cuda.synchronize()
+        err = max(err, compare_routes(torch, scan, rounds_out, f"regret_scan batch {label}"))
+        line(f"  regret_scan batch {label} ({impl}): T={rounds}, one launch, restarts "
+             f"{int(scan['restarts'].sum())} over the runs, equal to the batched rounds route ok")
+    return err
+
+
 def timed_run(torch, fn):
     """(output, seconds) of one run that ends in a synchronize."""
     torch.cuda.synchronize()
@@ -1161,7 +1256,7 @@ def fig2_routes(torch, label, sched, env, uniforms):
     reset_launches()
     scan, secs_scan = timed_run(torch, lambda: run(None))
     scan_launches = read_launches()
-    splits = int(regret_scan.splits)
+    splits = int(regret_scan.splits.sum())
     check(scan_launches["regret_scan"] == 1 and scan_launches[kernel] == 0
           and scan_launches["glr_step"] + scan_launches["glr_scan"] == 0,
           f"{label} scan: launches {scan_launches}, expected regret_scan once and no {kernel}")
@@ -1214,6 +1309,7 @@ def scan_chain_cost(torch, sched, env, uniforms, ms_stride):
     line(f"  fig2 scan chain: T={rounds} stride 1e9 {ms[10**9]:.3f} ms, stride "
          f"{sched.detector_stride} {ms_stride:.3f} ms, stride 1 {ms[1]:.3f} ms: the per-round "
          f"chain {chain_us:.3f} us a round, a detection round {detect_us:.3f} us more")
+    return chain_us
 
 
 def scan_call_cost(torch, sched, env, uniforms, ms_per_round, rounds=500, calls=20):
@@ -1270,7 +1366,7 @@ def fig2(torch, seed):
     out, launches, scan_fields = fig2_routes(torch, "fig2", sched, env, uniforms)
     regret = out["regret"]
     check(regret.shape == (rounds,) and bool(torch.isfinite(regret).all()), "fig2: regret not finite")
-    scan_chain_cost(torch, sched, env, uniforms, scan_fields["scan_ms"])
+    chain_us = scan_chain_cost(torch, sched, env, uniforms, scan_fields["scan_ms"])
     scan_call_cost(torch, sched, env, uniforms, scan_fields["scan_ms_per_round"])
     profile_window(torch, "fig2 rounds route", lambda: simulate_aoi_regret(
         sched, env, 500, generator=gen, collect_curve=False, impl="rounds"), 500)
@@ -1282,7 +1378,8 @@ def fig2(torch, seed):
     line(f"  fig2: T={rounds} final_regret={float(out['final_regret']):.1f} "
          f"restarts={int(out['restarts'])} sublinearity_index={sub:.4f} "
          f"success_rate={float(out['success_rate']):.4f}")
-    return launches, dict(env=env, uniforms=uniforms, out=out, n=n, m=m, scan=scan_fields)
+    return launches, dict(env=env, uniforms=uniforms, out=out, n=n, m=m, scan=scan_fields,
+                          chain_us=chain_us)
 
 
 # ---------------------------------------------------------------------------
@@ -2024,7 +2121,8 @@ def fig2a_rows(torch, seed):
     """Phase 9 (a): Fig. 2a's fifteen rows at N = 5, M = 2.  The rows the
     scan takes run at the paper's T; the others the per-round route at
     ``FIG2A_ROUNDS_CUT`` on envs realized at that horizon.  Returns the
-    launches of the timed runs."""
+    launches of the timed runs and, by row label, the run at the cut (its
+    env, uniforms, output and ms a round) for phase 10."""
     from repro_torch.core.bandits import GLRCUCB, AoIAware
     from repro_torch.core.bandits.base import init_with_hp
     from repro_torch.core.channels import random_adversarial_env, random_piecewise_env
@@ -2042,7 +2140,7 @@ def fig2a_rows(torch, seed):
          f"of the paper's {FIG2_ROUNDS}, on envs realized at T={cut} (piecewise: 5 breakpoints; "
          f"adversarial: flip_prob 0.002 a round): that route is host-bound at ~1-2 ms a round, "
          f"12 x {FIG2_ROUNDS} rounds would take ~6 min")
-    counted = []
+    counted, refs = [], {}
     for kind in ("piecewise", "adversarial"):
         for name, sched in fig2a_policies(n, m, kind == "adversarial"):
             u_full = torch.rand((FIG2_ROUNDS, 2, n), generator=gen, device="cuda")
@@ -2082,11 +2180,14 @@ def fig2a_rows(torch, seed):
                 line(f"    {label} at the cut: T={cut} final_regret="
                      f"{float(at_cut['final_regret']):.1f} restarts={int(at_cut['restarts'])}")
             else:
+                at_cut = out
                 line(f"    {label}: the scan does not take it ({why})")
+            refs[label] = dict(env=envs[kind, cut], u=u_full[:cut].contiguous(), out=at_cut,
+                               ms_round=secs / rounds * 1e3, route=route)
             if (kind, name) == ("adversarial", "m-exp3"):
                 profile_window(torch, f"{label} rounds route", lambda: simulate_aoi_regret(
                     sched, env, 200, uniforms=u[:200], collect_curve=False), 200)
-    return {k: sum(p[k] for p in counted) for k in COUNTERS}
+    return {k: sum(p[k] for p in counted) for k in COUNTERS}, refs
 
 
 def fig34_rows(torch, seed):
@@ -2144,23 +2245,238 @@ def fig34_rows(torch, seed):
 
 def baselines(torch, seed):
     """Phase 9: the paper's baseline rows on the card.  Returns the launches
-    of the timed runs; every kernel of the slice must show one."""
+    of the timed runs (every kernel of the slice must show one) and Fig.
+    2a's runs at the cut, by row."""
     t0 = time.perf_counter()
-    paths = (fig2a_rows(torch, seed), fig34_rows(torch, seed))
+    fig2a_launches, refs = fig2a_rows(torch, seed)
+    paths = (fig2a_launches, fig34_rows(torch, seed))
     launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
     check(all(launches[k] > 0 for k in ("regret_scan", "glr_step", "weighted_aggregate")),
           f"phase 9: a kernel of the slice never launched: {launches}")
     line(f"  phase 9 launches: regret_scan {launches['regret_scan']}, glr_step "
          f"{launches['glr_step']}, weighted_aggregate {launches['weighted_aggregate']}; "
          f"wall {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, refs
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the batched engine at the figures' sizes
+# ---------------------------------------------------------------------------
+
+def run_of(out, i):
+    """Run ``i`` of a batched result: its tensors and final state."""
+    from repro_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x[i] if hasattr(x, "dim") and x.dim() else x, out)
+
+
+def same_run(torch, got, want, label, rounds=None):
+    """Every output of two runs bit for bit (the variance sums too), the
+    final policy state where both have it; with ``rounds`` only the first
+    rounds of the schedule and the curves."""
+    keys = [k for k, v in want.items() if hasattr(v, "dim") and k in got]
+    if rounds is not None:
+        keys = [k for k in ("channels", "regret", "cum_aoi_var") if k in want]
+    for k in keys:
+        a, b = got[k], want[k]
+        if rounds is not None:
+            a, b = a[:rounds], b[:rounds]
+        check(torch.equal(a, b), f"{label}: {k} differs")
+    if rounds is None and "final_sched_state" in want and "final_sched_state" in got:
+        for f in want["final_sched_state"]._fields:
+            a, b = getattr(got["final_sched_state"], f), getattr(want["final_sched_state"], f)
+            if hasattr(b, "dim"):
+                check(torch.equal(a, b), f"{label}: final state {f} differs")
+
+
+def batched_engine(torch, seed, chain_us, fig2a_refs):
+    """Phase 10: the batched engine (``repro_torch.sim``) driven as the JAX
+    benchmark's figures drive theirs (``benchmarks/run.py``), every batch
+    against its serial runs.  Returns the launches of the batched runs (the
+    serial comparisons excluded) and the kernels line's batch fields."""
+    import math
+
+    from repro_torch.core.bandits import GLRCUCB, MExp3
+    from repro_torch.core.channels import (random_adversarial_env, random_piecewise_env,
+                                           stack_envs)
+    from repro_torch.core.regret import simulate_aoi_regret
+    from repro_torch.kernels.regret_scan import occupancy, regret_scan
+    from repro_torch.sim import SweepCase, simulate_aoi_regret_batch, sweep
+
+    t_start = time.perf_counter()
+    n, m, T = 5, 2, FIG2_ROUNDS
+    sched = GLRCUCB(n, m, history=1024, detector_stride=5)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    counted = []
+
+    def counted_run(fn):
+        reset_launches()
+        out, secs = timed_run(torch, fn)
+        counted.append(read_launches())
+        return out, secs, counted[-1]
+
+    def serial(s, env, rounds, u):
+        return timed_run(torch, lambda: simulate_aoi_regret(s, env, rounds, uniforms=u,
+                                                            return_state=True))
+
+    # (a) fig2c on the scan route's policy: 24 seeds, each its own env and uniforms
+    b = FIG2C_SEEDS
+    envs = [random_piecewise_env(gen, n, T, 5) for _ in range(b)]
+    u = torch.rand((b, T, 2, n), generator=gen, device="cuda")
+    out, secs, got = counted_run(lambda: simulate_aoi_regret_batch(
+        sched, stack_envs(envs), T, uniforms=u, return_state=True))
+    check(out["route"] == "scan" and got["regret_scan"] == 1 and got["glr_step"] == 0,
+          f"phase 10 (a): route {out['route']}, launches {got}; expected one regret_scan")
+    serial_s = 0.0
+    for i in range(b):
+        want, s_i = serial(sched, envs[i], T, u[i])
+        serial_s += s_i
+        same_run(torch, run_of(out, i), want, f"phase 10 (a) seed {i}")
+    fig2c = dict(b=b, ms=secs * 1e3, serial_ms=serial_s * 1e3)
+    line(f"  (a) fig2c glr-cucb: {b} seeds x T={T} in one regret_scan launch, "
+         f"{secs * 1e3:.3f} ms ({secs * 1e3 / (b * T):.3e} ms a run-round) against {b} "
+         f"single-run launches {serial_s * 1e3:.3f} ms ({serial_s / secs:.1f}x); restarts "
+         f"{out['restarts'].tolist()}; each run equals its single-run scan bit for bit ok")
+
+    # (b) hp_grid: the 16-point gamma x delta grid as one sweep bucket
+    env = random_piecewise_env(gen, n, T, 5)
+    cases = [SweepCase(f"g{g}/d{d}", sched.replace_traced(gamma=g, delta=d), env, seed, T)
+             for g in HP_GAMMAS for d in HP_DELTAS]
+    (results, report), secs, got = counted_run(lambda: sweep(cases, collect_curve=False))
+    check(len(report) == 1 and report[0].route == "scan" and got["regret_scan"] == 1,
+          f"phase 10 (b): {len(report)} buckets, launches {got}; expected one regret_scan")
+    for c in cases:
+        want = simulate_aoi_regret(c.scheduler, env, T, uniforms=c.draw_uniforms("cuda"),
+                                   collect_curve=False)
+        same_run(torch, results[c.name], want, f"phase 10 (b) {c.name}")
+    best = min(cases, key=lambda c: float(results[c.name]["final_regret"]))
+    line(f"  (b) hp_grid: {len(cases)} points gamma x delta, T={T}, one bucket, one regret_scan "
+         f"launch, {secs * 1e3:.3f} ms (bucket wall {report[0].wall_s * 1e3:.3f} ms, kernels "
+         f"built {report[0].compile_s:.3f} s); best {best.name} regret "
+         f"{float(results[best.name]['final_regret']):.0f}; every point equals its serial run ok")
+
+    # (c) the fill of the card: B runs on one shared env
+    occ = occupancy(sched, table=False)
+    in_flight = occ * torch.cuda.get_device_properties(0).multi_processor_count
+    u_all = torch.rand((max(FILL_BATCHES), T, 2, n), generator=gen, device="cuda")
+    fill = []
+    for bb in FILL_BATCHES:
+        ub = u_all[:bb]
+        out, secs, got = counted_run(lambda: simulate_aoi_regret_batch(
+            sched, env, T, uniforms=ub, env_axis=None, collect_curve=False))
+        check(out["route"] == "scan" and got["regret_scan"] == 1,
+              f"phase 10 (c) B={bb}: launches {got}")
+        splits = int(regret_scan.splits.sum())
+        for i in sorted({0, bb - 1}):
+            want, _ = serial(sched, env, T, ub[i])
+            for k in ("final_regret", "final_cum_aoi_var", "restarts", "aoi_pi"):
+                check(torch.equal(out[k][i], want[k]), f"phase 10 (c) B={bb} run {i}: {k}")
+        nbytes = bb * (T * 2 * n * 4 + T * m * 8 + 2 * (n * 1024 * 4 + 4 * n * 4 + 8) + 4 * 4)
+        bound, bound_by = two_way_bound(nbytes, KL_SPLIT_FLOPS * splits, F32_FLOPS)
+        chain = math.ceil(bb / in_flight) * T * chain_us / 1e3
+        fill.append(dict(b=bb, ms=secs * 1e3, ms_per_run_round=secs * 1e3 / (bb * T),
+                         bound_ms=bound, bound_by=bound_by, chain_ms=chain, splits=splits))
+        line(f"  (c) fill B={bb}: {secs * 1e3:.3f} ms a launch, {secs * 1e3 / (bb * T):.3e} ms a "
+             f"run-round; bound {bound:.3e} ms ({bound_by}: {splits} splits), latency chain "
+             f"ceil({bb}/{in_flight}) x {T} x {chain_us:.3f} us = {chain:.3f} ms; runs 0 and "
+             f"{bb - 1} equal their single-run scans ok")
+    line(f"  (c) occupancy: {occ} block(s) of {1024} threads an SM for N={n}, H=1024 "
+         f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor), {in_flight} in flight: a batch past "
+         f"{in_flight} runs in waves")
+    del u_all
+
+    # (d) fig2c for M-Exp3 on the batched per-round route
+    cut, m_ms = FIG2A_ROUNDS_CUT, {}
+    for nn in (4, 5, 6, 7):
+        s = MExp3(nn, m, gamma=0.5)
+        envs = [random_adversarial_env(gen, nn, cut, flip_prob=0.002) for _ in range(b)]
+        u = torch.rand((cut, 2, nn), generator=gen, device="cuda")      # one stream, as JAX's
+        out, secs, got = counted_run(lambda: simulate_aoi_regret_batch(
+            s, stack_envs(envs), cut, uniforms=u, uniforms_axis=None))
+        check(out["route"] == "rounds" and got["regret_scan"] == 0,
+              f"phase 10 (d) N={nn}: route {out['route']}")
+        for i in (0, b - 1):
+            want, _ = serial(s, envs[i], FIG2A_REF_ROUNDS, u[:FIG2A_REF_ROUNDS])
+            same_run(torch, run_of(out, i), want, f"phase 10 (d) N={nn} seed {i}",
+                     rounds=FIG2A_REF_ROUNDS)
+        m_ms[nn] = secs * 1e3 / cut
+        line(f"  (d) fig2c m-exp3 N={nn} |C|={s.n_super_arms}: {b} seeds x T={cut} (cut) on the "
+             f"batched per-round route, {m_ms[nn]:.4f} ms a round for the batch; regret "
+             f"{float(out['final_regret'].mean()):.0f} +- {float(out['final_regret'].std()):.0f}; "
+             f"seeds 0 and {b - 1} equal their serial runs over {FIG2A_REF_ROUNDS} rounds ok")
+    line(f"  (d) against phase 9's serial m-exp3 rows (N=5, M=2, T={cut}, one run): piecewise "
+         f"{fig2a_refs['fig2a piecewise/m-exp3']['ms_round']:.4f}, adversarial (share 1e-3) "
+         f"{fig2a_refs['fig2a adversarial/m-exp3']['ms_round']:.4f} ms a round")
+
+    # (e) fig2a as one sweep: fifteen rows x 4 seeds at the cut; seed 0 is phase 9's run
+    cases = []
+    for label, ref_row in fig2a_refs.items():
+        kind, name = label.split(" ")[1].split("/")
+        s = dict(fig2a_policies(n, m, kind == "adversarial"))[name]
+        cases.append(SweepCase(f"{label}#0", s, ref_row["env"], 0, cut, uniforms=ref_row["u"]))
+        for j in range(1, FIG2A_SEEDS):
+            e = (random_piecewise_env(gen, n, cut, 5) if kind == "piecewise"
+                 else random_adversarial_env(gen, n, cut, flip_prob=0.002))
+            cases.append(SweepCase(f"{label}#{j}", s, e, seed * 100 + j, cut))
+    (results, report), secs, got = counted_run(lambda: sweep(cases))
+    for label, ref_row in fig2a_refs.items():
+        want = ref_row["out"]
+        got_row = results[f"{label}#0"]
+        for k in ("channels", "regret", "aoi_pi", "aoi_star", "restarts", "exploit_rounds"):
+            if k in want:
+                check(torch.equal(got_row[k], want[k]), f"phase 10 (e) {label}: {k} differs "
+                      "from phase 9's run")
+    for r in report:
+        line(f"  (e) bucket {r.names[0].rsplit('#', 1)[0]}: {r.batch} cases, route {r.route}, "
+             f"wall {r.wall_s * 1e3:.1f} ms ({r.wall_s * 1e3 / cut:.4f} ms a round)")
+    check(len(report) == 15 and got["regret_scan"] == 3,
+          f"phase 10 (e): {len(report)} buckets, launches {got}")
+    line(f"  (e) fig2a sweep: {len(cases)} cases in {len(report)} buckets, {secs:.1f} s; "
+         f"launches regret_scan {got['regret_scan']}, glr_step {got['glr_step']}; every row's "
+         f"seed 0 equals phase 9's run ok")
+
+    # (f) a recompute-detector bucket of 8 seeds on the scan
+    rec = GLRCUCB(n, m, history=1024, detector_stride=5, detector_impl="recompute")
+    cases = [SweepCase(f"r{i}", rec, random_piecewise_env(gen, n, T, 5), seed * 100 + 50 + i, T)
+             for i in range(RECOMPUTE_SEEDS)]
+    (results, report), secs, got = counted_run(lambda: sweep(cases))
+    check(len(report) == 1 and report[0].route == "scan" and got["regret_scan"] == 1
+          and got["glr_scan"] == 0, f"phase 10 (f): launches {got}")
+    for c in cases:
+        want, _ = serial(rec, c.env, T, c.draw_uniforms("cuda"))
+        same_run(torch, results[c.name], {k: v for k, v in want.items()
+                                          if k != "final_sched_state"}, f"phase 10 (f) {c.name}")
+    line(f"  (f) recompute bucket: {len(cases)} seeds x T={T}, one regret_scan launch, "
+         f"{secs * 1e3:.3f} ms; each run equals its serial run ok")
+
+    # (g) sweep(shard=True) on the one card equals sweep(), an uneven bucket of 5
+    cases = [SweepCase(f"s{i}", sched.replace_traced(delta=d), env, seed + i, cut)
+             for i, d in enumerate((1e-4, 1e-3, 1e-2, 5e-2, 1e-1))]
+    plain, _ = sweep(cases)
+    (sharded, report), _, got = counted_run(lambda: sweep(cases, shard=True))
+    check(report[0].sharded and report[0].batch == SHARD_BATCH, "phase 10 (g): not sharded")
+    for c in cases:
+        same_run(torch, sharded[c.name], plain[c.name], f"phase 10 (g) {c.name}")
+    line(f"  (g) sweep(shard=True) on a 1-device mesh: a bucket of {SHARD_BATCH} equals sweep() "
+         f"bit for bit ok")
+
+    launches = {k: sum(c[k] for c in counted) for k in COUNTERS}
+    check(launches["regret_scan"] > 0 and launches["glr_step"] > 0,
+          f"phase 10: a kernel of the slice never launched: {launches}")
+    line(f"  phase 10 launches: regret_scan {launches['regret_scan']}, glr_step "
+         f"{launches['glr_step']}; wall {time.perf_counter() - t_start:.1f} s")
+    return launches, dict(fig2c=fig2c, fill=fill, occupancy=occ, in_flight=in_flight,
+                          chain_us=chain_us, mexp3_ms_per_round=m_ms,
+                          launches=launches["regret_scan"])
 
 
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
-                fa_t, fig2_scan, recompute_scan, gst_err, gst_t):
+                fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
-    (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6."""
+    (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6, and
+    ``glr_step`` the scan's batch form (phase 10's launches, phase 2's error
+    against the batched per-round loop, the fill of the card)."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -2174,7 +2490,7 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     serve = gst_t["serve"]
     return [
         entry("glr_step", "src/repro/kernels/glr_step.py:163", glr_err, glr_t["fig2"],
-              **fig2_scan),
+              batch_scan=batch_scan, **fig2_scan),
         entry("glr_step_tenants", "src/repro/kernels/glr_step.py:210", gst_err, serve,
               shape_r_b_n_h=[257, 64, 16, 256], device_ms=serve["device_ms"],
               detecting_rows=serve["detecting_rows"], splits=serve["splits"],
@@ -2216,7 +2532,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-9) only")
+                    help="build the kernels and run the paths (phases 3-10) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -2263,6 +2579,7 @@ def main(argv=None) -> int:
             rt_err, rt_t = check_robust_trimmed(torch, gen, floor_ms)
             gs_err, gs_t = check_glr_scan(torch, gen, floor_ms)
             check_regret_scan(torch, args.seed)
+            batch_err = check_regret_scan_batch(torch, args.seed)
             fa_err, fa_t = check_flash_attention(torch, gen, floor_ms)
             # the checks' gigabytes go back to the driver before the timed paths
             peak = torch.cuda.max_memory_reserved() / 2 ** 30
@@ -2279,7 +2596,7 @@ def main(argv=None) -> int:
         robust_launches = fig3_robust(torch, S, args.seed, clean_acc)
         line("[6] Fig. 2 path, recompute detector")
         recompute_launches, recompute_scan = fig2_recompute(torch, f2)
-        fig2_scan = f2["scan"]
+        fig2_scan, chain_us = f2["scan"], f2["chain_us"]
         del f2, S
         release(torch)
         line("[7] serving path: qwen3-32b prefill and greedy decode")
@@ -2288,9 +2605,11 @@ def main(argv=None) -> int:
         line("[8] the multi-tenant scheduler service")
         sched_launches, _ = sched_serve(torch, args.seed)
         line("[9] the paper's baseline rows: Fig. 2a and Fig. 3/4")
-        baseline_launches = baselines(torch, args.seed)
+        baseline_launches, fig2a_refs = baselines(torch, args.seed)
+        line("[10] the batched engine: fig2c, hp_grid, the card's fill, fig2a as one sweep")
+        batch_launches, batch_fields = batched_engine(torch, args.seed, chain_us, fig2a_refs)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
-                 serve_launches, sched_launches, baseline_launches)
+                 serve_launches, sched_launches, baseline_launches, batch_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
         check(all(launches[k] > 0 for k in KERNEL_NAMES + ("flash_attention_tc",)),
               f"a kernel never launched: {launches}")
@@ -2304,7 +2623,8 @@ def main(argv=None) -> int:
     if not args.paths:
         line(json.dumps({"kernels": kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err,
                                                 rt_t, gs_err, gs_t, fa_err, fa_t, fig2_scan,
-                                                recompute_scan, gst_err, gst_t)}))
+                                                recompute_scan, gst_err, gst_t,
+                                                dict(batch_fields, max_abs_err=batch_err))}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -71,6 +71,23 @@ def channel_env(form: str, means, breaks, table, score_kind: str = "ucb",
                       tensor(table, dev).to(torch.float32), score_kind)
 
 
+def env(src, device=None) -> ChannelEnv:
+    """The port's ``ChannelEnv`` for a JAX one, unbatched or stacked (a JAX
+    ``stack_envs`` result, leading (B,) axis on every leaf), read by
+    attribute (``form``, ``means``, ``breaks``, ``table``, ``score_kind``)."""
+    if src.form not in ("segments", "table"):
+        raise ValueError(f"convert.env: the port has no {src.form!r} form")
+    return channel_env(src.form, np.array(src.means), np.array(src.breaks),
+                       np.array(src.table), src.score_kind, device)
+
+
+def hparams(src: Mapping[str, Any], device=None) -> Dict[str, Any]:
+    """A JAX ``params()`` dict, or a ``stack_params`` grid of (G,) leaves, as
+    f32 tensors on ``device``; a wrapped policy's nested dict stays nested."""
+    return {k: hparams(v, device) if isinstance(v, Mapping)
+            else tensor(np.array(v, dtype=np.float32), device) for k, v in src.items()}
+
+
 def _get(src, f):
     """Field ``f`` of a state: an attribute, or a key of a dict (the form
     ``to_numpy`` gives)."""

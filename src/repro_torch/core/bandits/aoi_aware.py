@@ -8,8 +8,9 @@ clients; otherwise the base policy's choice stands.  The base state is
 updated in both branches.  ``exploit_rounds`` counts the AA-branch rounds.
 
 The wrapper draws nothing of its own: it hands the round's ``u`` to its
-base, as JAX hands ``k_sel`` to the base.  Twin of
-``repro/core/bandits/aoi_aware.py``.
+base, as JAX hands ``k_sel`` to the base.  Batched over runs
+(``base.py``), written explicitly, its round nests its base's batched
+round.  Twin of ``repro/core/bandits/aoi_aware.py``.
 """
 from __future__ import annotations
 
@@ -80,17 +81,16 @@ class AoIAware(TracedHyperParams):
                aoi: torch.Tensor) -> Tuple[torch.Tensor, Tuple[Any, torch.Tensor]]:
         m = self.n_clients
         mu_hat = self._mu_hat(state)
-        h_t = state.hp["threshold_scale"] / mu_hat.max().clamp_min(1e-6)
-        exploit = aoi.max() > h_t
+        h_t = state.hp["threshold_scale"] / mu_hat.amax(-1).clamp_min(1e-6)
+        exploit = aoi.amax(-1) > h_t
         base_channels, base_aux = self.base.select(state.base, t, u, aoi)
         # exploitation: the M best (discounted) channels, best to the
         # most-starved client; a scatter with unique indices
-        best = torch.argsort(-mu_hat, stable=True)[:m]
-        starved = torch.argsort(-aoi, stable=True)
-        exploit_channels = torch.zeros((m,), dtype=base_channels.dtype,
-                                       device=base_channels.device).scatter(
-            0, starved, best.to(base_channels.dtype))
-        channels = torch.where(exploit, exploit_channels, base_channels)
+        best = torch.argsort(-mu_hat, dim=-1, stable=True)[..., :m]
+        starved = torch.argsort(-aoi, dim=-1, stable=True)
+        exploit_channels = torch.zeros_like(base_channels).scatter(
+            -1, starved, best.to(base_channels.dtype))
+        channels = torch.where(exploit[..., None], exploit_channels, base_channels)
         return channels, (base_aux, exploit)
 
     def update(self, state: AoIAwareState, t: int, channels: torch.Tensor,
@@ -98,7 +98,7 @@ class AoIAware(TracedHyperParams):
         base_aux, exploited = aux
         # the base learns from every round, whichever branch chose
         new_base = self.base.update(state.base, t, channels, rewards, base_aux)
-        rho = state.hp["discount"]
+        rho = state.hp["discount"][..., None]
         return AoIAwareState(
             base=new_base,
             mu_sum=rho * state.mu_sum + scatter_rows(self.n_channels, channels, rewards),

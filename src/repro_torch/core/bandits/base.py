@@ -14,6 +14,16 @@ draw, the policy's only randomness (each policy's docstring names the JAX
 draw its ``u`` stands for).  ``rewards`` are the observed Good/Bad states
 of the scheduled channels, (M,) in {0, 1}.
 
+A batch of independent runs (the batched engine, ``repro_torch.sim``)
+goes through the same functions with a leading run axis: state leaves
+(B, ...) from ``init_batch``, ``u`` (B, N), ``aoi`` (B, M), the channels
+(B, M), ``t`` still one Python int; a hyper-parameter is 0-d (shared by
+every run) or (B,) (one a run).  Each policy writes that batched round
+explicitly, no ``vmap``: every reduction and sort runs over the last axis
+of a (B, ...) tensor, scatters replace index adds, and a hyper-parameter
+enters as ``hp[k][..., None]``, so each row gets the bits of the
+unbatched call on it (the JAX package ``vmap``s the unbatched functions).
+
 Scalar tuning knobs follow the JAX package's hyper-parameter convention:
 a policy lists them in ``TRACED`` (or overrides ``traced_fields()`` when
 the set depends on a structural field), ``params()`` returns them as a
@@ -99,12 +109,41 @@ def _stack(dicts):
 
 def stack_params(configs, device=None) -> Optional[Dict[str, Any]]:
     """Stack each config's ``params()`` along a leading (G,) grid axis
-    (nested dicts stay nested).  Returns ``None`` for knob-free schedulers,
-    the value the engines treat as absent."""
-    plists = [c.params(device) for c in configs]
+    (nested dicts stay nested).  Returns ``None`` for knob-free schedulers
+    and for those without the convention (no ``params``), the value the
+    engines treat as absent."""
+    plists = [c.params(device) if hasattr(c, "params") else {} for c in configs]
     if not plists[0]:
         return None
     return _stack(plists)
+
+
+def _hp_leaves(hp):
+    for v in hp.values():
+        yield from (_hp_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def init_batch(sched, batch: int, device=None, hp: Optional[Dict[str, Any]] = None) -> Any:
+    """The state of ``batch`` runs: ``init_with_hp(sched, device, hp)`` with
+    every tensor leaf but the hyper-parameters repeated along a new leading
+    (B,) axis.  ``hp`` is ``None`` (the scheduler's own values), a
+    ``params()`` dict of 0-d values shared by every run, or a
+    ``stack_params`` grid of (B,) values, one a run."""
+    dev = resolve_device(device)
+    if hp:
+        hp = hp_tensors(hp, dev)
+        bad = [tuple(v.shape) for v in _hp_leaves(hp) if v.dim() and tuple(v.shape) != (batch,)]
+        if bad:
+            raise ValueError(f"init_batch: hyper-parameters of shape {bad}; a batch of "
+                             f"{batch} takes 0-d or ({batch},) values")
+
+    def rows(state):
+        return type(state)(*[
+            v if f == "hp" else rows(v) if isinstance(v, tuple) and hasattr(v, "_fields")
+            else v.unsqueeze(0).repeat(batch, *([1] * v.dim()))
+            for f, v in zip(state._fields, state)])
+
+    return rows(init_with_hp(sched, dev, hp))
 
 
 _MAX_SUPER_ARMS = 200_000
@@ -126,19 +165,19 @@ def combinations_array(n: int, m: int) -> np.ndarray:
 
 
 def scatter_rows(n: int, channels: torch.Tensor, values) -> torch.Tensor:
-    """The (N,) f32 vector holding ``values`` at ``channels`` (distinct) and
-    0 elsewhere: ``zeros(N).at[channels].set(values)``."""
-    out = torch.zeros((n,), dtype=torch.float32, device=channels.device)
+    """The (..., N) f32 rows holding ``values`` at ``channels`` (..., M)
+    (distinct in a row) and 0 elsewhere: ``zeros(N).at[channels].set(values)``."""
+    out = torch.zeros(channels.shape[:-1] + (n,), dtype=torch.float32, device=channels.device)
     if not isinstance(values, torch.Tensor):
-        return out.index_fill(0, channels, float(values))
-    return out.scatter(0, channels, values.to(torch.float32))
+        return out.scatter(-1, channels, float(values))
+    return out.scatter(-1, channels, values.to(torch.float32))
 
 
 def rotate_assignment(channels_sorted: torch.Tensor, t, m: int) -> torch.Tensor:
     """Alg. 2 line 10: player j takes the ((j + t) mod M)-th best channel.
-    ``t`` is an int, or a (B,) tensor with ``channels_sorted`` (B, M): each
-    row rotates by its own round."""
+    ``channels_sorted`` is (M,) or (B, M); ``t`` an int, or with (B, M) a
+    (B,) tensor: each row rotates by its own round."""
     j = torch.arange(m, device=channels_sorted.device)
     if isinstance(t, torch.Tensor):
         return channels_sorted.gather(-1, (j + t[..., None].to(torch.int64)) % m)
-    return channels_sorted[(j + t) % m]
+    return channels_sorted[..., (j + t) % m]

@@ -10,7 +10,8 @@ optimism, no change-point detection.
 ``u`` is the round's (N,) uniform, JAX's ``uniform(k_sel, (N,))``; JAX
 draws ``uniform(k_sel, (N,), minval=1e-12, maxval=1.0)``, which is
 ``max(1e-12, u * (1 - 1e-12) + 1e-12)`` in f32, the same formula here.
-Twin of ``repro/core/bandits/channel_aware.py``.
+Batched over runs (``base.py``), written explicitly.  Twin of
+``repro/core/bandits/channel_aware.py``.
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ class ChannelAwareAsync(TracedHyperParams):
             hp=self.params(dev) if hp is None else hp_tensors(hp, dev))
 
     def _weights(self, state: ChannelAwareState) -> torch.Tensor:
-        eps = state.hp["explore_eps"]
+        eps = state.hp["explore_eps"][..., None]
         w = (1.0 - eps) * state.p_hat + eps / self.n_channels
         return w.clamp_min(1e-9)
 
@@ -57,14 +58,14 @@ class ChannelAwareAsync(TracedHyperParams):
         # proportional to the mixed weights (Plackett-Luce)
         # JAX's minval/maxval scaling; 1 - 1e-12 is 1.0 in f32, as there
         g = -torch.log(-torch.log((u * (1.0 - 1e-12) + 1e-12).clamp_min(1e-12)))
-        order = torch.argsort(-(torch.log(self._weights(state)) + g), stable=True)
-        return order[: self.n_clients], None
+        order = torch.argsort(-(torch.log(self._weights(state)) + g), dim=-1, stable=True)
+        return order[..., : self.n_clients], None
 
     def update(self, state: ChannelAwareState, t: int, channels: torch.Tensor,
                rewards: torch.Tensor, aux) -> ChannelAwareState:
         sched = scatter_rows(self.n_channels, channels, 1.0)
         r_vec = scatter_rows(self.n_channels, channels, rewards)
-        ema = state.hp["ema"]
+        ema = state.hp["ema"][..., None]
         p_hat = torch.where(sched > 0.5, (1.0 - ema) * state.p_hat + ema * r_vec, state.p_hat)
         return ChannelAwareState(p_hat=p_hat, hp=state.hp)
 

@@ -35,13 +35,21 @@ For {0, 1} rewards every prefix is an exact integer and both kernels
 share the split term (``csrc/glr_kl.cuh``), so the two detectors fire on
 the same rounds and give the same trajectories.
 
-A batch of rows, each an independent tenant of the scheduler service
-(``repro_torch.sim.serve``; the JAX package ``vmap``s the single-tenant
-functions there): ``ucb``/``select``/``channel_scores``/``mean_scores``
-take state leaves with a leading (B,) axis and a (B,) int32 ``t``, and
-``update_rows`` updates B rows whose streaming detector state stays in the
-service's slot tensors (a ``SlotRing``), through ``ops.glr_step_tenants``
-in place.  Each row's bits are those of the single-tenant call on it.
+Two batched forms, each row's bits those of the single-run call on it
+(the JAX package ``vmap``s the single-run functions for both):
+
+* the batched engine's runs (``repro_torch.sim``): ``select`` and
+  ``update`` take state leaves with a leading (B,) axis and one Python
+  int ``t``, written out explicitly (``base.py``).  The streaming
+  detector's fused path is one ``ops.glr_step`` over (B, N, H), the split
+  path the append over B*N rows and the statistic over the B*M scheduled
+  rows; the recompute detector is one ``ops.glr_scan`` over B*N rows;
+* the scheduler service's tenants (``repro_torch.sim.serve``):
+  ``ucb``/``select``/``channel_scores``/``mean_scores`` take a (B,) int32
+  ``t`` as well, and ``update_rows`` updates B rows whose streaming
+  detector state stays in the service's slot tensors (a ``SlotRing``),
+  through ``ops.glr_step_tenants`` in place.
+
 Twin of ``repro/core/bandits/glr_cucb.py``.
 """
 from __future__ import annotations
@@ -91,6 +99,15 @@ class SlotRing(NamedTuple):
     slots: torch.Tensor
     live: torch.Tensor
     detect: torch.Tensor
+
+
+def _append(cum, total, base, counts, r_vec, sched):
+    """``ref.glr_stream_append`` over the rows of (..., N, H) prefix rings."""
+    h = cum.shape[-1]
+    flat = lambda x: x.reshape(-1)
+    out = ref.glr_stream_append(cum.reshape(-1, h), flat(total), flat(base), flat(counts),
+                                flat(r_vec), flat(sched))
+    return out[0].reshape(cum.shape), out[1].reshape(total.shape), out[2].reshape(base.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,12 +245,13 @@ class GLRCUCB(TracedHyperParams):
         # restart (Alg. 2 line 21): D_i = 0 for all i, tau <- t.  The ring
         # stays in place: zeroed counts/total/base make every stale slot's
         # split position invalid.  The recompute history is zeroed.
-        mu = mu.masked_fill(change, 0.0)
-        counts = counts.masked_fill(change, 0.0)
-        total = total.masked_fill(change, 0.0)
-        base = base.masked_fill(change, 0.0)
+        row = change[..., None]
+        mu = mu.masked_fill(row, 0.0)
+        counts = counts.masked_fill(row, 0.0)
+        total = total.masked_fill(row, 0.0)
+        base = base.masked_fill(row, 0.0)
         if self.detector_impl == "recompute":
-            hist = hist.masked_fill(change, 0.0)
+            hist = hist.masked_fill(row[..., None], 0.0)
         tau = state.tau.masked_fill(change, t)
         restarts = state.restarts + change.to(torch.int32)
         return GLRCUCBState(mu, counts, tau, hist, restarts, state.hp,
@@ -283,7 +301,6 @@ class GLRCUCB(TracedHyperParams):
     def _detect_streaming(self, state, channels, sched, r_vec, d_prev, counts,
                           stride_ok: bool):
         """Carried-prefix-sum detector; returns ``(cum, total, base, change)``."""
-        n = self.n_channels
         grid = self.resolved_split_grid()
         if self._fused(state):
             if stride_ok:
@@ -291,17 +308,19 @@ class GLRCUCB(TracedHyperParams):
                     state.cum, state.total, state.base, d_prev, r_vec, sched,
                     split_grid=grid)
             else:
-                cum, total, base = ref.glr_stream_append(
-                    state.cum, state.total, state.base, d_prev, r_vec, sched)
-                stats = torch.full((n,), -torch.inf, device=d_prev.device)
+                cum, total, base = _append(state.cum, state.total, state.base, d_prev, r_vec,
+                                           sched)
+                stats = torch.full_like(d_prev, -torch.inf)
         else:
-            cum, total, base = ref.glr_stream_append(
-                state.cum, state.total, state.base, d_prev, r_vec, sched)
-            stats = torch.full((n,), -torch.inf, device=d_prev.device)
+            cum, total, base = _append(state.cum, state.total, state.base, d_prev, r_vec, sched)
+            stats = torch.full_like(d_prev, -torch.inf)
             if stride_ok:
-                stats = stats.index_put((channels,), ref.glr_stream_stat(
-                    cum[channels], total[channels], base[channels],
-                    counts[channels], grid))
+                h = cum.shape[-1]
+                pick = lambda x: x.gather(-1, channels).reshape(-1)
+                rows = cum.gather(-2, channels[..., None].expand(*channels.shape, h))
+                stats = stats.scatter(-1, channels, ref.glr_stream_stat(
+                    rows.reshape(-1, h), pick(total), pick(base), pick(counts),
+                    grid).reshape(channels.shape))
         change = self._fire(stats, sched, counts, state.hp)
         return cum, total, base, change
 
@@ -314,14 +333,15 @@ class GLRCUCB(TracedHyperParams):
         full = d_prev >= h
         writepos = d_prev.to(torch.int64).clamp(0, h - 1)
         onehot = torch.nn.functional.one_hot(writepos, h).to(torch.float32)
-        appended = state.hist * (1.0 - onehot) + r_vec[:, None] * onehot
-        rolled = torch.cat([state.hist[:, 1:], r_vec[:, None]], dim=1)
-        hist = torch.where(sched[:, None], torch.where(full[:, None], rolled, appended),
+        appended = state.hist * (1.0 - onehot) + r_vec[..., None] * onehot
+        rolled = torch.cat([state.hist[..., 1:], r_vec[..., None]], dim=-1)
+        hist = torch.where(sched[..., None], torch.where(full[..., None], rolled, appended),
                            state.hist)
         if stride_ok:
-            stats = ops.glr_scan(hist, counts.clamp_max(float(h)).to(torch.int32))
+            stats = ops.glr_scan(hist.reshape(-1, h), counts.clamp_max(float(h)).to(
+                torch.int32).reshape(-1)).reshape(counts.shape)
         else:
-            stats = torch.full((self.n_channels,), -torch.inf, device=d_prev.device)
+            stats = torch.full_like(d_prev, -torch.inf)
         change = self._fire(stats, sched, counts, state.hp)
         return hist, state.cum, state.total, state.base, change
 

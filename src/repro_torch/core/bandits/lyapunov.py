@@ -9,8 +9,8 @@ A detection-free baseline: it reacts to change points only through queue
 pressure and the discounted mean.
 
 ``u`` is the round's (N,) uniform, JAX's ``uniform(k_sel, (N,))``; it
-breaks early-round ties as ``u * 1e-6``.  Twin of
-``repro/core/bandits/lyapunov.py``.
+breaks early-round ties as ``u * 1e-6``.  Batched over runs (``base.py``),
+written explicitly.  Twin of ``repro/core/bandits/lyapunov.py``.
 """
 from __future__ import annotations
 
@@ -53,8 +53,8 @@ class LyapunovSched(TracedHyperParams):
 
     def _arrival(self, hp: Dict[str, torch.Tensor]) -> torch.Tensor:
         if "min_rate" in hp:
-            return hp["min_rate"]
-        return hp["rate_slack"] * (self.n_clients / self.n_channels)
+            return hp["min_rate"][..., None]
+        return hp["rate_slack"][..., None] * (self.n_clients / self.n_channels)
 
     # ------------------------------------------------------------------ api
     def init(self, device=None, hp: Optional[Dict[str, Any]] = None) -> LyapunovState:
@@ -69,8 +69,8 @@ class LyapunovSched(TracedHyperParams):
     def select(self, state: LyapunovState, t: int, u: torch.Tensor,
                aoi: torch.Tensor) -> Tuple[torch.Tensor, None]:
         m = self.n_clients
-        weight = state.queues + state.hp["v"] * self._mu_hat(state)
-        top = torch.argsort(-(weight + u * 1e-6), stable=True)[:m]
+        weight = state.queues + state.hp["v"][..., None] * self._mu_hat(state)
+        top = torch.argsort(-(weight + u * 1e-6), dim=-1, stable=True)[..., :m]
         return rotate_assignment(top, t, m), None
 
     def update(self, state: LyapunovState, t: int, channels: torch.Tensor,
@@ -78,7 +78,7 @@ class LyapunovSched(TracedHyperParams):
         sched = scatter_rows(self.n_channels, channels, 1.0)
         r_vec = scatter_rows(self.n_channels, channels, rewards)
         queues = (state.queues + self._arrival(state.hp) - sched).clamp_min(0.0)
-        rho = state.hp["discount"]
+        rho = state.hp["discount"][..., None]
         return LyapunovState(queues=queues, mu_sum=rho * state.mu_sum + r_vec,
                              pulls=rho * state.pulls + sched, hp=state.hp)
 

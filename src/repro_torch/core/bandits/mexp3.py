@@ -10,9 +10,18 @@ Sec.-V matcher, which ranks channels by historical mean (Eq. 31).
 ``select`` draws the super-arm by inverting the CDF of its probabilities
 at one uniform, ``u[0]``: JAX's ``choice(k_sel, C, p=p)`` is
 ``searchsorted(cumsum(p), cumsum(p)[-1] * (1 - uniform(k_sel, ())))``
-(side left), so ``u[0]`` stands for ``uniform(k_sel, ())``.  The log-space
+(side left), so ``u[0]`` stands for ``uniform(k_sel, ())``.  The CDF is a
+cumulative sum in f64 rounded once to f32: the CPU's f32 ``cumsum`` adds
+in f64 too (the same bits), and on CUDA an f64 sum of f32 probabilities
+is exact while each is at least 2^-29 (the exploration floor gamma / C
+keeps them there unless gamma < C * 2^-29), so its one rounding does not
+depend on the order in which the card's 1-D and batched scans add.  The log-space
 arithmetic (``logsumexp``, ``logaddexp``, ``exp``) is not bitwise between
-XLA and torch.  Twin of ``repro/core/bandits/mexp3.py``.
+XLA and torch.
+
+Batched over runs (``base.py``), written explicitly: the super-arm draw
+stays the inverse CDF over each row's ``u[0]``.  Twin of
+``repro/core/bandits/mexp3.py``.
 """
 from __future__ import annotations
 
@@ -78,34 +87,35 @@ class MExp3(TracedHyperParams):
             hp=self.params(dev) if hp is None else hp_tensors(hp, dev))
 
     def _probs(self, state: MExp3State) -> torch.Tensor:
-        gamma = state.hp["gamma"]
-        logits = state.log_w - torch.logsumexp(state.log_w, 0)
+        gamma = state.hp["gamma"][..., None]
+        logits = state.log_w - torch.logsumexp(state.log_w, -1, keepdim=True)
         return (1.0 - gamma) * torch.exp(logits) + gamma / self.n_super_arms
 
     def select(self, state: MExp3State, t: int, u: torch.Tensor,
                aoi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        cdf = torch.cumsum(self._probs(state), 0)
-        idx = torch.searchsorted(cdf, cdf[-1] * (1.0 - u[0]))
+        cdf = torch.cumsum(self._probs(state).to(torch.float64), -1).to(torch.float32)
+        idx = torch.searchsorted(cdf, cdf[..., -1:] * (1.0 - u[..., :1])).squeeze(-1)
         channels = self.combos(u.device)[idx]
         # rotate within the super-arm so no client monopolizes one channel
         return rotate_assignment(channels, t, self.n_clients), idx
 
     def update(self, state: MExp3State, t: int, channels: torch.Tensor,
                rewards: torch.Tensor, aux: torch.Tensor) -> MExp3State:
-        idx, c, hp = aux.reshape(1), self.n_super_arms, state.hp
+        idx, c, hp = aux[..., None], self.n_super_arms, state.hp
         rewards = rewards.to(torch.float32)
         p = self._probs(state)
-        x_hat = rewards.sum() / p[idx].clamp_min(1e-12)          # importance-weighted
-        log_w = state.log_w.index_add(0, idx, hp["gamma"] * x_hat / c)
+        x_hat = rewards.sum(-1, keepdim=True) / p.gather(-1, idx).clamp_min(1e-12)  # importance-weighted
+        log_w = state.log_w.scatter_add(-1, idx, hp["gamma"][..., None] * x_hat / c)
         if self.share_alpha > 0.0:
             # Exp3.S sharing: w_J <- w_J + (e * alpha / C) * sum_I w_I (log space)
-            share = torch.log(math.e * hp["share_alpha"] / c) + torch.logsumexp(log_w, 0)
+            share = (torch.log(math.e * hp["share_alpha"][..., None] / c)
+                     + torch.logsumexp(log_w, -1, keepdim=True))
             log_w = torch.logaddexp(log_w, share)
-        log_w = log_w - log_w.max()                              # re-center
+        log_w = log_w - log_w.amax(-1, keepdim=True)               # re-center
         return MExp3State(
             log_w=log_w,
-            mu_sum=state.mu_sum.index_add(0, channels, rewards),
-            pulls=state.pulls.index_add(0, channels, torch.ones_like(rewards)),
+            mu_sum=state.mu_sum.scatter_add(-1, channels, rewards),
+            pulls=state.pulls.scatter_add(-1, channels, torch.ones_like(rewards)),
             hp=hp)
 
     def channel_scores(self, state: MExp3State, t) -> torch.Tensor:

@@ -4,7 +4,8 @@
 channels: the stable argsort of the round's (N,) uniform ``u``.  JAX draws
 ``permutation(k_sel, N)``, which equals the stable argsort of
 ``uniform(split(k_sel)[1], (N,))``; that is the draw ``u`` stands for.
-Twin of ``repro/core/bandits/random_policy.py``.
+Batched over runs (``base.py``), written explicitly.  Twin of
+``repro/core/bandits/random_policy.py``.
 """
 from __future__ import annotations
 
@@ -36,14 +37,13 @@ class RandomScheduler(TracedHyperParams):
 
     def select(self, state: RandomState, t: int, u: torch.Tensor,
                aoi: torch.Tensor) -> Tuple[torch.Tensor, None]:
-        return torch.argsort(u, stable=True)[: self.n_clients], None
+        return torch.argsort(u, dim=-1, stable=True)[..., : self.n_clients], None
 
     def update(self, state: RandomState, t: int, channels: torch.Tensor,
                rewards: torch.Tensor, aux) -> RandomState:
-        return RandomState(
-            mu_sum=state.mu_sum.index_add(0, channels, rewards.to(torch.float32)),
-            pulls=state.pulls.index_add(0, channels, torch.ones_like(rewards, dtype=torch.float32)),
-        )
+        rewards = rewards.to(torch.float32)
+        return RandomState(mu_sum=state.mu_sum.scatter_add(-1, channels, rewards),
+                           pulls=state.pulls.scatter_add(-1, channels, torch.ones_like(rewards)))
 
     def channel_scores(self, state: RandomState, t) -> torch.Tensor:
         return state.mu_sum / state.pulls.clamp_min(1.0)

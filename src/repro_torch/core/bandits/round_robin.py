@@ -2,7 +2,8 @@
 
 Deterministically cycles all N channels through the M clients: perfectly
 fair channel usage, zero learning.  It draws nothing: ``u`` is ignored.
-Twin of ``repro/core/bandits/round_robin.py``.
+Batched over runs (``base.py``), every run takes the same channels.  Twin
+of ``repro/core/bandits/round_robin.py``.
 """
 from __future__ import annotations
 
@@ -37,14 +38,13 @@ class RoundRobinScheduler(TracedHyperParams):
         base = (t * self.n_clients) % self.n_channels
         channels = (base + torch.arange(self.n_clients, device=state.pulls.device)) \
             % self.n_channels
-        return channels, None
+        return channels.expand(*state.pulls.shape[:-1], self.n_clients), None
 
     def update(self, state: RRState, t: int, channels: torch.Tensor,
                rewards: torch.Tensor, aux) -> RRState:
-        return RRState(
-            mu_sum=state.mu_sum.index_add(0, channels, rewards.to(torch.float32)),
-            pulls=state.pulls.index_add(0, channels, torch.ones_like(rewards, dtype=torch.float32)),
-        )
+        rewards = rewards.to(torch.float32)
+        return RRState(mu_sum=state.mu_sum.scatter_add(-1, channels, rewards),
+                       pulls=state.pulls.scatter_add(-1, channels, torch.ones_like(rewards)))
 
     def channel_scores(self, state: RRState, t) -> torch.Tensor:
         return state.mu_sum / state.pulls.clamp_min(1.0)

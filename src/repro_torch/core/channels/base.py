@@ -13,9 +13,15 @@ Randomness enters through one seam: ``sample(t, u)`` takes the round's
 (N,) f32 uniform draw and returns ``(u < mu(t)).float()``, which is how
 ``jax.random.bernoulli`` draws, so feeding both packages the same
 uniforms gives the same channel states.  The closed-loop API
-(``interact_init``/``sample_dyn``/``interact_step``) is kept for the
-simulation loops and is the identity carry for these forms; the
-``"reactive"`` form is not ported.  Twin of ``repro/core/channels/base.py``.
+(``interact_init``/``sample_dyn``/``interact_step``) is kept for the FL
+trainer's loop and is the identity carry for these forms; the
+``"reactive"`` form is not ported.
+
+A batch of envs of one form and leaf shapes stacks on a leading run axis
+(``stack_envs``): ``means`` (B, S, N), ``breaks`` (B, S-1), ``table`` (B,
+T, N), the input of the batched engine (``repro_torch.sim``), whose
+per-round loop reads ``dense_means``.  Twin of
+``repro/core/channels/base.py``.
 """
 from __future__ import annotations
 
@@ -27,6 +33,20 @@ from repro_torch.device import resolve_device
 
 FORM_SEGMENTS = "segments"
 FORM_TABLE = "table"
+
+
+def scenario_realize_generator(seed: int, device=None) -> torch.Generator:
+    """The generator a case's ``ChannelProcess`` is realized from: a
+    ``torch.Generator`` on ``device`` seeded with
+    ``((seed XOR 0x5EED) * 0x9E3779B1) mod 2**32``, a bijection of 32-bit
+    seeds that sends small ones far from each other (32 bits, because
+    torch's CPU generator keeps only those), so the env's draws and the
+    run's uniforms (seeded with ``seed``) do not share a stream.  The
+    sweep driver realizes a process case from it; the serial run of the
+    case passes it to ``simulate_aoi_regret`` as ``generator`` (twin of
+    ``repro.core.channels.scenario_realize_key``)."""
+    gen = torch.Generator(device=resolve_device(device))
+    return gen.manual_seed(((int(seed) ^ 0x5EED) * 0x9E3779B1) % 2**32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +87,14 @@ class ChannelEnv:
     @property
     def n_channels(self) -> int:
         return self.table.shape[-1] if self.form == FORM_TABLE else self.means.shape[-1]
+
+    @property
+    def kind(self) -> str:
+        """The regime's name: ``"stationary"``/``"piecewise"`` (segments),
+        ``"adversarial"`` (a table with the ``"mean"`` hint) or ``"table"``."""
+        if self.form == FORM_TABLE:
+            return "adversarial" if self.score_kind == "mean" else FORM_TABLE
+        return "stationary" if self.means.shape[-2] == 1 else "piecewise"
 
     # -- behaviour ---------------------------------------------------------
     def means_at(self, t: int) -> torch.Tensor:
@@ -138,3 +166,60 @@ def make_stationary(mus, device=None) -> ChannelEnv:
 def make_piecewise(segment_means, breakpoints, device=None) -> ChannelEnv:
     """``segment_means``: (S, N); ``breakpoints``: (S-1,) ascending rounds."""
     return segment_env(segment_means, breakpoints, device=device)
+
+
+def dense_means(env: ChannelEnv, horizon: int) -> torch.Tensor:
+    """The env's per-round means for rounds ``0..horizon-1``: (T, N), or
+    (B, T, N) for a stacked env; each row is ``means_at(t)``'s values.  A
+    segment env extends to any horizon (its last segment is open-ended); a
+    table env must cover ``horizon`` rounds."""
+    if env.form == FORM_TABLE:
+        if env.table.shape[-2] < horizon:
+            raise ValueError(
+                f"dense_means: table horizon {env.table.shape[-2]} < requested {horizon}")
+        return env.table[..., :horizon, :]
+    lead, (n_seg, n) = env.means.shape[:-2], env.means.shape[-2:]
+    if n_seg == 1:
+        return env.means.expand(*lead, horizon, n)
+    t = torch.arange(horizon, device=env.device)
+    if not lead:
+        return env.means[torch.searchsorted(env.breaks, t, right=True)]
+    seg = torch.searchsorted(env.breaks, t.expand(*lead, horizon).contiguous(), right=True)
+    return env.means.gather(-2, seg[..., None].expand(*lead, horizon, n))
+
+
+def _leaf_shapes(env: ChannelEnv):
+    return tuple((tuple(x.shape), x.dtype) for x in (env.means, env.breaks, env.table))
+
+
+def envs_stackable(envs) -> bool:
+    """True iff the envs share form, score hint and leaf shapes (one batch
+    of the engine).  The scenario family does not matter."""
+    first = envs[0]
+    return all(e.form == first.form and e.score_kind == first.score_kind
+               and _leaf_shapes(e) == _leaf_shapes(first) for e in envs[1:])
+
+
+def stack_envs(envs) -> ChannelEnv:
+    """Stack envs of one form and leaf shapes on a new leading run axis.
+    The result is the batched engine's env input, not an env ``sample``
+    or ``means_at`` take."""
+    envs = list(envs)
+    if not envs:
+        raise ValueError("stack_envs: empty env list")
+    if not envs_stackable(envs):
+        kinds = sorted({e.kind for e in envs})
+        raise ValueError(
+            f"stack_envs: envs must share kind (canonical form + score hint) and leaf "
+            f"shapes (kinds={kinds}); group heterogeneous cases with repro_torch.sim.sweep "
+            "instead")
+    first = envs[0]
+    return dataclasses.replace(first, means=torch.stack([e.means for e in envs]),
+                               breaks=torch.stack([e.breaks for e in envs]),
+                               table=torch.stack([e.table for e in envs]))
+
+
+def env_batch_size(env: ChannelEnv) -> int:
+    """The leading run axis of a stacked env; 1 for an unbatched env."""
+    lead = env.table.shape if env.form == FORM_TABLE else env.means.shape
+    return 1 if len(lead) == 2 else lead[0]

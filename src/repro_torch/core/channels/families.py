@@ -29,6 +29,11 @@ class StationaryProcess(ChannelProcess):
     mean_high: float = 0.9
 
     FAMILY = "stationary"
+    TRACED = ("mean_low", "mean_high")
+
+    @classmethod
+    def example(cls, n_channels: int, horizon: int) -> "StationaryProcess":
+        return cls(n_channels=n_channels)
 
     def _realize(self, generator, device) -> ChannelEnv:
         mus = _uniform((self.n_channels,), self.mean_low, self.mean_high, generator, device)
@@ -55,6 +60,15 @@ class PiecewiseProcess(ChannelProcess):
     min_gap: float = 0.05
 
     FAMILY = "piecewise"
+    TRACED = ("mean_low", "mean_high", "min_gap")
+
+    @property
+    def n_segments(self) -> int:
+        return self.n_breakpoints + 1
+
+    @classmethod
+    def example(cls, n_channels: int, horizon: int) -> "PiecewiseProcess":
+        return cls(n_channels=n_channels, horizon=horizon, n_breakpoints=3)
 
     def _realize(self, generator, device) -> ChannelEnv:
         n, horizon, nb = self.n_channels, self.horizon, self.n_breakpoints
@@ -88,7 +102,7 @@ class AdversarialProcess(ChannelProcess):
     a round: state_t = start XOR (cumulative parity of the flips up to t).
     No per-round i.i.d. structure, the regime where only adversarial-bandit
     guarantees (M-Exp3) apply, hence the ``"mean"`` matcher score hint
-    (Eq. 31).  ``TRACED`` names the knobs the JAX family traces.
+    (Eq. 31).
     """
 
     n_channels: int
@@ -100,6 +114,10 @@ class AdversarialProcess(ChannelProcess):
     FORM = FORM_TABLE
     SCORE_KIND = "mean"
     TRACED = ("flip_prob", "good_frac")
+
+    @classmethod
+    def example(cls, n_channels: int, horizon: int) -> "AdversarialProcess":
+        return cls(n_channels=n_channels, horizon=horizon)
 
     def _realize(self, generator, device) -> ChannelEnv:
         n = self.n_channels

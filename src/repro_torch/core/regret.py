@@ -6,13 +6,18 @@ channel environment for T rounds (the paper's Fig. 2):
     R_pi(T) = sum_i sum_t E[ a_i^pi(t) - a_i^*(t) ]
 
 Twin of ``repro/core/regret.py``.  Its ``lax.scan`` over the horizon has
-two counterparts: on the card, GLR-CUCB's whole run is one launch of the
-``regret_scan`` kernel; every other policy, and every run elsewhere, a
-Python loop, which is that kernel's plain version.  Each round consumes
-two (N,) f32 uniforms, ``u[t, 0]`` for the channel draw and ``u[t, 1]``
-for the policy, as the JAX harness splits each round key into ``k_env,
-k_sel``.  The loop never waits on the device: the round index is a Python
-int and every decision stays a tensor.
+two counterparts, for one run (``simulate_aoi_regret``) and for a batch of
+runs with a leading run axis (``repro_torch.sim.simulate_aoi_regret_batch``,
+whose batched loop is ``_simulate_rounds`` too): on the card, a GLR-CUCB
+run or batch of runs is one launch of the ``regret_scan`` kernel (one
+thread block a run); every other policy, and every run elsewhere, a Python
+loop over the rounds, which is that kernel's plain version.  Each round
+consumes two (N,) f32 uniforms, ``u[t, 0]`` for the channel draw and
+``u[t, 1]`` for the policy, as the JAX harness splits each round key into
+``k_env, k_sel``.  The loop never waits on the device: the round index is
+a Python int and every decision stays a tensor.  The port's envs are all
+open-loop (the ``"reactive"`` form is not ported), so the loop reads the
+env's dense per-round means and threads no interaction carry.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 from repro_torch.core.aoi import aoi_variance, init_aoi, update_aoi
 from repro_torch.core.bandits.base import init_with_hp
 from repro_torch.core.bandits.oracle import oracle_assign
-from repro_torch.core.channels import ChannelEnv, ChannelProcess
+from repro_torch.core.channels import ChannelEnv, ChannelProcess, dense_means
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import regret_scan as _rs
@@ -63,7 +68,7 @@ def offline_round_stream(env, uniforms: torch.Tensor, horizon: int):
     if uniforms.shape[0] < horizon:
         raise ValueError(f"offline_round_stream: {uniforms.shape[0]} rounds of uniforms, "
                          f"horizon {horizon}")
-    states = torch.stack([env.sample(t, uniforms[t, 0]) for t in range(horizon)])
+    states = (uniforms[:horizon, 0] < dense_means(env, horizon)).to(torch.float32)
     return uniforms[:horizon, 1], states
 
 
@@ -131,37 +136,40 @@ def simulate_aoi_regret(
 
 
 def _simulate_rounds(scheduler, env, sched_state, uniforms, collect_curve: bool,
-                     return_state: bool) -> Dict[str, torch.Tensor]:
-    """The per-round loop from ``sched_state`` over the rounds of
-    ``uniforms`` (T, 2, N): the plain version of the ``regret_scan`` kernel."""
+                     return_state: bool, batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The per-round loop from ``sched_state`` over the rounds of ``uniforms``
+    (T, 2, N): the plain version of the ``regret_scan`` kernel.  With
+    ``batch`` B the state carries a leading (B,) run axis (``init_batch``),
+    and so may ``env`` (stacked) and ``uniforms`` (B, T, 2, N); an operand
+    without it is shared by every run.  Every output then has the run axis;
+    each run's equals the unbatched loop's on that run bit for bit."""
     dev = uniforms.device
-    horizon, n, m = uniforms.shape[0], env.n_channels, scheduler.n_clients
-    aoi_pi, aoi_star = init_aoi(m, dev), init_aoi(m, dev)
-    zero = torch.zeros((), device=dev)
+    horizon, n, m = uniforms.shape[-3], env.n_channels, scheduler.n_clients
+    lead = () if batch is None else (batch,)
+    mu = dense_means(env, horizon)
+    aoi_pi = aoi_star = init_aoi(m, dev).expand(*lead, m)
+    zero = torch.zeros(lead, device=dev)
     cum_regret, cum_var_pi, cum_var_star, successes = zero, zero, zero, zero
-    env_state = env.interact_init()
-    regret_curve = torch.zeros((horizon,), device=dev) if collect_curve else None
-    var_curve = torch.zeros((horizon,), device=dev) if collect_curve else None
-    schedule = torch.zeros((horizon, m), dtype=torch.int64, device=dev)
+    regret_curve = torch.zeros(lead + (horizon,), device=dev) if collect_curve else None
+    var_curve = torch.zeros(lead + (horizon,), device=dev) if collect_curve else None
+    schedule = torch.zeros(lead + (horizon, m), dtype=torch.int64, device=dev)
     for t in range(horizon):
-        states = env.sample_dyn(t, uniforms[t, 0], env_state)
+        u_t = uniforms[..., t, :, :]
+        states = (u_t[..., 0, :] < mu[..., t, :]).to(torch.float32).expand(*lead, n)
         sched_state, aoi_pi, channels, rewards = policy_round(
-            scheduler, sched_state, aoi_pi, t, uniforms[t, 1], states)
-        # the environment reacts to what the POLICY used; the oracle is the
-        # clairvoyant counterfactual on the same realized channel states
-        sched_mask = torch.zeros((n,), device=dev).index_fill(0, channels, 1.0)
-        env_state = env.interact_step(env_state, t, sched_mask)
+            scheduler, sched_state, aoi_pi, t, u_t[..., 1, :].expand(*lead, n), states)
+        # the oracle is the clairvoyant counterfactual on the same channel states
         _, star_success = oracle_assign(states, aoi_star, m)
         aoi_star = update_aoi(aoi_star, star_success)
 
-        cum_regret = cum_regret + (aoi_pi - aoi_star).sum()
+        cum_regret = cum_regret + (aoi_pi - aoi_star).sum(-1)
         cum_var_pi = cum_var_pi + aoi_variance(aoi_pi)
         cum_var_star = cum_var_star + aoi_variance(aoi_star)
-        successes = successes + rewards.sum()
-        schedule[t] = channels
+        successes = successes + rewards.sum(-1)
+        schedule[..., t, :] = channels
         if collect_curve:
-            regret_curve[t] = cum_regret
-            var_curve[t] = cum_var_pi
+            regret_curve[..., t] = cum_regret
+            var_curve[..., t] = cum_var_pi
 
     out = {
         "regret": regret_curve if collect_curve else cum_regret,

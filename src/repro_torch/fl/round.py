@@ -34,7 +34,7 @@ round draws two (N,) f32 uniforms, ``u_env`` for the channel states and
 ``n_uniforms(M)`` uniforms ``u_fault``, which stand for the JAX round's
 draws on ``fold_in(key, 0xFA17)`` (see ``repro_torch.core.faults``).
 ``run_served`` takes each round's schedule from a ``SchedServer``
-instead.  Twin of ``repro/fl/round.py``; the batched engine is not ported.
+instead.  Twin of ``repro/fl/round.py``; the batched FL engine is not ported.
 """
 from __future__ import annotations
 

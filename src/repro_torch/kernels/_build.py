@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
 
@@ -64,6 +65,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every named kernel that has no current build, all ``nvcc``
     processes started together.  Returns ``{name: compiler output}`` (the
     ``-Xptxas -v`` register/shared-memory report) for the ones built."""
+    t0 = time.perf_counter()
     names = list(names)
     for name in names:
         if name not in KERNELS + PROBES:
@@ -90,9 +92,14 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             continue
         os.replace(tmp, target)
         reports[name] = out
+    if jobs:
+        build.seconds += time.perf_counter() - t0
     if failures:
         raise RuntimeError("repro_torch kernel build failed:\n" + "\n".join(failures))
     return reports
+
+
+build.seconds = 0.0   # wall seconds spent compiling in this process
 
 
 def load(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:

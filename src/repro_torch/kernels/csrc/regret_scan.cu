@@ -1,5 +1,5 @@
 // GLR-CUCB's Fig. 2 AoI-regret harness for Hopper (sm_90a): every round of
-// a run in one launch, one thread block a run.
+// a batch of runs in one launch, one thread block a run.
 //
 // Replaces, on this path, the Pallas TPU kernels `glr_step`
 // (src/repro/kernels/glr_step.py:163) and `glr_scan`
@@ -12,6 +12,16 @@
 // `repro_torch.core.regret._simulate_rounds` (GLR-CUCB's `select`/`update`,
 // `oracle_assign`, `update_aoi`, `aoi_variance`), which is this kernel's
 // plain version.
+//
+// The run axis.  Block b runs run b of B: it reads its run's env (segment
+// means and breaks, or its table), uniforms, hyper-parameters and initial
+// state at its own offset, and writes its own outputs.  An operand the runs
+// share (one env, one uniform stream, one hyper-parameter set, the initial
+// state) has stride 0: every block reads the same copy and none writes it.
+// The JAX engine's counterpart is `vmap` over the run axis, which lowers
+// GLR-CUCB's detector to one `glr_step_tenants` launch over the batch
+// (src/repro/kernels/glr_step.py:230-254).  The blocks never talk: B runs
+// take ceil(B / blocks in flight) times one run's chain.
 //
 // Layout.  The (N, H) f32 ring lives in shared memory for the whole
 // horizon: the carried prefix sums `cum` (streaming detector) or the reward
@@ -58,7 +68,9 @@
 // the detector the ring), so a run is a chain of ~20000 warp-latency-bound
 // steps on one SM: one warp issues them, and a detection round's splits
 // are spread over the block's 32 warps.  What fills the card is more runs,
-// one block each (envs x seeds x hyper-parameters of the batched engine).
+// one block each (envs x seeds x hyper-parameters of the batched engine):
+// `__launch_bounds__(kThreads, 1)` and the ring's shared memory set how
+// many blocks an SM holds (`regret_scan_occupancy` asks the runtime).
 #include <climits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -72,7 +84,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Args {
-  // the initial GLRCUCBState (ring: `cum` streaming, `hist` recompute) and hp
+  // the initial GLRCUCBState (ring: `cum` streaming, `hist` recompute) and hp;
+  // each operand is the run's at its offset, or shared (stride 0)
   const float* mu0;
   const float* counts0;
   const int* tau0;
@@ -87,8 +100,8 @@ struct Args {
   const float* means;
   const long long* breaks;
   const float* table;
-  const float* u;  // (T, 2, N): [t][0] the channel draw, [t][1] the policy's
-  // outputs
+  const float* u;  // (T, 2, N) a run: [t][0] the channel draw, [t][1] the policy's
+  // outputs, one set a run
   long long* schedule;  // (T, M)
   float* regret_curve;  // (T,) or null
   float* var_curve;     // (T,) or null
@@ -104,6 +117,8 @@ struct Args {
   float* base_out;
   unsigned long long* splits;  // GLR splits evaluated in the run
   int T, N, M, H, n_seg, stride, period;
+  int T_tab;                              // table rows a run
+  int state_b, env_b, u_b, hp_b;          // 1: the operand has a run axis; 0: shared
 };
 
 // a detection round's scheduled rows, published by warp 0
@@ -158,6 +173,10 @@ __device__ __forceinline__ float glr_threshold(float nf, float delta) {
 
 template <bool RECOMPUTE, bool GEOM, bool TABLE>
 __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) {
+  // this block's run, and the offsets of its operands (0 where shared)
+  const size_t run = blockIdx.x;
+  const size_t rs = a.state_b ? run : 0, re = a.env_b ? run : 0;
+  const size_t ru = a.u_b ? run : 0, rh = a.hp_b ? run : 0;
   extern __shared__ float ring[];  // (N, H), then (recompute) the chunk sums and prefixes
   __shared__ Rows rows;
   __shared__ float keys_s[32];  // the round's selection keys, then the oracle's AoIs
@@ -173,8 +192,15 @@ __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) 
   const size_t NH = static_cast<size_t>(N) * H;
   float* csum = ring + NH;                            // (M, C) chunk sums (recompute)
   float* cpre = csum + static_cast<size_t>(M) * C;    // (M, C) their exclusive prefixes
+  const float* u = a.u + ru * T * 2 * N;
+  const float* table = TABLE ? a.table + re * a.T_tab * N : nullptr;
+  const float* means = TABLE ? nullptr : a.means + re * a.n_seg * N;
+  const long long* breaks = TABLE ? nullptr : a.breaks + re * (a.n_seg - 1);
+  long long* schedule = a.schedule + run * T * M;
+  float* regret_curve = a.regret_curve != nullptr ? a.regret_curve + run * T : nullptr;
+  float* var_curve = a.var_curve != nullptr ? a.var_curve + run * T : nullptr;
 
-  for (size_t k = tid; k < NH; k += kThreads) ring[k] = a.ring0[k];
+  for (size_t k = tid; k < NH; k += kThreads) ring[k] = a.ring0[rs * NH + k];
   if (tid == 0) split_total = 0ull;
 
   // warp 0's state: lane i owns channel i (i < N) and client i (i < M)
@@ -192,25 +218,25 @@ __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) 
   float mu_seg = 0.0f, ue = 0.0f, us = 0.0f, tmu = 0.0f;
   if (warp == 0) {
     if (ch_lane) {
-      mu = a.mu0[lane];
-      cnt = a.counts0[lane];
-      total = a.total0[lane];
-      base = a.base0[lane];
+      mu = a.mu0[rs * N + lane];
+      cnt = a.counts0[rs * N + lane];
+      total = a.total0[rs * N + lane];
+      base = a.base0[rs * N + lane];
       wslot = static_cast<int>(cnt) % H;
     }
-    tau = *a.tau0;
-    restarts = *a.restarts0;
-    gamma = *a.gamma;
-    delta = *a.delta;
-    min_samples = *a.min_samples;
+    tau = a.tau0[rs];
+    restarts = a.restarts0[rs];
+    gamma = a.gamma[rh];
+    delta = a.delta[rh];
+    min_samples = a.min_samples[rh];
     if (!TABLE) {
-      if (a.n_seg > 1) next_break = a.breaks[0];
-      if (ch_lane) mu_seg = a.means[lane];
+      if (a.n_seg > 1) next_break = breaks[0];
+      if (ch_lane) mu_seg = means[lane];
     }
     if (T > 0 && ch_lane) {
-      ue = a.u[lane];
-      us = a.u[N + lane];
-      if (TABLE) tmu = a.table[lane];
+      ue = u[lane];
+      us = u[N + lane];
+      if (TABLE) tmu = table[lane];
     }
   }
   // delta = +inf makes every threshold -inf, so a scheduled row fires on
@@ -234,10 +260,10 @@ __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) 
       // round t+1's inputs, in flight while round t computes
       float ue_n = 0.0f, us_n = 0.0f, tmu_n = 0.0f;
       if (t + 1 < T && ch_lane) {
-        const float* un = a.u + static_cast<size_t>(t + 1) * 2 * N;
+        const float* un = u + static_cast<size_t>(t + 1) * 2 * N;
         ue_n = un[lane];
         us_n = un[N + lane];
-        if (TABLE) tmu_n = a.table[static_cast<size_t>(t + 1) * N + lane];
+        if (TABLE) tmu_n = table[static_cast<size_t>(t + 1) * N + lane];
       }
 
       // the channel states: u < mu(t); segments: searchsorted(breaks, t, right=True)
@@ -247,8 +273,8 @@ __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) 
       } else {
         while (static_cast<long long>(t) >= next_break) {
           ++seg;
-          next_break = seg < a.n_seg - 1 ? a.breaks[seg] : LLONG_MAX;
-          if (ch_lane) mu_seg = a.means[static_cast<size_t>(seg) * N + lane];
+          next_break = seg < a.n_seg - 1 ? breaks[seg] : LLONG_MAX;
+          if (ch_lane) mu_seg = means[static_cast<size_t>(seg) * N + lane];
         }
         mu_env = mu_seg;
       }
@@ -464,10 +490,10 @@ __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) 
       cum_var_star = __fadd_rn(cum_var_star, var_star);
       successes = __fadd_rn(successes, r_sum);
 
-      if (cl_lane) a.schedule[static_cast<size_t>(t) * M + lane] = ch;
-      if (lane == 0 && a.regret_curve != nullptr) {
-        a.regret_curve[t] = cum_regret;
-        a.var_curve[t] = cum_var_pi;
+      if (cl_lane) schedule[static_cast<size_t>(t) * M + lane] = ch;
+      if (lane == 0 && regret_curve != nullptr) {
+        regret_curve[t] = cum_regret;
+        var_curve[t] = cum_var_pi;
       }
     }
   }
@@ -477,50 +503,61 @@ __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) 
     if (ch_lane) {
       head_s[lane] = head;
       window_s[lane] = min(static_cast<int>(cnt), H);
-      a.mu_out[lane] = mu;
-      a.counts_out[lane] = cnt;
-      a.total_out[lane] = total;
-      a.base_out[lane] = base;
+      a.mu_out[run * N + lane] = mu;
+      a.counts_out[run * N + lane] = cnt;
+      a.total_out[run * N + lane] = total;
+      a.base_out[run * N + lane] = base;
     }
     if (cl_lane) {
-      a.aoi_pi[lane] = aoi_pi;
-      a.aoi_star[lane] = aoi_star;
+      a.aoi_pi[run * M + lane] = aoi_pi;
+      a.aoi_star[run * M + lane] = aoi_star;
     }
     if (lane == 0) {
       restarted_s = restarted ? 1 : 0;
-      *a.tau_out = tau;
-      *a.restarts_out = restarts;
-      a.scalars[0] = cum_regret;
-      a.scalars[1] = cum_var_pi;
-      a.scalars[2] = cum_var_star;
-      a.scalars[3] = successes;
+      a.tau_out[run] = tau;
+      a.restarts_out[run] = restarts;
+      a.scalars[run * 4 + 0] = cum_regret;
+      a.scalars[run * 4 + 1] = cum_var_pi;
+      a.scalars[run * 4 + 2] = cum_var_star;
+      a.scalars[run * 4 + 3] = successes;
     }
   }
   if (my_splits) atomicAdd(&split_total, my_splits);
   __syncthreads();
-  if (tid == 0) *a.splits = split_total;
+  if (tid == 0) a.splits[run] = split_total;
+  float* ring_out = a.ring_out + run * NH;
   if (!RECOMPUTE) {
-    for (size_t k = tid; k < NH; k += kThreads) a.ring_out[k] = ring[k];
+    for (size_t k = tid; k < NH; k += kThreads) ring_out[k] = ring[k];
   } else {
     for (size_t k = tid; k < NH; k += kThreads) {
       const int i = static_cast<int>(k / H), pos = static_cast<int>(k - static_cast<size_t>(i) * H);
       const int p = head_s[i] + pos;
       const bool kept = !restarted_s || pos < window_s[i];
-      a.ring_out[k] = kept ? ring[static_cast<size_t>(i) * H + (p >= H ? p - H : p)] : 0.0f;
+      ring_out[k] = kept ? ring[static_cast<size_t>(i) * H + (p >= H ? p - H : p)] : 0.0f;
     }
   }
 }
 
+size_t smem_bytes(int N, int M, int H, int recompute) {
+  const size_t chunks = static_cast<size_t>(M) * ((H + 31) / 32);
+  return (static_cast<size_t>(N) * H + (recompute ? 2 * chunks : 0)) * sizeof(float);
+}
+
 template <bool RECOMPUTE, bool GEOM, bool TABLE>
-int launch(const Args& a, size_t smem, cudaStream_t stream) {
-  const void* fn = reinterpret_cast<const void*>(&regret_scan_kernel<RECOMPUTE, GEOM, TABLE>);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  regret_scan_kernel<RECOMPUTE, GEOM, TABLE><<<1, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+const void* kernel_fn() {
+  return reinterpret_cast<const void*>(&regret_scan_kernel<RECOMPUTE, GEOM, TABLE>);
+}
+
+const void* pick(int recompute, int geometric, int table_form) {
+  if (recompute) return table_form ? kernel_fn<true, false, true>() : kernel_fn<true, false, false>();
+  if (geometric) return table_form ? kernel_fn<false, true, true>() : kernel_fn<false, true, false>();
+  return table_form ? kernel_fn<false, false, true>() : kernel_fn<false, false, false>();
+}
+
+cudaError_t allow_smem(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace
@@ -533,20 +570,35 @@ extern "C" int regret_scan_launch(
     float* var_curve, float* scalars, float* aoi_pi, float* aoi_star, float* mu_out,
     float* counts_out, int* tau_out, float* ring_out, int* restarts_out, float* total_out,
     float* base_out, unsigned long long* splits, int T, int N, int M, int H, int n_seg, int stride,
-    int period, int recompute, int geometric, int table_form, void* stream) {
+    int period, int recompute, int geometric, int table_form, int B, int T_tab, int state_b,
+    int env_b, int u_b, int hp_b, void* stream) {
   if (T < 0 || M < 1 || M > N || N > 32 || H < 1 || n_seg < 1 || stride < 1 || period < 0 ||
-      (recompute && geometric))
+      B < 1 || T_tab < 0 || (recompute && geometric))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{mu0, counts0, tau0, ring0, restarts0, total0, base0, gamma, delta, min_samples,
                means, breaks, table, u, schedule, regret_curve, var_curve, scalars, aoi_pi,
                aoi_star, mu_out, counts_out, tau_out, ring_out, restarts_out, total_out, base_out,
-               splits, T, N, M, H, n_seg, stride, period};
-  const size_t chunks = static_cast<size_t>(M) * ((H + 31) / 32);
-  const size_t smem = (static_cast<size_t>(N) * H + (recompute ? 2 * chunks : 0)) * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (recompute) return table_form ? launch<true, false, true>(a, smem, s)
-                                   : launch<true, false, false>(a, smem, s);
-  if (geometric) return table_form ? launch<false, true, true>(a, smem, s)
-                                   : launch<false, true, false>(a, smem, s);
-  return table_form ? launch<false, false, true>(a, smem, s) : launch<false, false, false>(a, smem, s);
+               splits, T, N, M, H, n_seg, stride, period, T_tab, state_b != 0, env_b != 0,
+               u_b != 0, hp_b != 0};
+  const size_t smem = smem_bytes(N, M, H, recompute);
+  const void* fn = pick(recompute, geometric, table_form);
+  const cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {const_cast<Args*>(&a)};
+  const cudaError_t launched = cudaLaunchKernel(fn, dim3(B), dim3(kThreads), args, smem,
+                                                static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(launched != cudaSuccess ? launched : last);
+}
+
+// blocks of the launch an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// for the template and shared memory a run of (N, M, H) takes
+extern "C" int regret_scan_occupancy(int N, int M, int H, int recompute, int geometric,
+                                     int table_form, int* blocks_per_sm) {
+  const size_t smem = smem_bytes(N, M, H, recompute);
+  const void* fn = pick(recompute, geometric, table_form);
+  const cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kThreads, smem));
 }

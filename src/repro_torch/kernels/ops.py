@@ -110,17 +110,18 @@ def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
 
 
 def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bool = True,
-                return_state: bool = False):
+                return_state: bool = False, batch=None):
     """GLR-CUCB's AoI-regret harness over the T rounds of ``uniforms`` (T, 2, N)
-    from ``state``: on CUDA one launch of ``csrc/regret_scan.cu``; on the CPU
-    its plain version, the per-round loop.  Returns the dict of
-    ``simulate_aoi_regret``."""
+    from ``state``, for one run or, with ``batch`` B, a batch of runs (a
+    leading run axis on the state and on any of env, uniforms and hp): on
+    CUDA one launch of ``csrc/regret_scan.cu``; on the CPU its plain version,
+    the per-round loop.  Returns the dict of ``simulate_aoi_regret``."""
     if uniforms.is_cuda:
         return _rs.regret_scan(scheduler, env, state, uniforms, collect_curve, return_state)
     if uniforms.device.type != "cpu":
         raise ValueError(f"regret_scan: no kernel for device {uniforms.device}")
     from repro_torch.core.regret import _simulate_rounds   # the plain version imports ops
-    return _simulate_rounds(scheduler, env, state, uniforms, collect_curve, return_state)
+    return _simulate_rounds(scheduler, env, state, uniforms, collect_curve, return_state, batch)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,

@@ -37,7 +37,7 @@ def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     n = counts.to(torch.int32)[:, None]                        # (N, 1)
     masked = torch.where(idx[None, :] < n, hist, 0.0)
     prefix = torch.cumsum(masked, dim=-1)
-    total = masked.sum(dim=-1, keepdim=True)
+    total = prefix[:, -1:]                                     # the window total: the last prefix
     s = (idx + 1).to(torch.float32)[None, :]
     n_f = n.to(torch.float32)
     mu_all = total / n_f.clamp_min(1.0)
@@ -46,6 +46,75 @@ def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     stat = s * bernoulli_kl(mu_a, mu_all) + (n_f - s) * bernoulli_kl(mu_b, mu_all)
     valid = idx[None, :] + 1 <= n - 1
     return torch.where(valid, stat, -torch.inf).amax(dim=-1)
+
+
+_U = 2.0 ** -24      # f32 unit roundoff
+
+
+def glr_scan_bounds(hist: torch.Tensor, counts: torch.Tensor):
+    """Where an f32 ``glr_scan`` of a real-valued history may land: per row,
+    ``(lo, hi)`` (f64, -inf where n < 2) around the statistic's exact value,
+    for an implementation that rounds each prefix sum and the window total
+    once to f32 (the kernel's f64 scan, and ``glr_scan`` on the CPU, whose
+    f32 ``cumsum`` adds in f64) and then evaluates the split term in f32
+    as ``csrc/glr_kl.cuh`` does, op by op.
+
+    The bound is the split term's first-order forward error.  At a split
+    (s, n) with exact prefix P and total W (a = P/s, b = (W-P)/(n-s),
+    m = W/n, every mean clipped to [1e-6, 1-1e-6] as in f32), each rounding
+    moves the result by at most ``u`` (2^-24) times its coefficient: the
+    prefix ``|K_p(a,m) - K_p(b,m)| P``, the total ``|K_p(b,m)| W`` plus
+    its share through the mean, the three means' divisions and the
+    subtraction W - P, and inside each KL term the division p/q (``p``),
+    the two ``1 - x`` and the second division (``1 - p`` each), each
+    ``log`` (at most 1 ulp: ``2 p |log(p/q)|``, ``2 (1-p) |log(.)|``) and
+    the products and sums (their own magnitudes); K_p(p, q) =
+    log(p/q) - log((1-p)/(1-q)) is the KL's slope in p.  Near the window
+    mean the logs' arguments sit near 1 and those terms dominate, which
+    is where a rule tied to the plain version's own error failed.  The
+    sum of the terms, with 1 % for the second order, is the split's bound
+    E; then ``lo = max_s (f_s - E_s)`` and ``hi = max_s (f_s + E_s)``
+    bound the maximum.  ``f_s`` is evaluated in f64 with the f32 clip
+    constants."""
+    f64 = torch.float64
+    x = hist.to(f64)
+    h = x.shape[-1]
+    idx = torch.arange(h, device=x.device)
+    n = counts.to(torch.int64)[:, None]
+    masked = torch.where(idx[None, :] < n, x, 0.0)
+    P = torch.cumsum(masked, dim=-1)
+    W = P[:, -1:]
+    s = (idx + 1).to(f64)[None, :]
+    n_f = n.to(f64)
+    r = (n_f - s).clamp_min(1.0)
+    lo_c, hi_c = float(torch.tensor(_EPS, dtype=torch.float32)), \
+        float(torch.tensor(1.0 - _EPS, dtype=torch.float32))
+    clip = lambda v: v.clamp(lo_c, hi_c)
+    a, b, m = clip(P / s), clip((W - P) / r), clip(W / n_f.clamp_min(1.0))
+
+    def kl_terms(p):
+        l1, l2 = torch.log(p / m), torch.log((1.0 - p) / (1.0 - m))
+        k = p * l1 + (1.0 - p) * l2
+        inner = p * (1.0 + 3.0 * l1.abs()) + (1.0 - p) * (3.0 + 4.0 * l2.abs()) + k.abs()
+        return k, l1 - l2, (m - p) / (m * (1.0 - m)), inner
+
+    k_a, kp_a, kq_a, c_a = kl_terms(a)
+    k_b, kp_b, kq_b, c_b = kl_terms(b)
+    f = s * k_a + r * k_b
+    through_m = m * (s * kq_a.abs() + r * kq_b.abs())
+    coef = ((kp_a - kp_b).abs() * P                      # the prefix's rounding
+            + kp_b.abs() * W + through_m                 # the total's
+            + kp_a.abs() * P                             # P / s
+            + 2.0 * kp_b.abs() * (W - P)                 # W - P, then / (n - s)
+            + through_m                                  # W / n
+            + s * c_a + r * c_b                          # inside the two KL terms
+            + s * k_a.abs() + r * k_b.abs() + f.abs())   # s K_a, r K_b, their sum
+    err = 1.01 * _U * coef
+    valid = idx[None, :] + 1 <= n - 1
+    neg = torch.tensor(-torch.inf, dtype=f64, device=x.device)
+    lo = torch.where(valid, f - err, neg).amax(dim=-1)
+    hi = torch.where(valid, f + err, neg).amax(dim=-1)
+    return lo, hi
 
 
 # ---------------------------------------------------------------------------

@@ -60,8 +60,8 @@ and get back the assignment and the post-step matcher row
 What the JAX module has for XLA alone: there are no executables to build,
 so ``warm()`` prepares the per-size host templates and the compile counts
 are not reported; ``shard=True`` on one device is the identity (rows are
-rounded up to the device count, 1); a ``mesh`` raises until the sharded
-engine is ported.
+rounded up to the device count, 1); a ``mesh`` raises: the port serves on
+one card, with no split of the slots across cards.
 """
 from __future__ import annotations
 
@@ -80,6 +80,7 @@ from repro_torch.core.bandits.glr_cucb import GLRCUCB, GLRCUCBState, SlotRing
 from repro_torch.core.matching import AdaptiveMatcher, MatcherState
 from repro_torch.core.regret import offline_round_stream, policy_round
 from repro_torch.device import resolve_device
+from repro_torch.utils.tree import tree_map
 
 __all__ = ["TenantSlots", "ServeRequest", "ServeDecision", "init_slots", "make_serve_step",
            "make_admit", "offline_round_stream", "SchedServer"]
@@ -154,16 +155,6 @@ class _FreePool:
         self._recycled.append(slot)
 
 
-def _tree_map(fn, *trees):
-    """``fn`` over the tensor leaves of equal NamedTuple/dict structures."""
-    first = trees[0]
-    if isinstance(first, tuple) and hasattr(first, "_fields"):
-        return type(first)(*[_tree_map(fn, *xs) for xs in zip(*trees)])
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *[t[k] for t in trees]) for k in first}
-    return fn(*trees)
-
-
 def _fresh_row(scheduler, matcher_beta: float, device) -> TenantSlots:
     """One slot's contents before a join: the scheduler's initial state."""
     dev = resolve_device(device)
@@ -181,7 +172,7 @@ def init_slots(scheduler, capacity: int, matcher_beta: float = 0.5,
                rows: Optional[int] = None, device=None) -> TenantSlots:
     """All-inactive slot state, ``rows`` (default ``capacity + 1``) of it."""
     rows = capacity + 1 if rows is None else rows
-    return _tree_map(lambda x: x.unsqueeze(0).repeat(rows, *([1] * x.dim())).contiguous(),
+    return tree_map(lambda x: x.unsqueeze(0).repeat(rows, *([1] * x.dim())).contiguous(),
                      _fresh_row(scheduler, matcher_beta, device))
 
 
@@ -260,7 +251,7 @@ def make_admit(scheduler, matcher_beta: float = 0.5, device=None):
     fresh = _fresh_row(scheduler, matcher_beta, device)
 
     def admit(state: TenantSlots, slot: int, hp: Dict[str, float], active: bool):
-        _tree_map(lambda dst, src: dst[slot].copy_(src), state, fresh)
+        tree_map(lambda dst, src: dst[slot].copy_(src), state, fresh)
         for k, v in hp.items():
             state.sched_state.hp[k][slot].fill_(float(v))
         state.active[slot].fill_(bool(active))
@@ -322,8 +313,8 @@ class SchedServer:
             raise ValueError(f"SchedServer: score_kind must be 'ucb' or 'mean', "
                              f"got {score_kind!r}")
         if mesh is not None:
-            raise ValueError("SchedServer: a device mesh needs the sharded engine, "
-                             "which the port does not have yet")
+            raise ValueError("SchedServer: the port serves on one card; a device mesh (a "
+                             "split of the slots across cards) is not ported")
         self.device = resolve_device(device)
         self.scheduler = scheduler
         self.capacity = capacity
@@ -423,7 +414,7 @@ class SchedServer:
     def tenant_state(self, tenant) -> TenantSlots:
         """A copy of this tenant's row of every leaf."""
         slot = self._tenants[tenant]
-        return _tree_map(lambda x: x[slot].clone(), self._state)
+        return tree_map(lambda x: x[slot].clone(), self._state)
 
     # -------------------------------------------------------- persistence
     def save(self, directory: str, step: int = 0) -> str:

@@ -17,10 +17,9 @@ adds the kept values in row order like the plain version; it is held to
 kept values, divided by their count).  ``glr_scan`` is bitwise on {0, 1}
 histories (exact integer prefixes, the same split term as ``glr_step``);
 on real-valued ones its block scan adds in another order than
-``torch.cumsum`` and the split term amplifies the rounding, so the kernel
-and the plain version are held against the plain version in f64: the
-kernel's largest error at most twice the plain f32 version's, plus 1e-6
-of the largest statistic.  ``flash_attention`` in f32 is held to its
+``torch.cumsum``, so each prefix and the window total are rounded once from
+an f64 sum and the statistic must land inside ``ref.glr_scan_bounds``, the
+split term's derived forward error around the exact value.  ``flash_attention`` in f32 is held to its
 f32 plain version at rtol/atol 1e-4 (another order of the D-term sums and
 an online softmax: a few ulps of logits of size ~10, carried through exp);
 in bf16 to the plain version on the same inputs in f32, at rtol 2**-8 (the
@@ -31,7 +30,10 @@ call the FMA route.  ``regret_scan`` (a whole regret-harness run in one
 launch) equals the per-round route with the plain detector bit for bit in
 schedule, restarts, regret, AoI, success rate and final state; the
 variance sums at rtol 1e-6 (the kernel adds the M squared deviations in
-another order than torch's reduction).  ``glr_step_tenants`` (the
+another order than torch's reduction).  A batch of runs in one launch (one
+block a run; env, uniforms and hyper-parameters per run or shared) equals
+the B single-run launches bit for bit, variance sums included, and a batch
+the kernel refuses takes the batched per-round route and says so.  ``glr_step_tenants`` (the
 scheduler service's detector step, in place on the slot state) is held to
 ``ref.glr_step_tenants`` as ``glr_step`` is to its plain version, rows not
 live untouched; a served trace on the card equals the CPU server bit for
@@ -48,9 +50,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.aggregation import make_aggregator  # noqa: E402
-from repro_torch.core.bandits import GLRCUCB  # noqa: E402
-from repro_torch.core.channels import make_piecewise, make_stationary, table_env  # noqa: E402
+from repro_torch.core.bandits import GLRCUCB, MExp3  # noqa: E402
+from repro_torch.core.bandits.base import stack_params  # noqa: E402
+from repro_torch.core.channels import (  # noqa: E402
+    make_piecewise,
+    make_stationary,
+    stack_envs,
+    table_env,
+)
 from repro_torch.core.regret import simulate_aoi_regret  # noqa: E402
+from repro_torch.sim import simulate_aoi_regret_batch  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, tc_route  # noqa: E402
 from repro_torch.kernels.glr_scan import glr_scan  # noqa: E402
@@ -308,11 +317,10 @@ def test_glr_scan_kernel_matches_plain(cuda, n, h, binary):
         assert torch.equal(got, want)
     else:
         assert torch.equal(torch.isneginf(got), torch.isneginf(want))
-        fin = torch.isfinite(want)
-        exact = ref.glr_scan(hist.double(), counts)[fin]
-        e_kernel = (got[fin].double() - exact).abs().max()
-        e_plain = (want[fin].double() - exact).abs().max()
-        assert e_kernel <= 2.0 * e_plain + 1e-6 * exact.abs().max()
+        lo, hi = ref.glr_scan_bounds(hist.cpu(), counts.cpu())
+        got = got.cpu().double()
+        fin = torch.isfinite(got)
+        assert bool(((got >= lo) & (got <= hi))[fin].all())
 
 
 def test_card_recompute_detector_equals_cpu_and_streaming(cuda):
@@ -495,6 +503,95 @@ def test_fig2_rounds_route_launches_glr_step(cuda):
     before = regret_scan.launches, glr_step.launches
     simulate_aoi_regret(sched, env, 500, uniforms=u, impl="rounds")
     assert (regret_scan.launches, glr_step.launches) == (before[0], before[1] + 100)
+
+
+def _batch_inputs(b, kind, shared, recompute, cuda):
+    """A batch of B runs: per-run envs and uniforms (``shared=False``), or
+    one env and one stream with a per-run hp grid (``shared=True``)."""
+    sched = GLRCUCB(5, 2, history=64, detector_stride=5, delta=0.1, min_samples=4,
+                    detector_impl="recompute" if recompute else "streaming")
+    rng = np.random.default_rng(b)
+    t = 600
+    envs = [_scan_env(kind, 5, rng, cuda) for _ in range(1 if shared else b)]
+    envs = [dataclasses.replace(e, table=e.table[:t].contiguous()) for e in envs]
+    u = torch.from_numpy(rng.random(((1 if shared else b), t, 2, 5)).astype(np.float32)).to(cuda)
+    grid = [sched.replace_traced(gamma=float(g), delta=float(d))
+            for g, d in zip(rng.uniform(0.3, 1.5, b), rng.uniform(1e-3, 0.2, b))]
+    if shared:
+        batch = dict(envs=envs[0], env_axis=None, uniforms=u[0], uniforms_axis=None,
+                     hparams=stack_params(grid, cuda), hp_axis=0)
+        runs = [(g, envs[0], u[0]) for g in grid]
+    else:
+        batch = dict(envs=stack_envs(envs), uniforms=u)
+        runs = [(sched, envs[i], u[i]) for i in range(b)]
+    return sched, t, batch, runs
+
+
+@pytest.mark.parametrize("b", [1, 3, 133])
+@pytest.mark.parametrize("kind", ["flip", "table"], ids=["segments", "table"])
+@pytest.mark.parametrize("recompute", [False, True], ids=["streaming", "recompute"])
+@pytest.mark.parametrize("shared", [False, True], ids=["stacked", "broadcast"])
+def test_batched_regret_scan_equals_single_runs(cuda, b, kind, recompute, shared):
+    """One launch for the whole batch, each run equal to its own single-run
+    launch bit for bit (the variance sums too: the same kernel adds them),
+    the shared operands read and never written."""
+    sched, t, batch, runs = _batch_inputs(b, kind, shared, recompute, cuda)
+    before = regret_scan.launches
+    envs = batch.pop("envs")
+    snapshot = [x.clone() for x in (envs.means, envs.table, batch["uniforms"])]
+    got = simulate_aoi_regret_batch(sched, envs, t, return_state=True, **batch)
+    assert regret_scan.launches == before + 1 and got["route"] == "scan"
+    assert int(regret_scan.splits.sum()) > 0
+    for x, y in zip(snapshot, (envs.means, envs.table, batch["uniforms"])):
+        assert torch.equal(x, y)
+    for i, (s_i, env_i, u_i) in enumerate(runs):
+        want = simulate_aoi_regret(s_i, env_i, t, uniforms=u_i, return_state=True)
+        for k in ("channels", "restarts", "regret", "final_regret", "aoi_pi", "aoi_star",
+                  "success_rate", "cum_aoi_var", "final_cum_aoi_var", "oracle_cum_aoi_var"):
+            assert torch.equal(got[k][i], want[k]), (i, k)
+        gs, ws = got["final_sched_state"], want["final_sched_state"]
+        for f in ("mu_tilde", "counts", "tau", "hist", "restarts", "cum", "total", "base"):
+            assert torch.equal(getattr(gs, f)[i], getattr(ws, f)), (i, f)
+    assert regret_scan.launches == before + 1 + b
+
+
+def test_refused_batch_takes_the_rounds_route(cuda):
+    """N = 40 channels is past the kernel's 32: the batch runs the batched
+    per-round route (``glr_step`` on every detection round), says so, and
+    equals the serial runs; ``impl="scan"`` raises with the reason."""
+    sched = GLRCUCB(40, 4, history=32, detector_stride=5)
+    rng = np.random.default_rng(9)
+    envs = [make_piecewise(rng.random((3, 40)).astype(np.float32), [40, 80], device=cuda)
+            for _ in range(3)]
+    u = torch.from_numpy(rng.random((3, 200, 2, 40)).astype(np.float32)).to(cuda)
+    before = regret_scan.launches, glr_step.launches
+    got = simulate_aoi_regret_batch(sched, stack_envs(envs), 200, uniforms=u)
+    assert got["route"] == "rounds"
+    assert (regret_scan.launches, glr_step.launches) == (before[0], before[1] + 40)
+    for i in range(3):
+        want = simulate_aoi_regret(sched, envs[i], 200, uniforms=u[i])
+        assert torch.equal(got["channels"][i], want["channels"])
+        assert torch.equal(got["regret"][i], want["regret"])
+    with pytest.raises(ValueError, match="impl='scan' does not apply.*N=40"):
+        simulate_aoi_regret_batch(sched, stack_envs(envs), 200, uniforms=u, impl="scan")
+
+
+def test_mexp3_batch_on_the_card_equals_serial_runs(cuda):
+    """The batched per-round route of M-Exp3 (its CDF an f64 sum rounded
+    once, its ``logsumexp`` over the last axis) equals the serial runs on
+    the card bit for bit."""
+    sched = MExp3(6, 2, share_alpha=1e-3)
+    rng = np.random.default_rng(4)
+    tables = [(rng.random((300, 6)) < 0.5).astype(np.float32) for _ in range(4)]
+    envs = [table_env(tb_, score_kind="mean", device=cuda) for tb_ in tables]
+    u = torch.from_numpy(rng.random((300, 2, 6)).astype(np.float32)).to(cuda)
+    got = simulate_aoi_regret_batch(sched, stack_envs(envs), 300, uniforms=u, uniforms_axis=None,
+                                    return_state=True)
+    for i in range(4):
+        want = simulate_aoi_regret(sched, envs[i], 300, uniforms=u, return_state=True)
+        for k in ("channels", "regret", "aoi_pi", "aoi_star", "success_rate"):
+            assert torch.equal(got[k][i], want[k]), (i, k)
+        assert torch.equal(got["final_sched_state"].log_w[i], want["final_sched_state"].log_w)
 
 
 def _tenant_inputs(r, b, n, h, seed, binary):

@@ -28,7 +28,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core.bandits import GLRCUCB  # noqa: E402
 from repro_torch.core.regret import simulate_aoi_regret  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 
 N, M, H, STRIDE, T = 5, 2, 64, 5, 400
 
@@ -168,3 +168,75 @@ def test_recompute_run_equals_streaming_run(history, stride, backend):
     for f in ("mu_tilde", "counts", "tau"):
         assert torch.equal(getattr(rec["final_sched_state"], f),
                            getattr(stream["final_sched_state"], f)), f
+
+
+# ---------------------------------------------------------------------------
+# the derived bound of the card's real-valued check (ref.glr_scan_bounds)
+# ---------------------------------------------------------------------------
+
+BOUND_SHAPES = [(5, 1024), (30, 256), (1000, 1000)]   # chip_smoke.py phase 2's shapes
+BOUND_DRAWS = 160
+
+
+def _check_draw(n, h, gen):
+    """One real-valued draw as chip_smoke.py phase 2 makes it: U[0, 1]
+    histories, counts uniform in [0, h] with 0, 1 and h among them."""
+    hist = torch.rand((n, h), generator=gen)
+    counts = torch.randint(0, h + 1, (n,), generator=gen).to(torch.int32)
+    counts[:3] = torch.tensor([0, 1, h])[:n]
+    return hist, counts
+
+
+@pytest.mark.parametrize("n,h", BOUND_SHAPES)
+def test_glr_scan_bounds_hold_for_the_plain_f32_version(n, h):
+    """The plain f32 version (its prefixes and total each rounded once from
+    an f64 sum, as the kernel's) lands inside the bound on 160 draws a
+    shape, against the statistic computed in f64."""
+    gen = torch.Generator().manual_seed(1000 + n)
+    for draw in range(BOUND_DRAWS):
+        hist, counts = _check_draw(n, h, gen)
+        got = ops.glr_scan(hist, counts).double()
+        lo, hi = ref.glr_scan_bounds(hist, counts)
+        exact = ref.glr_scan(hist.double(), counts)
+        assert torch.equal(torch.isneginf(lo), torch.isneginf(got))
+        fin = torch.isfinite(got)
+        assert bool(((got >= lo) & (got <= hi))[fin].all()), draw
+        assert bool(((exact >= lo) & (exact <= hi))[fin].all()), draw
+
+
+def _stat_with_prefix_shift(hist, counts, ulps):
+    """The plain f32 statistic with every prefix moved by ``ulps`` ulps of
+    the window total: what an f32 scan that drifts by that much gives."""
+    h = hist.shape[-1]
+    idx = torch.arange(h)
+    n = counts.to(torch.int64)[:, None]
+    masked = torch.where(idx[None, :] < n, hist, 0.0)
+    prefix = torch.cumsum(masked, dim=-1)
+    total = prefix[:, -1:]
+    shifted = prefix + ulps * torch.finfo(torch.float32).eps * total / 2
+    s = (idx + 1)[None, :].expand(hist.shape[0], -1)
+    stat = ref._stream_stat_terms(shifted, total, s, n.expand(-1, h))
+    return torch.where(idx[None, :] + 1 <= n - 1, stat, -torch.inf).amax(dim=-1)
+
+
+@pytest.mark.parametrize("n,h", BOUND_SHAPES)
+def test_glr_scan_bounds_catch_a_perturbed_output(n, h):
+    """A history whose mean moves from 0.1 to 0.9 halfway: the plain
+    statistic is inside the bound, the same statistic with every prefix
+    shifted by 6 ulps of the window total either way is outside it (the
+    bound is worth ~5 such ulps at the maximizing split: the split term's
+    own roundings, ~6 N u there, are most of it), and so is any output
+    moved past either end."""
+    gen = torch.Generator().manual_seed(7 + n)
+    hist = torch.rand((n, h), generator=gen) * 0.2
+    hist[:, h // 2:] += 0.8
+    counts = torch.full((n,), h, dtype=torch.int32)
+    lo, hi = ref.glr_scan_bounds(hist, counts)
+    plain = ops.glr_scan(hist, counts).double()
+    assert bool(((plain >= lo) & (plain <= hi)).all())
+    assert torch.equal(_stat_with_prefix_shift(hist, counts, 0).double(), plain)
+    for ulps in (6, -6):
+        shifted = _stat_with_prefix_shift(hist, counts, ulps).double()
+        assert bool(((shifted < lo) | (shifted > hi)).all()), ulps
+    width = hi - lo
+    assert bool((plain + 1.01 * width > hi).all() and (plain - 1.01 * width < lo).all())

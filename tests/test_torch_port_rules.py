@@ -75,7 +75,8 @@ SLICE_TWINS = ("core/aggregation.py", "core/faults.py", "core/channels/process.p
                "launch/serve.py", "kernels/flash_attention.py", "sim/__init__.py",
                "sim/serve.py", "launch/sched_serve.py", "checkpoint/__init__.py",
                "checkpoint/io.py", "core/matching.py", "core/aoi.py", "core/regret.py",
-               "core/bandits/base.py")
+               "core/bandits/base.py", "core/channels/base.py", "core/channels/families.py",
+               "sim/engine.py", "sim/sweep.py", "sim/shard.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_TWINS)

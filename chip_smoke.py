@@ -28,9 +28,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    split is a constant below), device time and, at the serving shape, the
    host split of a call;
    and ``regret_scan`` (the whole regret harness in one launch) against the
-   per-round route with the plain detector on nine short edge runs (a table
+   per-round route with the plain detector on eleven short edge runs (a table
    env, S=1, alpha=0.2, the geometric grid, H=33 with restarts, N=30 M=20
-   stride 1, N=32, stride 1e9, the recompute detector), and its batch form
+   stride 1, N=32, stride 1e9, the recompute detector, and the reactive
+   template at N=32 with gain 1, sharp 16 and decay 0 and 1), and its batch form
    (one launch, one block a run) against the batched per-round route at
    B = 24 (own envs and uniforms) and B = 133 (one shared env and stream, a
    per-run gamma x delta grid, the recompute detector); ``glr_scan`` on
@@ -111,7 +112,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    over 500 rounds; (e) Fig. 2a's fifteen rows x 4 seeds at T=2000 as one
    ``sweep`` (15 buckets), each row's seed 0 equal to phase 9's run; (f) a
    recompute-detector bucket of 8 seeds at T=20000 on the scan; (g)
-   ``sweep(shard=True)`` equal to ``sweep()`` for a bucket of 5.
+   ``sweep(shard=True)`` equal to ``sweep()`` for a bucket of 5;
+11. the non-stationary channel families and the closed-loop (reactive)
+   form at the JAX benchmarks' sizes, each family's realization time first:
+   (a) ``scenario_suite`` (``benchmarks/run.py:506-645``): M-Exp3(6, 2,
+   gamma 0.5, share 1e-3) on 12 scenarios (Gilbert-Elliott, mobility,
+   shadowing, jamming over a piecewise base) x 8 seeds at T=2000 as one
+   ``sweep`` bucket on the batched per-round route, the first case of each
+   family equal to its serial run; (b) ``scenario_suite_glr``: the same 96
+   cases under GLR-CUCB(6, 2, H=512, stride 5) as one ``regret_scan`` launch,
+   every row equal to its single-run scan and the first case of each family
+   to the per-round route; (c) ``chaos_suite``'s regret half (``:1049-1100``):
+   GLR-CUCB(8, 3, H=256, stride 5) at T=4000 on reactive jammers (strength
+   0.6, 0.9) and congestion (severity 0.4, 0.8) as one launch of the
+   reactive template, a batch of 1 equal to serial, one case of each family
+   equal to the per-round route, and the reactive jammer against the
+   matched open-loop jammer (different restarts and regret); (d) Fig. 2's
+   run (phase 3's env as the reactive jammer's base, T=20000) on the
+   reactive template beside phase 3's open-loop scan in turns, its first
+   2000 rounds equal to the per-round route, and the occupancy of the
+   three templates; (e) phase 4's Fig. 3 trainer on a reactive jammer over
+   phase 4's env and on a Gilbert-Elliott process handed in unrealized
+   (realized by the trainer from ``realize_generator``), three rounds of
+   each against the CPU run and 150 rounds timed.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -120,11 +143,12 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 128, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-10 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-11 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
 Every path runs at the paper's sizes, uncut but for phase 9's two cuts
-and phase 10's per-round cut (T=2000), which they print.  Weights, envs and randomness
+and phase 10's per-round cut (T=2000), which they print (phase 11 runs the
+JAX benchmarks' own non-quick sizes).  Weights, envs and randomness
 are made on the card from ``--seed``; the Fig. 3 data is the benchmark's
 synthetic problem, made on the host from seeds offset by ``--seed`` (seed
 0 gives the benchmark's own data).  The last line is
@@ -191,10 +215,21 @@ FIG2A_SEEDS = 4                # seeds a Fig. 2a row in phase 10's sweep (e)
 RECOMPUTE_SEEDS = 8            # the recompute bucket of phase 10 (f)
 SHARD_BATCH = 5                # the uneven bucket of phase 10 (g)
 FORK_REL_TIE = 1e-5            # ... only at a near-tie this close, relative
+SCEN_N, SCEN_M = 6, 2          # scenario_suite's policies (benchmarks/run.py:638-645)
+SCEN_ROUNDS = 2000             # its horizon (:509, non-quick)
+SCEN_SEEDS = 8                 # its seeds a scenario (:510)
+CHAOS_N, CHAOS_M = 8, 3        # chaos_suite's regret half (:1049-1050)
+CHAOS_ROUNDS = 4000            # its horizon, non-quick (:1049)
+REACT_REF_ROUNDS = 2000        # phase 11 (d): the reactive Fig. 2 run's rounds held to the rounds route
+# operations a channel a round of the reactive template beyond the open-loop scan:
+# reactive_means' sub, mul, neg, add, mul, rsub, mul and interact_step's mul, mul,
+# add (10), expf (~4: a scale, ex2, two fix-ups) and a correctly rounded division (~4)
+REACT_FLOPS = 18
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention", "regret_scan", "glr_step_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
-COUNTERS = KERNEL_NAMES + FLASH_ROUTES
+COUNTERS = KERNEL_NAMES + FLASH_ROUTES + ("regret_scan_reactive",)  # regret_scan's reactive
+                                                                    # template (in .launches too)
 
 
 class SmokeFailure(Exception):
@@ -231,14 +266,16 @@ def reset_launches():
         w.launches = 0
     fa = kernel_wrappers()["flash_attention"]
     fa.tc_launches = fa.fma_launches = 0
+    kernel_wrappers()["regret_scan"].reactive_launches = 0
 
 
 def read_launches():
-    """Every counter of ``COUNTERS``: each wrapper's, and ``flash_attention``'s
-    per route."""
+    """Every counter of ``COUNTERS``: each wrapper's, ``flash_attention``'s
+    per route and ``regret_scan``'s reactive template's."""
     out = {k: w.launches for k, w in kernel_wrappers().items()}
     fa = kernel_wrappers()["flash_attention"]
-    out.update(flash_attention_tc=fa.tc_launches, flash_attention_fma=fa.fma_launches)
+    out.update(flash_attention_tc=fa.tc_launches, flash_attention_fma=fa.fma_launches,
+               regret_scan_reactive=kernel_wrappers()["regret_scan"].reactive_launches)
     return out
 
 
@@ -1098,13 +1135,15 @@ def compare_routes(torch, a, b, label):
 
 
 def scan_edge_cases(seed, device, rounds):
-    """Short runs at the kernel's edges: (label, GLRCUCB, env, rounds).  The
-    envs alternate each channel's mean between two values every 250 rounds,
-    so the detectors restart several times."""
+    """Short runs at the kernel's edges: (label, GLRCUCB, env).  The envs
+    alternate each channel's mean between two values every 250 rounds, so
+    the detectors restart several times; the last two are reactive (the
+    flipping means as the base table)."""
     import numpy as np
 
     from repro_torch.core.bandits import GLRCUCB
-    from repro_torch.core.channels import make_piecewise, make_stationary, table_env
+    from repro_torch.core.channels import (dense_means, make_piecewise, make_stationary,
+                                           reactive_env, table_env)
 
     rng = np.random.default_rng(seed)
 
@@ -1130,7 +1169,11 @@ def scan_edge_cases(seed, device, rounds):
         ("stride 1e9 (cucb-static)", GLRCUCB(5, 2, history=64, detector_stride=10**9), flipping(5)),
         ("recompute H=33", GLRCUCB(5, 2, history=33, detector_impl="recompute", **fast),
          flipping(5)),
-    ]
+    ] + [   # the reactive template on every lane, full suppression, decay at both ends
+        (f"reactive N=32 M=8 gain 1 sharp 16 decay {d}",
+         GLRCUCB(32, 8, history=256, detector_stride=5, **fast),
+         reactive_env(dense_means(flipping(32), rounds), d, 1.0, 0.3, 16.0, device=device))
+        for d in (0.0, 1.0)]
 
 
 def check_regret_scan(torch, seed):
@@ -1146,9 +1189,12 @@ def check_regret_scan(torch, seed):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for label, sched, env in scan_edge_cases(seed, "cuda", rounds):
         u = torch.rand((rounds, 2, sched.n_channels), generator=gen, device="cuda")
-        before = regret_scan.launches
+        before = regret_scan.launches, regret_scan.reactive_launches
         scan = simulate_aoi_regret(sched, env, rounds, uniforms=u, return_state=True, impl="scan")
-        check(regret_scan.launches == before + 1, f"regret_scan {label}: no launch")
+        check((regret_scan.launches, regret_scan.reactive_launches)
+              == (before[0] + 1, before[1] + (env.form == "reactive")),
+              f"regret_scan {label}: no launch of its template")
+        before = before[0]
         plain = sched if sched.detector_impl == "recompute" else \
             dataclasses.replace(sched, detector_backend="torch")
         rounds_out = simulate_aoi_regret(plain, env, rounds, uniforms=u, return_state=True,
@@ -1233,13 +1279,13 @@ def timed_run(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def scan_bound_ms(sched, rounds, splits):
-    """The least time of a scan run: the GLR splits it evaluated at
-    ``KL_SPLIT_FLOPS`` each, against its bytes (uniforms in, schedule and
-    curves out, the state in and out)."""
+def scan_work(sched, rounds, splits):
+    """The work of a scan run, (bytes, operations): its bytes (uniforms in,
+    schedule and curves out, the state in and out) and the GLR splits it
+    evaluated at ``KL_SPLIT_FLOPS`` each."""
     n, m, h = sched.n_channels, sched.n_clients, sched.history
     nbytes = rounds * 2 * n * 4 + rounds * m * 8 + 2 * rounds * 4 + 2 * (n * h * 4 + 4 * n * 4 + 8)
-    return two_way_bound(nbytes, KL_SPLIT_FLOPS * splits, F32_FLOPS)
+    return nbytes, KL_SPLIT_FLOPS * splits
 
 
 def fig2_routes(torch, label, sched, env, uniforms):
@@ -1269,7 +1315,7 @@ def fig2_routes(torch, label, sched, env, uniforms):
           f"{rounds // sched.detector_stride}, regret_scan {rounds_launches['regret_scan']}")
     _, secs_scan_again = timed_run(torch, lambda: run(None))
     err = compare_routes(torch, scan, rounds_out, f"{label} scan vs rounds")
-    bound, bound_by = scan_bound_ms(sched, rounds, splits)
+    bound, bound_by = two_way_bound(*scan_work(sched, rounds, splits), F32_FLOPS)
     ms_scan, ms_scan_again, ms_rounds = secs_scan * 1e3, secs_scan_again * 1e3, secs_rounds * 1e3
     line(f"  {label} scan route: T={rounds} {ms_scan:.3f} ms a run ({ms_scan / rounds:.6f} "
          f"ms/round), again {ms_scan_again:.3f} ms; regret_scan.launches="
@@ -2273,20 +2319,25 @@ def run_of(out, i):
 def same_run(torch, got, want, label, rounds=None):
     """Every output of two runs bit for bit (the variance sums too), the
     final policy state where both have it; with ``rounds`` only the first
-    rounds of the schedule and the curves."""
+    rounds of the schedule and the curves.  Returns the largest absolute
+    difference over the outputs compared (0.0 when they pass)."""
     keys = [k for k, v in want.items() if hasattr(v, "dim") and k in got]
     if rounds is not None:
         keys = [k for k in ("channels", "regret", "cum_aoi_var") if k in want]
+    err = 0.0
     for k in keys:
         a, b = got[k], want[k]
         if rounds is not None:
             a, b = a[:rounds], b[:rounds]
+        if a.shape == b.shape and a.numel():
+            err = max(err, float((a.double() - b.double()).abs().max()))
         check(torch.equal(a, b), f"{label}: {k} differs")
     if rounds is None and "final_sched_state" in want and "final_sched_state" in got:
         for f in want["final_sched_state"]._fields:
             a, b = getattr(got["final_sched_state"], f), getattr(want["final_sched_state"], f)
             if hasattr(b, "dim"):
                 check(torch.equal(a, b), f"{label}: final state {f} differs")
+    return err
 
 
 def batched_engine(torch, seed, chain_us, fig2a_refs):
@@ -2356,7 +2407,7 @@ def batched_engine(torch, seed, chain_us, fig2a_refs):
          f"{float(results[best.name]['final_regret']):.0f}; every point equals its serial run ok")
 
     # (c) the fill of the card: B runs on one shared env
-    occ = occupancy(sched, table=False)
+    occ = occupancy(sched, "segments")
     in_flight = occ * torch.cuda.get_device_properties(0).multi_processor_count
     u_all = torch.rand((max(FILL_BATCHES), T, 2, n), generator=gen, device="cuda")
     fill = []
@@ -2375,7 +2426,7 @@ def batched_engine(torch, seed, chain_us, fig2a_refs):
         bound, bound_by = two_way_bound(nbytes, KL_SPLIT_FLOPS * splits, F32_FLOPS)
         chain = math.ceil(bb / in_flight) * T * chain_us / 1e3
         fill.append(dict(b=bb, ms=secs * 1e3, ms_per_run_round=secs * 1e3 / (bb * T),
-                         bound_ms=bound, bound_by=bound_by, chain_ms=chain, splits=splits))
+                         bound_ms=bound, bound_by=bound_by, splits=splits))
         line(f"  (c) fill B={bb}: {secs * 1e3:.3f} ms a launch, {secs * 1e3 / (bb * T):.3e} ms a "
              f"run-round; bound {bound:.3e} ms ({bound_by}: {splits} splits), latency chain "
              f"ceil({bb}/{in_flight}) x {T} x {chain_us:.3f} us = {chain:.3f} ms; runs 0 and "
@@ -2470,13 +2521,271 @@ def batched_engine(torch, seed, chain_us, fig2a_refs):
                           launches=launches["regret_scan"])
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the non-stationary channel families and the closed-loop form
+# ---------------------------------------------------------------------------
+
+def scenario_suite_cases(sched, seed):
+    """``benchmarks/run.py:513-521``'s 12 scenarios (four table families)
+    x ``SCEN_SEEDS`` seeds at T = ``SCEN_ROUNDS``: (scenarios, cases)."""
+    from repro_torch.core.channels import (GilbertElliottProcess, JammingOverlay,
+                                           MobilityDriftProcess, PiecewiseProcess,
+                                           ShadowingProcess)
+    from repro_torch.sim import SweepCase
+
+    n, t = SCEN_N, SCEN_ROUNDS
+    scenarios = ([(f"ge/{v}", GilbertElliottProcess(n, t, p_gb=v)) for v in (0.02, 0.05, 0.15)]
+                 + [(f"mobility/{v}", MobilityDriftProcess(n, t, amplitude=v))
+                    for v in (0.15, 0.3, 0.45)]
+                 + [(f"shadowing/{v}", ShadowingProcess(n, t, rho=v)) for v in (0.85, 0.92, 0.97)]
+                 + [(f"jam/{v}", JammingOverlay(base=PiecewiseProcess(n, t, 3), strength=v))
+                    for v in (0.5, 0.8, 1.0)])
+    cases = [SweepCase(f"{name}/s{i}", sched, p, seed * 1000 + 900 + 37 * j + i, t)
+             for j, (name, p) in enumerate(scenarios) for i in range(SCEN_SEEDS)]
+    return scenarios, cases
+
+
+def family_firsts(cases):
+    """The first case of each family (seed 0 of its first scenario)."""
+    firsts = {}
+    for c in cases:
+        firsts.setdefault(c.env.FAMILY, c)
+    return list(firsts.values())
+
+
+def realized(case, dev):
+    """A process case's env, realized as the sweep realizes it."""
+    from repro_torch.core.channels import scenario_realize_generator
+
+    return case.env.realize(scenario_realize_generator(case.seed, dev), dev)
+
+
+def family_runs(torch, sched, cases, results, label, **kw):
+    """The first case of each family run alone (``kw``: the route) from the
+    case's own realization and uniforms, equal to its row of ``results``."""
+    from repro_torch.core.channels import scenario_realize_generator
+    from repro_torch.core.regret import simulate_aoi_regret
+
+    for c in family_firsts(cases):
+        want = simulate_aoi_regret(sched, c.env, c.horizon, uniforms=c.draw_uniforms("cuda"),
+                                   generator=scenario_realize_generator(c.seed, "cuda"),
+                                   collect_curve=False, **kw)
+        same_run(torch, results[c.name], want, f"{label} {c.name}")
+
+
+def channel_families(torch, seed, fig2_env, fig2_u, chain_us):
+    """Phase 11: the scenario and chaos suites' regret runs and Fig. 2's and
+    Fig. 3's paths on the non-stationary families and the reactive form.
+    Returns the launches of the main-path runs (the reference runs
+    excluded) and the kernels line's reactive fields."""
+    import math
+
+    from repro_torch.core.bandits import GLRCUCB, MExp3
+    from repro_torch.core.channels import (GilbertElliottProcess, JammingOverlay,
+                                           PiecewiseProcess, ReactiveJammerProcess,
+                                           make_scenario, registered_scenarios,
+                                           scenario_realize_generator)
+    from repro_torch.core.regret import simulate_aoi_regret
+    from repro_torch.fl import AsyncFLTrainer
+    from repro_torch.kernels.regret_scan import occupancy, regret_scan
+    from repro_torch.sim import SweepCase, sweep
+
+    t_start, dev = time.perf_counter(), torch.device("cuda")
+    counted = []
+
+    def counted_run(fn):
+        reset_launches()
+        out, secs = timed_run(torch, fn)
+        counted.append(read_launches())
+        return out, secs, counted[-1]
+
+    line(f"  families registered: {sorted(registered_scenarios())}")
+    # realization time of each family (the shadowing AR(1) is a loop of T rounds)
+    mexp3 = MExp3(SCEN_N, SCEN_M, gamma=0.5, share_alpha=1e-3)
+    scenarios, cases = scenario_suite_cases(mexp3, seed)
+    for c in family_firsts(cases):
+        realized(c, dev)                                    # warm
+        env, secs = timed_run(torch, lambda: realized(c, dev))
+        check(env.table.shape == (SCEN_ROUNDS, SCEN_N) and bool(
+            ((env.table >= 0) & (env.table <= 1)).all()), f"phase 11: {c.name} realization")
+        line(f"  realization {c.env.FAMILY}: T={SCEN_ROUNDS} N={SCEN_N} {secs * 1e3:.3f} ms")
+
+    # (a) scenario_suite: M-Exp3 on the 96 cases, one bucket on the batched rounds route
+    (results, report), secs, got = counted_run(lambda: sweep(cases, collect_curve=False))
+    check(len(report) == 1 and report[0].route == "rounds" and report[0].batch == len(cases)
+          and got["regret_scan"] == 0, f"phase 11 (a): {len(report)} buckets, launches {got}")
+    family_runs(torch, mexp3, cases, results, "phase 11 (a)")
+    line(f"  (a) scenario_suite m-exp3: {len(cases)} cases ({len(scenarios)} scenarios x "
+         f"{SCEN_SEEDS} seeds, T={SCEN_ROUNDS}) in one bucket on the batched rounds route, "
+         f"{report[0].wall_s * 1e3 / SCEN_ROUNDS:.4f} ms a round for the bucket "
+         f"({report[0].wall_s:.3f} s; {secs:.3f} s with the 96 realizations); the first case of "
+         f"each family equals its serial run bit for bit ok")
+    for name, _ in scenarios:
+        vals = torch.stack([results[f"{name}/s{i}"]["final_regret"] for i in range(SCEN_SEEDS)])
+        line(f"    (a) {name}: regret {float(vals.mean()):.0f} +- {float(vals.std()):.0f}")
+
+    # (b) scenario_suite_glr: GLR-CUCB on the same 96 cases, one regret_scan launch
+    glr = GLRCUCB(SCEN_N, SCEN_M, history=512, detector_stride=5)
+    _, cases = scenario_suite_cases(glr, seed)
+    (results, report), secs, got = counted_run(lambda: sweep(cases, collect_curve=False))
+    check(len(report) == 1 and report[0].route == "scan" and got["regret_scan"] == 1
+          and got["glr_step"] == 0, f"phase 11 (b): {len(report)} buckets, launches {got}")
+    b_ms = report[0].wall_s * 1e3
+    for c in cases:
+        want = simulate_aoi_regret(glr, realized(c, dev), SCEN_ROUNDS,
+                                   uniforms=c.draw_uniforms(dev), collect_curve=False)
+        same_run(torch, results[c.name], want, f"phase 11 (b) {c.name}")
+    family_runs(torch, glr, cases, results, "phase 11 (b) rounds route", impl="rounds")
+    line(f"  (b) scenario_suite_glr glr-cucb(H=512, stride 5): {len(cases)} cases in one "
+         f"regret_scan launch (table template), {b_ms:.3f} ms a launch "
+         f"({b_ms / (len(cases) * SCEN_ROUNDS):.3e} ms a run-round); every row equals its "
+         f"single-run scan, the first case of each family the rounds route, bit for bit ok")
+
+    # (c) chaos_suite's regret half: the reactive grid in one launch of the reactive template
+    chaos = GLRCUCB(CHAOS_N, CHAOS_M, history=256, detector_stride=5)
+    base = PiecewiseProcess(CHAOS_N, CHAOS_ROUNDS, 4)
+    procs = ([(f"reactive-jam/{v}", make_scenario("reactive_jammer", base=base, strength=v))
+              for v in (0.6, 0.9)]
+             + [(f"congestion/{v}", make_scenario("congestion", n_channels=CHAOS_N,
+                                                  horizon=CHAOS_ROUNDS, severity=v))
+                for v in (0.4, 0.8)])
+    cases = [SweepCase(name, chaos, p, seed * 1000 + 300 + i, CHAOS_ROUNDS)
+             for i, (name, p) in enumerate(procs)]
+    (results, report), secs, got = counted_run(lambda: sweep(cases, collect_curve=False))
+    check(len(report) == 1 and report[0].route == "scan" and got["regret_scan"] == 1
+          and got["regret_scan_reactive"] == 1,
+          f"phase 11 (c): {len(report)} buckets, launches {got}")
+    c_ms = report[0].wall_s * 1e3
+    for name, _ in procs:
+        o = results[name]
+        line(f"    (c) chaos/{name}: regret {float(o['final_regret']):.0f} restarts "
+             f"{int(o['restarts'])} success_rate {float(o['success_rate']):.4f}")
+    (one, _), _, got = counted_run(lambda: sweep([SweepCase("one", chaos, cases[0].env,
+                                                            cases[0].seed, CHAOS_ROUNDS)],
+                                                 collect_curve=False))
+    check(got["regret_scan_reactive"] == 1, f"phase 11 (c) batch of 1: launches {got}")
+    family_runs(torch, chaos, cases[:1], {cases[0].name: one["one"]}, "phase 11 (c) batch of 1")
+    family_runs(torch, chaos, cases, results, "phase 11 (c) rounds route", impl="rounds")
+    react = make_scenario("reactive_jammer", base=base, strength=0.9)
+    openl = JammingOverlay(base=base, horizon=CHAOS_ROUNDS, strength=0.9)
+    u_c = cases[1].draw_uniforms(dev)
+    (rr, ro), _, got = counted_run(lambda: [simulate_aoi_regret(
+        chaos, p, CHAOS_ROUNDS, uniforms=u_c, generator=scenario_realize_generator(seed, dev),
+        collect_curve=False) for p in (react, openl)])
+    check(got["regret_scan"] == 2 and got["regret_scan_reactive"] == 1,
+          f"phase 11 (c) reactive vs open loop: launches {got}")
+    check(int(rr["restarts"]) != int(ro["restarts"])
+          and float(rr["final_regret"]) != float(ro["final_regret"]),
+          f"phase 11 (c): the reactive jammer did not shift scheduling against the matched "
+          f"open loop (restarts {int(rr['restarts'])} / {int(ro['restarts'])}, regret "
+          f"{float(rr['final_regret'])} / {float(ro['final_regret'])})")
+    line(f"  (c) chaos regret half glr-cucb(N={CHAOS_N}, M={CHAOS_M}, H=256, stride 5), "
+         f"T={CHAOS_ROUNDS}: {len(cases)} reactive cases in one bucket, one launch of the "
+         f"reactive template, {c_ms:.3f} ms; batch of 1 equals serial; reactive-jam/0.6 and "
+         f"congestion/0.4 equal the rounds route bit for bit ok")
+    line(f"  (c) reactive vs matched open loop (strength 0.9, one base and seed): reactive "
+         f"regret {float(rr['final_regret']):.0f} restarts {int(rr['restarts'])}, open-loop "
+         f"regret {float(ro['final_regret']):.0f} restarts {int(ro['restarts'])}: both differ ok")
+
+    # (d) Fig. 2's size on a reactive env: phase 3's piecewise env as the jammer's base
+    fig2 = GLRCUCB(5, 2, history=1024, detector_stride=5)
+    jam = ReactiveJammerProcess(base=PiecewiseProcess(5, FIG2_ROUNDS, 5), strength=0.9)
+    renv = jam._from_draws(dict(base=fig2_env), dev)
+    run = lambda env: simulate_aoi_regret(fig2, env, FIG2_ROUNDS, uniforms=fig2_u,
+                                          return_state=True)
+    timed_run(torch, lambda: run(renv))                         # warm
+    ms = {}
+    for label, env in (("open1", fig2_env), ("react1", renv), ("react2", renv),
+                       ("open2", fig2_env)):
+        out, secs, got = counted_run(lambda: run(env))
+        check(got["regret_scan"] == 1 and got["glr_step"] == 0
+              and got["regret_scan_reactive"] == (env is renv),
+              f"phase 11 (d) {label}: launches {got}")
+        ms[label] = secs * 1e3
+        if env is renv:
+            r_out, splits = out, int(regret_scan.splits.sum())
+    want, ref_s = timed_run(torch, lambda: simulate_aoi_regret(
+        fig2, renv, REACT_REF_ROUNDS, uniforms=fig2_u[:REACT_REF_ROUNDS], impl="rounds"))
+    r_err = same_run(torch, r_out, want, "phase 11 (d) first rounds", rounds=REACT_REF_ROUNDS)
+    react_ms = min(ms["react1"], ms["react2"])
+    nbytes, ops = scan_work(fig2, FIG2_ROUNDS, splits)
+    # plus the env's table and react leaf read, and the reaction's flops a channel-round
+    bound, bound_by = two_way_bound(nbytes + FIG2_ROUNDS * 5 * 4 + 4 * 4,
+                                    ops + REACT_FLOPS * 5 * FIG2_ROUNDS, F32_FLOPS)
+    chain = FIG2_ROUNDS * chain_us / 1e3
+    occ = {f: occupancy(fig2, f) for f in ("segments", "table", "reactive")}
+    line(f"  (d) fig2 reactive scan: reactive_jammer(strength 0.9) over phase 3's env, T="
+         f"{FIG2_ROUNDS}: {ms['react1']:.3f} / {ms['react2']:.3f} ms a run "
+         f"({react_ms / FIG2_ROUNDS:.6f} ms/round) against the open-loop scan on phase 3's env "
+         f"{ms['open1']:.3f} / {ms['open2']:.3f} ms ({min(ms['open1'], ms['open2']) / FIG2_ROUNDS:.6f}"
+         f" ms/round), turns open, reactive, reactive, open; regret "
+         f"{float(r_out['final_regret']):.0f} restarts {int(r_out['restarts'])}")
+    line(f"  (d) its first {REACT_REF_ROUNDS} rounds equal the rounds route bit for bit ok "
+         f"({ref_s * 1e3 / REACT_REF_ROUNDS:.4f} ms/round there); bound {bound:.3e} ms "
+         f"({bound_by}: {splits} splits, {REACT_FLOPS} flops a channel-round), latency chain "
+         f"T x {chain_us:.3f} us = {chain:.3f} ms (phase 3's open-loop chain); occupancy "
+         f"{occ} block(s) an SM")
+    check(occ["reactive"] == occ["segments"] == occ["table"],
+          f"phase 11 (d): the templates' occupancies differ: {occ}")
+
+    # (e) the FL path: phase 4's trainer on a reactive jammer, and on an unrealized
+    # Gilbert-Elliott process realized by the trainer itself
+    S = fig3_setup(torch, seed)
+    rounds = S["rounds"]
+    fl = {}
+    rj_env = ReactiveJammerProcess(base=PiecewiseProcess(S["n"], rounds, 4), strength=0.9) \
+        ._from_draws(dict(base=S["env"]), dev)
+    ge = GilbertElliottProcess(S["n"], rounds)
+    ge_gen = lambda: torch.Generator(device="cuda").manual_seed(seed + 11)
+    for label, env, kw in (("reactive_jammer", rj_env, {}),
+                           ("gilbert_elliott unrealized", ge, dict(realize_generator=ge_gen()))):
+        tr = AsyncFLTrainer(S["cfg"], S["sched"], env, S["loss_fn"], **kw)
+        if kw:
+            check(tr.scenario is ge and torch.equal(tr.env.table, ge.realize(ge_gen()).table),
+                  "phase 11 (e): the trainer's realization differs from the process's")
+        fig3_reference(torch, dict(S, env=tr.env), f"fig3 {label}")
+        (state, mets), secs, got = counted_run(lambda: tr.run(
+            tr.init(S["params"]), S["bx"], S["by"], uniforms=S["uniforms"]))
+        check(got["glr_step"] == rounds and got["weighted_aggregate"] == rounds,
+              f"phase 11 (e) {label}: launches {got}")
+        acc = S["accuracy"](state)
+        check(bool(torch.isfinite(mets["local_loss"]).all()), f"phase 11 (e) {label}: loss")
+        load = float(state.env_state.sum())
+        check((load > 0) == (env is rj_env), f"phase 11 (e) {label}: interaction carry {load}")
+        fl[label] = secs / rounds
+        line(f"  (e) fig3 {label}: N={S['n']} M={S['m']} rounds={rounds} test_acc={acc:.4f} "
+             f"n_success total={float(mets['n_success'].sum()):.0f} seconds/round="
+             f"{secs / rounds:.6f} (load carry sum {load:.3f})")
+    del S
+
+    launches = {k: sum(c[k] for c in counted) for k in COUNTERS}
+    check(launches["regret_scan_reactive"] > 0 and launches["glr_step"] > 0
+          and launches["weighted_aggregate"] > 0,
+          f"phase 11: a kernel of the slice never launched: {launches}")
+    line(f"  phase 11 launches: regret_scan {launches['regret_scan']} (reactive template "
+         f"{launches['regret_scan_reactive']}), glr_step {launches['glr_step']}, "
+         f"weighted_aggregate {launches['weighted_aggregate']}; wall "
+         f"{time.perf_counter() - t_start:.1f} s")
+    return launches, dict(rounds=FIG2_ROUNDS,
+                          ms=react_ms, ms_again=max(ms["react1"], ms["react2"]),
+                          ms_per_round=react_ms / FIG2_ROUNDS,
+                          open_loop_ms=min(ms["open1"], ms["open2"]),
+                          plain_ms=ref_s * 1e3, plain_rounds=REACT_REF_ROUNDS,
+                          max_abs_err=r_err, err_rounds=REACT_REF_ROUNDS,
+                          bound_ms=bound, bound_by=bound_by, splits=splits,
+                          occupancy=occ["reactive"], chaos_launch_ms=c_ms,
+                          scenario_glr_launch_ms=b_ms, fl_seconds_per_round=fl)
+
+
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
-                fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan):
+                fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan, reactive_scan):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
     (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6, and
     ``glr_step`` the scan's batch form (phase 10's launches, phase 2's error
-    against the batched per-round loop, the fill of the card)."""
+    against the batched per-round loop, the fill of the card) and its
+    reactive template (the paths' launches of it, phase 11 (d)'s Fig. 2 run
+    on a reactive env; bit for bit against the rounds route)."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -2490,7 +2799,9 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     serve = gst_t["serve"]
     return [
         entry("glr_step", "src/repro/kernels/glr_step.py:163", glr_err, glr_t["fig2"],
-              batch_scan=batch_scan, **fig2_scan),
+              batch_scan=batch_scan,
+              reactive_scan=dict(reactive_scan, launches=launches["regret_scan_reactive"]),
+              **fig2_scan),
         entry("glr_step_tenants", "src/repro/kernels/glr_step.py:210", gst_err, serve,
               shape_r_b_n_h=[257, 64, 16, 256], device_ms=serve["device_ms"],
               detecting_rows=serve["detecting_rows"], splits=serve["splits"],
@@ -2532,7 +2843,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-10) only")
+                    help="build the kernels and run the paths (phases 3-11) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -2597,6 +2908,7 @@ def main(argv=None) -> int:
         line("[6] Fig. 2 path, recompute detector")
         recompute_launches, recompute_scan = fig2_recompute(torch, f2)
         fig2_scan, chain_us = f2["scan"], f2["chain_us"]
+        fig2_env, fig2_u = f2["env"], f2["uniforms"]       # phase 11 (d)'s base and randomness
         del f2, S
         release(torch)
         line("[7] serving path: qwen3-32b prefill and greedy decode")
@@ -2608,10 +2920,17 @@ def main(argv=None) -> int:
         baseline_launches, fig2a_refs = baselines(torch, args.seed)
         line("[10] the batched engine: fig2c, hp_grid, the card's fill, fig2a as one sweep")
         batch_launches, batch_fields = batched_engine(torch, args.seed, chain_us, fig2a_refs)
+        del fig2a_refs
+        line("[11] the non-stationary channel families and the closed loop: the scenario and "
+             "chaos suites, Fig. 2 and Fig. 3 on reactive envs")
+        family_launches, reactive_fields = channel_families(torch, args.seed, fig2_env, fig2_u,
+                                                            chain_us)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
-                 serve_launches, sched_launches, baseline_launches, batch_launches)
+                 serve_launches, sched_launches, baseline_launches, batch_launches,
+                 family_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
-        check(all(launches[k] > 0 for k in KERNEL_NAMES + ("flash_attention_tc",)),
+        check(all(launches[k] > 0
+                  for k in KERNEL_NAMES + ("flash_attention_tc", "regret_scan_reactive")),
               f"a kernel never launched: {launches}")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
@@ -2624,7 +2943,8 @@ def main(argv=None) -> int:
         line(json.dumps({"kernels": kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err,
                                                 rt_t, gs_err, gs_t, fa_err, fa_t, fig2_scan,
                                                 recompute_scan, gst_err, gst_t,
-                                                dict(batch_fields, max_abs_err=batch_err))}))
+                                                dict(batch_fields, max_abs_err=batch_err),
+                                                reactive_fields)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

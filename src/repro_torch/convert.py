@@ -32,7 +32,7 @@ from repro_torch.core.bandits import (
     RoundRobinScheduler,
     RRState,
 )
-from repro_torch.core.channels.base import ChannelEnv
+from repro_torch.core.channels.base import FORMS, ChannelEnv
 from repro_torch.core.contribution import ContributionBuffer
 from repro_torch.core.faults import FaultProcess, registered_faults
 from repro_torch.core.matching import MatcherState
@@ -63,22 +63,26 @@ def model_params(src: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]
 
 
 def channel_env(form: str, means, breaks, table, score_kind: str = "ucb",
-                device=None) -> ChannelEnv:
-    """A ``ChannelEnv`` from the JAX env's canonical leaves."""
+                device=None, react=None) -> ChannelEnv:
+    """A ``ChannelEnv`` from the JAX env's canonical leaves (``react``: the
+    reactive form's (4,) or (B, 4) coefficients; None gives the open-loop
+    forms' empty placeholder)."""
     dev = resolve_device(device)
     return ChannelEnv(form, tensor(means, dev).to(torch.float32),
                       tensor(breaks, dev).to(torch.int64),
-                      tensor(table, dev).to(torch.float32), score_kind)
+                      tensor(table, dev).to(torch.float32), score_kind,
+                      None if react is None else tensor(react, dev).to(torch.float32))
 
 
 def env(src, device=None) -> ChannelEnv:
-    """The port's ``ChannelEnv`` for a JAX one, unbatched or stacked (a JAX
-    ``stack_envs`` result, leading (B,) axis on every leaf), read by
-    attribute (``form``, ``means``, ``breaks``, ``table``, ``score_kind``)."""
-    if src.form not in ("segments", "table"):
+    """The port's ``ChannelEnv`` for a JAX one of any form, unbatched or
+    stacked (a JAX ``stack_envs`` result, leading (B,) axis on every leaf),
+    read by attribute (``form``, ``means``, ``breaks``, ``table``,
+    ``score_kind``, ``react``)."""
+    if src.form not in FORMS:
         raise ValueError(f"convert.env: the port has no {src.form!r} form")
     return channel_env(src.form, np.array(src.means), np.array(src.breaks),
-                       np.array(src.table), src.score_kind, device)
+                       np.array(src.table), src.score_kind, device, np.array(src.react))
 
 
 def hparams(src: Mapping[str, Any], device=None) -> Dict[str, Any]:

@@ -6,9 +6,16 @@ through the schedulers' ``TracedHyperParams`` mixin (``params()`` /
 ``replace_traced()`` / ``hp_signature()``).  ``realize(generator)`` draws
 a canonical ``ChannelEnv`` from a ``torch.Generator``; the draws follow
 the JAX package's generators in distribution, not in bits: torch's
-generator is not JAX's threefry.  ``env_signature()`` is the realized
-env's form, shapes and score hint, by which the sweep driver buckets
-scenario cases across families.  ``scenario_grid`` and
+generator is not JAX's threefry.  A family that draws more than a few
+values realizes in two steps, ``_draws`` (the uniforms, normals or
+permutation, named as the JAX realizer names its keys' draws) and
+``_from_draws`` (everything after), so a test can hand the second step
+the JAX package's own draws.  A family over a ``base`` scenario (the
+jamming overlay, the reactive jammer) nests the base's ``params()`` under
+``"base"``, as ``AoIAware`` nests its wrapped policy's.
+``env_signature()`` is the realized env's form, shapes and score hint, by
+which the sweep driver buckets scenario cases across families (the
+reactive form's too).  ``scenario_grid`` and
 ``realize_processes`` realize a list of scenarios, one generator each,
 into one stacked env: the JAX package compiles one vmapped realization a
 family there; here each row is that process's own ``realize``, so a row
@@ -23,7 +30,7 @@ from typing import Any, ClassVar, Dict, Optional, Sequence, Tuple, Type
 import torch
 
 from repro_torch.core.bandits.base import TracedHyperParams
-from repro_torch.core.channels.base import FORM_SEGMENTS, FORM_TABLE, ChannelEnv, stack_envs
+from repro_torch.core.channels.base import FORM_SEGMENTS, TABLE_FORMS, ChannelEnv, stack_envs
 from repro_torch.device import resolve_device
 
 
@@ -33,15 +40,23 @@ class ChannelProcess(TracedHyperParams):
 
     Subclasses set ``FAMILY`` (the registry name), ``FORM`` and
     ``SCORE_KIND`` (the realized env's), ``TRACED``, and implement
-    ``_realize(generator, device)`` and ``example(n, T)``.
+    ``example(n, T)`` and either ``_draws(generator, device)`` (a dict of
+    the random draws) with ``_from_draws(draws, device)`` (the env they
+    give), or ``_realize(generator, device)`` whole.
     """
 
     FAMILY: ClassVar[str] = ""
     FORM: ClassVar[str] = FORM_SEGMENTS
     SCORE_KIND: ClassVar[str] = "ucb"
 
-    def _realize(self, generator: Optional[torch.Generator], device) -> ChannelEnv:
+    def _draws(self, generator: Optional[torch.Generator], device) -> Dict[str, Any]:
         raise NotImplementedError
+
+    def _from_draws(self, draws: Dict[str, Any], device) -> ChannelEnv:
+        raise NotImplementedError
+
+    def _realize(self, generator: Optional[torch.Generator], device) -> ChannelEnv:
+        return self._from_draws(self._draws(generator, device), device)
 
     @classmethod
     def example(cls, n_channels: int, horizon: int) -> "ChannelProcess":
@@ -55,7 +70,7 @@ class ChannelProcess(TracedHyperParams):
     def env_signature(self) -> Tuple:
         """The realized env's form, shapes and score hint: scenarios with
         equal signatures realize to stackable envs, whatever their family."""
-        if self.FORM == FORM_TABLE:
+        if self.FORM in TABLE_FORMS:
             return (self.FORM, self.horizon, self.n_channels, self.SCORE_KIND)
         return (FORM_SEGMENTS, self.n_segments, self.n_channels, self.SCORE_KIND)
 

@@ -15,9 +15,13 @@ loop over the rounds, which is that kernel's plain version.  Each round
 consumes two (N,) f32 uniforms, ``u[t, 0]`` for the channel draw and
 ``u[t, 1]`` for the policy, as the JAX harness splits each round key into
 ``k_env, k_sel``.  The loop never waits on the device: the round index is
-a Python int and every decision stays a tensor.  The port's envs are all
-open-loop (the ``"reactive"`` form is not ported), so the loop reads the
-env's dense per-round means and threads no interaction carry.
+a Python int and every decision stays a tensor.  On an open-loop env
+(segments, table) the loop reads the env's dense per-round means; on a
+``"reactive"`` env it threads the interaction carry as the JAX scan does:
+round t draws from ``means_dyn`` on the load as it stood before round t,
+and after the policy's round ``interact_step`` folds in the schedule (the
+channels the policy used; the oracle is the counterfactual on the same
+realized states).
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import torch
 from repro_torch.core.aoi import aoi_variance, init_aoi, update_aoi
 from repro_torch.core.bandits.base import init_with_hp
 from repro_torch.core.bandits.oracle import oracle_assign
-from repro_torch.core.channels import ChannelEnv, ChannelProcess, dense_means
+from repro_torch.core.channels import FORM_REACTIVE, ChannelEnv, ChannelProcess, dense_means
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import regret_scan as _rs
@@ -62,9 +66,16 @@ def offline_round_stream(env, uniforms: torch.Tensor, horizon: int):
     ``u_sel[t]`` (N,) is round t's policy uniform ``uniforms[t, 1]`` and
     ``states[t]`` (N,) the channel realization drawn from ``uniforms[t, 0]``,
     both (T, N).  Serving this stream one request per round reproduces the
-    offline run of the same ``uniforms`` (T, 2, N) bit for bit.  The port's
-    envs are all open-loop, so ``sample`` is the draw.
+    offline run of the same ``uniforms`` (T, 2, N) bit for bit.  A reactive
+    env has no such stream (its states depend on the schedule) and raises.
     """
+    if env.form == FORM_REACTIVE:
+        raise ValueError(
+            "offline_round_stream: a \"reactive\" env has no offline round stream — its "
+            "channel states depend on what the policy schedules, so they only exist "
+            "inside a simulation that threads the interaction carry (simulate_aoi_regret, "
+            "or a trainer that owns the env and posts its realized vectors, as "
+            "AsyncFLTrainer.run_served does)")
     if uniforms.shape[0] < horizon:
         raise ValueError(f"offline_round_stream: {uniforms.shape[0]} rounds of uniforms, "
                          f"horizon {horizon}")
@@ -138,7 +149,9 @@ def simulate_aoi_regret(
 def _simulate_rounds(scheduler, env, sched_state, uniforms, collect_curve: bool,
                      return_state: bool, batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The per-round loop from ``sched_state`` over the rounds of ``uniforms``
-    (T, 2, N): the plain version of the ``regret_scan`` kernel.  With
+    (T, 2, N): the plain version of the ``regret_scan`` kernel (its
+    reactive template included: a reactive env's load carry, (N,) or (B, N),
+    lives here).  With
     ``batch`` B the state carries a leading (B,) run axis (``init_batch``),
     and so may ``env`` (stacked) and ``uniforms`` (B, T, 2, N); an operand
     without it is shared by every run.  Every output then has the run axis;
@@ -146,7 +159,11 @@ def _simulate_rounds(scheduler, env, sched_state, uniforms, collect_curve: bool,
     dev = uniforms.device
     horizon, n, m = uniforms.shape[-3], env.n_channels, scheduler.n_clients
     lead = () if batch is None else (batch,)
-    mu = dense_means(env, horizon)
+    reactive = env.form == FORM_REACTIVE
+    if reactive:    # the interaction carry, one load row a run
+        load = torch.zeros(lead + (n,), device=dev)
+    else:
+        mu = dense_means(env, horizon)
     aoi_pi = aoi_star = init_aoi(m, dev).expand(*lead, m)
     zero = torch.zeros(lead, device=dev)
     cum_regret, cum_var_pi, cum_var_star, successes = zero, zero, zero, zero
@@ -155,9 +172,12 @@ def _simulate_rounds(scheduler, env, sched_state, uniforms, collect_curve: bool,
     schedule = torch.zeros(lead + (horizon, m), dtype=torch.int64, device=dev)
     for t in range(horizon):
         u_t = uniforms[..., t, :, :]
-        states = (u_t[..., 0, :] < mu[..., t, :]).to(torch.float32).expand(*lead, n)
+        mu_t = env.means_dyn(t, load) if reactive else mu[..., t, :]
+        states = (u_t[..., 0, :] < mu_t).to(torch.float32).expand(*lead, n)
         sched_state, aoi_pi, channels, rewards = policy_round(
             scheduler, sched_state, aoi_pi, t, u_t[..., 1, :].expand(*lead, n), states)
+        if reactive:    # the env reacts to what the policy used, one round late
+            load = env.interact_step(load, t, torch.zeros_like(load).scatter_(-1, channels, 1.0))
         # the oracle is the clairvoyant counterfactual on the same channel states
         _, star_success = oracle_assign(states, aoi_star, m)
         aoi_star = update_aoi(aoi_star, star_success)

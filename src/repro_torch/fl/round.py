@@ -10,7 +10,9 @@ One round:
           Eq.-6 buffer carry
   Step 3  the scheduler picks M channels; the adaptive matcher assigns
           them to clients by priority (Eq. 39-40); the channel env draws
-          Good/Bad; S_t = clients whose channel was Good
+          Good/Bad (a ``"reactive"`` env from its carried load, which the
+          round then advances with the channels the matcher used); S_t =
+          clients whose channel was Good
   Step 4  the server aggregates  w <- w - eta_s/|S_t| * sum_{i in S_t} zeta_i G~_i
           through the ``weighted_aggregate`` kernel (Eq. 7), or through
           an ``Aggregator`` (``repro_torch.core.aggregation``: the robust
@@ -34,11 +36,16 @@ round draws two (N,) f32 uniforms, ``u_env`` for the channel states and
 ``n_uniforms(M)`` uniforms ``u_fault``, which stand for the JAX round's
 draws on ``fold_in(key, 0xFA17)`` (see ``repro_torch.core.faults``).
 ``run_served`` takes each round's schedule from a ``SchedServer``
-instead.  Twin of ``repro/fl/round.py``; the batched FL engine is not ported.
+instead; the trainer owns the env, so a reactive env's loop closes there
+too.  The env may be handed in unrealized (a ``ChannelProcess``): the
+trainer realizes it from ``realize_generator``, the twin of JAX's
+``realize_key``, and keeps the process as ``scenario``.  Twin of
+``repro/fl/round.py``; the batched FL engine is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -46,7 +53,7 @@ import torch
 from repro_torch.core.aggregation import MeanAgg
 from repro_torch.core.aoi import aoi_variance, init_aoi, mean_aoi, update_aoi
 from repro_torch.core.bandits.base import init_with_hp
-from repro_torch.core.channels import ChannelEnv
+from repro_torch.core.channels import ChannelEnv, ChannelProcess
 from repro_torch.core.contribution import (
     ContributionBuffer,
     aggregation_weights,
@@ -122,20 +129,37 @@ class AsyncFLConfig:
 class AsyncFLTrainer:
     """The asynchronous FL trainer on ``device`` (default ``cuda``).
 
+    ``env`` is a ``ChannelEnv`` of any form, or an unrealized
+    ``ChannelProcess``, realized here on the trainer's device from
+    ``realize_generator`` (a ``torch.Generator`` on that device; derive one
+    a seed, e.g. ``scenario_realize_generator(seed, device)``) and kept as
+    ``scenario``.  Without a generator it is realized from a generator
+    seeded 0, with a warning: every trainer built so then shares one
+    channel trajectory (JAX's ``PRNGKey(0)`` fallback).
     ``loss_fn(params, x, y)`` is a scalar loss of a parameter dict;
     ``proxy_loss_fn(flat_params)`` the optional server proxy loss (Eq. 35);
     ``faults`` an optional ``FaultProcess``; ``aggregator`` an optional
     ``Aggregator`` (None: the zeta-weighted mean of Eq. 7).
     """
 
-    def __init__(self, cfg: AsyncFLConfig, scheduler, env: ChannelEnv,
-                 loss_fn: Callable, proxy_loss_fn: Optional[Callable] = None,
-                 device=None, faults=None, aggregator=None):
-        if not isinstance(env, ChannelEnv):
-            raise TypeError(
-                "AsyncFLTrainer: env must be a realized ChannelEnv "
-                "(call ChannelProcess.realize(generator) first)")
+    def __init__(self, cfg: AsyncFLConfig, scheduler, env, loss_fn: Callable,
+                 proxy_loss_fn: Optional[Callable] = None, device=None, faults=None,
+                 aggregator=None, realize_generator: Optional[torch.Generator] = None):
         self.device = resolve_device(device)
+        self.scenario: Optional[ChannelProcess] = None
+        if isinstance(env, ChannelProcess):
+            self.scenario = env
+            if realize_generator is None:
+                warnings.warn(
+                    "AsyncFLTrainer: ChannelProcess env realized with the fixed generator "
+                    "seeded 0 — all seeds will share one realized channel trajectory.  Pass "
+                    "realize_generator= (e.g. scenario_realize_generator(seed, device)) for "
+                    "per-seed scenario draws.", stacklevel=2)
+                realize_generator = torch.Generator(device=self.device).manual_seed(0)
+            env = env.realize(realize_generator, self.device)
+        if not isinstance(env, ChannelEnv):
+            raise TypeError(f"AsyncFLTrainer: env must be a ChannelEnv or a ChannelProcess, "
+                            f"got {type(env).__name__}")
         self.cfg = cfg
         self.scheduler = scheduler
         self.env = env.to(self.device)

@@ -13,6 +13,23 @@
 // `oracle_assign`, `update_aoi`, `aoi_variance`), which is this kernel's
 // plain version.
 //
+// The env's three forms are a template parameter.  Segments: round t's
+// means are its segment's (the breaks walked as t passes them).  Table:
+// row t of the (T_tab, N) table, prefetched a round ahead.  Reactive (the
+// closed-loop form of src/repro/core/channels/base.py:63): the table row is
+// the base, suppressed by the lane's carried load, one more register:
+//   mu = base * (1 - g * (1 / (1 + expf(-(sharp * (load - thresh))))))
+// with g = clip(gain, 0, 1), evaluated before the draw from the load as it
+// stood before round t, and after the selection
+//   load = d * load + (1 - d) * sched,  d = clip(decay, 0, 1),
+// sched = 1 when the lane's channel was scheduled; the four coefficients
+// come from the run's (4,) `react` row ([decay, gain, thresh, sharp]).
+// Both are the per-round route's `reactive_means` and `interact_step`
+// (repro_torch/core/channels/base.py) op by op: the sigmoid is torch's
+// `1.0 / (1.0 + torch.exp(-x))`, a correctly rounded reciprocal of
+// 1 + expf(-x).  The load feeds only the draw, not the selection, so its
+// expf and division overlap the selection's rank.
+//
 // The run axis.  Block b runs run b of B: it reads its run's env (segment
 // means and breaks, or its table), uniforms, hyper-parameters and initial
 // state at its own offset, and writes its own outputs.  An operand the runs
@@ -58,6 +75,9 @@
 // recompute history's zeroing is applied at write-back: after a restart in
 // this launch, positions at or past a row's window are written as 0.
 //
+// A reactive run adds an expf, a division and five flops a lane a round,
+// on the same chain (PERF.md gives its time beside the open-loop scan's).
+//
 // Roofline for one Fig. 2 run (N = 5, M = 2, H = 1024, stride 5,
 // T = 20000) on the H100: operations, 4000 detection rounds x 2 rows x
 // 1024 splits x 32 flops = 2.6e8 at 67 TFLOP/s = 3.9 us at most (the
@@ -82,6 +102,8 @@ namespace {
 constexpr int kThreads = 1024;  // 32 warps share a detection round's splits
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSegments = 0, kTable = 1, kReactive = 2;  // the env's form (core/channels/base.py's FORMS)
+constexpr int kReact = 4;                                 // [decay, gain, thresh, sharp] a run
 
 struct Args {
   // the initial GLRCUCBState (ring: `cum` streaming, `hist` recompute) and hp;
@@ -97,9 +119,11 @@ struct Args {
   const float* delta;
   const float* min_samples;
   // the env: segment means (S, N) and breaks (S-1,), or the table (T_tab, N)
+  // and, reactive, its (4,) reaction coefficients
   const float* means;
   const long long* breaks;
   const float* table;
+  const float* react;
   const float* u;  // (T, 2, N) a run: [t][0] the channel draw, [t][1] the policy's
   // outputs, one set a run
   long long* schedule;  // (T, M)
@@ -131,6 +155,9 @@ struct Rows {
   float mu[32];       // window mean
   unsigned best[32];  // the row's max statistic, as order-preserving bits
 };
+
+// clip(x, 0, 1) as torch's clamp evaluates it (NaN stays NaN)
+__device__ __forceinline__ float clamp01(float x) { return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x); }
 
 __device__ __forceinline__ bool is_pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
@@ -171,8 +198,10 @@ __device__ __forceinline__ float glr_threshold(float nf, float delta) {
   return __fmul_rn(lead, logf(__fdiv_rn(__fmul_rn(__fmul_rn(3.0f, nf), __fsqrt_rn(nf)), delta)));
 }
 
-template <bool RECOMPUTE, bool GEOM, bool TABLE>
+template <bool RECOMPUTE, bool GEOM, int FORM>
 __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) {
+  constexpr bool TABLE = FORM != kSegments;  // the table and reactive forms read a table row a round
+  constexpr bool REACT = FORM == kReactive;
   // this block's run, and the offsets of its operands (0 where shared)
   const size_t run = blockIdx.x;
   const size_t rs = a.state_b ? run : 0, re = a.env_b ? run : 0;
@@ -216,6 +245,8 @@ __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) 
   int seg = 0;
   long long next_break = LLONG_MAX;
   float mu_seg = 0.0f, ue = 0.0f, us = 0.0f, tmu = 0.0f;
+  // reactive: the lane's load and the run's coefficients (decay, 1 - decay, gain, ...)
+  float load = 0.0f, decay = 0.0f, keep = 0.0f, gain = 0.0f, thresh = 0.0f, sharp = 0.0f;
   if (warp == 0) {
     if (ch_lane) {
       mu = a.mu0[rs * N + lane];
@@ -232,6 +263,14 @@ __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) 
     if (!TABLE) {
       if (a.n_seg > 1) next_break = breaks[0];
       if (ch_lane) mu_seg = means[lane];
+    }
+    if (REACT) {
+      const float* rc = a.react + re * kReact;
+      decay = clamp01(rc[0]);
+      keep = __fsub_rn(1.0f, decay);
+      gain = clamp01(rc[1]);
+      thresh = rc[2];
+      sharp = rc[3];
     }
     if (T > 0 && ch_lane) {
       ue = u[lane];
@@ -268,7 +307,11 @@ __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) 
 
       // the channel states: u < mu(t); segments: searchsorted(breaks, t, right=True)
       float mu_env;
-      if (TABLE) {
+      if (REACT) {  // reactive_means: base * (1 - g * sigmoid(sharp * (load - thresh)))
+        const float x = __fmul_rn(sharp, __fsub_rn(load, thresh));
+        const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
+        mu_env = __fmul_rn(tmu, __fsub_rn(1.0f, __fmul_rn(gain, sig)));
+      } else if (TABLE) {
         mu_env = tmu;
       } else {
         while (static_cast<long long>(t) >= next_break) {
@@ -326,6 +369,8 @@ __global__ void __launch_bounds__(kThreads, 1) regret_scan_kernel(const Args a) 
       }
       const bool sched = row >= 0;
       const float r = sched ? st : 0.0f;
+      // interact_step: the env sees this round's schedule from the next round on
+      if (REACT) load = __fadd_rn(__fmul_rn(decay, load), __fmul_rn(keep, sched ? 1.0f : 0.0f));
 
       // mean / count update and the detector's append
       if (sched) {
@@ -543,16 +588,26 @@ size_t smem_bytes(int N, int M, int H, int recompute) {
   return (static_cast<size_t>(N) * H + (recompute ? 2 * chunks : 0)) * sizeof(float);
 }
 
-template <bool RECOMPUTE, bool GEOM, bool TABLE>
+template <bool RECOMPUTE, bool GEOM, int FORM>
 const void* kernel_fn() {
-  return reinterpret_cast<const void*>(&regret_scan_kernel<RECOMPUTE, GEOM, TABLE>);
+  return reinterpret_cast<const void*>(&regret_scan_kernel<RECOMPUTE, GEOM, FORM>);
 }
 
-const void* pick(int recompute, int geometric, int table_form) {
-  if (recompute) return table_form ? kernel_fn<true, false, true>() : kernel_fn<true, false, false>();
-  if (geometric) return table_form ? kernel_fn<false, true, true>() : kernel_fn<false, true, false>();
-  return table_form ? kernel_fn<false, false, true>() : kernel_fn<false, false, false>();
+template <bool RECOMPUTE, bool GEOM>
+const void* pick_form(int form) {
+  if (form == kReactive) return kernel_fn<RECOMPUTE, GEOM, kReactive>();
+  if (form == kTable) return kernel_fn<RECOMPUTE, GEOM, kTable>();
+  return kernel_fn<RECOMPUTE, GEOM, kSegments>();
 }
+
+// the nine instantiations: detector (streaming all / geometric, recompute) x form
+const void* pick(int recompute, int geometric, int form) {
+  if (recompute) return pick_form<true, false>(form);
+  if (geometric) return pick_form<false, true>(form);
+  return pick_form<false, false>(form);
+}
+
+bool bad_form(int form) { return form < kSegments || form > kReactive; }
 
 cudaError_t allow_smem(const void* fn, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -570,18 +625,19 @@ extern "C" int regret_scan_launch(
     float* var_curve, float* scalars, float* aoi_pi, float* aoi_star, float* mu_out,
     float* counts_out, int* tau_out, float* ring_out, int* restarts_out, float* total_out,
     float* base_out, unsigned long long* splits, int T, int N, int M, int H, int n_seg, int stride,
-    int period, int recompute, int geometric, int table_form, int B, int T_tab, int state_b,
-    int env_b, int u_b, int hp_b, void* stream) {
+    int period, int recompute, int geometric, int form, int B, int T_tab, int state_b,
+    int env_b, int u_b, int hp_b, const float* react, void* stream) {
   if (T < 0 || M < 1 || M > N || N > 32 || H < 1 || n_seg < 1 || stride < 1 || period < 0 ||
-      B < 1 || T_tab < 0 || (recompute && geometric))
+      B < 1 || T_tab < 0 || (recompute && geometric) || bad_form(form) ||
+      ((form == kReactive) != (react != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{mu0, counts0, tau0, ring0, restarts0, total0, base0, gamma, delta, min_samples,
-               means, breaks, table, u, schedule, regret_curve, var_curve, scalars, aoi_pi,
+               means, breaks, table, react, u, schedule, regret_curve, var_curve, scalars, aoi_pi,
                aoi_star, mu_out, counts_out, tau_out, ring_out, restarts_out, total_out, base_out,
                splits, T, N, M, H, n_seg, stride, period, T_tab, state_b != 0, env_b != 0,
                u_b != 0, hp_b != 0};
   const size_t smem = smem_bytes(N, M, H, recompute);
-  const void* fn = pick(recompute, geometric, table_form);
+  const void* fn = pick(recompute, geometric, form);
   const cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   void* args[] = {const_cast<Args*>(&a)};
@@ -592,11 +648,12 @@ extern "C" int regret_scan_launch(
 }
 
 // blocks of the launch an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-// for the template and shared memory a run of (N, M, H) takes
+// for the template (detector x form) and shared memory a run of (N, M, H) takes
 extern "C" int regret_scan_occupancy(int N, int M, int H, int recompute, int geometric,
-                                     int table_form, int* blocks_per_sm) {
+                                     int form, int* blocks_per_sm) {
+  if (bad_form(form)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(N, M, H, recompute);
-  const void* fn = pick(recompute, geometric, table_form);
+  const void* fn = pick(recompute, geometric, form);
   const cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(

@@ -17,6 +17,13 @@ kernels once per detection round; the two routes give the same bits (see
 the source's header), the policy's variance curve within the order of a
 sum of M squares.
 
+The env's form is a template parameter of the kernel: segments, table,
+or the closed-loop reactive form, whose per-lane load carry the kernel
+keeps in a register (the per-round route keeps it in ``_simulate_rounds``)
+and whose (4,) ``react`` coefficients are the run's own (B, 4) row or one
+shared row.  ``regret_scan.reactive_launches`` counts the reactive
+template's launches (``regret_scan.launches`` counts every launch).
+
 The run axis: the state from ``init_batch`` has it; the env (stacked),
 the uniforms (B, T, 2, N) and each hyper-parameter ((B,)) may, or may be
 one shared by every run (stride 0 in the kernel).  Without any run axis
@@ -35,14 +42,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.channels.base import FORM_REACTIVE, FORMS, N_REACT, TABLE_FORMS
 from repro_torch.kernels import _build
 
-_ARGTYPES = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 16 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 16 + [ctypes.c_void_p] * 2
 _OCCUPANCY_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
 MAX_CHANNELS = 32                # one lane of a warp per channel
 MAX_RING_BYTES = 160 * 1024      # the (N, H) f32 ring in shared memory
 _I32_MAX = 2**31 - 1
-_FORMS = ("segments", "table")
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -63,7 +70,7 @@ def _check(name, x, dtype, shape, device):
 def _run_axes(env, state, uniforms):
     """Which operands carry a leading run axis, read from their ranks:
     ``(state, env, uniforms, hp)`` flags and each one's run count."""
-    env_leaf = env.table if env.form == "table" else env.means
+    env_leaf = env.leaf
     hp = list(state.hp.values())
     axes = {"state": state.mu_tilde.dim() == 2, "env": env_leaf.dim() == 3,
             "uniforms": uniforms.dim() == 4, "hp": any(v.dim() == 1 for v in hp)}
@@ -87,8 +94,6 @@ def refusal(scheduler, env, state, uniforms) -> Optional[str]:
     if scheduler.detector_backend not in (None, "kernel"):
         return (f"detector_backend={scheduler.detector_backend!r} asks for the plain "
                 "detector; the kernel takes None or 'kernel'")
-    if env.form not in _FORMS:
-        return f"the env's form {env.form!r} is not one of the kernel's {_FORMS}"
     n, m, h = scheduler.n_channels, scheduler.n_clients, scheduler.history
     if not 1 <= m <= n <= MAX_CHANNELS:
         return (f"N={n} channels and M={m} clients: the kernel takes 1 <= M <= N <= "
@@ -103,15 +108,19 @@ def refusal(scheduler, env, state, uniforms) -> Optional[str]:
     return None
 
 
-def occupancy(scheduler, table: bool) -> int:
+def occupancy(scheduler, form: str) -> int:
     """Blocks of a launch one SM holds at once for ``scheduler`` (a
-    ``GLRCUCB``) on a table (or segment) env, as the CUDA runtime's
-    occupancy calculator gives it for the template and its shared memory."""
+    ``GLRCUCB``) on an env of ``form`` (``"segments"``, ``"table"`` or
+    ``"reactive"``), as the CUDA runtime's occupancy calculator gives it for
+    the template and its shared memory."""
+    if form not in FORMS:
+        raise ValueError(f"regret_scan.occupancy: form {form!r} is not one of {FORMS}")
     fn = _build.load("regret_scan", "regret_scan_occupancy", _OCCUPANCY_ARGTYPES)
     out = ctypes.c_int(0)
     err = fn(scheduler.n_channels, scheduler.n_clients, scheduler.history,
              int(scheduler.detector_impl == "recompute"),
-             int(scheduler.resolved_split_grid() == "geometric"), int(table), ctypes.byref(out))
+             int(scheduler.resolved_split_grid() == "geometric"), FORMS.index(form),
+             ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"regret_scan: occupancy query failed (cudaError {err})")
     return out.value
@@ -120,8 +129,8 @@ def occupancy(scheduler, table: bool) -> int:
 def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bool = True,
                 return_state: bool = False):
     """Launch the kernel: ``scheduler`` a ``GLRCUCB`` (1 <= M <= N <= 32,
-    N * H * 4 <= 160 KiB), ``env`` a ``ChannelEnv`` (``segments`` or
-    ``table``), ``state`` its ``GLRCUCBState`` with f32 ``hp`` values,
+    N * H * 4 <= 160 KiB), ``env`` a ``ChannelEnv`` (``segments``,
+    ``table`` or ``reactive``), ``state`` its ``GLRCUCBState`` with f32 ``hp`` values,
     ``uniforms`` (T, 2, N) f32, all contiguous on one CUDA device.  A batch
     of B runs gives ``state`` (from ``init_batch``), and any of ``env``
     (stacked), ``uniforms`` ((B, T, 2, N)) and the ``hp`` values ((B,)), a
@@ -139,7 +148,9 @@ def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bo
     n, m, h = scheduler.n_channels, scheduler.n_clients, scheduler.history
     recompute = scheduler.detector_impl == "recompute"
     geometric = scheduler.resolved_split_grid() == "geometric"
-    table = env.form == "table"
+    form = FORMS.index(env.form)          # the template's FORM: 0, 1, 2
+    table = env.form in TABLE_FORMS       # a table row a round
+    reactive = env.form == FORM_REACTIVE
     period = max(int(n / scheduler.alpha), n) if scheduler.alpha > 0 else 0
     dev = uniforms.device
     horizon = uniforms.shape[-3]
@@ -153,6 +164,8 @@ def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bo
             raise ValueError(f"regret_scan: the table env covers {t_tab} rounds, "
                              f"the run takes {horizon}")
         _check("env.table", env.table, torch.float32, at("env", (t_tab, n)), dev)
+        if reactive:
+            _check("env.react", env.react, torch.float32, at("env", (N_REACT,)), dev)
         n_seg = 1
     else:
         t_tab, n_seg = 0, env.means.shape[-2]
@@ -195,11 +208,14 @@ def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bo
              aoi_star.data_ptr(), mu.data_ptr(), counts.data_ptr(), tau.data_ptr(),
              ring.data_ptr(), restarts.data_ptr(), total.data_ptr(), base.data_ptr(),
              splits.data_ptr(), horizon, n, m, h, n_seg, scheduler.detector_stride, period,
-             int(recompute), int(geometric), int(table), batch, t_tab, int(axes["state"]),
-             int(axes["env"]), int(axes["uniforms"]), int(hp_b), _stream(uniforms))
+             int(recompute), int(geometric), form, batch, t_tab, int(axes["state"]),
+             int(axes["env"]), int(axes["uniforms"]), int(hp_b),
+             env.react.data_ptr() if reactive else None, _stream(uniforms))
     if err != 0:
         raise RuntimeError(f"regret_scan: kernel launch failed (cudaError {err})")
     regret_scan.launches += 1
+    if reactive:
+        regret_scan.reactive_launches += 1
     regret_scan.splits = splits
 
     cum_regret, cum_var_pi = scalars[..., 0], scalars[..., 1]
@@ -224,4 +240,5 @@ def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bo
 
 
 regret_scan.launches = 0
+regret_scan.reactive_launches = 0   # the launches of the reactive template (counted in .launches too)
 regret_scan.splits = None   # the last launch's GLR splits evaluated a run, (B,) int64 on the card

@@ -6,7 +6,8 @@ sampled envs and hyper-parameter grids.  ``simulate_aoi_regret_batch``
 runs B of them at once, over a leading run axis on
 
 * the env: a stacked ``ChannelEnv`` (``stack_envs``, ``env_axis=0``) or
-  one env shared by every run (``env_axis=None``);
+  one env shared by every run (``env_axis=None``), of any form: a
+  reactive env's load carry is one row a run either way;
 * the randomness: (B, T, 2, N) uniforms, one (T, 2, N) stream a run
   (``uniforms_axis=0``), or one stream shared by every run (``None``);
 * the hyper-parameters: a ``stack_params`` grid of (B,) values
@@ -96,7 +97,7 @@ def simulate_aoi_regret_batch(
             "cases to repro_torch.sim.sweep, which realizes buckets itself")
     if not isinstance(envs, ChannelEnv):
         raise TypeError(f"simulate_aoi_regret_batch: envs must be a ChannelEnv, got {type(envs)}")
-    stacked = (envs.table if envs.form == "table" else envs.means).dim() == 3
+    stacked = envs.leaf.dim() == 3
     if stacked != (env_axis == 0):
         raise ValueError("simulate_aoi_regret_batch: env_axis=0 takes a stacked env "
                          "(stack_envs), env_axis=None one env")

@@ -47,7 +47,7 @@ def _map(fn, tree):
         return fn(tree)
     if isinstance(tree, ChannelEnv):
         return dataclasses.replace(tree, means=fn(tree.means), breaks=fn(tree.breaks),
-                                   table=fn(tree.table))
+                                   table=fn(tree.table), react=fn(tree.react))
     if isinstance(tree, dict):
         return {k: _map(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple):
@@ -59,7 +59,7 @@ def _map(fn, tree):
 def batch_size(tree) -> int:
     """The leading-axis length shared by every tensor of a batched tree."""
     sizes = []
-    _map(lambda x: sizes.append(int(x.shape[0])), tree)
+    _map(lambda x: sizes.append(int(x.shape[0])) or x, tree)
     if not sizes:
         raise ValueError("batch_size: pytree has no array leaves")
     if len(set(sizes)) != 1:

@@ -12,8 +12,10 @@ stacked (``stack_params``) and ride the engine's hyper-parameter axis, so
 a 16-point tuning grid of GLR-CUCB is one ``regret_scan`` launch on the
 card.  Scenario processes (``ChannelProcess``) drop into ``SweepCase.env``
 unrealized: they bucket by their realized env's form and shapes
-(``env_signature()``), families merge, and the bucket realizes each case
-from ``scenario_realize_generator(case.seed)`` before the batch runs.
+(``env_signature()``), families merge (reactive ones among themselves:
+the reactive form is a signature of its own), and the bucket realizes
+each case from ``scenario_realize_generator(case.seed)`` before the batch
+runs.
 
 Twin of ``repro/sim/sweep.py``.  The JAX driver compiles one executable a
 bucket and keeps it in a process-level cache; the port compiles nothing
@@ -98,7 +100,7 @@ def _env_sig(env) -> Tuple:
     if isinstance(env, ChannelProcess):
         return ("scenario",) + env.env_signature()
     return (env.form, env.score_kind) + tuple(
-        (tuple(x.shape), str(x.dtype)) for x in (env.means, env.breaks, env.table))
+        (tuple(x.shape), str(x.dtype)) for x in (env.means, env.breaks, env.table, env.react))
 
 
 def _bucket_key(case) -> Tuple:

@@ -30,7 +30,10 @@ call the FMA route.  ``regret_scan`` (a whole regret-harness run in one
 launch) equals the per-round route with the plain detector bit for bit in
 schedule, restarts, regret, AoI, success rate and final state; the
 variance sums at rtol 1e-6 (the kernel adds the M squared deviations in
-another order than torch's reduction).  A batch of runs in one launch (one
+another order than torch's reduction); so does its reactive template (the
+closed-loop env's load carried in a register) against the per-round route
+threading the carry, for one run and for a batch with per-run or shared
+reaction coefficients, and the occupancy query answers for every form.  A batch of runs in one launch (one
 block a run; env, uniforms and hyper-parameters per run or shared) equals
 the B single-run launches bit for bit, variance sums included, and a batch
 the kernel refuses takes the batched per-round route and says so.  ``glr_step_tenants`` (the
@@ -55,6 +58,7 @@ from repro_torch.core.bandits.base import stack_params  # noqa: E402
 from repro_torch.core.channels import (  # noqa: E402
     make_piecewise,
     make_stationary,
+    reactive_env,
     stack_envs,
     table_env,
 )
@@ -64,7 +68,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention, tc_route  # noqa: E402
 from repro_torch.kernels.glr_scan import glr_scan  # noqa: E402
 from repro_torch.kernels.glr_step import glr_step  # noqa: E402
-from repro_torch.kernels.regret_scan import regret_scan  # noqa: E402
+from repro_torch.kernels.regret_scan import occupancy, regret_scan  # noqa: E402
 from repro_torch.kernels.robust_agg import robust_trimmed  # noqa: E402
 from repro_torch.kernels.weighted_aggregate import weighted_aggregate  # noqa: E402
 
@@ -574,6 +578,101 @@ def test_refused_batch_takes_the_rounds_route(cuda):
         assert torch.equal(got["regret"][i], want["regret"])
     with pytest.raises(ValueError, match="impl='scan' does not apply.*N=40"):
         simulate_aoi_regret_batch(sched, stack_envs(envs), 200, uniforms=u, impl="scan")
+
+
+# label -> (GLRCUCB arguments, react [decay, gain, thresh, sharp]); the base is
+# the flipping table of _scan_env, so the detectors restart as well
+_REACT_CASES = {
+    "jammer": (dict(n=5, m=2, history=64, detector_stride=5, **_FAST), (0.8, 0.9, 0.3, 16.0)),
+    "congestion_recompute": (dict(n=5, m=3, history=64, detector_stride=3,
+                                  detector_impl="recompute", **_FAST), (0.9, 0.6, 0.5, 4.0)),
+    "geometric": (dict(n=5, m=2, history=256, split_grid="geometric", **_FAST),
+                  (0.5, 1.0, 0.2, 8.0)),
+    "n32_gain1_decay0": (dict(n=32, m=8, history=256, detector_stride=5, **_FAST),
+                         (0.0, 1.0, 0.3, 16.0)),
+    "n32_gain1_decay1": (dict(n=32, m=8, history=256, detector_stride=5, **_FAST),
+                         (1.0, 1.0, 0.3, 16.0)),
+    "out_of_range": (dict(n=5, m=2, history=64, detector_stride=5, **_FAST),
+                     (-0.5, 1.7, 0.0, 40.0)),
+}
+
+
+def _react_env(n, react, rng, device):
+    return reactive_env(_scan_env("table", n, rng, device).table, *react, device=device)
+
+
+def _same_runs(got, want, where=""):
+    for k in ("channels", "restarts", "regret", "final_regret", "aoi_pi", "aoi_star",
+              "success_rate"):
+        assert torch.equal(got[k], want[k]), (where, k)
+    gs, ws = got["final_sched_state"], want["final_sched_state"]
+    for f in ("mu_tilde", "counts", "tau", "hist", "restarts", "cum", "total", "base"):
+        assert torch.equal(getattr(gs, f), getattr(ws, f)), (where, f)
+    for k in ("cum_aoi_var", "final_cum_aoi_var", "oracle_cum_aoi_var"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("case", list(_REACT_CASES))
+def test_reactive_regret_scan_matches_rounds(cuda, case):
+    """The reactive template (one launch) against the per-round route on the
+    card, which threads the load carry through ``means_dyn`` /
+    ``interact_step`` with plain ops: bit for bit, as the open-loop forms."""
+    cfg, react = _REACT_CASES[case]
+    cfg = dict(cfg)
+    sched = GLRCUCB(cfg.pop("n"), cfg.pop("m"), **cfg)
+    rng = np.random.default_rng(13)
+    env = _react_env(sched.n_channels, react, rng, cuda)
+    u = torch.from_numpy(rng.random((_SCAN_T, 2, sched.n_channels)).astype(np.float32)).to(cuda)
+    before = regret_scan.launches, regret_scan.reactive_launches, glr_step.launches
+    got = simulate_aoi_regret(sched, env, _SCAN_T, uniforms=u, return_state=True)
+    assert (regret_scan.launches, regret_scan.reactive_launches, glr_step.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    plain = sched if sched.detector_impl == "recompute" else \
+        dataclasses.replace(sched, detector_backend="torch")
+    want = simulate_aoi_regret(plain, env, _SCAN_T, uniforms=u, return_state=True, impl="rounds")
+    assert regret_scan.launches == before[0] + 1
+    _same_runs(got, want, case)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_run_react", "shared_react"])
+@pytest.mark.parametrize("b", [3, 133])
+def test_batched_reactive_scan_equals_rounds(cuda, b, shared):
+    """A batch on the reactive template: per-run envs with their own (B, 4)
+    react rows, or one env (its (4,) react at stride 0) under per-run
+    uniforms; one launch equal to the batched per-round route bit for bit."""
+    sched = GLRCUCB(5, 2, history=64, detector_stride=5, **_FAST)
+    rng = np.random.default_rng(b + 7)
+    t = 600
+    if shared:
+        env = _react_env(5, (0.7, 0.9, 0.3, 16.0), rng, cuda)
+        envs = dataclasses.replace(env, table=env.table[:t].contiguous())
+        kw = dict(env_axis=None)
+    else:
+        rows = [_react_env(5, (rng.uniform(0, 1), rng.uniform(0.5, 1), rng.uniform(0.1, 0.6),
+                               rng.uniform(2, 20)), rng, cuda) for _ in range(b)]
+        envs = stack_envs([dataclasses.replace(e, table=e.table[:t].contiguous()) for e in rows])
+        assert envs.react.shape == (b, 4)
+        kw = {}
+    u = torch.from_numpy(rng.random((b, t, 2, 5)).astype(np.float32)).to(cuda)
+    before = regret_scan.launches, regret_scan.reactive_launches
+    got = simulate_aoi_regret_batch(sched, envs, t, uniforms=u, return_state=True, **kw)
+    assert got["route"] == "scan"
+    assert (regret_scan.launches, regret_scan.reactive_launches) == (before[0] + 1, before[1] + 1)
+    want = simulate_aoi_regret_batch(dataclasses.replace(sched, detector_backend="torch"), envs,
+                                     t, uniforms=u, return_state=True, impl="rounds", **kw)
+    assert want["route"] == "rounds" and regret_scan.launches == before[0] + 1
+    _same_runs(got, want, f"B={b}")
+
+
+@pytest.mark.parametrize("form", ["segments", "table", "reactive"])
+@pytest.mark.parametrize("impl", ["streaming", "recompute"])
+def test_regret_scan_occupancy_for_each_form(cuda, form, impl):
+    """The occupancy query answers for every template; the reactive form's
+    extra registers keep the one block an SM of the open-loop forms."""
+    sched = GLRCUCB(5, 2, history=1024, detector_stride=5, detector_impl=impl)
+    occ = occupancy(sched, form)
+    assert occ >= 1
+    assert occ == occupancy(sched, "segments")
 
 
 def test_mexp3_batch_on_the_card_equals_serial_runs(cuda):

@@ -22,7 +22,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import regret as regret_mod  # noqa: E402
 from repro_torch.core.bandits import GLRCUCB  # noqa: E402
-from repro_torch.core.channels import make_piecewise, table_env  # noqa: E402
+from repro_torch.core.channels import make_piecewise, reactive_env, table_env  # noqa: E402
 from repro_torch.core.regret import simulate_aoi_regret  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import glr_scan as glr_scan_mod  # noqa: E402
@@ -31,6 +31,7 @@ from repro_torch.kernels import regret_scan as rs_mod  # noqa: E402
 
 T = 40
 SYMBOL = ("regret_scan", "regret_scan_launch")
+REACT_ARG = 44          # the reactive form's (4,) coefficients, after the ints
 OUTPUTS = dict(schedule=14, regret_curve=15, var_curve=16, scalars=17, aoi_pi=18, aoi_star=19,
                mu=20, counts=21, tau=22, ring=23, restarts=24, total=25, base=26)
 
@@ -60,6 +61,9 @@ def _env(n, form="segments", seed=0):
     rng = np.random.default_rng(seed)
     if form == "table":
         return table_env(rng.random((T, n)).astype(np.float32), device="cpu")
+    if form == "reactive":
+        return reactive_env(rng.random((T, n)).astype(np.float32), 0.8, 0.9, 0.3, 16.0,
+                            device="cpu")
     a = rng.random(n).astype(np.float32)
     return make_piecewise(np.stack([a, a[::-1], a]), [10, 25], device="cpu")
 
@@ -70,7 +74,7 @@ def _uniforms(n, seed=1):
 
 def _fake_env(env):
     return dataclasses.replace(env, means=_FakeCuda(env.means), breaks=_FakeCuda(env.breaks),
-                               table=_FakeCuda(env.table))
+                               table=_FakeCuda(env.table), react=_FakeCuda(env.react))
 
 
 def _fake_state(sched):
@@ -125,7 +129,7 @@ def _counts():
 
 
 # (scheduler, env form) -> the launch's (T, N, M, H, segments, stride, period) and
-# template flags (recompute, geometric, table)
+# template flags (recompute, geometric, form: 0 segments, 1 table, 2 reactive)
 SCAN_ROUTES = [
     (dict(n=5, m=2, history=1024, detector_stride=5), "segments", (5, 2, 1024, 3, 5, 0), (0, 0, 0)),
     (dict(n=5, m=2, history=64, split_grid="geometric"), "segments", (5, 2, 64, 3, 1, 0), (0, 1, 0)),
@@ -140,6 +144,9 @@ SCAN_ROUTES = [
      (5, 2, 64, 3, 10**9, 0), (0, 0, 0)),
     (dict(n=5, m=2, history=8192, detector_impl="recompute"), "segments",
      (5, 2, 8192, 3, 1, 0), (1, 0, 0)),
+    (dict(n=5, m=2, history=64, detector_stride=5), "reactive", (5, 2, 64, 1, 5, 0), (0, 0, 2)),
+    (dict(n=5, m=3, history=33, detector_impl="recompute"), "reactive", (5, 3, 33, 1, 1, 0),
+     (1, 0, 2)),
 ]
 
 
@@ -159,6 +166,7 @@ def test_scan_route_reaches_the_kernel(fake_card, recorded, cfg, form, ints, fla
     assert args[28:35] == (T,) + ints
     assert args[35:38] == flags
     assert args[15] is not None and args[16] is not None       # the curves
+    assert (args[REACT_ARG] is not None) == (form == "reactive")
     assert fake_card.reached == []
     assert _counts() == (before[0] + 1,) + before[1:]
     assert out["channels"].shape == (T, sched.n_clients)
@@ -280,6 +288,13 @@ def test_wrapper_unpacks_the_kernels_buffers(monkeypatch, impl_cfg, collect_curv
         g, w = getattr(gs, f), getattr(ws, f)
         assert torch.equal(g._t if isinstance(g, _FakeCuda) else g, w), f
     assert set(gs.hp) == set(ws.hp)
+
+
+def test_occupancy_refuses_an_unknown_form(monkeypatch):
+    """The form is checked before the library is asked."""
+    monkeypatch.setattr(_build, "load", lambda *a: pytest.fail("the library was loaded"))
+    with pytest.raises(ValueError, match="form 'adversarial' is not one of"):
+        rs_mod.occupancy(GLRCUCB(5, 2, history=16), "adversarial")
 
 
 def test_ops_regret_scan_on_the_cpu_is_the_per_round_loop():

@@ -1,9 +1,10 @@
-"""The port's scenario registry helpers and their sweep integration.
+"""The port's scenario registry helpers and their sweep integration, on
+the paper's three regimes.
 
 The canonical-form contract of the JAX package's
 ``tests/test_scenario_properties.py`` and the sweep cases of
-``tests/test_scenarios.py``, for the three families the port has
-(stationary, piecewise, adversarial): ``registered_scenarios`` /
+``tests/test_scenarios.py``, for the three families of the paper's
+regimes (stationary, piecewise, adversarial): ``registered_scenarios`` /
 ``example_scenario`` / ``env_signature``, the realized shapes, stacking
 round trips (``stack_envs``, ``env_batch_size``, rows bit for bit),
 ``dense_means`` against ``means_at``, ``scenario_grid`` and
@@ -14,7 +15,13 @@ bucket, and each case equals its serial run realized from
 ``scenario_realize_generator(seed)``.  JAX's own ``env_signature`` and
 its ``group_cases`` over the same scenarios give the same buckets.
 Realizations equal JAX's in distribution only (torch's generator is not
-threefry), so no realized value is compared across the packages.
+threefry), so no realized value is compared across the packages here.
+The registry's six other families (the fading, mobility, shadowing and
+jamming tables, the reactive jammer and congestion) are held to the same
+contract, and their realizers to JAX's on JAX's own draws, in
+``tests/test_torch_channel_families.py``; their sweep, engine and trainer
+cases are in ``tests/test_torch_scenarios.py`` and
+``tests/test_torch_reactive.py``.
 """
 import pytest
 

@@ -18,7 +18,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    one window each and again in interleaved turns, device time from a
    trace, and at the Fig. 3 shape the host split of one call (checks, load, allocation, stream lookup, ``ctypes``
    call); ``robust_trimmed``'s bound at 1 instruction an ordered pair,
-   the older 4-op bound beside it;
+   the older 4-op bound beside it; the batch form of both (a run axis on
+   the grid, one launch for B runs) against its plain version and, row by
+   row, bit for bit against the single-run kernel: ``weighted_aggregate``
+   at (8, 20, 5674) f32 and bf16, (8, 64, 2^21) and (5, 7, 4099),
+   ``robust_trimmed`` at (8, 20, 5674) with a mask, n and k a run (n = 0,
+   odd and even n), on special values, and at (8, 64, 2^19 + 3), each
+   timed beside the eight single-run launches it replaces, the plain
+   version, the bound and the library call (``torch.bmm``; ``torch.sort``);
    ``glr_step_tenants`` (the scheduler service's detector step, in place
    on the slot state) against its plain version at the serving shapes
    (R = 257 / B = 64, N = 16, H = 256; R = 10001 / B = 64, H = 64), all
@@ -134,7 +141,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    three templates; (e) phase 4's Fig. 3 trainer on a reactive jammer over
    phase 4's env and on a Gilbert-Elliott process handed in unrealized
    (realized by the trainer from ``realize_generator``), three rounds of
-   each against the CPU run and 150 rounds timed.
+   each against the CPU run and 150 rounds timed;
+12. the batched FL engine (``simulate_fl_batch``, ``FLSweepCase`` buckets)
+   at the JAX benchmark's sizes: (a) ``fig3_fig4_fl``'s ten rows
+   (``benchmarks/run.py:742-786``: random, channel-aware, Lyapunov,
+   GLR-CUCB with and without matching on phase 4's N = 30, M = 20 problem;
+   the first three and M-Exp3 with and without matching on the adversarial
+   N = 6, M = 4 one), 8 seeds a row as one batch, 150 rounds in segments
+   ending at 40, 80 and 150 with a per-seed accuracy eval at each; each
+   row's ``weighted_aggregate`` (and GLR-CUCB's ``glr_step``) launches 150
+   times for the batch, and its seed 0 equals the row's serial run (phase
+   9's, phase 4's for glr-cucb+aware): discrete state, n_success and mean
+   AoI bit for bit, the rest at JAX's tolerances; (b) ``fl_batch_bench``'s
+   twin (M = 4, N = 6, 8 seeds, 60 rounds in segments of 10 with evals),
+   serial against batched (best of 3) and the batch-of-1 check; (c)
+   ``chaos_suite``'s FL half: 9 attack x defense cells x 2 seeds as one
+   ``sweep`` with JAX's containment verdicts, then the burst grid (2
+   buckets, ``burst/0`` equal to its serial run bit for bit); (d)
+   ``sweep(shard=True)`` equal to ``sweep()`` on an FL bucket, and a
+   Gilbert-Elliott process bucket with per-case realizations; (e) a
+   profiled 10-round window of a batch of 8.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -143,12 +169,12 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 128, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-11 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-12 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
 Every path runs at the paper's sizes, uncut but for phase 9's two cuts
-and phase 10's per-round cut (T=2000), which they print (phase 11 runs the
-JAX benchmarks' own non-quick sizes).  Weights, envs and randomness
+and phase 10's per-round cut (T=2000), which they print (phases 11 and 12
+run the JAX benchmarks' own non-quick sizes).  Weights, envs and randomness
 are made on the card from ``--seed``; the Fig. 3 data is the benchmark's
 synthetic problem, made on the host from seeds offset by ``--seed`` (seed
 0 gives the benchmark's own data).  The last line is
@@ -205,6 +231,11 @@ SCHED_SERIAL_REQUESTS = 8 * SCHED_SLOTS   # the serial (slots=1) baseline's (:13
 SCHED_BIG_CAPACITY, SCHED_BIG_H = 10_000, 64   # the 10^4-tenant server (:1451-1455)
 SCHED_FL_ROUNDS = 10                   # run_served rounds on the Fig. 3 setup
 FIG2A_ROUNDS_CUT = 2000        # Fig. 2a rows on the per-round route (phase 9): T, cut from 20000
+FL_SEEDS = 8                   # seeds a Fig. 3/4 row and fl_batch_bench (run.py:747, :804)
+FL_CHECKPOINTS = (40, 80, 150)  # a Fig. 3/4 row's segments, an accuracy eval at each end (:748)
+FL_BENCH_SEGMENT, FL_BENCH_SEGMENTS = 10, 6   # fl_batch_bench's segments (:805)
+CHAOS_FL_ROUNDS = 40           # chaos_suite's Byzantine matrix and burst grid (:1147)
+GE_FL_ROUNDS = 40              # phase 12 (d)'s Gilbert-Elliott FL bucket, 4 cases
 FIG2A_REF_ROUNDS = 500         # their card-vs-CPU rounds
 FORKING_ROWS = ("channel-aware", "m-exp3", "aa-m-exp3")   # draws through log/exp: may fork
 FIG2C_SEEDS = 24               # fig2c's seeds per N (benchmarks/run.py:262)
@@ -228,8 +259,9 @@ REACT_FLOPS = 18
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention", "regret_scan", "glr_step_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
-COUNTERS = KERNEL_NAMES + FLASH_ROUTES + ("regret_scan_reactive",)  # regret_scan's reactive
-                                                                    # template (in .launches too)
+BATCH_ROUTES = ("weighted_aggregate_batch", "robust_trimmed_batch")   # the Step-4 batch launches
+COUNTERS = KERNEL_NAMES + FLASH_ROUTES + ("regret_scan_reactive",) + BATCH_ROUTES
+# (regret_scan's reactive template and the Step-4 batch launches count in .launches too)
 
 
 class SmokeFailure(Exception):
@@ -267,6 +299,8 @@ def reset_launches():
     fa = kernel_wrappers()["flash_attention"]
     fa.tc_launches = fa.fma_launches = 0
     kernel_wrappers()["regret_scan"].reactive_launches = 0
+    for name in ("weighted_aggregate", "robust_trimmed"):
+        kernel_wrappers()[name].batch_launches = 0
 
 
 def read_launches():
@@ -275,7 +309,9 @@ def read_launches():
     out = {k: w.launches for k, w in kernel_wrappers().items()}
     fa = kernel_wrappers()["flash_attention"]
     out.update(flash_attention_tc=fa.tc_launches, flash_attention_fma=fa.fma_launches,
-               regret_scan_reactive=kernel_wrappers()["regret_scan"].reactive_launches)
+               regret_scan_reactive=kernel_wrappers()["regret_scan"].reactive_launches,
+               **{f"{k}_batch": kernel_wrappers()[k].batch_launches
+                  for k in ("weighted_aggregate", "robust_trimmed")})
     return out
 
 
@@ -910,6 +946,155 @@ def check_robust_trimmed(torch, gen, floor_ms):
     return max_err, timings
 
 
+def check_batched_aggregation(torch, gen, floor_ms):
+    """Phase 2's batch forms of the two Step-4 kernels (a run axis on the
+    grid, one launch for B runs): each batch against its plain version and,
+    row by row, bit for bit against the single-run kernel on that run.
+    ``weighted_aggregate`` at (8, 20, 5674) f32 and bf16, (8, 64, 2^21)
+    (the bytes of phase 2's 64 x 2^24) and (5, 7, 4099) (4-byte loads);
+    ``robust_trimmed`` at (8, 20, 5674) with a mask, n and k a run (n = 0,
+    odd and even n; the median, 0 and between), on rows of NaN, +-inf, +-0
+    and ties, and at (8, 64, 2^19 + 3).  Times at (8, 20, 5674) and the
+    large shape: the batch launch, the plain version, the eight single-run
+    launches it replaces, the bound, and the library call (``torch.bmm``;
+    ``torch.sort`` + the kept slice's mean).  Returns ({kernel: the
+    kernels line's ``batch`` dict})."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import robust_agg as rt_mod
+    from repro_torch.kernels import weighted_aggregate as wa_mod
+
+    wa, rt = wa_mod.weighted_aggregate, rt_mod.robust_trimmed
+    out = {}
+
+    # weighted_aggregate: (B, M, P) updates, (B, M) scales
+    wa_err, wa_rows = 0.0, True
+    for b, m, p, dtype in ((8, 20, 5674, torch.float32), (8, 20, 5674, torch.bfloat16),
+                           (8, 64, 2 ** 21, torch.float32), (5, 7, 4099, torch.float32)):
+        upd = torch.randn((b, m, p), generator=gen, device="cuda").to(dtype)
+        scale = torch.stack([scale_like_main_path(torch, m, gen) for _ in range(b)])
+        before = wa.batch_launches
+        got = wa(upd, scale)
+        check(wa.batch_launches == before + 1, "weighted_aggregate batch: not one batch launch")
+        want = ref.weighted_aggregate(upd, scale)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(got.shape == (b, p) and torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+              f"weighted_aggregate batch ({b}, {m}, {p}) {dtype}: beyond rtol 1e-5 ({err})")
+        rows = all(bool(torch.equal(got[i], wa(upd[i], scale[i]))) for i in range(b))
+        check(rows, f"weighted_aggregate batch ({b}, {m}, {p}) {dtype}: a row is not the "
+                    "single-run kernel's bit for bit")
+        wa_err, wa_rows = max(wa_err, err), wa_rows and rows
+        line(f"  weighted_aggregate batch ({b}, {m}, {p}) {str(dtype).split('.')[-1]}: one "
+             f"launch, max_abs_err={err:.3e} vs plain, every row bitwise the single-run "
+             f"kernel's ok")
+        del upd, got, want
+
+    def wa_times(b, m, p, iters):
+        upd = torch.randn((b, m, p), generator=gen, device="cuda")
+        scale = torch.stack([scale_like_main_path(torch, m, gen) for _ in range(b)])
+        t = dict(shape=[b, m, p], ms=time_ms(torch, lambda: wa(upd, scale), iters),
+                 plain_ms=time_ms(torch, lambda: ref.weighted_aggregate(upd, scale), iters),
+                 single_loop_ms=time_ms(torch, lambda: [wa(upd[i], scale[i]) for i in range(b)],
+                                        iters),
+                 library_ms=time_ms(torch, lambda: torch.bmm(scale[:, None, :], upd), iters),
+                 device_ms=device_ms(torch, lambda: wa(upd, scale), 100 if iters > 100 else 10))
+        nbytes = b * (m * p * 4 + m * 4 + p * 4)
+        t["bound_ms"], t["bound_by"] = two_way_bound(nbytes, 2 * b * m * p, F32_FLOPS)
+        line(f"  weighted_aggregate batch time ({b}, {m}, {p}) f32: batch launch {t['ms']:.4f} "
+             f"ms, the {b} single-run launches it replaces {t['single_loop_ms']:.4f} ms, plain "
+             f"{t['plain_ms']:.4f} ms, library (torch.bmm) {t['library_ms']:.4f} ms, device "
+             f"time {'not measured' if t['device_ms'] is None else '%.4f ms' % t['device_ms']}, "
+             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), launch floor {floor_ms:.5f} ms")
+        return t
+
+    fig3 = wa_times(8, 20, 5674, 2000)
+    out["weighted_aggregate"] = dict(fig3, max_abs_err=wa_err, rows_bitwise=wa_rows,
+                                     large=wa_times(8, 64, 2 ** 21, 20))
+
+    # robust_trimmed: a mask, n and k a run
+    rt_err, rt_rows = 0.0, True
+    cases = [(8, 20, 5674, "random"), (8, 20, 5674, "special"), (8, 64, 2 ** 19 + 3, "random")]
+    for b, m, p, kind in cases:
+        if kind == "special":
+            pairs = [special_trim_inputs(torch, m, p, torch.float32, "random", gen)
+                     for _ in range(b)]
+        else:
+            pairs = [trim_inputs(torch, m, p, torch.float32, "random", gen) for _ in range(b)]
+        x = torch.stack([xx for xx, _ in pairs])
+        mask = torch.stack([mm for _, mm in pairs])
+        mask[0] = 0.0                                   # run 0: nobody participates
+        mask[1, :] = 1.0
+        mask[1, 0] = 0.0                                # run 1: n = M - 1 (odd M - 1)
+        mask[2, :] = 1.0                                # run 2: n = M (even)
+        n = mask.sum(-1)
+        med = torch.floor((n - 1.0) / 2.0).clamp_min(0.0)
+        k = med.clone()
+        if kind != "special":
+            k[3::3] = 0.0
+            k[4::3] = torch.floor(med[4::3] / 2.0)
+        before = rt.batch_launches
+        got = rt(x, mask, n, k)
+        check(rt.batch_launches == before + 1, "robust_trimmed batch: not one batch launch")
+        want = ref.robust_trimmed(x, mask, n, k)
+        torch.cuda.synchronize()
+        median_rows = (k == med).tolist()
+        for i in range(b):
+            if median_rows[i]:
+                check(same_bits(torch, got[i], want[i]),
+                      f"robust_trimmed batch ({b}, {m}, {p}) {kind} run {i}: median not bitwise")
+            else:
+                tol = m * 2.0 ** -24 * float(x[i].abs().max())
+                check(float((got[i] - want[i]).abs().max()) <= tol,
+                      f"robust_trimmed batch ({b}, {m}, {p}) run {i}: beyond {tol}")
+        check(not bool(got[0].any()), "robust_trimmed batch: n = 0 gave non-zeros")
+        rows = all(same_bits(torch, got[i], rt(x[i], mask[i], n[i:i + 1], k[i:i + 1]))
+                   for i in range(b))
+        check(rows, f"robust_trimmed batch ({b}, {m}, {p}) {kind}: a row is not the single-run "
+                    "kernel's bit for bit")
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+        rt_err, rt_rows = max(rt_err, err), rt_rows and rows
+        line(f"  robust_trimmed batch ({b}, {m}, {p}) {kind}: one launch, n a run "
+             f"{[int(v) for v in n.tolist()]}, k {[int(v) for v in k.tolist()]}; medians bitwise, "
+             f"max_abs_err {err:.1e}, every row bitwise the single-run kernel's ok")
+        del x, got, want
+
+    def rt_times(b, m, p, iters):
+        pairs = [trim_inputs(torch, m, p, torch.float32, "full", gen) for _ in range(b)]
+        x = torch.stack([xx for xx, _ in pairs])
+        mask = torch.stack([mm for _, mm in pairs])
+        n = mask.sum(-1)
+        k = torch.floor((n - 1.0) / 2.0)
+        lo, hi = (m - 1) // 2, m - (m - 1) // 2
+        small = p < 10 ** 6
+        t = dict(shape=[b, m, p], ms=time_ms(torch, lambda: rt(x, mask, n, k), iters),
+                 plain_ms=time_ms(torch, lambda: ref.robust_trimmed(x, mask, n, k),
+                                  max(iters // 10, 3)),
+                 single_loop_ms=time_ms(torch, lambda: [rt(x[i], mask[i], n[i:i + 1],
+                                                           k[i:i + 1]) for i in range(b)],
+                                        iters),
+                 library_ms=time_ms(torch, lambda: torch.sort(x, dim=1).values[:, lo:hi]
+                                    .mean(dim=1), iters),
+                 device_ms=device_ms(torch, lambda: rt(x, mask, n, k), 100 if small else 10))
+        nbytes = b * (m * p * 4 + m * 4 + 8 + p * 4)
+        pairs_n = b * m * m * p
+        t["bound_ms"], t["bound_by"] = two_way_bound(nbytes, RANK_PAIR_OPS * pairs_n,
+                                                     F32_LANE_OPS)
+        line(f"  robust_trimmed batch time ({b}, {m}, {p}) f32 median: batch launch "
+             f"{t['ms']:.4f} ms, the {b} single-run launches it replaces "
+             f"{t['single_loop_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (sort + "
+             f"kept-slice mean) {t['library_ms']:.4f} ms, device time "
+             f"{'not measured' if t['device_ms'] is None else '%.4f ms' % t['device_ms']}, bound "
+             f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {pairs_n:.3e} ordered pairs x "
+             f"{RANK_PAIR_OPS} instruction), launch floor {floor_ms:.5f} ms")
+        return t
+
+    fig3 = rt_times(8, 20, 5674, 2000)
+    out["robust_trimmed"] = dict(fig3, max_abs_err=rt_err, rows_bitwise=rt_rows,
+                                 large=rt_times(8, 64, 2 ** 19 + 3, 10))
+    return out
+
+
 def check_glr_scan(torch, gen, floor_ms):
     """Kernel against plain: bitwise on {0, 1} histories (exact integer
     prefixes).  On real-valued ones the kernel rounds each prefix and the
@@ -1515,6 +1700,13 @@ def fig3_setup(torch, seed, n=30, m=20, adversarial=False):
                 @ state.params["w2"] + state.params["b2"]
             return float((logits.argmax(1) == tey).float().mean())
 
+    def accuracy_batch(params):
+        """(B,) test accuracies of a batch of models (leaves (B, ...))."""
+        with torch.no_grad():
+            h = torch.relu(torch.matmul(tex, params["w1"]) + params["b1"][:, None])
+            logits = torch.matmul(h, params["w2"]) + params["b2"][:, None]
+            return (logits.argmax(-1) == tey).float().mean(-1)
+
     if adversarial:
         env = random_adversarial_env(gen, n, rounds, flip_prob=0.01)
     else:
@@ -1524,7 +1716,7 @@ def fig3_setup(torch, seed, n=30, m=20, adversarial=False):
         env = make_piecewise(means, breaks)
     return dict(
         n=n, m=m, rounds=rounds, bx=bx, by=by, params=params, loss_fn=loss_fn,
-        accuracy=accuracy, env=env,
+        accuracy=accuracy, accuracy_batch=accuracy_batch, cx=cx, cy=cy, env=env,
         cfg=AsyncFLConfig(n_clients=m, n_channels=n, local_epochs=3, client_lr=0.15,
                           server_lr=0.15, use_matching=True, use_zeta=True),
         sched=GLRCUCB(n, m, history=256),
@@ -1618,7 +1810,7 @@ def fig3(torch, S):
          f"mean_aoi last={float(mets['mean_aoi'][-1]):.3f} test_acc={acc:.4f} "
          f"seconds/round={secs / rounds:.6f} glr_step.launches={launches['glr_step']} "
          f"weighted_aggregate.launches={launches['weighted_aggregate']}")
-    return launches, acc
+    return launches, acc, dict(state=state, mets=mets, secs=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -2241,7 +2433,8 @@ def fig34_rows(torch, seed):
     ``FIG3_ROUNDS`` rounds and one seed a row: random, channel-aware and
     Lyapunov on phase 4's N = 30, M = 20 problem; those and M-Exp3 with and
     without matching on the adversarial N = 6, M = 4 problem.  Returns the
-    launches of the timed runs."""
+    launches of the timed runs and, by row label, each run (its final state,
+    metrics and seconds), seed 0 of phase 12's batches."""
     import dataclasses
 
     import numpy as np
@@ -2249,9 +2442,9 @@ def fig34_rows(torch, seed):
     from repro_torch.core.bandits import ChannelAwareAsync, LyapunovSched, MExp3, RandomScheduler
     from repro_torch.fl import AsyncFLTrainer
 
-    line(f"  fig3/4 cut: one seed a row, {FIG3_ROUNDS} rounds (the JAX benchmark runs 8 seeds "
-         f"through the batched FL engine, which the port does not have yet)")
-    counted = []
+    line(f"  fig3/4 cut: one seed a row, {FIG3_ROUNDS} rounds (the JAX benchmark's 8 seeds a "
+         f"row run through the batched FL engine in phase 12)")
+    counted, runs = [], {}
     for kind in ("piecewise", "adversarial"):
         S = (fig3_setup(torch, seed) if kind == "piecewise"
              else fig3_setup(torch, seed, n=6, m=4, adversarial=True))
@@ -2272,6 +2465,7 @@ def fig34_rows(torch, seed):
             (state, mets), secs = timed_run(torch, lambda: tr.run(
                 tr.init(R["params"]), R["bx"], R["by"], uniforms=R["uniforms"]))
             counted.append(read_launches())
+            runs[f"{kind}/{name}"] = dict(state=state, mets=mets, secs=secs)
             check(counted[-1]["weighted_aggregate"] == rounds and counted[-1]["glr_step"] == 0,
                   f"{label}: launches {counted[-1]}, expected weighted_aggregate {rounds} times")
             acc = R["accuracy"](state)
@@ -2286,23 +2480,24 @@ def fig34_rows(torch, seed):
                     tr.init(R["params"]), R["bx"][:10], R["by"][:10],
                     uniforms=R["uniforms"][:10]), 10)
         del S
-    return {k: sum(p[k] for p in counted) for k in COUNTERS}
+    return {k: sum(p[k] for p in counted) for k in COUNTERS}, runs
 
 
 def baselines(torch, seed):
     """Phase 9: the paper's baseline rows on the card.  Returns the launches
-    of the timed runs (every kernel of the slice must show one) and Fig.
-    2a's runs at the cut, by row."""
+    of the timed runs (every kernel of the slice must show one), Fig. 2a's
+    runs at the cut, by row, and Fig. 3/4's runs, by row."""
     t0 = time.perf_counter()
     fig2a_launches, refs = fig2a_rows(torch, seed)
-    paths = (fig2a_launches, fig34_rows(torch, seed))
+    fig34_launches, fig34_runs = fig34_rows(torch, seed)
+    paths = (fig2a_launches, fig34_launches)
     launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
     check(all(launches[k] > 0 for k in ("regret_scan", "glr_step", "weighted_aggregate")),
           f"phase 9: a kernel of the slice never launched: {launches}")
     line(f"  phase 9 launches: regret_scan {launches['regret_scan']}, glr_step "
          f"{launches['glr_step']}, weighted_aggregate {launches['weighted_aggregate']}; "
          f"wall {time.perf_counter() - t0:.1f} s")
-    return launches, refs
+    return launches, refs, fig34_runs
 
 
 # ---------------------------------------------------------------------------
@@ -2777,15 +2972,481 @@ def channel_families(torch, seed, fig2_env, fig2_u, chain_us):
                           scenario_glr_launch_ms=b_ms, fl_seconds_per_round=fl)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the batched FL engine (Fig. 3/4 at 8 seeds, fl_batch, chaos FL half)
+# ---------------------------------------------------------------------------
+
+def tensor_leaves(tree, path=""):
+    """(path, tensor) for every tensor of a state / metrics tree."""
+    if hasattr(tree, "dim"):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tensor_leaves(tree[k], f"{path}.{k}")
+    elif isinstance(tree, tuple):
+        for f, v in zip(getattr(tree, "_fields", range(len(tree))), tree):
+            yield from tensor_leaves(v, f"{path}.{f}")
+
+
+def same_tensors(torch, a, b):
+    """Two trees of states and metrics equal bit for bit: the same tensor
+    leaves (NaN where NaN, the sign of zero included) and round indices."""
+    la, lb = list(tensor_leaves(a)), list(tensor_leaves(b))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return False
+    for (_, x), (_, y) in zip(la, lb):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return False
+        if x.is_floating_point():
+            nan = torch.isnan(x)
+            if not (torch.equal(nan, torch.isnan(y))
+                    and torch.equal(x[~nan].view(torch.uint8), y[~nan].view(torch.uint8))):
+                return False
+        elif not torch.equal(x, y):
+            return False
+    ta = [x.t for x in (a.values() if isinstance(a, dict) else a) if hasattr(x, "_fields")]
+    tb = [x.t for x in (b.values() if isinstance(b, dict) else b) if hasattr(x, "_fields")]
+    return ta == tb
+
+
+def same_fl_run(torch, got, want, label):
+    """A run of a batch against its serial run: the discrete state (AoI,
+    has_update, last_success, staleness, fault carry, bandit counts), the
+    schedule's ``n_success`` and the mean AoI bit for bit; the other floats
+    at JAX's multi-seed tolerances (metrics rtol 1e-6 / atol 1e-6, the rest
+    of the state rtol 1e-5 / atol 1e-6).  Returns (bit for bit?, the largest
+    absolute difference of a float)."""
+    (gs, gm), (ws, wm) = got, want
+    for f in ("aoi", "has_update", "last_success", "staleness", "fault_state"):
+        check(torch.equal(getattr(gs, f), getattr(ws, f)), f"{label}: {f} differs")
+    for f in ("counts", "restarts", "pulls"):
+        if hasattr(ws.sched_state, f):
+            check(torch.equal(getattr(gs.sched_state, f), getattr(ws.sched_state, f)),
+                  f"{label}: scheduler {f} differs")
+    for k in ("n_success", "mean_aoi"):
+        check(torch.equal(gm[k], wm[k]), f"{label}: {k} differs")
+    bitwise, worst = True, 0.0
+    for (path, a), (_, b), tol in [(x, y, (1e-6, 1e-6)) for x, y in
+                                   zip(tensor_leaves(gm), tensor_leaves(wm))] + \
+            [(x, y, (1e-5, 1e-6)) for x, y in zip(tensor_leaves(gs), tensor_leaves(ws))]:
+        same = bool(torch.equal(a, b))
+        bitwise = bitwise and same
+        if not same and a.is_floating_point():
+            diff = float((a.double() - b.double()).abs().max())
+            worst = max(worst, diff)
+            check(torch.allclose(a, b, rtol=tol[0], atol=tol[1]),
+                  f"{label}: {path} beyond rtol {tol[0]} / atol {tol[1]} (abs diff {diff:.2e})")
+    return bitwise, worst
+
+
+def fig34_batched(torch, seed, serial_runs):
+    """Phase 12 (a): ``fig3_fig4_fl``'s ten rows (``benchmarks/run.py:742-786``)
+    at its sizes, ``FL_SEEDS`` seeds a row as one batch, segments ending at
+    ``FL_CHECKPOINTS`` with a per-seed accuracy eval at each.  Seed 0 is
+    the serial run of phases 4 and 9 (same data, uniforms and model);
+    seeds 1.. draw their data from the loader seeds after it and their
+    uniforms from their own generator.  Returns the launches of the batched
+    runs (evals excluded) and the rows' numbers."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core.bandits import (GLRCUCB, ChannelAwareAsync, LyapunovSched, MExp3,
+                                          RandomScheduler)
+    from repro_torch.data import BatchedFederatedLoader
+    from repro_torch.fl import AsyncFLTrainer
+    from repro_torch.sim import simulate_fl_batch
+
+    b = FL_SEEDS
+    counted, rows = [], {}
+    for kind in ("piecewise", "adversarial"):
+        S = (fig3_setup(torch, seed) if kind == "piecewise"
+             else fig3_setup(torch, seed, n=6, m=4, adversarial=True))
+        n, m, rounds = S["n"], S["m"], S["rounds"]
+        loader = BatchedFederatedLoader(S["cx"], S["cy"], batch_size=16, local_epochs=3,
+                                        seeds=[4 + seed + i for i in range(b)])
+        bx, by = loader.next_rounds(rounds)
+        bx, by = torch.from_numpy(bx).cuda(), torch.from_numpy(by).to(torch.int64).cuda()
+        check(torch.equal(bx[0], S["bx"]), f"phase 12 {kind}: seed 0's data is not phase 4's")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+        u = torch.cat([S["uniforms"][None],
+                       torch.rand((b - 1, rounds, 2, n), generator=gen, device="cuda")])
+        table = [("random", RandomScheduler(n, m), False),
+                 ("channel-aware", ChannelAwareAsync(n, m), False),
+                 ("lyapunov", LyapunovSched(n, m), False)]
+        if kind == "piecewise":
+            table += [("glr-cucb", GLRCUCB(n, m, history=256), False),
+                      ("glr-cucb+aware", GLRCUCB(n, m, history=256), True)]
+        else:
+            table += [("m-exp3", MExp3(n, m, share_alpha=1e-3), False),
+                      ("m-exp3+aware", MExp3(n, m, share_alpha=1e-3), True)]
+        for name, sched, match in table:
+            label = f"{kind}/{name}"
+            cfg = dataclasses.replace(S["cfg"], use_matching=match, use_zeta=match)
+            tr = AsyncFLTrainer(cfg, sched, S["env"], S["loss_fn"])
+            states, start, cum_var, curve, secs = tr.init_batch(S["params"], b), 0, 0.0, {}, 0.0
+            seg_launches = []
+            for cp in FL_CHECKPOINTS:
+                reset_launches()
+                (states, mets), dt = timed_run(torch, lambda: simulate_fl_batch(
+                    tr, states, bx[:, start:cp], by[:, start:cp], uniforms=u[:, start:cp]))
+                seg_launches.append(read_launches())
+                secs += dt
+                cum_var = cum_var + mets["aoi_var"].sum(1)
+                seg_mets = mets if start == 0 else {k: torch.cat([seg_mets[k], v], dim=1)
+                                                    for k, v in mets.items()}
+                curve[cp] = S["accuracy_batch"](states.params).cpu().numpy()
+                start = cp
+            launches = {k: sum(p[k] for p in seg_launches) for k in COUNTERS}
+            counted.append(launches)
+            want = dict(weighted_aggregate=rounds, weighted_aggregate_batch=rounds,
+                        glr_step=rounds if isinstance(sched, GLRCUCB) else 0)
+            for k, v in want.items():
+                check(launches[k] == v, f"phase 12 {label}: {k} launched {launches[k]} times "
+                                        f"for the batch of {b}, expected {v}")
+            if label == "piecewise/glr-cucb":
+                ref_tr = AsyncFLTrainer(cfg, sched, S["env"], S["loss_fn"])
+                (st, mt), ref_secs = timed_run(torch, lambda: ref_tr.run(
+                    ref_tr.init(S["params"]), S["bx"], S["by"], uniforms=S["uniforms"]))
+                serial = dict(state=st, mets=mt, secs=ref_secs)
+            else:
+                serial = serial_runs[label]
+            bitwise, worst = same_fl_run(torch, (run_of(states, 0), run_of(seg_mets, 0)),
+                                         (serial["state"], serial["mets"]),
+                                         f"phase 12 {label} seed 0")
+            acc, var = curve[rounds], cum_var.cpu().numpy()
+            check(np.isfinite(acc).all() and np.isfinite(var).all()
+                  and bool(torch.isfinite(seg_mets["local_loss"]).all()),
+                  f"phase 12 {label}: accuracy, AoI variance or loss not finite")
+            ms_round = secs / rounds * 1e3
+            serial_ms = serial["secs"] / rounds * 1e3
+            rows[label] = dict(acc_mean=float(acc.mean()), acc_std=float(acc.std()),
+                               cum_aoi_var_mean=float(var.mean()), cum_aoi_var_std=float(var.std()),
+                               ms_per_round=ms_round, ms_per_run_round=ms_round / b,
+                               serial_ms_per_round=serial_ms, seed0_bitwise=bitwise,
+                               seed0_max_abs_diff=worst)
+            line(f"  (a) fig3/4 {label}: N={n} M={m} matching={match} seeds={b} rounds={rounds} "
+                 f"acc={acc.mean():.4f}+-{acc.std():.4f} (at "
+                 f"{'/'.join(str(c) for c in FL_CHECKPOINTS[:-1])}: "
+                 f"{'/'.join(f'{curve[c].mean():.4f}' for c in FL_CHECKPOINTS[:-1])}) cum_aoi_var="
+                 f"{var.mean():.2f}+-{var.std():.2f}; {ms_round:.4f} ms a round for the batch, "
+                 f"{ms_round / b:.4f} ms a run-round, against {serial_ms:.4f} ms a round of the "
+                 f"serial run ({serial_ms * b / ms_round:.2f}x the run-rounds a second); "
+                 f"launches weighted_aggregate {launches['weighted_aggregate']} (batch "
+                 f"{launches['weighted_aggregate_batch']}), glr_step {launches['glr_step']}; "
+                 f"seed 0 equals the serial run "
+                 + ("(bit for bit)" if bitwise
+                    else f"(max abs diff {worst:.2e}, discrete state bitwise)"))
+        del S, bx, by, u
+    return {k: sum(p[k] for p in counted) for k in COUNTERS}, rows
+
+
+def fl_bench_setup(torch, seed, rounds):
+    """``fl_batch_bench``'s problem (``benchmarks/run.py:794-820``): M = 4,
+    N = 6, the 8 -> 16 -> 10 MLP, E = 1, Bsz = 4, lr 0.1, GLR-CUCB (history
+    128) on a skewed piecewise env with 2 breakpoints; the data of the
+    benchmark's seeds, the weights and env drawn on the card."""
+    import numpy as np
+
+    from repro_torch.core.bandits import GLRCUCB
+    from repro_torch.core.channels import make_piecewise
+    from repro_torch.data import BatchedFederatedLoader, SyntheticClassification, \
+        dirichlet_partition
+    from repro_torch.fl import AsyncFLConfig, AsyncFLTrainer
+
+    m, n, dim, hidden, spc = 4, 6, 8, 16, 48
+    ds = SyntheticClassification(m * spc * 2, n_classes=10, dim=dim, noise=1.0, seed=3 + seed)
+    (trx, try_), (tex, tey) = ds.split(0.9)
+    parts = dirichlet_partition(try_, m, 0.3, seed=3 + seed, min_per_client=spc)
+    cx = np.stack([trx[np.resize(p, spc)] for p in parts])
+    cy = np.stack([try_[np.resize(p, spc)] for p in parts])
+    loader = BatchedFederatedLoader(cx, cy, batch_size=4, local_epochs=1,
+                                    seeds=[4 + seed + i for i in range(FL_SEEDS)])
+    bx, by = loader.next_rounds(rounds)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 13)
+    params = {"w1": torch.randn((dim, hidden), generator=gen, device="cuda") * 0.1,
+              "b1": torch.zeros(hidden, device="cuda"),
+              "w2": torch.randn((hidden, 10), generator=gen, device="cuda") * 0.1,
+              "b2": torch.zeros(10, device="cuda")}
+    means = 0.03 + (0.95 - 0.03) * torch.rand((3, n), generator=gen, device="cuda") ** 4.0
+    env = make_piecewise(means, torch.linspace(0, rounds, 4, device="cuda")[1:-1].to(torch.int64))
+    tex, tey = torch.from_numpy(tex).cuda(), torch.from_numpy(tey).to(torch.int64).cuda()
+
+    def loss_fn(p, x, y):
+        lg = torch.log_softmax(torch.relu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"], dim=-1)
+        return -torch.gather(lg, -1, y[..., None]).mean()
+
+    def accuracy_batch(p):
+        with torch.no_grad():
+            h = torch.relu(torch.matmul(tex, p["w1"]) + p["b1"][:, None])
+            return ((torch.matmul(h, p["w2"]) + p["b2"][:, None]).argmax(-1) == tey).float() \
+                .mean(-1)
+
+    tr = AsyncFLTrainer(AsyncFLConfig(n_clients=m, n_channels=n, local_epochs=1, client_lr=0.1,
+                                      server_lr=0.1), GLRCUCB(n, m, history=128), env, loss_fn)
+    return dict(tr=tr, params=params, bx=torch.from_numpy(bx).cuda(),
+                by=torch.from_numpy(by).to(torch.int64).cuda(), accuracy_batch=accuracy_batch,
+                uniforms=torch.rand((FL_SEEDS, rounds, 2, n), generator=gen, device="cuda"),
+                cx=cx, cy=cy)
+
+
+def fl_batch_bench(torch, seed):
+    """Phase 12 (b): ``fl_batch_bench``'s twin: 8 seeds x 60 rounds in
+    segments of 10 with a metric sync and an accuracy eval at each, serial
+    (seed by seed) against batched, best of 3 each, and the batch-of-1
+    check (``simulate_fl_batch`` on one run equals ``run()`` bit for bit).
+    Returns the launches of one batched pass and the numbers."""
+    from repro_torch.sim import simulate_fl_batch
+    from repro_torch.utils.tree import tree_map
+
+    seg, rounds = FL_BENCH_SEGMENT, FL_BENCH_SEGMENT * FL_BENCH_SEGMENTS
+    B = fl_bench_setup(torch, seed, rounds)
+    tr, bx, by, u = B["tr"], B["bx"], B["by"], B["uniforms"]
+    one = lambda p: tree_map(lambda x: x[None], p)
+
+    def serial_all():
+        for i in range(FL_SEEDS):
+            st, cv = tr.init(B["params"]), 0.0
+            for s0 in range(0, rounds, seg):
+                st, mets = tr.run(st, bx[i, s0:s0 + seg], by[i, s0:s0 + seg],
+                                  uniforms=u[i, s0:s0 + seg])
+                cv += float(mets["aoi_var"].sum())                # a sync a segment
+                float(B["accuracy_batch"](one(st.params))[0])     # the checkpoint eval
+
+    def batched_all():
+        st = tr.init_batch(B["params"], FL_SEEDS)
+        cv = torch.zeros(FL_SEEDS, device="cuda")
+        for s0 in range(0, rounds, seg):
+            st, mets = simulate_fl_batch(tr, st, bx[:, s0:s0 + seg], by[:, s0:s0 + seg],
+                                         uniforms=u[:, s0:s0 + seg])
+            cv += mets["aoi_var"].sum(1)
+            B["accuracy_batch"](st.params).cpu()
+        return cv.cpu()
+
+    serial_all()
+    reset_launches()
+    batched_all()
+    launches = read_launches()
+    check(launches["weighted_aggregate_batch"] == rounds and launches["glr_step"] == rounds,
+          f"phase 12 (b): launches {launches}, expected {rounds} batch launches")
+    serial_s = batched_s = float("inf")
+    for _ in range(3):
+        _, t = timed_run(torch, serial_all)
+        serial_s = min(serial_s, t)
+        _, t = timed_run(torch, batched_all)
+        batched_s = min(batched_s, t)
+    st_s, mets_s = tr.run(tr.init(B["params"]), bx[0], by[0], uniforms=u[0])
+    st_1, mets_1 = simulate_fl_batch(tr, tr.init_batch(B["params"], 1), bx[:1], by[:1],
+                                     uniforms=u[:1])
+    batch1 = same_tensors(torch, (st_s, mets_s), (run_of(st_1, 0), run_of(mets_1, 0)))
+    check(batch1, "phase 12 (b): a batch of 1 is not run() bit for bit")
+    line(f"  (b) fl_batch_bench: M=4 N=6 seeds={FL_SEEDS} rounds={rounds} in segments of {seg}: "
+         f"serial {serial_s:.3f} s, batched {batched_s:.3f} s (best of 3 each), speedup "
+         f"{serial_s / batched_s:.2f}x; batch of 1 equals run() bit for bit: {batch1}")
+    return launches, dict(serial_s=serial_s, batched_s=batched_s, speedup=serial_s / batched_s,
+                          batch1_bitwise=batch1)
+
+
+def chaos_fl(torch, seed):
+    """Phase 12 (c): ``chaos_suite``'s FL half (``benchmarks/run.py:1136-1272``):
+    the clean run and 2 attacks x 4 defenses, 2 seeds each, as one ``sweep``
+    (9 buckets of 2) at its sizes (M = 6, N = 9, a 12-dim linear model, 40
+    rounds), judged by JAX's containment rule on a held-out batch; then the
+    burst grid, two burst schedules over one sign-flip attack with the
+    coordinate median (2 buckets of 1), ``burst/0`` equal to its serial run
+    bit for bit.  Returns the launches and the verdicts."""
+    import numpy as np
+
+    from repro_torch.core.aggregation import make_aggregator
+    from repro_torch.core.bandits import GLRCUCB
+    from repro_torch.core.channels import make_stationary
+    from repro_torch.core.faults import make_fault
+    from repro_torch.fl import AsyncFLConfig, AsyncFLTrainer
+    from repro_torch.sim import FLSweepCase, sweep
+
+    m, n, d, rounds = 6, 9, 12, CHAOS_FL_ROUNDS
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    bx = torch.randn((rounds, m, 1, 4, d), generator=gen, device="cuda")
+    by = bx.sum(-1) * 0.3
+    ex = torch.randn((256, d), generator=gen, device="cuda")
+    ey = ex.sum(-1) * 0.3
+    env = make_stationary(torch.full((n,), 0.8, device="cuda"))
+    params0 = {"w": torch.full((d,), 0.5, device="cuda")}
+
+    def loss_fn(p, x, y):
+        return torch.mean((x @ p["w"] - y) ** 2)
+
+    def mk(faults, aggregator):
+        return AsyncFLTrainer(AsyncFLConfig(n_clients=m, n_channels=n),
+                              GLRCUCB(n, m, history=64), env, loss_fn, faults=faults,
+                              aggregator=aggregator)
+
+    attacks = {"sign_flip": make_fault("sign_flip", rate=0.2, scale=8.0),
+               "inner_product": make_fault("inner_product", rate=0.2, strength=8.0)}
+    defenses = {"mean": None, "trimmed_mean": make_aggregator("trimmed_mean", trim_frac=0.34),
+                "coordinate_median": make_aggregator("coordinate_median"),
+                "norm_clip": make_aggregator("norm_clip", clip_norm=1.0)}
+    cells = [("clean", mk(None, None))] + [(f"{a}+{dn}", mk(f, dfn)) for a, f in attacks.items()
+                                           for dn, dfn in defenses.items()]
+    cases = [FLSweepCase(f"byz/{name}/s{s}", tr, params0, 700 + s, bx, by)
+             for name, tr in cells for s in range(2)]
+    reset_launches()
+    (res, report), secs = timed_run(torch, lambda: sweep(cases, collect_curve=False))
+    launches = read_launches()
+    check(len(report) == len(cells) and all(r.batch == 2 and r.route == "fl" for r in report),
+          f"phase 12 (c): buckets {[(r.batch, r.route) for r in report]}")
+    order_stat = 2 * rounds * 2       # trimmed_mean and coordinate_median, two attacks
+    check(launches["robust_trimmed_batch"] == order_stat
+          and launches["weighted_aggregate_batch"] == (len(cells) - 4) * rounds,
+          f"phase 12 (c): launches {launches}")
+    losses = {name: float(np.mean([float(loss_fn(res[f"byz/{name}/s{s}"]["state"].params, ex, ey))
+                                   for s in range(2)])) for name, _ in cells}
+    clean = losses["clean"]
+    mean_degraded = all(not np.isfinite(losses[f"{a}+mean"]) or losses[f"{a}+mean"] >= 3 * clean
+                        for a in attacks)
+
+    def contains(dn, a):
+        lo, ml = losses[f"{a}+{dn}"], losses[f"{a}+mean"]
+        return np.isfinite(lo) and (not np.isfinite(ml) or lo - clean <= 0.3 * (ml - clean))
+
+    contained = sorted(dn for dn in ("trimmed_mean", "coordinate_median", "norm_clip")
+                       if all(contains(dn, a) for a in attacks))
+    line(f"  (c) chaos FL half: {len(cases)} cases in {len(report)} buckets of 2, one sweep, "
+         f"{secs:.3f} s ({secs / rounds * 1e3:.4f} ms a round for all buckets); eval loss "
+         + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+         + f"; mean_degraded={mean_degraded} contained={','.join(contained) or 'none'} "
+         f"(JAX's record: contained=norm_clip); launches robust_trimmed "
+         f"{launches['robust_trimmed']} (batch {launches['robust_trimmed_batch']}), "
+         f"weighted_aggregate {launches['weighted_aggregate']} "
+         f"(batch {launches['weighted_aggregate_batch']})")
+    check(all(np.isfinite(v) for k, v in losses.items() if not k.endswith("+mean")),
+          "phase 12 (c): a defended or clean run is not finite")
+    check(mean_degraded and "norm_clip" in contained,
+          f"phase 12 (c): verdicts mean_degraded={mean_degraded} contained={contained}, JAX's "
+          "record is mean degraded and norm_clip containing both attacks")
+
+    base = make_fault("sign_flip", rate=0.3, scale=6.0)
+    burst = [mk(make_fault("burst", base=base, p_on=0.15, p_off=0.35),
+                defenses["coordinate_median"]),
+             mk(make_fault("burst", base=base, p_on=0.35, p_off=0.15),
+                defenses["coordinate_median"])]
+    bcases = [FLSweepCase(f"burst/{i}", tr, params0, 800, bx, by) for i, tr in enumerate(burst)]
+    reset_launches()
+    bres, breport = sweep(bcases, collect_curve=False)
+    blaunches = read_launches()
+    st, mets = burst[0].run(burst[0].init(params0), bx, by,
+                            generator=torch.Generator(device="cuda").manual_seed(800))
+    got = bres["burst/0"]
+    same = same_tensors(torch, (st, mets), (got["state"], got["metrics"]))
+    finite = all(bool(torch.isfinite(c["state"].params["w"]).all()) for c in bres.values())
+    check(len(breport) == 2 and same and finite,
+          f"phase 12 (c) burst grid: {len(breport)} buckets, burst/0 bitwise {same}, "
+          f"finite {finite}")
+    line(f"  (c) burst grid: buckets={len(breport)} burst/0 equals its serial run bit for bit: "
+         f"{same}; finite={finite}; robust_trimmed launches {blaunches['robust_trimmed']}")
+    for k in COUNTERS:
+        launches[k] += blaunches[k]
+    return launches, dict(mean_degraded=mean_degraded, contained=contained, losses=losses)
+
+
+def fl_sweep_checks(torch, seed):
+    """Phase 12 (d): ``sweep(shard=True)`` equals ``sweep()`` on an FL bucket
+    bit for bit, and a Gilbert-Elliott process bucket on phase 4's Fig. 3
+    trainer (4 cases, per-case realizations from
+    ``scenario_realize_generator(seed)``), each case against its own serial
+    trainer.  Returns the launches of the sweeps."""
+    from repro_torch.core.channels import make_scenario, scenario_realize_generator
+    from repro_torch.fl import AsyncFLTrainer
+    from repro_torch.sim import FLSweepCase, sweep
+
+    B = fl_bench_setup(torch, seed, 20)
+    cases = [FLSweepCase(f"sh{i}", B["tr"], B["params"], 900 + i, B["bx"][i], B["by"][i])
+             for i in range(3)]
+    reset_launches()
+    plain, _ = sweep(cases)
+    sharded, report = sweep(cases, shard=True)
+    launches = read_launches()
+    check(report[0].sharded and report[0].batch == 3, "phase 12 (d): not sharded")
+    for c in cases:
+        check(same_tensors(torch, plain[c.name], sharded[c.name]),
+              f"phase 12 (d) {c.name}: sharded differs")
+    line("  (d) sweep(shard=True) on an FL bucket of 3 equals sweep() bit for bit ok")
+
+    S = fig3_setup(torch, seed)
+    rounds = min(GE_FL_ROUNDS, S["rounds"])
+    proc = make_scenario("gilbert_elliott", n_channels=S["n"], horizon=S["rounds"])
+    tr = AsyncFLTrainer(S["cfg"], S["sched"], proc, S["loss_fn"],
+                        realize_generator=scenario_realize_generator(0, "cuda"))
+    gcases = [FLSweepCase(f"ge{s}", tr, S["params"], 40 + s, S["bx"][:rounds],
+                          S["by"][:rounds]) for s in range(4)]
+    reset_launches()
+    (res, greport), secs = timed_run(torch, lambda: sweep(gcases))
+    got = read_launches()
+    check(len(greport) == 1 and got["weighted_aggregate_batch"] == rounds
+          and got["glr_step"] == rounds, f"phase 12 (d) gilbert_elliott: {got}")
+    worst = 0.0      # the largest float difference from the serial trainers
+    for c in gcases[:2]:
+        tr_c = AsyncFLTrainer(S["cfg"], S["sched"], proc, S["loss_fn"],
+                              realize_generator=scenario_realize_generator(c.seed, "cuda"))
+        want = tr_c.run(tr_c.init(S["params"]), c.batches_x, c.batches_y,
+                        generator=torch.Generator(device="cuda").manual_seed(c.seed))
+        _, diff = same_fl_run(torch, (res[c.name]["state"], res[c.name]["metrics"]), want,
+                              f"phase 12 (d) {c.name}")
+        worst = max(worst, diff)
+    check(not torch.equal(res["ge0"]["metrics"]["n_success"], res["ge1"]["metrics"]["n_success"]),
+          "phase 12 (d): two cases share one realization")
+    line(f"  (d) gilbert_elliott FL bucket: 4 cases, one bucket, {rounds} rounds in {secs:.3f} s "
+         f"({secs / rounds * 1e3:.4f} ms a round), per-case realizations; cases 0 and 1 equal "
+         f"their serial trainers (max abs diff {worst:.2e}) ok")
+    for k in COUNTERS:
+        launches[k] += got[k]
+    return launches
+
+
+def batched_fl(torch, seed, serial_runs):
+    """Phase 12: the batched FL engine at the JAX benchmark's sizes.
+    Returns the launches of its batched runs and the numbers."""
+    from repro_torch.fl import AsyncFLTrainer
+    from repro_torch.sim import simulate_fl_batch
+
+    t0 = time.perf_counter()
+    a_launches, rows = fig34_batched(torch, seed, serial_runs)
+    b_launches, bench = fl_batch_bench(torch, seed)
+    c_launches, verdicts = chaos_fl(torch, seed)
+    d_launches = fl_sweep_checks(torch, seed)
+    S = fig3_setup(torch, seed)
+    tr = AsyncFLTrainer(S["cfg"], S["sched"], S["env"], S["loss_fn"])
+    states = tr.init_batch(S["params"], FL_SEEDS)
+    bx = S["bx"][:10].expand(FL_SEEDS, *S["bx"][:10].shape)
+    by = S["by"][:10].expand(FL_SEEDS, *S["by"][:10].shape)
+    u = S["uniforms"][:10].expand(FL_SEEDS, *S["uniforms"][:10].shape)
+    profile_window(torch, f"(e) fig3 glr-cucb+aware, a batch of {FL_SEEDS}",
+                   lambda: simulate_fl_batch(tr, states, bx, by, uniforms=u), 10)
+    launches = {k: a_launches[k] + b_launches[k] + c_launches[k] + d_launches[k]
+                for k in COUNTERS}
+    check(launches["weighted_aggregate_batch"] > 0 and launches["robust_trimmed_batch"] > 0
+          and launches["glr_step"] > 0, f"phase 12: a kernel of the slice never launched: "
+                                        f"{launches}")
+    line(f"  phase 12 launches: weighted_aggregate {launches['weighted_aggregate']} (batch "
+         f"{launches['weighted_aggregate_batch']}), robust_trimmed {launches['robust_trimmed']} "
+         f"(batch {launches['robust_trimmed_batch']}), glr_step {launches['glr_step']}; wall "
+         f"{time.perf_counter() - t0:.1f} s")
+    return launches, dict(rows=rows, bench=bench, chaos=verdicts)
+
+
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
-                fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan, reactive_scan):
+                fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan, reactive_scan,
+                agg_batch):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
     (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6, and
     ``glr_step`` the scan's batch form (phase 10's launches, phase 2's error
     against the batched per-round loop, the fill of the card) and its
     reactive template (the paths' launches of it, phase 11 (d)'s Fig. 2 run
-    on a reactive env; bit for bit against the rounds route)."""
+    on a reactive env; bit for bit against the rounds route).  The two
+    Step-4 kernels carry their batch form (``batch``: the paths' batch
+    launches, phase 2's error, row-by-row check and times at (8, 20, 5674)
+    and the large shape)."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -2815,14 +3476,17 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               library_device_ms=wa_t["fig3"]["library_device_ms"],
               host_split_us=wa_t["fig3"]["host_split_us"],
               large=dict(shape=[64, 2 ** 24], **wa_t["large"]),
-              large_ragged=dict(shape=[64, 2 ** 24 + 2], **wa_t["large_ragged"])),
+              large_ragged=dict(shape=[64, 2 ** 24 + 2], **wa_t["large_ragged"]),
+              batch=dict(agg_batch["weighted_aggregate"],
+                         launches=launches["weighted_aggregate_batch"])),
         entry("robust_trimmed", "src/repro/kernels/robust_agg.py:73", rt_err, rt_t["fig3"],
               shape=[20, 5674], turns_ms=rt_t["fig3"]["turns_ms"],
               library_turns_ms=rt_t["fig3"]["library_turns_ms"],
               device_ms=rt_t["fig3"]["device_ms"],
               library_device_ms=rt_t["fig3"]["library_device_ms"],
               host_split_us=rt_t["fig3"]["host_split_us"],
-              large=dict(shape=[64, 2 ** 22 + 3], **rt_t["large"])),
+              large=dict(shape=[64, 2 ** 22 + 3], **rt_t["large"]),
+              batch=dict(agg_batch["robust_trimmed"], launches=launches["robust_trimmed_batch"])),
         entry("glr_scan", "src/repro/kernels/glr_scan.py:70", gs_err, gs_t["fig2"],
               **recompute_scan),
         entry("flash_attention", "src/repro/kernels/flash_attention.py:123", fa_err,
@@ -2843,7 +3507,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-11) only")
+                    help="build the kernels and run the paths (phases 3-12) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -2888,6 +3552,9 @@ def main(argv=None) -> int:
             gst_err, gst_t = check_glr_step_tenants(torch, gst_gen, floor_ms)
             wa_err, wa_t = check_weighted_aggregate(torch, gen, floor_ms)
             rt_err, rt_t = check_robust_trimmed(torch, gen, floor_ms)
+            # its own generator, as glr_step_tenants': the later checks keep their draws
+            agg_batch = check_batched_aggregation(
+                torch, torch.Generator(device="cuda").manual_seed(args.seed + 21), floor_ms)
             gs_err, gs_t = check_glr_scan(torch, gen, floor_ms)
             check_regret_scan(torch, args.seed)
             batch_err = check_regret_scan_batch(torch, args.seed)
@@ -2902,7 +3569,7 @@ def main(argv=None) -> int:
         fig2_launches, f2 = fig2(torch, args.seed)
         line("[4] Fig. 3 asynchronous-FL path")
         S = fig3_setup(torch, args.seed)
-        fig3_launches, clean_acc = fig3(torch, S)
+        fig3_launches, clean_acc, fig3_run = fig3(torch, S)
         line("[5] Fig. 3 path under Byzantine faults, robust aggregation")
         robust_launches = fig3_robust(torch, S, args.seed, clean_acc)
         line("[6] Fig. 2 path, recompute detector")
@@ -2917,7 +3584,7 @@ def main(argv=None) -> int:
         line("[8] the multi-tenant scheduler service")
         sched_launches, _ = sched_serve(torch, args.seed)
         line("[9] the paper's baseline rows: Fig. 2a and Fig. 3/4")
-        baseline_launches, fig2a_refs = baselines(torch, args.seed)
+        baseline_launches, fig2a_refs, fig34_runs = baselines(torch, args.seed)
         line("[10] the batched engine: fig2c, hp_grid, the card's fill, fig2a as one sweep")
         batch_launches, batch_fields = batched_engine(torch, args.seed, chain_us, fig2a_refs)
         del fig2a_refs
@@ -2925,12 +3592,16 @@ def main(argv=None) -> int:
              "chaos suites, Fig. 2 and Fig. 3 on reactive envs")
         family_launches, reactive_fields = channel_families(torch, args.seed, fig2_env, fig2_u,
                                                             chain_us)
+        line("[12] the batched FL engine: Fig. 3/4 at 8 seeds, fl_batch, the chaos FL half")
+        fl_launches, _ = batched_fl(torch, args.seed,
+                                    dict(fig34_runs, **{"piecewise/glr-cucb+aware": fig3_run}))
+        del fig34_runs, fig3_run
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
                  serve_launches, sched_launches, baseline_launches, batch_launches,
-                 family_launches)
+                 family_launches, fl_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
-        check(all(launches[k] > 0
-                  for k in KERNEL_NAMES + ("flash_attention_tc", "regret_scan_reactive")),
+        check(all(launches[k] > 0 for k in KERNEL_NAMES + BATCH_ROUTES
+                  + ("flash_attention_tc", "regret_scan_reactive")),
               f"a kernel never launched: {launches}")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
@@ -2944,7 +3615,7 @@ def main(argv=None) -> int:
                                                 rt_t, gs_err, gs_t, fa_err, fa_t, fig2_scan,
                                                 recompute_scan, gst_err, gst_t,
                                                 dict(batch_fields, max_abs_err=batch_err),
-                                                reactive_fields)}))
+                                                reactive_fields, agg_batch)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

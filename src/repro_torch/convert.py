@@ -145,16 +145,22 @@ def contribution_buffer(src, device=None) -> ContributionBuffer:
 
 def async_fl_state(src, device=None, scheduler=None) -> AsyncFLState:
     """An ``AsyncFLState`` from the JAX trainer's state (its scheduler state
-    and fault-schedule carry included).  ``scheduler`` is the port's policy
-    (default: the state is GLR-CUCB's)."""
+    and fault-schedule carry included), one run's or a batch's (a JAX
+    ``init_batch`` / ``simulate_fl_batch`` state: every leaf (B, ...), the
+    round index one a run, which must agree: the port's is shared).
+    ``scheduler`` is the port's policy (default: the state is GLR-CUCB's)."""
     sched = (glr_cucb_state(src.sched_state, device) if scheduler is None
              else sched_state(scheduler, src.sched_state, device))
+    t = np.unique(np.array(src.t))
+    if t.size != 1:
+        raise ValueError(f"convert.async_fl_state: the runs are at rounds {t.tolist()}; a "
+                         "port batch shares one round index")
     return _fields(AsyncFLState, src, device,
                    params=params(src.params, device),
                    contrib_buf=contribution_buffer(src.contrib_buf, device),
                    sched_state=sched,
                    matcher_state=matcher_state(src.matcher_state, device),
-                   t=int(np.array(src.t)))
+                   t=int(t[0]))
 
 
 def _instance(registry, src, label):

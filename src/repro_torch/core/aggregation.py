@@ -23,8 +23,12 @@ rows into one (P,) step direction.  Families:
 
 ``aggregate(buffers, mask, zeta, n_succ)`` returns the (P,) f32 aggregate
 (the caller applies ``-server_lr / m``).  The trim depths are computed on
-the device from ``n_succ``: nothing waits on the card.  Twin of
-``repro/core/aggregation.py``.
+the device from ``n_succ``: nothing waits on the card.  Every family also
+takes a leading run axis, (B, M, P) buffers with (B, M) mask and zeta and
+(B,) ``n_succ`` -> (B, P), each run's row its own aggregate (one kernel
+launch for the batch), and its knobs may be a ``stack_params`` grid of
+(B,) values, one a run (the JAX package's vmapped aggregator grid).  Twin
+of ``repro/core/aggregation.py``.
 """
 from __future__ import annotations
 
@@ -46,7 +50,8 @@ class Aggregator(TracedHyperParams):
     ``_aggregate(buffers, mask, zeta, n_succ, sp)``: (M, P) quarantine-
     masked buffers, (M,) f32 {0, 1} mask, (M,) zeta, 0-d participant count
     -> (P,) f32, every knob read from ``sp``; zeros when nothing
-    participates.
+    participates.  The same with a leading run axis on every operand (and
+    0-d or (B,) knobs) -> (B, P).
     """
 
     FAMILY: ClassVar[str] = ""
@@ -114,7 +119,7 @@ def example_aggregator(family: str) -> Aggregator:
 # ---------------------------------------------------------------------------
 
 def _mean_scale(buffers, mask, zeta, n_succ):
-    return mask * zeta * (buffers.shape[0] / n_succ.clamp_min(1.0))
+    return mask * zeta * (buffers.shape[-2] / n_succ.clamp_min(1.0))[..., None]
 
 
 def _median_depth(n_succ):
@@ -178,6 +183,7 @@ class NormClipAgg(Aggregator):
 
     def _aggregate(self, buffers, mask, zeta, n_succ, sp):
         x = buffers.to(torch.float32)
-        norms = torch.sqrt((x * x).sum(dim=1))
-        factor = torch.clamp_max(sp["clip_norm"] / norms.clamp_min(1e-12), 1.0)
-        return ops.weighted_aggregate(x * factor[:, None], _mean_scale(buffers, mask, zeta, n_succ))
+        norms = torch.sqrt((x * x).sum(dim=-1))
+        factor = torch.clamp_max(sp["clip_norm"][..., None] / norms.clamp_min(1e-12), 1.0)
+        return ops.weighted_aggregate(x * factor[..., None],
+                                      _mean_scale(buffers, mask, zeta, n_succ))

@@ -45,7 +45,7 @@ Twin of ``repro/core/channels/base.py``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -125,6 +125,14 @@ class ChannelEnv:
                                    breaks=self.breaks.to(device),
                                    table=self.table.to(device), react=self.react.to(device))
 
+    def signature(self) -> Tuple:
+        """What a batch of the engines needs equal: form, score hint and the
+        leaves' shapes and dtypes (a sweep bucket's env key; the values may
+        differ)."""
+        return (self.form, self.score_kind) + tuple(
+            (tuple(x.shape), str(x.dtype)) for x in (self.means, self.breaks, self.table,
+                                                      self.react))
+
     @property
     def n_channels(self) -> int:
         return self.leaf.shape[-1]
@@ -168,21 +176,26 @@ class ChannelEnv:
                 "env.table holds the pre-suppression base means.")
 
     def means_at(self, t: int) -> torch.Tensor:
-        """Instantaneous per-channel success means ``mu_k(t)`` — (N,).
-        Open-loop forms only; a reactive env raises (use ``means_dyn``)."""
+        """Instantaneous per-channel success means ``mu_k(t)`` — (N,), or
+        (B, N) for a stacked env (each row its own env's).  Open-loop forms
+        only; a reactive env raises (use ``means_dyn``)."""
         self._check_open_loop("means_at")
         if self.form == FORM_TABLE:
             self._check_t(t, "means_at")
-            return self.table[t]
-        if self.means.shape[0] == 1:
-            return self.means[0]
-        seg = torch.searchsorted(self.breaks, t, right=True)
-        return self.means[seg]
+            return self.table[..., t, :]
+        if self.means.shape[-2] == 1:
+            return self.means[..., 0, :]
+        if self.means.dim() == 2:
+            seg = torch.searchsorted(self.breaks, t, right=True)
+            return self.means[seg]
+        seg = (self.breaks <= t).sum(dim=-1)     # each run's segment: searchsorted, right
+        return self.means.gather(-2, seg[:, None, None].expand(-1, 1, self.n_channels))[:, 0]
 
     def sample(self, t: int, u: torch.Tensor) -> torch.Tensor:
         """Good/Bad state of all N channels in round ``t`` from the round's
-        (N,) uniform draw ``u`` — (N,) f32 in {0, 1}.  Open-loop forms only;
-        a reactive env raises (use ``sample_dyn``)."""
+        (N,) uniform draw ``u`` — (N,) f32 in {0, 1}; (B, N) for (B, N)
+        draws or a stacked env.  Open-loop forms only; a reactive env
+        raises (use ``sample_dyn``)."""
         self._check_open_loop("sample")
         return (u < self.means_at(t)).to(torch.float32)
 

@@ -9,7 +9,9 @@ The Shapley value (Eq. 32) is approximated with the FedCE-style estimator
 where ``w^{-m}`` / ``grad F(w^{-m})`` are leave-one-out (LOO) aggregates
 over a server-side buffer of the last gradient and parameter vector per
 client (Eq. 41-42); the aggregation weights are the normalized
-contributions (Eq. 43).  All functions take flattened (M, P) matrices.
+contributions (Eq. 43).  All functions take flattened (M, P) matrices, or
+(B, M, P) with a leading run axis (per-client tensors (B, M)): every
+reduction runs over the client or the parameter axis of its own run.
 Twin of ``repro/core/contribution.py`` (``exact_shapley`` is not ported).
 """
 from __future__ import annotations
@@ -31,18 +33,19 @@ class ContributionBuffer(NamedTuple):
     fresh: torch.Tensor     # (M,)   1.0 once a client has ever reported
 
 
-def init_buffer(n_clients: int, n_params: int, device=None) -> ContributionBuffer:
+def init_buffer(n_clients: int, n_params: int, device=None, lead=()) -> ContributionBuffer:
+    """An empty buffer; ``lead`` = (B,) gives one a run."""
     dev = resolve_device(device)
     return ContributionBuffer(
-        grads=torch.zeros((n_clients, n_params), device=dev),
-        params=torch.zeros((n_clients, n_params), device=dev),
-        fresh=torch.zeros((n_clients,), device=dev),
+        grads=torch.zeros(lead + (n_clients, n_params), device=dev),
+        params=torch.zeros(lead + (n_clients, n_params), device=dev),
+        fresh=torch.zeros(lead + (n_clients,), device=dev),
     )
 
 
 def update_buffer(buf: ContributionBuffer, success: torch.Tensor,
                   new_grads: torch.Tensor, new_params: torch.Tensor) -> ContributionBuffer:
-    s = success.to(torch.float32)[:, None]
+    s = success.to(torch.float32)[..., None]
     return ContributionBuffer(
         grads=buf.grads * (1.0 - s) + new_grads * s,
         params=buf.params * (1.0 - s) + new_params * s,
@@ -59,11 +62,11 @@ def _cosine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def loo_aggregates(buf: ContributionBuffer, weights: torch.Tensor):
     """Leave-one-out weighted aggregates for every client at once:
     g^{-m} = (sum_i zeta_i g_i - zeta_m g_m) / (1 - zeta_m).
-    Returns (grads^{-m} (M, P), params^{-m} (M, P))."""
-    w = (weights * buf.fresh)[:, None]                   # ignore never-seen clients
-    wsum = w.sum().clamp_min(_EPS)
-    g_tot = (w * buf.grads).sum(dim=0, keepdim=True)
-    p_tot = (w * buf.params).sum(dim=0, keepdim=True)
+    Returns (grads^{-m} (M, P), params^{-m} (M, P)), or (B, M, P)."""
+    w = (weights * buf.fresh)[..., None]                 # ignore never-seen clients
+    wsum = w.sum(dim=-2, keepdim=True).clamp_min(_EPS)
+    g_tot = (w * buf.grads).sum(dim=-2, keepdim=True)
+    p_tot = (w * buf.params).sum(dim=-2, keepdim=True)
     denom = (wsum - w).clamp_min(_EPS)
     return (g_tot - w * buf.grads) / denom, (p_tot - w * buf.params) / denom
 
@@ -76,18 +79,23 @@ def marginal_contribution(buf: ContributionBuffer, weights: torch.Tensor,
     g_loo, p_loo = loo_aggregates(buf, weights)
     gamma_cos = 1.0 - _cosine(buf.grads, g_loo)          # Eq. 34: in [0, 2]
     if proxy_loss_fn is not None:
-        gamma_err = torch.func.vmap(proxy_loss_fn)(p_loo)    # Eq. 35
+        loss = torch.func.vmap(proxy_loss_fn)                # Eq. 35, over the clients
+        for _ in range(p_loo.dim() - 2):                     # and over the runs
+            loss = torch.func.vmap(loss)
+        gamma_err = loss(p_loo)
     else:
         gamma_err = torch.ones_like(gamma_cos)
     contrib = gamma_cos * gamma_err
-    # never-seen clients get the mean contribution (uninformative prior)
+    # never-seen clients get their run's mean contribution (uninformative prior)
     seen = buf.fresh > 0.5
-    fill = torch.where(seen, contrib, 0.0).sum() / seen.sum().to(torch.float32).clamp_min(1.0)
-    fill = torch.where(seen.any(), fill, 1.0)
+    n_seen = seen.sum(dim=-1, keepdim=True).to(torch.float32).clamp_min(1.0)
+    fill = torch.where(seen, contrib, 0.0).sum(dim=-1, keepdim=True) / n_seen
+    fill = torch.where(seen.any(dim=-1, keepdim=True), fill, 1.0)
     return torch.where(seen, contrib, fill)
 
 
 def aggregation_weights(contrib: torch.Tensor) -> torch.Tensor:
-    """Eq. 43: zeta_m = C~_m / sum_l C~_l (clipped to a valid simplex point)."""
+    """Eq. 43: zeta_m = C~_m / sum_l C~_l (clipped to a valid simplex point),
+    over each run's clients."""
     c = contrib.clamp_min(_EPS)
-    return c / c.sum()
+    return c / c.sum(dim=-1, keepdim=True)

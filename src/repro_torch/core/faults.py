@@ -36,7 +36,11 @@ uniforms stand for these draws (a Bernoulli draw there is
 Every comparison ``u < rate`` is against the f32 knob from ``params()``,
 as JAX compares against its f32 ``params()`` leaf.  ``inject(u, t,
 updates)`` returns ``(updates', dropped)`` with ``dropped`` the (M,) f32
-{0, 1} unavailability mask.  Twin of ``repro/core/faults.py``.
+{0, 1} unavailability mask.  Every family also takes a leading run axis:
+(B, M, P) updates, (B, K) uniforms and a (B,) schedule carry, each run
+injected as it would be alone; the knobs may be a ``stack_params`` grid of
+(B,) values, one a run (the JAX package's vmapped fault grid).  Twin of
+``repro/core/faults.py``.
 """
 from __future__ import annotations
 
@@ -88,20 +92,22 @@ class FaultProcess(TracedHyperParams):
         return out, dropped, fstate
 
     def _checked(self, u, updates, params):
-        k = self.n_uniforms(updates.shape[0])
-        if tuple(u.shape) != (k,):
+        m = updates.shape[-2]
+        want = tuple(updates.shape[:-2]) + (self.n_uniforms(m),)
+        if tuple(u.shape) != want:
             raise ValueError(
-                f"{type(self).__name__}: a round takes ({k},) uniforms for "
-                f"{updates.shape[0]} clients, got {tuple(u.shape)}")
+                f"{type(self).__name__}: a round takes {want} uniforms for "
+                f"{m} clients, got {tuple(u.shape)}")
         return params if params else self.params(updates.device)
 
     def inject(self, u: torch.Tensor, t: int, updates: torch.Tensor,
                params: Optional[Dict] = None):
-        """Apply the family to a round's fresh (M, P) updates from the
-        initial schedule state; returns ``(updates', dropped)``."""
+        """Apply the family to a round's fresh (M, P) updates (or (B, M, P)
+        with (B, K) uniforms) from the initial schedule state; returns
+        ``(updates', dropped)``."""
         sp = self._checked(u, updates, params)
-        out, dropped, _ = self._inject_sched(
-            u, t, updates, self.schedule_init(updates.device), sp)
+        fstate = self.schedule_init(updates.device).expand(updates.shape[:-2])
+        out, dropped, _ = self._inject_sched(u, t, updates, fstate, sp)
         return out, dropped
 
     def inject_sched(self, u: torch.Tensor, t: int, updates: torch.Tensor,
@@ -159,7 +165,7 @@ def example_fault(family: str) -> FaultProcess:
 # ---------------------------------------------------------------------------
 
 def _zeros(updates):
-    return torch.zeros((updates.shape[0],), dtype=torch.float32, device=updates.device)
+    return torch.zeros(updates.shape[:-1], dtype=torch.float32, device=updates.device)
 
 
 @register_fault
@@ -173,7 +179,7 @@ class DropoutFaults(FaultProcess):
     TRACED = ("rate",)
 
     def _inject(self, u, t, updates, sp):
-        return updates, _bernoulli(u, sp["rate"]).to(torch.float32)
+        return updates, _bernoulli(u, sp["rate"][..., None]).to(torch.float32)
 
 
 @register_fault
@@ -192,11 +198,11 @@ class NaNGradFaults(FaultProcess):
         return 2 * m
 
     def _inject(self, u, t, updates, sp):
-        m = updates.shape[0]
-        hit = _bernoulli(u[:m], sp["rate"])
-        use_inf = _bernoulli(u[m:], sp["inf_frac"])
+        m = updates.shape[-2]
+        hit = _bernoulli(u[..., :m], sp["rate"][..., None])
+        use_inf = _bernoulli(u[..., m:], sp["inf_frac"][..., None])
         bad = torch.where(use_inf, torch.inf, torch.nan).to(updates.dtype)
-        return torch.where(hit[:, None], bad[:, None], updates), _zeros(updates)
+        return torch.where(hit[..., None], bad[..., None], updates), _zeros(updates)
 
 
 @register_fault
@@ -211,9 +217,9 @@ class ByteFlipFaults(FaultProcess):
     TRACED = ("rate", "exponent")
 
     def _inject(self, u, t, updates, sp):
-        hit = _bernoulli(u, sp["rate"])
-        factor = torch.where(hit, torch.exp2(sp["exponent"]), 1.0)
-        return updates * factor[:, None], _zeros(updates)
+        hit = _bernoulli(u, sp["rate"][..., None])
+        factor = torch.where(hit, torch.exp2(sp["exponent"][..., None]), 1.0)
+        return updates * factor[..., None], _zeros(updates)
 
 
 @register_fault
@@ -228,9 +234,9 @@ class SignFlipFaults(FaultProcess):
     TRACED = ("rate", "scale")
 
     def _inject(self, u, t, updates, sp):
-        hit = _bernoulli(u, sp["rate"])
-        factor = torch.where(hit, -sp["scale"], 1.0)
-        return updates * factor[:, None], _zeros(updates)
+        hit = _bernoulli(u, sp["rate"][..., None])
+        factor = torch.where(hit, -sp["scale"][..., None], 1.0)
+        return updates * factor[..., None], _zeros(updates)
 
 
 @register_fault
@@ -246,12 +252,12 @@ class InnerProductFaults(FaultProcess):
     TRACED = ("rate", "strength")
 
     def _inject(self, u, t, updates, sp):
-        hit = _bernoulli(u, sp["rate"])
+        hit = _bernoulli(u, sp["rate"][..., None])
         honest = (~hit).to(torch.float32)
-        n_honest = honest.sum().clamp_min(1.0)
-        mean_honest = (updates.to(torch.float32) * honest[:, None]).sum(dim=0) / n_honest
-        attack = -sp["strength"] * mean_honest
-        out = torch.where(hit[:, None], attack[None, :].to(updates.dtype), updates)
+        n_honest = honest.sum(dim=-1, keepdim=True).clamp_min(1.0)
+        mean_honest = (updates.to(torch.float32) * honest[..., None]).sum(dim=-2) / n_honest
+        attack = -sp["strength"][..., None] * mean_honest
+        out = torch.where(hit[..., None], attack[..., None, :].to(updates.dtype), updates)
         return out, _zeros(updates)
 
 
@@ -293,7 +299,7 @@ class BurstFaults(FaultProcess):
         mod = torch.where(on, sp["on_scale"], sp["off_scale"])
         bp = dict(sp["base"])
         bp["rate"] = (bp["rate"] * mod).clamp(0.0, 1.0)
-        out, dropped = self.base._inject(u[1:], t, updates, bp)
+        out, dropped = self.base._inject(u[..., 1:], t, updates, bp)
         p_flip = torch.where(on, sp["p_off"].clamp(0.0, 1.0), sp["p_on"].clamp(0.0, 1.0))
-        nxt = torch.where(u[0] < p_flip, 1.0 - fstate, fstate)
+        nxt = torch.where(u[..., 0] < p_flip, 1.0 - fstate, fstate)
         return out, dropped, nxt

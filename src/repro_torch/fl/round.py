@@ -39,8 +39,18 @@ draws on ``fold_in(key, 0xFA17)`` (see ``repro_torch.core.faults``).
 instead; the trainer owns the env, so a reactive env's loop closes there
 too.  The env may be handed in unrealized (a ``ChannelProcess``): the
 trainer realizes it from ``realize_generator``, the twin of JAX's
-``realize_key``, and keeps the process as ``scenario``.  Twin of
-``repro/fl/round.py``; the batched FL engine is not ported.
+``realize_key``, and keeps the process as ``scenario``.
+
+The run axis.  ``round`` and ``run`` also take a batch of B independent
+runs: a state from ``init_batch`` (every tensor leaf (B, ...), the
+round index shared), (B, ...) data and uniforms.  It is the same round:
+every per-client tensor is (B, M), every reduction runs over the client
+or parameter axis of its own run, local SGD maps the runs around the
+client map, and Step 4 is one batched kernel launch for the whole batch.
+The env is an operand of the round (``_round``/``_run``): the trainer's
+own, or a stacked env (``stack_envs``), one a run, from the batched FL
+engine (``repro_torch.sim.simulate_fl_batch``), which sweep buckets of
+equal ``bucket_signature()`` run through.  Twin of ``repro/fl/round.py``.
 """
 from __future__ import annotations
 
@@ -52,6 +62,7 @@ import torch
 
 from repro_torch.core.aggregation import MeanAgg
 from repro_torch.core.aoi import aoi_variance, init_aoi, mean_aoi, update_aoi
+from repro_torch.core.bandits.base import init_batch as init_sched_batch
 from repro_torch.core.bandits.base import init_with_hp
 from repro_torch.core.channels import ChannelEnv, ChannelProcess
 from repro_torch.core.contribution import (
@@ -63,9 +74,9 @@ from repro_torch.core.contribution import (
 )
 from repro_torch.core.matching import AdaptiveMatcher, MatcherState, matcher_scores
 from repro_torch.device import resolve_device
-from repro_torch.fl.client import local_sgd
+from repro_torch.fl.client import local_updates
 from repro_torch.sim.serve import ServeRequest
-from repro_torch.utils.tree import tree_flatten_concat, tree_unflatten_concat
+from repro_torch.utils.tree import tree_flatten_concat, tree_map, tree_unflatten_concat
 
 _MEAN = MeanAgg()
 
@@ -75,11 +86,26 @@ def dispatch_aggregate(aggregator, buffers, mask, zeta, n_succ, params=None):
     ``Aggregator`` with its knobs ``params`` (default ``params()``);
     ``aggregator=None`` is ``MeanAgg``, the zeta-weighted masked mean of
     Eq. 7.  ``buffers`` arrive quarantine-masked; returns the (P,) f32
-    aggregate, zeros when nothing participates."""
+    aggregate, zeros when nothing participates ((B, P) for a batch)."""
     return (aggregator or _MEAN).aggregate(buffers, mask, zeta, n_succ, params)
 
 
+def _lead(state) -> Tuple[int, ...]:
+    """The state's run axis: () for one run, (B,) for a batch."""
+    return tuple(state.aoi.shape[:-1])
+
+
+def _over(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (B,) or 0-d per-run value shaped to broadcast against ``like``
+    (B, ...) or (...)."""
+    return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
+
+
 class AsyncFLState(NamedTuple):
+    """One run's state; with a run axis (``init_batch``) every tensor leaf
+    has a leading (B,) (a shared hyper-parameter of the scheduler stays
+    0-d) and ``t`` is shared."""
+
     params: Dict[str, torch.Tensor]  # global model w_t
     buffers: torch.Tensor            # (M, P) flattened G~_i (Eq. 6)
     has_update: torch.Tensor         # (M,) G~ validity
@@ -176,6 +202,20 @@ class AsyncFLTrainer:
         """f32 uniforms the fault family consumes a round (0 without one)."""
         return 0 if self.faults is None else self.faults.n_uniforms(self.cfg.n_clients)
 
+    def bucket_signature(self) -> Tuple:
+        """What two trainers must share to run as one batch: the config,
+        the scheduler's ``hp_signature`` (its traced scalars may differ:
+        they ride the batch's hyper-parameter axis), the env's form and
+        shapes (or the scenario's ``env_signature``: the values may differ,
+        envs are stacked), the identity of the loss and proxy functions,
+        and the fault and aggregator instances (compared by value)."""
+        sig = getattr(self.scheduler, "hp_signature", None)
+        sched_sig = sig() if sig is not None else self.scheduler
+        env_sig = (("scenario",) + self.scenario.env_signature() if self.scenario is not None
+                   else self.env.signature())
+        return ("async_fl", self.cfg, sched_sig, env_sig, self.loss_fn, self.proxy_loss_fn,
+                self.faults, self.aggregator)
+
     # ------------------------------------------------------------------ init
     def init(self, params: Dict[str, Any], hp: Any = None) -> AsyncFLState:
         dev, m = self.device, self.cfg.n_clients
@@ -199,24 +239,47 @@ class AsyncFLTrainer:
                          else torch.zeros((), device=dev)),
         )
 
+    def init_batch(self, params: Dict[str, Any], batch: int, params_axis: Optional[int] = None,
+                   hp: Any = None, hp_axis: Optional[int] = None) -> AsyncFLState:
+        """The state of ``batch`` independent runs, the input of the batched
+        FL engine: ``init``'s state with a leading (B,) on every tensor leaf.
+        ``params`` is one model shared by every run (``params_axis=None``)
+        or stacked, one a run (``params_axis=0``).  ``hp`` overrides the
+        scheduler's hyper-parameters: one ``params()`` dict for every run
+        (``hp_axis=None``) or a ``stack_params`` grid of (B,) values
+        (``hp_axis=0``), which turns the batch into a tuning axis."""
+        for name, axis in (("params_axis", params_axis), ("hp_axis", hp_axis)):
+            if axis not in (0, None):
+                raise ValueError(f"init_batch: {name} is 0 or None, got {axis}")
+        if hp_axis == 0 and not hp:
+            raise ValueError("init_batch: hp_axis=0 needs an hp grid (stack_params)")
+        dev = self.device
+        params = {k: torch.as_tensor(v).to(dev) for k, v in params.items()}
+        if params_axis == 0:
+            bad = {k: tuple(v.shape) for k, v in params.items() if v.shape[:1] != (batch,)}
+            if bad:
+                raise ValueError(f"init_batch: params_axis=0 takes ({batch}, ...) leaves, "
+                                 f"got {bad}")
+        one = self.init({k: v[0] for k, v in params.items()} if params_axis == 0 else params)
+
+        def rows(x):
+            return x.unsqueeze(0).repeat(batch, *([1] * x.dim()))
+
+        return one._replace(
+            params=params if params_axis == 0 else {k: rows(v) for k, v in params.items()},
+            sched_state=init_sched_batch(self.scheduler, batch, dev, hp),
+            **{f: tree_map(rows, getattr(one, f)) for f in AsyncFLState._fields
+               if f not in ("params", "sched_state", "t")})
+
     # ------------------------------------------------------------------ round
-    def _local_updates(self, params, batches_x, batches_y):
-        """Steps 1-2 for every client: (M, P) flattened G~ and (M,) losses."""
-        lr = self.cfg.client_lr
-
-        def one_client(bx, by):
-            g, loss = local_sgd(self.loss_fn, params, bx, by, lr)
-            return tree_flatten_concat(g), loss
-
-        return torch.func.vmap(one_client)(batches_x, batches_y)
-
-    def _round_pre(self, state: AsyncFLState, batches_x, batches_y, u_env, u_fault):
+    def _round_pre(self, state: AsyncFLState, batches_x, batches_y, u_env, u_fault, env):
         """Steps 1-2, the Eq.-6 carry and the round's channel realization:
         everything before the schedule is decided."""
         dev = self.device
         # ---- Steps 1-2: local training for clients in S_{t-1} ------------
-        fresh_updates, local_losses = self._local_updates(state.params, batches_x.to(dev),
-                                                          batches_y.to(dev))
+        fresh_updates, local_losses = local_updates(
+            self.loss_fn, state.params, batches_x.to(dev), batches_y.to(dev),
+            self.cfg.client_lr, batched=bool(_lead(state)))
 
         # ---- fault injection: between training and the Eq.-6 carry ---------
         # A dropped client neither refreshes its buffer nor transmits; the
@@ -232,57 +295,58 @@ class AsyncFLTrainer:
         # Eq. 6 via `where`: a corrupted fresh row must not leak NaN into an
         # inactive client's kept buffer (0 * NaN)
         return _RoundPre(
-            buffers=torch.where(active[:, None] > 0.5, fresh_updates, state.buffers),
+            buffers=torch.where(active[..., None] > 0.5, fresh_updates, state.buffers),
             has_update=torch.maximum(state.has_update, active),
             staleness=torch.where(active > 0.5, 1.0, state.staleness + 1.0),
             active=active, dropped=dropped, local_losses=local_losses,
-            ch_states=self.env.sample_dyn(state.t, u_env.to(dev), state.env_state),
+            ch_states=env.sample_dyn(state.t, u_env.to(dev), state.env_state),
             fault_state=fault_state)
 
     def _round_post(self, state: AsyncFLState, pre: "_RoundPre", assignment, matcher_state,
-                    sched_state) -> Tuple[AsyncFLState, Dict[str, torch.Tensor]]:
+                    sched_state, env) -> Tuple[AsyncFLState, Dict[str, torch.Tensor]]:
         """Step 3 after the decision (transmit), Step 4 and the bookkeeping,
         given the round's ``assignment``, post-step matcher state and
         scheduler state."""
         cfg, dev = self.cfg, self.device
         m, n, t = cfg.n_clients, cfg.n_channels, state.t
+        lead = _lead(state)
         buffers, has_update, staleness = pre.buffers, pre.has_update, pre.staleness
-        sched_mask = torch.zeros((n,), device=dev).index_fill(0, assignment, 1.0)
-        env_state = self.env.interact_step(state.env_state, t, sched_mask)
-        success = (pre.ch_states[assignment] > 0.5).to(torch.float32)
+        sched_mask = torch.zeros(lead + (n,), device=dev).scatter_(-1, assignment, 1.0)
+        env_state = env.interact_step(state.env_state, t, sched_mask)
+        success = (pre.ch_states.gather(-1, assignment) > 0.5).to(torch.float32)
         success = success * has_update        # a client with no update yet can't help
         if pre.dropped is not None:
             success = success * (1.0 - pre.dropped)   # and a dropped one can't transmit
 
         # ---- Step 4: quarantine gate + aggregate (Eq. 7, CUDA kernel) -------
         if cfg.quarantine:
-            row_ok = torch.isfinite(buffers).all(dim=1)
+            row_ok = torch.isfinite(buffers).all(dim=-1)
             if cfg.max_update_norm > 0.0:
-                row_ok = row_ok & (torch.linalg.vector_norm(buffers, dim=1)
+                row_ok = row_ok & (torch.linalg.vector_norm(buffers, dim=-1)
                                    <= cfg.max_update_norm)
             row_ok = row_ok.to(torch.float32)
         else:
-            row_ok = torch.ones((m,), device=dev)
+            row_ok = torch.ones(lead + (m,), device=dev)
         if cfg.staleness_cap > 0:
             fresh_ok = (staleness <= float(cfg.staleness_cap)).to(torch.float32)
         else:
-            fresh_ok = torch.ones((m,), device=dev)
+            fresh_ok = torch.ones(lead + (m,), device=dev)
         agg_mask = success * row_ok * fresh_ok
-        n_succ = agg_mask.sum()
+        n_succ = agg_mask.sum(dim=-1)
 
-        zeta = state.zeta if cfg.use_zeta else torch.full((m,), 1.0 / m, device=dev)
+        zeta = state.zeta if cfg.use_zeta else torch.full(lead + (m,), 1.0 / m, device=dev)
         if cfg.quarantine:
             # zero quarantined rows BEFORE the aggregator: 0 * NaN = NaN
-            agg_buffers = torch.where(agg_mask[:, None] > 0.5, buffers, 0.0)
+            agg_buffers = torch.where(agg_mask[..., None] > 0.5, buffers, 0.0)
         else:
             agg_buffers = buffers
         agg_flat = dispatch_aggregate(self.aggregator, agg_buffers, agg_mask, zeta, n_succ,
-                                      self._agg_params)  # (P,) f32
+                                      self._agg_params)  # (P,) or (B, P) f32
         step_vec = -cfg.server_lr / m * agg_flat
-        delta = tree_unflatten_concat(step_vec, state.params)
+        delta = tree_unflatten_concat(step_vec, state.params, len(lead))
         if cfg.quarantine:
             any_agg = n_succ > 0.0
-            params = {k: torch.where(any_agg, p_ + delta[k].to(p_.dtype), p_)
+            params = {k: torch.where(_over(any_agg, p_), p_ + delta[k].to(p_.dtype), p_)
                       for k, p_ in state.params.items()}
         else:
             params = {k: p_ + delta[k].to(p_.dtype) for k, p_ in state.params.items()}
@@ -296,9 +360,9 @@ class AsyncFLTrainer:
 
         # ---- bookkeeping: AoI, contribution, zeta ---------------------------
         aoi = update_aoi(state.aoi, agg_mask > 0.5)
-        params_flat = tree_flatten_concat(params)
+        params_flat = tree_flatten_concat(params, len(lead))
         contrib_buf = update_buffer(state.contrib_buf, agg_mask > 0.5, agg_buffers,
-                                    params_flat.expand_as(buffers))
+                                    params_flat[..., None, :].expand_as(buffers))
         contrib = marginal_contribution(contrib_buf, zeta, self.proxy_loss_fn)
         new_zeta = aggregation_weights(contrib)
 
@@ -313,17 +377,17 @@ class AsyncFLTrainer:
         loss_ok = torch.isfinite(pre.local_losses).to(torch.float32)
         loss_w = pre.active * loss_ok
         metrics = {
-            "local_loss": (torch.where(loss_ok > 0.5, pre.local_losses, 0.0) * pre.active).sum()
-            / loss_w.sum().clamp_min(1.0),
+            "local_loss": (torch.where(loss_ok > 0.5, pre.local_losses, 0.0) * pre.active
+                           ).sum(dim=-1) / loss_w.sum(dim=-1).clamp_min(1.0),
             "n_success": n_succ,
             "mean_aoi": mean_aoi(aoi),
             "aoi_var": aoi_variance(aoi),
             "beta_t": matcher_state.beta_t,
-            "zeta_max": new_zeta.max(),
+            "zeta_max": new_zeta.amax(dim=-1),
         }
         return new_state, metrics
 
-    def _draw(self, generator, u_env, u_sel, u_fault, caller: str):
+    def _draw(self, generator, u_env, u_sel, u_fault, caller: str, lead=()):
         """The round's uniforms: as given, else drawn from ``generator``
         in the order u_env, u_sel, u_fault."""
         n, k = self.cfg.n_channels, self.n_fault_uniforms()
@@ -334,15 +398,16 @@ class AsyncFLTrainer:
         if not k and u_fault is not None:
             raise ValueError(f"{caller}: u_fault given to a trainer without faults")
         if u_env is None:
-            u_env, u_sel = torch.rand((2, n), generator=generator, device=self.device)
+            u_env, u_sel = torch.rand(lead + (2, n), generator=generator,
+                                      device=self.device).unbind(-2)
             if k:
-                u_fault = torch.rand((k,), generator=generator, device=self.device)
+                u_fault = torch.rand(lead + (k,), generator=generator, device=self.device)
         return u_env, u_sel, u_fault
 
     def round(
         self,
         state: AsyncFLState,
-        batches_x: torch.Tensor,    # (M, E, B, ...)
+        batches_x: torch.Tensor,    # (M, E, B, ...), or (B, M, E, B, ...) for a batch
         batches_y: torch.Tensor,    # (M, E, B)
         generator: Optional[torch.Generator] = None,
         u_env: Optional[torch.Tensor] = None,
@@ -352,30 +417,68 @@ class AsyncFLTrainer:
         """One round.  The round's randomness is ``u_env``/``u_sel`` ((N,)
         uniforms) and, with ``faults``, ``u_fault`` ((K,) uniforms,
         ``K = n_fault_uniforms()``) when given, else drawn from
-        ``generator`` in that order."""
-        u_env, u_sel, u_fault = self._draw(generator, u_env, u_sel, u_fault, "round")
-        pre = self._round_pre(state, batches_x, batches_y, u_env, u_fault)
+        ``generator`` in that order.  A batched state (``init_batch``) takes
+        (B, ...) data and (B, N) / (B, K) uniforms and gives (B,) metrics."""
+        u_env, u_sel, u_fault = self._draw(generator, u_env, u_sel, u_fault, "round",
+                                           _lead(state))
+        return self._round(state, batches_x, batches_y, u_env, u_sel, u_fault, self.env)
+
+    def _round(self, state, batches_x, batches_y, u_env, u_sel, u_fault, env):
+        """One round against ``env`` (the trainer's, or a stacked env for a
+        batch), with or without a run axis."""
+        pre = self._round_pre(state, batches_x, batches_y, u_env, u_fault, env)
 
         # ---- Step 3: schedule + match ---------------------------------------
         t = state.t
         channels, aux = self.scheduler.select(state.sched_state, t, u_sel, state.aoi)
         matcher = AdaptiveMatcher(self.cfg.matcher_beta)
         if self.cfg.use_matching:
-            scores = matcher_scores(self.scheduler, state.sched_state, t, self.env)
+            scores = matcher_scores(self.scheduler, state.sched_state, t, env)
             assignment, matcher_state = matcher.match(
                 state.matcher_state, channels, scores, state.contrib, state.aoi)
         else:
             assignment = channels
             _, matcher_state = matcher.priorities(state.matcher_state, state.contrib, state.aoi)
-        rewards = pre.ch_states[assignment]
+        rewards = pre.ch_states.gather(-1, assignment)
         sched_state = self.scheduler.update(state.sched_state, t, assignment, rewards, aux)
-        return self._round_post(state, pre, assignment, matcher_state, sched_state)
+        return self._round_post(state, pre, assignment, matcher_state, sched_state, env)
 
     # ------------------------------------------------------------------ run
+    def _operands(self, state, batches_x, batches_y, generator, uniforms, fault_uniforms,
+                  caller: str):
+        """``run``'s checks: the rounds' data and uniforms, ``uniforms`` and
+        ``fault_uniforms`` drawn from ``generator`` (in that order) when
+        not given.  Returns (R, uniforms, fault_uniforms)."""
+        lead, n, k = _lead(state), self.cfg.n_channels, self.n_fault_uniforms()
+        r = int(batches_x.shape[len(lead)])
+        if tuple(batches_x.shape[:len(lead)]) != lead:
+            raise ValueError(f"{caller}: batches_x must lead with the run axis {lead}, "
+                             f"got {tuple(batches_x.shape)}")
+        if tuple(batches_y.shape[:len(lead) + 1]) != lead + (r,):
+            raise ValueError(f"{caller}: batches_y leading axes {tuple(batches_y.shape)} != "
+                             f"{lead + (r,)}")
+        if k and (uniforms is None) != (fault_uniforms is None):
+            raise ValueError(f"{caller}: with faults, pass uniforms and fault_uniforms, "
+                             "or neither")
+        if not k and fault_uniforms is not None:
+            raise ValueError(f"{caller}: fault_uniforms given to a trainer without faults")
+        if uniforms is None:
+            uniforms = torch.rand(lead + (r, 2, n), generator=generator, device=self.device)
+            if k:
+                fault_uniforms = torch.rand(lead + (r, k), generator=generator,
+                                            device=self.device)
+        elif tuple(uniforms.shape) != lead + (r, 2, n):
+            raise ValueError(f"{caller}: uniforms must be {lead + (r, 2, n)}, "
+                             f"got {tuple(uniforms.shape)}")
+        if k and tuple(fault_uniforms.shape) != lead + (r, k):
+            raise ValueError(f"{caller}: fault_uniforms must be {lead + (r, k)}, "
+                             f"got {tuple(fault_uniforms.shape)}")
+        return r, uniforms, fault_uniforms
+
     def run(
         self,
         state: AsyncFLState,
-        batches_x: torch.Tensor,    # (R, M, E, B, ...)
+        batches_x: torch.Tensor,    # (R, M, E, B, ...), or (B, R, M, E, B, ...) for a batch
         batches_y: torch.Tensor,    # (R, M, E, B)
         generator: Optional[torch.Generator] = None,
         uniforms: Optional[torch.Tensor] = None,   # (R, 2, N)
@@ -384,30 +487,30 @@ class AsyncFLTrainer:
         """``R`` sequential rounds; metrics come back stacked as (R,) tensors.
         Round r uses ``uniforms[r, 0]`` / ``uniforms[r, 1]`` and, with
         ``faults``, ``fault_uniforms[r]`` (K = ``n_fault_uniforms()``) when
-        given; with neither, both are drawn from ``generator``."""
-        r, n, k = int(batches_x.shape[0]), self.cfg.n_channels, self.n_fault_uniforms()
-        if int(batches_y.shape[0]) != r:
-            raise ValueError(f"run: batches_y leading axis {batches_y.shape[0]} != {r}")
-        if k and (uniforms is None) != (fault_uniforms is None):
-            raise ValueError("run: with faults, pass uniforms and fault_uniforms, or neither")
-        if not k and fault_uniforms is not None:
-            raise ValueError("run: fault_uniforms given to a trainer without faults")
-        if uniforms is None:
-            uniforms = torch.rand((r, 2, n), generator=generator, device=self.device)
-            if k:
-                fault_uniforms = torch.rand((r, k), generator=generator, device=self.device)
-        elif tuple(uniforms.shape) != (r, 2, n):
-            raise ValueError(f"run: uniforms must be ({r}, 2, {n}), got {tuple(uniforms.shape)}")
-        if k and tuple(fault_uniforms.shape) != (r, k):
-            raise ValueError(
-                f"run: fault_uniforms must be ({r}, {k}), got {tuple(fault_uniforms.shape)}")
+        given; with neither, both are drawn from ``generator``.  A batched
+        state takes every operand with its run axis first, (B, R, ...), and
+        gives (B, R) metrics (``repro_torch.sim.simulate_fl_batch`` adds
+        shared operands and stacked envs)."""
+        _, uniforms, fault_uniforms = self._operands(state, batches_x, batches_y, generator,
+                                                     uniforms, fault_uniforms, "run")
+        return self._run(state, batches_x, batches_y, uniforms, fault_uniforms, self.env)
+
+    def _run(self, state, batches_x, batches_y, uniforms, fault_uniforms, env):
+        """The rounds of checked operands against ``env``: the data goes to
+        the device once, then one ``_round`` a round."""
+        dev, lead = self.device, _lead(state)
+        batches_x, batches_y = batches_x.to(dev), batches_y.to(dev)
+        at = (lambda x, i: x[:, i]) if lead else (lambda x, i: x[i])
         per_round = []
-        for i in range(r):
-            state, mets = self.round(state, batches_x[i], batches_y[i],
-                                     u_env=uniforms[i, 0], u_sel=uniforms[i, 1],
-                                     u_fault=fault_uniforms[i] if k else None)
+        for i in range(int(batches_x.shape[len(lead)])):
+            u = at(uniforms, i)
+            state, mets = self._round(state, at(batches_x, i), at(batches_y, i),
+                                      u[..., 0, :], u[..., 1, :],
+                                      None if fault_uniforms is None else at(fault_uniforms, i),
+                                      env)
             per_round.append(mets)
-        return state, {k: torch.stack([mm[k] for mm in per_round]) for k in per_round[0]}
+        return state, {k: torch.stack([mm[k] for mm in per_round], dim=-1)
+                       for k in per_round[0]}
 
     # ------------------------------------------------- served (SchedServer)
     def _validate_server(self, server) -> None:
@@ -466,12 +569,13 @@ class AsyncFLTrainer:
         per_round = []
         for i in range(r):
             pre = self._round_pre(state, batches_x[i], batches_y[i], uniforms[i, 0],
-                                  fault_uniforms[i] if k else None)
+                                  fault_uniforms[i] if k else None, self.env)
             dec = server.serve_decisions([ServeRequest(
                 tenant, rewards=pre.ch_states.cpu().numpy(), u=uniforms[i, 1].cpu().numpy(),
                 contrib=state.contrib.cpu().numpy(), aoi=state.aoi.cpu().numpy())])[0]
             mstate = MatcherState(*[torch.tensor(x, device=dev) for x in dec.matcher_state])
             assignment = torch.as_tensor(dec.assignment, dtype=torch.int64).to(dev)
-            state, mets = self._round_post(state, pre, assignment, mstate, state.sched_state)
+            state, mets = self._round_post(state, pre, assignment, mstate, state.sched_state,
+                                           self.env)
             per_round.append(mets)
         return state, {k: torch.stack([mm[k] for mm in per_round]) for k in per_round[0]}

@@ -1,4 +1,5 @@
-// Masked per-coordinate trimmed mean / coordinate median for Hopper (sm_90a).
+// Masked per-coordinate trimmed mean / coordinate median for Hopper (sm_90a),
+// for one run or for a batch of B runs in one launch.
 //
 // Replaces the Pallas TPU kernel `robust_trimmed`
 // (src/repro/kernels/robust_agg.py, `_trim_kernel`).  Semantics of record:
@@ -51,6 +52,12 @@
 // the call is bound by its host cost; the launcher shrinks the block (128
 // threads down to 32) until the grid has at least two blocks an SM or one
 // warp a block.
+//
+// A batch of runs is one launch: the grid's y index is the run, whose block
+// offsets its pointers to its own (M, P) rows, (M,) mask, n, k and (P,)
+// output (n and k are (B,) device arrays) and then does exactly what a
+// single-run block does, so row b is bit for bit the single-run kernel's
+// result on run b.  The ballots read the block's own run's mask.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -77,6 +84,12 @@ __global__ void __launch_bounds__(kMaxThreads)
 robust_trimmed_kernel(const T* __restrict__ upd, const float* __restrict__ mask,
                       const float* __restrict__ n_ptr, const float* __restrict__ k_ptr,
                       float* __restrict__ out, int m, long long p) {
+  const long long run = blockIdx.y;            // 0 for a single run
+  upd += run * m * p;
+  mask += run * m;
+  n_ptr += run;
+  k_ptr += run;
+  out += run * p;
   const long long col = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   // Participation bits, the same in every thread: lane l reads the mask of
   // rows l and l + 32, and two ballots gather them (no per-row mask load).
@@ -169,29 +182,42 @@ robust_trimmed_kernel(const T* __restrict__ upd, const float* __restrict__ mask,
 
 template <typename T, int MB>
 void run(const void* upd, const float* mask, const float* n, const float* k, float* out, int m,
-         long long p, unsigned blocks, int threads, cudaStream_t s) {
-  robust_trimmed_kernel<T, MB><<<blocks, threads, 0, s>>>(static_cast<const T*>(upd), mask, n, k,
-                                                          out, m, p);
+         long long p, dim3 grid, int threads, cudaStream_t s) {
+  robust_trimmed_kernel<T, MB><<<grid, threads, 0, s>>>(static_cast<const T*>(upd), mask, n, k,
+                                                     out, m, p);
 }
 
 template <typename T>
-int launch(const void* upd, const float* mask, const float* n, const float* k, float* out, int m,
-           long long p, cudaStream_t s) {
+int launch(const void* upd, const float* mask, const float* n, const float* k, float* out,
+           int runs, int m, long long p, cudaStream_t s) {
   int threads = kMaxThreads;
-  while (threads > kMinThreads && (p + threads - 1) / threads < kSpreadBlocks) threads /= 2;
+  while (threads > kMinThreads && (p + threads - 1) / threads * runs < kSpreadBlocks) {
+    threads /= 2;
+  }
   const long long blocks = (p + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const auto b = static_cast<unsigned>(blocks);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(runs));
   if (m <= 8) {
-    run<T, 8>(upd, mask, n, k, out, m, p, b, threads, s);
+    run<T, 8>(upd, mask, n, k, out, m, p, grid, threads, s);
   } else if (m <= 16) {
-    run<T, 16>(upd, mask, n, k, out, m, p, b, threads, s);
+    run<T, 16>(upd, mask, n, k, out, m, p, grid, threads, s);
   } else if (m <= 32) {
-    run<T, 32>(upd, mask, n, k, out, m, p, b, threads, s);
+    run<T, 32>(upd, mask, n, k, out, m, p, grid, threads, s);
   } else {
-    run<T, kMaxM>(upd, mask, n, k, out, m, p, b, threads, s);
+    run<T, kMaxM>(upd, mask, n, k, out, m, p, grid, threads, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* upd, const float* mask, const float* n, const float* k, float* out,
+             int runs, int m, long long p, int dtype, void* stream) {
+  if (runs <= 0 || runs > 65535 || m <= 0 || m > kMaxM || p <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(upd, mask, n, k, out, runs, m, p, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(upd, mask, n, k, out, runs, m, p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -200,9 +226,13 @@ int launch(const void* upd, const float* mask, const float* n, const float* k, f
 extern "C" int robust_trimmed_launch(const void* upd, const float* mask, const float* n,
                                      const float* k, float* out, int m, long long p, int dtype,
                                      void* stream) {
-  if (m <= 0 || m > kMaxM || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(upd, mask, n, k, out, m, p, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(upd, mask, n, k, out, m, p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(upd, mask, n, k, out, 1, m, p, dtype, stream);
+}
+
+// A batch of `runs` runs (at most 65535): upd (runs, M, P), mask (runs, M),
+// n and k (runs,) f32 on the device, out (runs, P), one launch.
+extern "C" int robust_trimmed_batch_launch(const void* upd, const float* mask, const float* n,
+                                           const float* k, float* out, int runs, int m,
+                                           long long p, int dtype, void* stream) {
+  return dispatch(upd, mask, n, k, out, runs, m, p, dtype, stream);
 }

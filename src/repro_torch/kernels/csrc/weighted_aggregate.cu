@@ -1,4 +1,5 @@
-// Eq. 7 server aggregation for Hopper (sm_90a): out[p] = sum_m scale[m] * updates[m, p].
+// Eq. 7 server aggregation for Hopper (sm_90a): out[p] = sum_m scale[m] * updates[m, p],
+// for one run or for a batch of B runs at once (out[b, p] = sum_m scale[b, m] * updates[b, m, p]).
 //
 // Replaces the Pallas TPU kernel `weighted_aggregate`
 // (src/repro/kernels/weighted_aggregate.py, `_agg_kernel`).  Semantics of
@@ -30,9 +31,19 @@
 // 454 KB) the call is bound by launch latency: the launcher shrinks the
 // block (256 threads down to 32) until the grid has at least two blocks an
 // SM or one warp a block, so the load latency is spread over the SMs.
+//
+// A batch of runs is one launch: the grid's y index is the run, whose block
+// offsets its pointers to its own (M, P) rows, (M,) scales and (P,) output
+// and then does exactly what a single-run block does (the same row-order
+// sum, the same load width), so row b of a batch is bit for bit the
+// single-run kernel's result on run b.  The load width must suit every
+// run's rows: the launcher checks each run's base (base + b * M * P
+// elements), not only the first.  The block shrinks until the whole grid
+// (blocks a run x B) spreads over the SMs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 namespace {
@@ -96,6 +107,10 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(kMaxThreads)
 weighted_aggregate_kernel(const T* __restrict__ upd, const float* __restrict__ scale,
                           float* __restrict__ out, int m, long long p) {
+  const long long run = blockIdx.y;            // 0 for a single run
+  upd += run * m * p;
+  scale += run * m;
+  out += run * p;
   const long long col = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * VEC;
   if (col >= p) return;
   const T* src = upd + col;
@@ -124,35 +139,56 @@ weighted_aggregate_kernel(const T* __restrict__ upd, const float* __restrict__ s
 }
 
 template <typename T, int VEC>
-void run(const void* upd, const float* scale, float* out, int m, long long p, unsigned blocks,
+void run(const void* upd, const float* scale, float* out, int m, long long p, dim3 grid,
          int threads, cudaStream_t s) {
-  weighted_aggregate_kernel<T, VEC><<<blocks, threads, 0, s>>>(static_cast<const T*>(upd), scale,
-                                                                out, m, p);
+  weighted_aggregate_kernel<T, VEC><<<grid, threads, 0, s>>>(static_cast<const T*>(upd), scale,
+                                                              out, m, p);
+}
+
+// Every run's rows start at base + r * stride bytes, r < runs: all aligned
+// to `width` bytes iff the base is and (with more than one run) the stride.
+bool runs_aligned(std::uintptr_t base, long long stride, int runs, std::size_t width) {
+  return base % width == 0 && (runs == 1 || stride % static_cast<long long>(width) == 0);
 }
 
 template <typename T>
-int launch(const void* upd, const float* scale, float* out, int m, long long p, cudaStream_t s) {
+int launch(const void* upd, const float* scale, float* out, int runs, int m, long long p,
+           cudaStream_t s) {
   const auto base = reinterpret_cast<std::uintptr_t>(upd);
+  const long long stride = static_cast<long long>(m) * p * static_cast<long long>(sizeof(T));
   int vec = 1;
-  if (p % 4 == 0 && base % (4 * sizeof(T)) == 0) {
+  if (p % 4 == 0 && runs_aligned(base, stride, runs, 4 * sizeof(T))) {
     vec = 4;
-  } else if (p % 2 == 0 && base % (2 * sizeof(T)) == 0) {
+  } else if (p % 2 == 0 && runs_aligned(base, stride, runs, 2 * sizeof(T))) {
     vec = 2;
   }
   const long long owners = (p + vec - 1) / vec;
   int threads = kMaxThreads;
-  while (threads > kMinThreads && (owners + threads - 1) / threads < kSpreadBlocks) threads /= 2;
+  while (threads > kMinThreads && (owners + threads - 1) / threads * runs < kSpreadBlocks) {
+    threads /= 2;
+  }
   const long long blocks = (owners + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const auto b = static_cast<unsigned>(blocks);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(runs));
   if (vec == 4) {
-    run<T, 4>(upd, scale, out, m, p, b, threads, s);
+    run<T, 4>(upd, scale, out, m, p, grid, threads, s);
   } else if (vec == 2) {
-    run<T, 2>(upd, scale, out, m, p, b, threads, s);
+    run<T, 2>(upd, scale, out, m, p, grid, threads, s);
   } else {
-    run<T, 1>(upd, scale, out, m, p, b, threads, s);
+    run<T, 1>(upd, scale, out, m, p, grid, threads, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* upd, const float* scale, float* out, int runs, int m, long long p,
+             int dtype, void* stream) {
+  if (runs <= 0 || runs > 65535 || m <= 0 || p <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(upd, scale, out, runs, m, p, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(upd, scale, out, runs, m, p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -161,9 +197,13 @@ int launch(const void* upd, const float* scale, float* out, int m, long long p, 
 // base pointer's alignment.
 extern "C" int weighted_aggregate_launch(const void* upd, const float* scale, float* out, int m,
                                          long long p, int dtype, void* stream) {
-  if (m <= 0 || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(upd, scale, out, m, p, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(upd, scale, out, m, p, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(upd, scale, out, 1, m, p, dtype, stream);
+}
+
+// A batch of `runs` runs (at most 65535): upd (runs, M, P), scale (runs, M),
+// out (runs, P), one launch.
+extern "C" int weighted_aggregate_batch_launch(const void* upd, const float* scale, float* out,
+                                               int runs, int m, long long p, int dtype,
+                                               void* stream) {
+  return dispatch(upd, scale, out, runs, m, p, dtype, stream);
 }

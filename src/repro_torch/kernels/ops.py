@@ -76,7 +76,9 @@ def glr_step_tenants(cum, total, base, slots, live, detect, counts, r_vec, sched
 
 
 def weighted_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Eq. 7 fused masked aggregation: updates (M, P), scale (M,) -> (P,) f32."""
+    """Eq. 7 fused masked aggregation: updates (M, P), scale (M,) -> (P,) f32;
+    with a leading run axis, (B, M, P) and (B, M) -> (B, P), one launch on
+    CUDA for the whole batch."""
     if updates.is_cuda:
         return _wa.weighted_aggregate(updates.contiguous(),
                                       scale.to(torch.float32).contiguous())
@@ -89,10 +91,13 @@ def robust_trimmed(updates: torch.Tensor, mask: torch.Tensor, n_succ, k_trim) ->
     """Masked per-coordinate trimmed mean / median: updates (M, P), mask (M,)
     {0, 1}, participant count ``n_succ`` and trim depth ``k_trim`` (0-d, on
     the updates' device; ``k = floor((n-1)/2)`` gives the median) -> (P,)
-    f32; zeros when nothing participates."""
+    f32; zeros when nothing participates.  With a leading run axis,
+    (B, M, P), (B, M) and (B,) n and k -> (B, P), one launch on CUDA for
+    the whole batch."""
     if updates.is_cuda:
         return _ra.robust_trimmed(updates.contiguous(), mask.to(torch.float32).contiguous(),
-                                  n_succ.to(torch.float32), k_trim.to(torch.float32))
+                                  n_succ.to(torch.float32).contiguous(),
+                                  k_trim.to(torch.float32).contiguous())
     if updates.device.type != "cpu":
         raise ValueError(f"robust_trimmed: no kernel for device {updates.device}")
     return ref.robust_trimmed(updates, mask, n_succ, k_trim)

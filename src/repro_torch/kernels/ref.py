@@ -267,8 +267,9 @@ def glr_step_tenants(cum, total, base, slots, live, detect, counts, r_vec, sched
 
 def weighted_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Eq. 7: out[p] = sum_m scale[m] * updates[m, p]; (M, P) any float
-    dtype, (M,) f32 -> (P,) f32."""
-    return (scale.to(torch.float32)[:, None] * updates.to(torch.float32)).sum(dim=0)
+    dtype, (M,) f32 -> (P,) f32.  With a leading run axis, (B, M, P) and
+    (B, M) -> (B, P): row b is the single-run result on run b."""
+    return (scale.to(torch.float32)[..., None] * updates.to(torch.float32)).sum(dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -288,32 +289,37 @@ def robust_trimmed(updates: torch.Tensor, mask: torch.Tensor,
     participating rows strictly below it, ties broken by row index; rows
     of rank in [k, n - k) are kept and their sum (in row order) is divided
     by ``max(n - 2k, 1)``.  ``k = floor((n-1)/2)`` gives the coordinate
-    median.  Zeros when no row participates.  Returns (P,) f32.
+    median.  Zeros when no row participates.  Returns (P,) f32.  With a
+    leading run axis: updates (B, M, P), mask (B, M), n_succ and k_trim
+    (B,) -> (B, P), row b the single-run result on run b.
 
-    The columns are taken in chunks so that the (M, M, chunk) comparison
-    tensor stays near 2**28 elements; every column's arithmetic is the
-    same whatever the chunk.
+    The columns are taken in chunks so that the (B, M, M, chunk)
+    comparison tensor stays near 2**28 elements; every column's arithmetic
+    is the same whatever the chunk.
     """
     x = updates.to(torch.float32)
-    m, p = x.shape
+    m, p = x.shape[-2:]
+    runs = x.shape[:-2].numel()
     part = mask > 0.5
     i = torch.arange(m, device=x.device)
     tie_lo = (i[None, :] < i[:, None])[:, :, None]             # j beats i on ties
     k = torch.as_tensor(k_trim, dtype=torch.float32, device=x.device).clamp_min(0.0)
     n = torch.as_tensor(n_succ, dtype=torch.float32, device=x.device)
-    denom = (n - 2.0 * k).clamp_min(1.0)
-    chunk = max(1, _TRIM_CHUNK_ELEMS // max(m * m, 1))
-    out = torch.empty((p,), dtype=torch.float32, device=x.device)
+    denom = (n - 2.0 * k).clamp_min(1.0)[..., None]
+    lo, hi = k[..., None, None], (n - k)[..., None, None]
+    chunk = max(1, _TRIM_CHUNK_ELEMS // max(runs * m * m, 1))
+    out = torch.empty(x.shape[:-2] + (p,), dtype=torch.float32, device=x.device)
     for c0 in range(0, p, chunk):
-        xc = x[:, c0:c0 + chunk]
-        beats = (xc[None, :, :] < xc[:, None, :]) | ((xc[None, :, :] == xc[:, None, :]) & tie_lo)
-        rank = (beats & part[None, :, None]).sum(dim=1).to(torch.float32)   # (M, chunk)
-        keep = part[:, None] & (rank >= k) & (rank < n - k)
+        xc = x[..., c0:c0 + chunk]
+        below, above = xc[..., None, :, :], xc[..., :, None, :]
+        beats = (below < above) | ((below == above) & tie_lo)
+        rank = (beats & part[..., None, :, None]).sum(dim=-2).to(torch.float32)  # (M, chunk)
+        keep = part[..., :, None] & (rank >= lo) & (rank < hi)
         kept = torch.where(keep, xc, 0.0)
-        acc = torch.zeros((xc.shape[1],), dtype=torch.float32, device=x.device)
+        acc = torch.zeros(xc.shape[:-2] + xc.shape[-1:], dtype=torch.float32, device=x.device)
         for r in range(m):                                     # row order
-            acc = acc + kept[r]
-        out[c0:c0 + chunk] = acc / denom
+            acc = acc + kept[..., r, :]
+        out[..., c0:c0 + chunk] = acc / denom
     return out
 
 

@@ -16,6 +16,10 @@ atomics, so the result is deterministic.  At the Fig. 3 size (M = 20,
 P = 5674) the call is bound by its host cost: the wrapper's checks, the
 output's allocation, the stream lookup and the ``ctypes`` call
 (``chip_smoke.py`` phase 2 prints that split).
+
+A batch of runs (the batched FL engine's Step 4) is one launch with a run
+axis on the grid; each run's row is computed as the single-run kernel
+computes it, bit for bit.
 """
 from __future__ import annotations
 
@@ -27,48 +31,66 @@ from repro_torch.kernels import _build
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_BATCH_ARGTYPES = _ARGTYPES[:3] + [ctypes.c_int] + _ARGTYPES[3:]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_M = 48 * 1024 // 4          # the largest M a launch takes
+_MAX_M = 48 * 1024 // 4          # the largest M a launch takes (a run's M, in a batch)
+MAX_RUNS = 65535                 # the largest batch a launch takes (the grid's y extent)
 
 
 def _checked(updates: torch.Tensor, scale: torch.Tensor):
     """The wrapper's checks, cheapest first for a valid call: raises on what
-    the kernel does not take, else returns (M, P, dtype code, device index)."""
+    the kernel does not take, else returns (B, M, P, dtype code, device
+    index), B = 0 for a single run (M, P)."""
     if not updates.is_cuda:
         raise ValueError(
             f"weighted_aggregate: the kernel takes CUDA tensors, got {updates.device}")
-    if updates.ndim != 2:
-        raise ValueError(f"weighted_aggregate: updates must be (M, P), got {tuple(updates.shape)}")
+    if updates.ndim not in (2, 3):
+        raise ValueError(f"weighted_aggregate: updates must be (M, P) or (B, M, P), "
+                         f"got {tuple(updates.shape)}")
     code = _DTYPES.get(updates.dtype)
     if code is None:
         raise TypeError(
             f"weighted_aggregate: updates dtype {updates.dtype} not supported (f32 or bf16)")
-    m, p = updates.shape
+    b = updates.shape[0] if updates.ndim == 3 else 0
+    m, p = updates.shape[-2:]
     if not updates.is_contiguous():
         raise ValueError("weighted_aggregate: updates must be contiguous")
     dev = updates.get_device()
+    want = updates.shape[:-1]
     if scale.dtype != torch.float32 or not scale.is_cuda or scale.get_device() != dev \
-            or scale.shape != (m,) or not scale.is_contiguous():
+            or scale.shape != want or not scale.is_contiguous():
         raise ValueError(
-            f"weighted_aggregate: scale must be a contiguous ({m},) f32 tensor on "
+            f"weighted_aggregate: scale must be a contiguous {tuple(want)} f32 tensor on "
             f"{updates.device}, got {tuple(scale.shape)} {scale.dtype} on {scale.device}")
-    if m == 0 or p == 0 or m > _MAX_M:
-        raise ValueError(f"weighted_aggregate: unsupported shape ({m}, {p})")
-    return m, p, code, dev
+    if m == 0 or p == 0 or m > _MAX_M or (updates.ndim == 3 and not 0 < b <= MAX_RUNS):
+        raise ValueError(f"weighted_aggregate: unsupported shape {tuple(updates.shape)}")
+    return b, m, p, code, dev
 
 
 def weighted_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: ``updates`` (M, P) f32 or bf16, contiguous, on
-    CUDA; ``scale`` (M,) f32 on the same device.  Returns (P,) f32."""
-    m, p, code, dev = _checked(updates, scale)
-    fn = _build.load("weighted_aggregate", "weighted_aggregate_launch", _ARGTYPES)
-    out = updates.new_empty(p, dtype=torch.float32)
-    err = fn(updates.data_ptr(), scale.data_ptr(), out.data_ptr(), m, p, code,
-             _build.stream(dev))
+    CUDA; ``scale`` (M,) f32 on the same device.  Returns (P,) f32.  A
+    batch of runs, (B, M, P) with (B, M) scales, is one launch of the batch
+    entry and returns (B, P), row b the single-run result on run b; it
+    counts in ``launches`` and in ``batch_launches``."""
+    b, m, p, code, dev = _checked(updates, scale)
+    if b:
+        fn = _build.load("weighted_aggregate", "weighted_aggregate_batch_launch",
+                         _BATCH_ARGTYPES)
+        out = updates.new_empty((b, p), dtype=torch.float32)
+        err = fn(updates.data_ptr(), scale.data_ptr(), out.data_ptr(), b, m, p, code,
+                 _build.stream(dev))
+    else:
+        fn = _build.load("weighted_aggregate", "weighted_aggregate_launch", _ARGTYPES)
+        out = updates.new_empty(p, dtype=torch.float32)
+        err = fn(updates.data_ptr(), scale.data_ptr(), out.data_ptr(), m, p, code,
+                 _build.stream(dev))
     if err != 0:
         raise RuntimeError(f"weighted_aggregate: kernel launch failed (cudaError {err})")
     weighted_aggregate.launches += 1
+    weighted_aggregate.batch_launches += bool(b)
     return out
 
 
 weighted_aggregate.launches = 0
+weighted_aggregate.batch_launches = 0

@@ -5,11 +5,12 @@ The JAX package splits a bucket's run axis over a 1-D device mesh
 of the batch.  Twin of ``repro/sim/shard.py``, keeping its API:
 ``sweep_mesh`` lists the devices, ``pad_batch`` pads a batch to a multiple
 of the device count by cycling its entries (index ``i % B``, valid inputs,
-sliced off again by ``unpad_batch``), and ``sharded_aoi_regret_batch`` is
-``simulate_aoi_regret_batch`` over the mesh.  The port has one card, and a
-split over several has no card to be tested on, so a mesh holds one
-device: the sharded call pads to a multiple of 1 and equals the unsharded
-call bit for bit.
+sliced off again by ``unpad_batch``), and ``sharded_aoi_regret_batch`` and
+``sharded_fl_batch`` are ``simulate_aoi_regret_batch`` and
+``simulate_fl_batch`` over the mesh (the twin of JAX's
+``build_fl_sharded``).  The port has one card, and a split over several
+has no card to be tested on, so a mesh holds one device: the sharded call
+pads to a multiple of 1 and equals the unsharded call bit for bit.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 from repro_torch.core.channels import ChannelEnv
 from repro_torch.device import resolve_device
 from repro_torch.sim.engine import simulate_aoi_regret_batch
+from repro_torch.sim.fl_batch import simulate_fl_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,10 +43,12 @@ def sweep_mesh(devices: Optional[Sequence[Any]] = None) -> SweepMesh:
 
 
 def _map(fn, tree):
-    """``fn`` over the tensors of a tree of dicts, tuples, NamedTuples and
-    ``ChannelEnv``s (a result dict, a state, an env); other leaves stay."""
+    """``fn`` over the tensors with a run axis of a tree of dicts, tuples,
+    NamedTuples and ``ChannelEnv``s (a result dict, a state, an env); other
+    leaves stay, and so does a 0-d tensor (shared by every run: a batched
+    state's shared hyper-parameter)."""
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(tree) if tree.dim() else tree
     if isinstance(tree, ChannelEnv):
         return dataclasses.replace(tree, means=fn(tree.means), breaks=fn(tree.breaks),
                                    table=fn(tree.table), react=fn(tree.react))
@@ -132,3 +136,44 @@ def sharded_aoi_regret_batch(
         collect_curve=collect_curve, env_axis=env_axis, uniforms_axis=uniforms_axis,
         hparams=args["hparams"], hp_axis=hp_axis, device=dev, impl=impl)
     return unpad_batch(out, b) if (-b) % d else out
+
+
+def sharded_fl_batch(
+    trainer,
+    states,
+    batches_x: torch.Tensor,
+    batches_y: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    uniforms: Optional[torch.Tensor] = None,
+    fault_uniforms: Optional[torch.Tensor] = None,
+    data_axis: Optional[int] = 0,
+    uniforms_axis: Optional[int] = 0,
+    envs: Optional[ChannelEnv] = None,
+    env_axis: Optional[int] = None,
+    mesh: Optional[SweepMesh] = None,
+) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """``simulate_fl_batch`` with the run axis over ``mesh`` (default: the
+    mesh of the trainer's device): the batched operands (the states and
+    every operand with axis 0) padded to the device count, the pad rows
+    sliced off the result.  Same arguments and results; a mesh of one
+    device.  Uniforms not given are drawn before any padding, as the
+    unsharded call draws them."""
+    if mesh is None:
+        mesh = sweep_mesh([trainer.device])
+    if len(mesh.devices) != 1 or mesh.devices[0] != trainer.device:
+        raise ValueError(f"sharded_fl_batch: a mesh of {list(mesh.devices)}; the port runs a "
+                         f"bucket on the trainer's one card ({trainer.device})")
+    d, b = len(mesh.devices), int(states.aoi.shape[0])
+    if uniforms is None:
+        n, k = trainer.cfg.n_channels, trainer.n_fault_uniforms()
+        lead = ((b,) if uniforms_axis == 0 else ()) + (int(batches_x.shape[int(data_axis == 0)]),)
+        uniforms = torch.rand(lead + (2, n), generator=generator, device=trainer.device)
+        if k:
+            fault_uniforms = torch.rand(lead + (k,), generator=generator, device=trainer.device)
+    pad = lambda x, axis=0: pad_batch(x, d)[0] if axis == 0 and x is not None else x
+    final, mets = simulate_fl_batch(
+        trainer, pad(states), pad(batches_x, data_axis), pad(batches_y, data_axis),
+        uniforms=pad(uniforms, uniforms_axis), fault_uniforms=pad(fault_uniforms, uniforms_axis),
+        data_axis=data_axis, uniforms_axis=uniforms_axis, envs=pad(envs, env_axis),
+        env_axis=env_axis)
+    return unpad_batch((final, mets), b) if (-b) % d else (final, mets)

@@ -4,7 +4,9 @@ A model's parameters are a flat ``dict`` of tensors; a scheduler's state
 is a ``NamedTuple`` of tensors and dicts (``tree_map``).  Flattening follows
 JAX's order for dicts, sorted keys (``b1, b2, w1, w2`` for the MLP), so a
 flattened (P,) vector lines up entry for entry with the JAX package's
-``tree_flatten_concat``.  Twin of ``repro/utils/tree.py``.
+``tree_flatten_concat``.  With a leading run axis (``batch_dims=1``) the
+leaves are (B, ...) and the vector (B, P), one row a run.  Twin of
+``repro/utils/tree.py``.
 """
 from __future__ import annotations
 
@@ -28,16 +30,22 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
-def tree_flatten_concat(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Flatten a dict of tensors into one 1-D f32 vector, sorted keys."""
-    return torch.cat([tree[k].reshape(-1).to(torch.float32) for k in sorted(tree)])
+def tree_flatten_concat(tree: Dict[str, torch.Tensor], batch_dims: int = 0) -> torch.Tensor:
+    """Flatten a dict of tensors into one f32 vector, sorted keys: (P,), or
+    (B, P) for leaves with ``batch_dims=1`` leading run axis (B, ...)."""
+    return torch.cat([tree[k].reshape(tree[k].shape[:batch_dims] + (-1,)).to(torch.float32)
+                      for k in sorted(tree)], dim=-1)
 
 
-def tree_unflatten_concat(flat: torch.Tensor, like: Dict[str, torch.Tensor]):
-    """Inverse of ``tree_flatten_concat`` given a template dict ``like``."""
+def tree_unflatten_concat(flat: torch.Tensor, like: Dict[str, torch.Tensor],
+                          batch_dims: int = 0):
+    """Inverse of ``tree_flatten_concat`` given a template dict ``like``
+    (with ``batch_dims`` leading run axes on ``flat`` and on every leaf)."""
     out, off = {}, 0
+    lead = flat.shape[:batch_dims]
     for k in sorted(like):
-        n = like[k].numel()
-        out[k] = flat[off:off + n].reshape(like[k].shape).to(like[k].dtype)
+        shape = like[k].shape[batch_dims:]
+        n = shape.numel()
+        out[k] = flat[..., off:off + n].reshape(lead + shape).to(like[k].dtype)
         off += n
     return out

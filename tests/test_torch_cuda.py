@@ -43,7 +43,12 @@ live untouched; a served trace on the card equals the CPU server bit for
 bit, and a serve step makes no host sync.  The baseline policies' runs on
 the per-round route equal the CPU runs bit for bit (a draw through
 ``log``/``exp`` may fork only at a near-tie within 1e-5 relative), and the
-mean AoI is the correctly rounded f32 quotient on both devices.
+mean AoI is the correctly rounded f32 quotient on both devices.  The
+Step-4 kernels' batch form (one launch for B runs) equals the single-run
+kernel row by row bit for bit; a batch of FL runs on the card launches
+each Step-4 kernel and ``glr_step`` once a round for the batch and keeps
+the CPU batch's discrete state and ``n_success`` bit for bit (params at
+rtol 1e-4), and a batch of one is ``run()`` bit for bit.
 """
 import dataclasses
 
@@ -888,3 +893,123 @@ def test_mean_aoi_is_correctly_rounded_on_the_card(cuda):
     assert torch.equal(mean_aoi(aoi.to(cuda)).cpu(), want)
     rows = torch.stack([aoi, aoi.flip(0)]).to(cuda)
     assert torch.equal(mean_aoi(rows).cpu(), torch.stack([want, want]))
+
+
+# ---------------------------------------------------------------------------
+# the Step-4 kernels' batch form and the batched FL engine
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,m,p", [(8, 20, 5674), (3, 7, 4099), (5, 64, 4096), (2, 1, 3)])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_weighted_aggregate_rows_equal_the_single_run_kernel(cuda, b, m, p, offset,
+                                                                     dtype):
+    """One launch for B runs; row i is the single-run kernel's result on run
+    i bit for bit (whatever load width each picks), and the batch is close
+    to the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(b * m + p)
+    flat = torch.randn((b * m * p + offset,), generator=gen, device=cuda).to(dtype)
+    upd = flat[offset:].view(b, m, p)
+    scale = torch.rand((b, m), generator=gen, device=cuda) / m
+    before = weighted_aggregate.launches, weighted_aggregate.batch_launches
+    got = ops.weighted_aggregate(upd, scale)
+    assert (weighted_aggregate.launches, weighted_aggregate.batch_launches) == \
+        (before[0] + 1, before[1] + 1)
+    for i in range(b):
+        assert torch.equal(got[i], weighted_aggregate(upd[i].contiguous(), scale[i])), i
+    torch.testing.assert_close(got, ref.weighted_aggregate(upd, scale), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("m", [5, 20, 33, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_robust_trimmed_rows_equal_the_single_run_kernel(cuda, m, dtype):
+    """Per-run masks, n and k (n = 0, the median, 0, between) over rows of
+    NaN, +-inf, +-0 and ties: row i is the single-run kernel's on run i bit
+    for bit, and the median rows are the plain version's bit for bit."""
+    b, p = 6, 517
+    rng = np.random.default_rng(m)
+    table = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0, 0.5, 0.5, 2.5], np.float32)
+    x = torch.from_numpy(table[rng.integers(0, len(table), (b, m, p))]).to(dtype).to(cuda)
+    mask = torch.from_numpy((rng.random((b, m)) < 0.7).astype(np.float32)).to(cuda)
+    mask[0] = 0.0
+    n = mask.sum(-1)
+    med = torch.floor((n - 1.0) / 2.0).clamp_min(0.0)
+    k = torch.stack([med, torch.zeros_like(med), torch.floor(med / 2)])[
+        torch.arange(b) % 3, torch.arange(b)]
+    before = robust_trimmed.batch_launches
+    got = ops.robust_trimmed(x, mask, n, k)
+    assert robust_trimmed.batch_launches == before + 1
+    want = ref.robust_trimmed(x, mask, n, k)
+
+    def bits(a):
+        return torch.where(torch.isnan(a), torch.zeros_like(a), a).view(torch.int32), \
+            torch.isnan(a)
+
+    for i in range(b):
+        one = robust_trimmed(x[i].contiguous(), mask[i].contiguous(), n[i:i + 1], k[i:i + 1])
+        assert all(torch.equal(u, v) for u, v in zip(bits(got[i]), bits(one))), i
+        if i % 3 == 0:
+            assert all(torch.equal(u, v) for u, v in zip(bits(got[i]), bits(want[i]))), i
+    assert not got[0].any()
+
+
+def _fl_trainer(device, **kw):
+    from repro_torch.fl import AsyncFLConfig, AsyncFLTrainer
+
+    def loss(p, x, y):
+        lg = torch.log_softmax(torch.relu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"], dim=-1)
+        return -torch.gather(lg, -1, y[..., None]).mean()
+
+    cfg = AsyncFLConfig(n_clients=5, n_channels=7, local_epochs=2, client_lr=0.1, server_lr=0.1)
+    env = make_piecewise(np.random.default_rng(3).random((3, 7)).astype(np.float32) * 0.8 + 0.1,
+                         np.array([3, 6]), device=device)
+    return AsyncFLTrainer(cfg, GLRCUCB(7, 5, history=16), env, loss, device=device, **kw)
+
+
+def _fl_inputs(b, r=8):
+    g = torch.Generator().manual_seed(b)
+    params = {"w1": torch.randn((6, 12), generator=g) * 0.3, "b1": torch.zeros(12),
+              "w2": torch.randn((12, 3), generator=g) * 0.3, "b2": torch.zeros(3)}
+    bx = torch.randn((b, r, 5, 2, 4, 6), generator=g)
+    by = torch.randint(0, 3, (b, r, 5, 2, 4), generator=g)
+    return params, bx, by, torch.rand((b, r, 2, 7), generator=g)
+
+
+@pytest.mark.parametrize("agg", [None, "coordinate_median"])
+def test_batched_fl_on_the_card_equals_the_cpu_batch(cuda, agg):
+    """A batch of 3 FL runs on the card: one batched Step-4 launch and one
+    ``glr_step`` a round for the batch; n_success and the discrete state
+    equal the CPU batch bit for bit, the rest at rtol 1e-4 (local SGD's
+    sums run in other orders on the card)."""
+    from repro_torch.sim import simulate_fl_batch
+
+    kw = {} if agg is None else dict(aggregator=make_aggregator(agg))
+    params, bx, by, u = _fl_inputs(3)
+    tr_cpu, tr_gpu = _fl_trainer("cpu", **kw), _fl_trainer(cuda, **kw)
+    want = simulate_fl_batch(tr_cpu, tr_cpu.init_batch(params, 3), bx, by, uniforms=u)
+    kernel = robust_trimmed if agg else weighted_aggregate
+    before = kernel.batch_launches, glr_step.launches
+    got = simulate_fl_batch(tr_gpu, tr_gpu.init_batch(params, 3), bx, by, uniforms=u)
+    torch.cuda.synchronize()
+    assert (kernel.batch_launches - before[0], glr_step.launches - before[1]) == (8, 8)
+    for f in ("aoi", "has_update", "last_success", "staleness"):
+        assert torch.equal(getattr(got[0], f).cpu(), getattr(want[0], f)), f
+    for k in ("n_success", "mean_aoi"):
+        assert torch.equal(got[1][k].cpu(), want[1][k]), k
+    for k in want[0].params:
+        torch.testing.assert_close(got[0].params[k].cpu(), want[0].params[k], rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_fl_batch_of_one_on_the_card_is_run(cuda):
+    from repro_torch.sim import simulate_fl_batch
+
+    params, bx, by, u = _fl_inputs(1)
+    tr = _fl_trainer(cuda)
+    st, mets = tr.run(tr.init(params), bx[0], by[0], uniforms=u[0].to(cuda))
+    st1, mets1 = simulate_fl_batch(tr, tr.init_batch(params, 1), bx, by, uniforms=u)
+    for k in mets:
+        assert torch.equal(mets1[k][0], mets[k]), k
+    for k in st.params:
+        assert torch.equal(st1.params[k][0], st.params[k]), k
+    assert torch.equal(st1.contrib[0], st.contrib) and torch.equal(st1.zeta[0], st.zeta)

@@ -76,7 +76,8 @@ SLICE_TWINS = ("core/aggregation.py", "core/faults.py", "core/channels/process.p
                "sim/serve.py", "launch/sched_serve.py", "checkpoint/__init__.py",
                "checkpoint/io.py", "core/matching.py", "core/aoi.py", "core/regret.py",
                "core/bandits/base.py", "core/channels/base.py", "core/channels/families.py",
-               "sim/engine.py", "sim/sweep.py", "sim/shard.py")
+               "sim/engine.py", "sim/sweep.py", "sim/shard.py", "sim/fl_batch.py",
+               "fl/client.py", "core/contribution.py", "data/pipeline.py", "utils/tree.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_TWINS)

@@ -9,8 +9,9 @@ scalars share one bucket, a scheduler without the hyper-parameter
 convention still sweeps, and ``sweep_cache_stats`` counts bucket-signature
 reuse (the port compiles nothing per bucket, so ``compile_s`` is 0 on the
 CPU).  ``group_cases`` on Fig. 2a's fifteen cases
-(``benchmarks/run.py:182-213``) makes JAX's buckets, by name.  A case that
-is not a regret case raises: the batched FL engine is not ported.
+(``benchmarks/run.py:182-213``) makes JAX's buckets, by name.  A case
+that is neither a regret case nor an FL case raises; FL cases run
+(``tests/test_torch_fl_sweep.py``).
 """
 import dataclasses
 from typing import NamedTuple
@@ -178,12 +179,28 @@ def test_sweep_rejects_duplicate_names():
 
 
 def test_sweep_rejects_a_case_that_is_not_a_regret_case():
+    """A case of another kind than ``SweepCase`` raises, unless it is an
+    ``FLSweepCase``, which now runs (the batched FL engine is ported; its
+    sweeps are held in ``tests/test_torch_fl_sweep.py``)."""
     @dataclasses.dataclass(frozen=True)
-    class FLSweepCase:
+    class OtherCase:
         name: str
 
-    with pytest.raises(TypeError, match="FLSweepCase.*batched FL engine.*not ported"):
-        sweep([FLSweepCase("fl")], **CPU)
+    with pytest.raises(TypeError, match="OtherCase; a case is a SweepCase or an FLSweepCase"):
+        sweep([OtherCase("other")], **CPU)
+
+    from repro_torch.fl import AsyncFLConfig, AsyncFLTrainer
+    from repro_torch.sim import FLSweepCase
+
+    loss = lambda p, x, y: ((x @ p["w"] - y) ** 2).mean()
+    tr = AsyncFLTrainer(AsyncFLConfig(n_clients=2, n_channels=3), tb.GLRCUCB(3, 2, history=8),
+                        make_stationary(np.full(3, 0.8, np.float32), **CPU), loss, **CPU)
+    x = torch.randn((4, 2, 1, 3, 5), generator=_gen(0))
+    case = FLSweepCase("fl", tr, {"w": torch.zeros(5)}, 0, x, x.sum(-1))
+    results, report = sweep([case], **CPU)
+    assert report[0].route == "fl" and results["fl"]["metrics"]["n_success"].shape == (4,)
+    want = tr.run(tr.init({"w": torch.zeros(5)}), x, x.sum(-1), generator=_gen(0))
+    assert torch.equal(results["fl"]["state"].params["w"], want[0].params["w"])
 
 
 def test_identical_scheduler_configs_share_bucket():

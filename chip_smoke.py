@@ -160,7 +160,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    buckets, ``burst/0`` equal to its serial run bit for bit); (d)
    ``sweep(shard=True)`` equal to ``sweep()`` on an FL bucket, and a
    Gilbert-Elliott process bucket with per-case realizations; (e) a
-   profiled 10-round window of a batch of 8.
+   profiled 10-round window of a batch of 8;
+13. the sparse client axis (``SparseAsyncFLTrainer``), ``fl_substrate``'s
+   sizes: (0) ``weighted_aggregate``, ``robust_trimmed`` and ``glr_step``
+   at the sparse round's shapes against their plain versions; (a) N =
+   100,000 clients, M = 64 slots over 16 channels, a linear model (d =
+   16), Markov churn, 24 rounds after a warm run: rounds a second, clients
+   served, peak device memory, ``glr_step`` and ``weighted_aggregate``
+   once a round; (b) its first three rounds against the CPU run (the
+   discrete state and n_success bit for bit, params and buffers rtol
+   1e-4); (c) dense against sparse at M = N = 20, 30 channels, 6 rounds,
+   every state leaf and metric bit for bit; (d) each availability family
+   over 24 rounds at (a)'s size, ``always_on`` bit for bit the run without
+   a process; (e) ``run_served`` against ``run()`` over 10 rounds on (c)'s
+   setup, bit for bit; (f) (a) with a coordinate-median aggregator,
+   ``robust_trimmed`` once a round; (g) a profiled 10-round window of (a).
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -169,11 +183,11 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 128, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-12 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-13 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
 Every path runs at the paper's sizes, uncut but for phase 9's two cuts
-and phase 10's per-round cut (T=2000), which they print (phases 11 and 12
+and phase 10's per-round cut (T=2000), which they print (phases 11, 12 and 13
 run the JAX benchmarks' own non-quick sizes).  Weights, envs and randomness
 are made on the card from ``--seed``; the Fig. 3 data is the benchmark's
 synthetic problem, made on the host from seeds offset by ``--seed`` (seed
@@ -256,6 +270,13 @@ REACT_REF_ROUNDS = 2000        # phase 11 (d): the reactive Fig. 2 run's rounds 
 # reactive_means' sub, mul, neg, add, mul, rsub, mul and interact_step's mul, mul,
 # add (10), expf (~4: a scale, ex2, two fix-ups) and a correctly rounded division (~4)
 REACT_FLOPS = 18
+SUB_N, SUB_M, SUB_NCH, SUB_H = 100_000, 64, 16, 128   # fl_substrate (benchmarks/run.py:913, :924)
+SUB_D, SUB_NEX, SUB_B = 16, 8, 4                       # its linear model and data (:913)
+SUB_ROUNDS = 24                # its non-quick rounds (:914)
+SUB_REF_ROUNDS = 3             # phase 13 (b): rounds on the card held to the CPU run
+SUB_PROFILE_ROUNDS = 10        # phase 13 (g)'s window
+PAR_N, PAR_NCH, PAR_ROUNDS, PAR_E, PAR_B = 20, 30, 6, 2, 3   # its dense-vs-sparse parity (:943)
+SUB_SERVED_ROUNDS = 10         # phase 13 (e): run_served against run()
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention", "regret_scan", "glr_step_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
@@ -3434,9 +3455,303 @@ def batched_fl(torch, seed, serial_runs):
     return launches, dict(rows=rows, bench=bench, chaos=verdicts)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the sparse client axis (fl_substrate at N = 10^5)
+# ---------------------------------------------------------------------------
+
+def substrate_loss(p, x, y):
+    return ((x @ p["w"] - y) ** 2).mean()
+
+
+def substrate_trainer(torch, device, availability="churn", aggregator=None):
+    """``fl_substrate``'s throughput trainer (``benchmarks/run.py:913-928``):
+    N = 10^5 clients, M = 64 slots over 16 channels, a linear model (d =
+    16), batch 4, E = 1, staleness cap 8, GLR-CUCB (history 128) on a
+    stationary env, Markov churn (p_drop 0.05, p_rejoin 0.5) unless
+    another ``availability`` (None: no process) is given."""
+    from repro_torch.core.availability import MarkovChurn
+    from repro_torch.core.bandits import GLRCUCB
+    from repro_torch.core.channels import make_stationary
+    from repro_torch.fl import SparseAsyncFLTrainer, SparseFLConfig
+
+    if availability == "churn":
+        availability = MarkovChurn(p_drop=0.05, p_rejoin=0.5)
+    return SparseAsyncFLTrainer(
+        SparseFLConfig(n_clients=SUB_N, n_sched=SUB_M, n_channels=SUB_NCH, batch_size=SUB_B,
+                       local_epochs=1, staleness_cap=8),
+        GLRCUCB(SUB_NCH, SUB_M, history=SUB_H),
+        make_stationary(torch.linspace(0.9, 0.3, SUB_NCH), device=device), substrate_loss,
+        device=device, availability=availability, aggregator=aggregator)
+
+
+def substrate_kernels(torch, gen, floor_ms):
+    """The Step-4 kernels and ``glr_step`` at the sparse round's shapes,
+    against their plain versions (not counted as launches of the path):
+    ``weighted_aggregate`` (64, 16) f32 bitwise against the row-order sum,
+    ``robust_trimmed``'s median bitwise, ``glr_step`` (16, 128) on {0, 1}
+    rewards bitwise in state, rtol 1e-5 in the statistic.  Returns each
+    kernel's entry (error, times, bound)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.glr_step import glr_step as glr_kernel
+    from repro_torch.kernels.robust_agg import robust_trimmed as rt_kernel
+    from repro_torch.kernels.weighted_aggregate import weighted_aggregate as wa_kernel
+
+    m, p = SUB_M, SUB_D
+    upd = torch.randn((m, p), generator=gen, device="cuda")
+    scale = scale_like_main_path(torch, m, gen)
+    got = ops.weighted_aggregate(upd, scale)
+    wa_err = float((got - ref.weighted_aggregate(upd, scale)).abs().max())
+    check(torch.equal(got, row_order_sum(torch, upd, scale)),
+          f"phase 13: weighted_aggregate ({m}, {p}) not bitwise the row-order sum")
+    wa = dict(shape=[m, p], max_abs_err=wa_err,
+              ms=time_ms(torch, lambda: wa_kernel(upd, scale), 2000),
+              plain_ms=time_ms(torch, lambda: ref.weighted_aggregate(upd, scale), 2000),
+              library_ms=time_ms(torch, lambda: scale @ upd, 2000))
+    wa["bound_ms"], wa["bound_by"] = two_way_bound(m * p * 4 + m * 4 + p * 4, 2 * m * p,
+                                                   F32_FLOPS)
+
+    x, mask = trim_inputs(torch, m, p, torch.float32, "random", gen)
+    n = mask.sum()
+    k = torch.floor((n - 1.0) / 2.0)
+    got = ops.robust_trimmed(x, mask, n, k)
+    want = ref.robust_trimmed(x, mask, n, k)
+    check(same_bits(torch, got, want), f"phase 13: robust_trimmed ({m}, {p}) median not bitwise")
+    xk = x[mask > 0.5]                                  # the participating rows
+    lo, hi = (int(n) - 1) // 2, int(n) - (int(n) - 1) // 2
+    rt = dict(shape=[m, p], max_abs_err=float((got - want).abs().max()),
+              ms=time_ms(torch, lambda: rt_kernel(x, mask, n, k), 2000),
+              plain_ms=time_ms(torch, lambda: ref.robust_trimmed(x, mask, n, k), 500),
+              library_ms=time_ms(torch, lambda: torch.sort(xk, dim=0).values[lo:hi].mean(0),
+                                 2000))
+    rt["bound_ms"], rt["bound_by"] = two_way_bound(m * p * 4 + m * 4 + 8 + p * 4,
+                                                   RANK_PAIR_OPS * int(n) ** 2 * p, F32_LANE_OPS)
+
+    args = glr_inputs(torch, (SUB_NCH, SUB_H), gen, True)
+    got = ops.glr_step(*args)
+    want = ref.glr_step(*args)
+    for g, w, name in zip(got[:3], want[:3], ("cum", "total", "base")):
+        check(torch.equal(g, w), f"phase 13: glr_step ({SUB_NCH}, {SUB_H}) {name} not bitwise")
+    fin = torch.isfinite(want[3])
+    check(torch.equal(fin, torch.isfinite(got[3]))
+          and torch.allclose(got[3][fin], want[3][fin], rtol=1e-5, atol=1e-5),
+          f"phase 13: glr_step ({SUB_NCH}, {SUB_H}) statistic beyond rtol 1e-5")
+    cum, total, base, counts, r_vec, sched = args
+    counts_i = counts.to(torch.int32)
+    gl = dict(shape=[SUB_NCH, SUB_H],
+              max_abs_err=float((got[3][fin] - want[3][fin]).abs().max()) if bool(fin.any())
+              else 0.0,
+              ms=time_ms(torch, lambda: glr_kernel(cum, total, base, counts_i, r_vec, sched), 2000),
+              plain_ms=time_ms(torch, lambda: ref.glr_step(*args), 200), library_ms=None)
+    gl["bound_ms"], gl["bound_by"] = glr_bound_ms(torch, args, SUB_H, geometric=False)
+    torch.cuda.synchronize()
+    for name, t in (("weighted_aggregate", wa), ("robust_trimmed", rt), ("glr_step", gl)):
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        line(f"  (0) {name} {tuple(t['shape'])} at the sparse round's shape: max_abs_err "
+             f"{t['max_abs_err']:.3e} vs plain ok; kernel {t['ms']:.4f} ms, plain "
+             f"{t['plain_ms']:.4f} ms, library {lib}, bound {t['bound_ms']:.2e} ms "
+             f"({t['bound_by']}), launch floor {floor_ms:.5f} ms")
+    return dict(weighted_aggregate=wa, robust_trimmed=rt, glr_step=gl)
+
+
+def sparse_substrate(torch, seed, floor_ms):
+    """Phase 13: ``fl_substrate``'s two parts (``benchmarks/run.py:888-1013``)
+    and the sparse trainer's other paths.  Returns the launches of the paths
+    (the comparisons with the CPU excluded), the kernels at the round's
+    shapes and the numbers."""
+    from repro_torch.core.aggregation import make_aggregator
+    from repro_torch.core.availability import example_availability
+    from repro_torch.core.bandits import GLRCUCB
+    from repro_torch.core.channels import make_scenario
+    from repro_torch.data import client_batch_indices, gather_client_batches
+    from repro_torch.fl import (AsyncFLConfig, AsyncFLTrainer, SparseAsyncFLTrainer,
+                                SparseFLConfig)
+    from repro_torch.sim import SchedServer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 130)
+    kernels = substrate_kernels(torch, gen, floor_ms)
+    paths = []
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        paths.append(read_launches())
+        return out, secs, paths[-1]
+
+    # (a) fl_substrate's throughput twin: data and randomness made on the card
+    r = SUB_ROUNDS
+    cx = torch.randn((SUB_N, SUB_NEX, SUB_D), generator=gen, device="cuda")
+    cy = torch.randn((SUB_N, SUB_NEX), generator=gen, device="cuda")
+    u = torch.rand((r, 2, SUB_NCH), generator=gen, device="cuda")
+    au = torch.rand((r, 2 * SUB_N), generator=gen, device="cuda")
+    params = {"w": torch.zeros(SUB_D, device="cuda")}
+    tr = substrate_trainer(torch, "cuda")
+
+    def run(trainer, state=None, rounds=r, start=0, **kw):
+        k = trainer.n_avail_uniforms()
+        return trainer.run(trainer.init(params) if state is None else state, cx, cy,
+                           uniforms=u[start:start + rounds],
+                           avail_uniforms=au[start:start + rounds, :k] if k else None,
+                           data_seed=seed, **kw)
+
+    run(tr)                                                   # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (st, mets), secs, got = counted(lambda: run(tr))
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(got["glr_step"] == r and got["weighted_aggregate"] == r
+          and got["robust_trimmed"] == 0,
+          f"phase 13 (a): launches {got}; expected glr_step and weighted_aggregate {r} each")
+    finite = bool(torch.isfinite(st.params["w"]).all() and torch.isfinite(mets["local_loss"]).all())
+    served = int((st.aoi < r + 1).sum())
+    check(finite and served > 0 and float(mets["n_success"].sum()) > 0,
+          f"phase 13 (a): finite={finite}, clients served {served}")
+    rps = r / secs
+    line(f"  (a) fl_substrate N={SUB_N} M={SUB_M} channels={SUB_NCH} d={SUB_D} markov_churn: "
+         f"{r} rounds in {secs * 1e3:.3f} ms after a warm run, {rps:.2f} rounds/s "
+         f"({secs / r * 1e3:.4f} ms a round); finite={finite}, clients served {served}, "
+         f"n_success {float(mets['n_success'].sum()):.0f}, available "
+         f"{float(mets['n_available'].mean()):.1f} a round, evicted "
+         f"{float(mets['n_evicted'].mean()):.1f} a round; peak device memory {peak_mib:.1f} MiB; "
+         f"launches glr_step {got['glr_step']}, weighted_aggregate {got['weighted_aggregate']}")
+
+    # (b) the first rounds on the card against the CPU (plain versions)
+    cpu_tr = substrate_trainer(torch, "cpu")
+    cx_c, cy_c, u_c, au_c = cx.cpu(), cy.cpu(), u.cpu(), au.cpu()
+    s_cpu, s_card = cpu_tr.init({"w": params["w"].cpu()}), tr.init(params)
+    for i in range(SUB_REF_ROUNDS):
+        s_cpu, m_cpu = cpu_tr.run(s_cpu, cx_c, cy_c, uniforms=u_c[i:i + 1],
+                                  avail_uniforms=au_c[i:i + 1], data_seed=seed)
+        s_card, m_card = run(tr, s_card, rounds=1, start=i)
+        for f in ("slot_clients", "slot_of", "avail", "aoi", "has_update", "staleness",
+                  "last_success"):
+            check(torch.equal(getattr(s_card, f).cpu(), getattr(s_cpu, f)),
+                  f"phase 13 (b) round {i}: card {f} != CPU")
+        check(torch.equal(m_card["n_success"].cpu(), m_cpu["n_success"]),
+              f"phase 13 (b) round {i}: n_success")
+        for name, a, b in (("w", s_card.params["w"], s_cpu.params["w"]),
+                           ("buffers", s_card.buffers, s_cpu.buffers)):
+            check(torch.allclose(a.cpu(), b, rtol=1e-4, atol=1e-5),
+                  f"phase 13 (b) round {i}: {name} beyond rtol 1e-4")
+    line(f"  (b) {SUB_REF_ROUNDS} rounds on the card equal the CPU run: selection, slot_of, "
+         f"avail, AoI, has_update, staleness, last_success and n_success "
+         f"{m_cpu['n_success'].tolist()} bit for bit; params and buffers rtol 1e-4")
+    del cpu_tr, s_cpu, cx_c, cy_c, au_c
+
+    # (c) dense-vs-sparse parity at the paper's FL size (benchmarks/run.py:943-993)
+    pn, pnch, pr, pe, pb, pex = PAR_N, PAR_NCH, PAR_ROUNDS, PAR_E, PAR_B, 16
+    pcx = torch.randn((pn, pex, 8), generator=gen, device="cuda")
+    pcy = torch.randn((pn, pex), generator=gen, device="cuda")
+    pu = torch.rand((SUB_SERVED_ROUNDS, 2, pnch), generator=gen, device="cuda")
+    pp0 = {"w": torch.zeros(8, device="cuda"), "b": torch.zeros((), device="cuda")}
+
+    def ploss(p, x, y):
+        return ((x @ p["w"] + p["b"] - y) ** 2).mean()
+
+    proc = make_scenario("piecewise", n_channels=pnch, horizon=pr, n_breakpoints=2)
+    realize = lambda: torch.Generator(device="cuda").manual_seed(seed + 41)
+    common = dict(local_epochs=pe, staleness_cap=3, max_update_norm=50.0)
+    dense = AsyncFLTrainer(AsyncFLConfig(n_clients=pn, n_channels=pnch, **common),
+                           GLRCUCB(pnch, pn, history=64), proc, ploss, realize_generator=realize())
+    sparse = SparseAsyncFLTrainer(
+        SparseFLConfig(n_clients=pn, n_sched=pn, n_channels=pnch, batch_size=pb, **common),
+        GLRCUCB(pnch, pn, history=64), proc, ploss, realize_generator=realize())
+    ids = torch.arange(pn, device="cuda")
+    draws = [gather_client_batches(pcx, pcy, ids, client_batch_indices(seed, t, ids, pex, pe, pb))
+             for t in range(pr)]        # the dense side replays the sparse draw
+    bx, by = torch.stack([d[0] for d in draws]), torch.stack([d[1] for d in draws])
+    ds, dm = dense.run(dense.init(pp0), bx, by, uniforms=pu[:pr])
+    (ss, sm), _, got_c = counted(lambda: sparse.run(sparse.init(pp0), pcx, pcy,
+                                                    uniforms=pu[:pr], data_seed=seed))
+    shared = ("params", "buffers", "has_update", "last_success", "aoi", "staleness", "contrib",
+              "zeta", "contrib_buf", "sched_state", "env_state", "fault_state")
+    for f in shared:
+        check(same_tree(torch, getattr(ds, f), getattr(ss, f)),
+              f"phase 13 (c): dense and sparse {f} differ")
+    check(all(torch.equal(dm[k], sm[k]) for k in dm), "phase 13 (c): metrics differ")
+    check(torch.equal(ss.slot_clients, ids) and got_c["weighted_aggregate"] == pr
+          and got_c["glr_step"] == pr, f"phase 13 (c): selection or launches {got_c}")
+    line(f"  (c) dense vs sparse, M=N={pn}, {pnch} channels, {pr} rounds, E={pe}, batch {pb}, "
+         f"piecewise (2 breakpoints): every state leaf ({len(shared)} fields) and metric bit for "
+         f"bit on the card; n_success {dm['n_success'].tolist()}")
+
+    # (d) each availability family at (a)'s size
+    fam = {}
+    for name in (None, "always_on", "markov_churn", "straggler", "dropout_rejoin"):
+        ftr = substrate_trainer(torch, "cuda", None if name is None else
+                                example_availability(name))
+        (fs, fm), fsecs, got_d = counted(lambda: run(ftr))
+        check(got_d["glr_step"] == r and got_d["weighted_aggregate"] == r,
+              f"phase 13 (d) {name}: launches {got_d}")
+        check(bool(torch.isfinite(fs.params["w"]).all()), f"phase 13 (d) {name}: params")
+        fam[name] = (fs, fm)
+        line(f"  (d) availability {name or 'none'}: {r} rounds {r / fsecs:.2f} rounds/s "
+             f"({fsecs / r * 1e3:.4f} ms a round); available {float(fm['n_available'].mean()):.1f} "
+             f"a round (min {float(fm['n_available'].min()):.0f}), clients served "
+             f"{int((fs.aoi < r + 1).sum())}, n_success {float(fm['n_success'].sum()):.0f}")
+    (a_s, a_m), (n_s, n_m) = fam["always_on"], fam[None]
+    for f in a_s._fields:
+        if f != "avail_state":
+            check(same_tree(torch, getattr(a_s, f), getattr(n_s, f)),
+                  f"phase 13 (d): always_on {f} != no process")
+    check(all(torch.equal(a_m[k], n_m[k]) for k in a_m), "phase 13 (d): always_on metrics")
+    line("  (d) always_on equals the run without an availability process bit for bit")
+    del fam, a_s, n_s
+
+    # (e) run_served against run() on (c)'s setup
+    rs = SUB_SERVED_ROUNDS
+    ref_s, ref_m = sparse.run(sparse.init(pp0), pcx, pcy, uniforms=pu, data_seed=seed)
+    server = SchedServer(sparse.scheduler, capacity=4, slots=2, use_matching=True,
+                         matcher_beta=sparse.cfg.matcher_beta)
+    server.join("job")
+    (srv_s, srv_m), _, got_e = counted(lambda: sparse.run_served(
+        sparse.init(pp0), pcx, pcy, server, "job", uniforms=pu, data_seed=seed))
+    for f in ref_s._fields:
+        if f != "sched_state":
+            check(same_tree(torch, getattr(ref_s, f), getattr(srv_s, f)),
+                  f"phase 13 (e): run_served {f} != run()'s")
+    check(same_tree(torch, ref_s.sched_state, server.tenant_state("job").sched_state),
+          "phase 13 (e): the server's tenant state != run()'s sched_state")
+    check(all(torch.equal(ref_m[k], srv_m[k]) for k in ref_m), "phase 13 (e): metrics differ")
+    check(got_e["glr_step_tenants"] == rs and got_e["weighted_aggregate"] == rs,
+          f"phase 13 (e): launches {got_e}")
+    line(f"  (e) sparse run_served: {rs} rounds equal run() bit for bit (every state leaf, the "
+         f"server's tenant state, metrics); glr_step_tenants {got_e['glr_step_tenants']}, "
+         f"weighted_aggregate {got_e['weighted_aggregate']}")
+
+    # (f) (a) with a coordinate-median aggregator
+    rtr = substrate_trainer(torch, "cuda", aggregator=make_aggregator("coordinate_median"))
+    (rst, rm), rsecs, got_f = counted(lambda: run(rtr))
+    check(got_f["robust_trimmed"] == r and got_f["weighted_aggregate"] == 0
+          and got_f["glr_step"] == r, f"phase 13 (f): launches {got_f}")
+    check(bool(torch.isfinite(rst.params["w"]).all()), "phase 13 (f): params not finite")
+    line(f"  (f) coordinate_median: {r} rounds {r / rsecs:.2f} rounds/s ({rsecs / r * 1e3:.4f} ms "
+         f"a round); robust_trimmed {got_f['robust_trimmed']}, glr_step {got_f['glr_step']}")
+
+    # (g) a profiled 10-round window of (a)
+    profile_window(torch, f"(g) fl_substrate N={SUB_N}", lambda: run(
+        tr, st, rounds=SUB_PROFILE_ROUNDS), SUB_PROFILE_ROUNDS)
+
+    launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
+    check(launches["glr_step"] > 0 and launches["weighted_aggregate"] > 0
+          and launches["robust_trimmed"] > 0,
+          f"phase 13: a kernel of the slice never launched: {launches}")
+    for name in kernels:
+        kernels[name]["launches"] = launches[name]
+    line(f"  phase 13 launches: glr_step {launches['glr_step']}, weighted_aggregate "
+         f"{launches['weighted_aggregate']}, robust_trimmed {launches['robust_trimmed']}, "
+         f"glr_step_tenants {launches['glr_step_tenants']}; wall "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, kernels, dict(rounds_per_sec=rps, peak_mib=peak_mib, served=served)
+
+
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
                 fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan, reactive_scan,
-                agg_batch):
+                agg_batch, sub_kernels):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
     (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6, and
@@ -3446,7 +3761,9 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     on a reactive env; bit for bit against the rounds route).  The two
     Step-4 kernels carry their batch form (``batch``: the paths' batch
     launches, phase 2's error, row-by-row check and times at (8, 20, 5674)
-    and the large shape)."""
+    and the large shape).  ``glr_step`` and the Step-4 kernels carry the
+    sparse round's shapes (``substrate``: phase 13's launches, its check
+    against the plain version and its times there)."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -3460,7 +3777,7 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     serve = gst_t["serve"]
     return [
         entry("glr_step", "src/repro/kernels/glr_step.py:163", glr_err, glr_t["fig2"],
-              batch_scan=batch_scan,
+              batch_scan=batch_scan, substrate=sub_kernels["glr_step"],
               reactive_scan=dict(reactive_scan, launches=launches["regret_scan_reactive"]),
               **fig2_scan),
         entry("glr_step_tenants", "src/repro/kernels/glr_step.py:210", gst_err, serve,
@@ -3478,7 +3795,8 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               large=dict(shape=[64, 2 ** 24], **wa_t["large"]),
               large_ragged=dict(shape=[64, 2 ** 24 + 2], **wa_t["large_ragged"]),
               batch=dict(agg_batch["weighted_aggregate"],
-                         launches=launches["weighted_aggregate_batch"])),
+                         launches=launches["weighted_aggregate_batch"]),
+              substrate=sub_kernels["weighted_aggregate"]),
         entry("robust_trimmed", "src/repro/kernels/robust_agg.py:73", rt_err, rt_t["fig3"],
               shape=[20, 5674], turns_ms=rt_t["fig3"]["turns_ms"],
               library_turns_ms=rt_t["fig3"]["library_turns_ms"],
@@ -3486,7 +3804,8 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               library_device_ms=rt_t["fig3"]["library_device_ms"],
               host_split_us=rt_t["fig3"]["host_split_us"],
               large=dict(shape=[64, 2 ** 22 + 3], **rt_t["large"]),
-              batch=dict(agg_batch["robust_trimmed"], launches=launches["robust_trimmed_batch"])),
+              batch=dict(agg_batch["robust_trimmed"], launches=launches["robust_trimmed_batch"]),
+              substrate=sub_kernels["robust_trimmed"]),
         entry("glr_scan", "src/repro/kernels/glr_scan.py:70", gs_err, gs_t["fig2"],
               **recompute_scan),
         entry("flash_attention", "src/repro/kernels/flash_attention.py:123", fa_err,
@@ -3507,7 +3826,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-12) only")
+                    help="build the kernels and run the paths (phases 3-13) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -3596,9 +3915,14 @@ def main(argv=None) -> int:
         fl_launches, _ = batched_fl(torch, args.seed,
                                     dict(fig34_runs, **{"piecewise/glr-cucb+aware": fig3_run}))
         del fig34_runs, fig3_run
+        release(torch)
+        line("[13] the sparse client axis: fl_substrate at N = 100,000, dense-vs-sparse parity, "
+             "the availability families, run_served")
+        sub_launches, sub_kernels, _ = sparse_substrate(
+            torch, args.seed, launch_floor(torch)[0] if args.paths else floor_ms)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
                  serve_launches, sched_launches, baseline_launches, batch_launches,
-                 family_launches, fl_launches)
+                 family_launches, fl_launches, sub_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
         check(all(launches[k] > 0 for k in KERNEL_NAMES + BATCH_ROUTES
                   + ("flash_attention_tc", "regret_scan_reactive")),
@@ -3615,7 +3939,7 @@ def main(argv=None) -> int:
                                                 rt_t, gs_err, gs_t, fa_err, fa_t, fig2_scan,
                                                 recompute_scan, gst_err, gst_t,
                                                 dict(batch_fields, max_abs_err=batch_err),
-                                                reactive_fields, agg_batch)}))
+                                                reactive_fields, agg_batch, sub_kernels)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

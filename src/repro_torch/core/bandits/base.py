@@ -166,7 +166,9 @@ def combinations_array(n: int, m: int) -> np.ndarray:
 
 def scatter_rows(n: int, channels: torch.Tensor, values) -> torch.Tensor:
     """The (..., N) f32 rows holding ``values`` at ``channels`` (..., M)
-    (distinct in a row) and 0 elsewhere: ``zeros(N).at[channels].set(values)``."""
+    and 0 elsewhere: ``zeros(N).at[channels].set(values)``.  A channel that
+    repeats in a row (M > N) carries the same value at each of its places,
+    so the plain scatter is deterministic on every device."""
     out = torch.zeros(channels.shape[:-1] + (n,), dtype=torch.float32, device=channels.device)
     if not isinstance(values, torch.Tensor):
         return out.scatter(-1, channels, float(values))
@@ -175,9 +177,14 @@ def scatter_rows(n: int, channels: torch.Tensor, values) -> torch.Tensor:
 
 def rotate_assignment(channels_sorted: torch.Tensor, t, m: int) -> torch.Tensor:
     """Alg. 2 line 10: player j takes the ((j + t) mod M)-th best channel.
-    ``channels_sorted`` is (M,) or (B, M); ``t`` an int, or with (B, M) a
-    (B,) tensor: each row rotates by its own round."""
+    ``channels_sorted`` is (..., K) with K = M, or K = N < M when M > N
+    (more clients than channels): a position past the last entry takes the
+    last entry, as JAX's gather clamps an out-of-range index (the same bits
+    at M <= N).  ``t`` is an int, or with (B, K) a (B,) tensor: each row
+    rotates by its own round."""
+    last = channels_sorted.shape[-1] - 1
     j = torch.arange(m, device=channels_sorted.device)
     if isinstance(t, torch.Tensor):
-        return channels_sorted.gather(-1, (j + t[..., None].to(torch.int64)) % m)
-    return channels_sorted[..., (j + t) % m]
+        pos = (j + t[..., None].to(torch.int64)) % m
+        return channels_sorted.gather(-1, pos.clamp_max(last))
+    return channels_sorted[..., ((j + t) % m).clamp_max(last)]

@@ -205,8 +205,10 @@ class GLRCUCB(TracedHyperParams):
         key = torch.where(torch.isinf(ucb), 1e9, ucb) + noise
         top = torch.argsort(-key, dim=-1, stable=True)[..., :m]
         # forced exploration (Alg. 2 line 3): at rate alpha, channel
-        # i = (t - tau) mod floor(N / alpha) is scheduled when i < N
-        if self.alpha > 0:
+        # i = (t - tau) mod floor(N / alpha) is scheduled when i < N.  With
+        # M > N the top already holds all N channels (JAX's write at M - 1
+        # would fall out of range and be dropped): nothing to force
+        if self.alpha > 0 and m <= n:
             period = max(int(n / self.alpha), n)
             slot = ((t - state.tau) % period).to(top.dtype)
             forced = slot < n
@@ -222,6 +224,8 @@ class GLRCUCB(TracedHyperParams):
         # sanitize: the GLR statistics assume Bernoulli rewards in [0, 1];
         # the identity on valid {0, 1} streams
         rewards = torch.where(torch.isfinite(rewards), rewards, 0.0).clamp(0.0, 1.0)
+        # plain scatters: a channel repeated in ``channels`` (M > N) carries
+        # one reward, so they are deterministic (never accumulate here)
         d_prev = state.counts
         sched = torch.zeros_like(d_prev, dtype=torch.bool).scatter(-1, channels, True)
         r_vec = torch.zeros_like(d_prev).scatter(-1, channels, rewards.to(torch.float32))

@@ -93,6 +93,10 @@ class MExp3(TracedHyperParams):
 
     def select(self, state: MExp3State, t: int, u: torch.Tensor,
                aoi: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.n_super_arms == 0:
+            # M > N: C(N, M) = 0, and JAX's choice over no super-arm raises too
+            raise ValueError(f"MExp3: no super-arm of {self.n_clients} channels among "
+                             f"{self.n_channels} (M > N); schedule M > N with GLR-CUCB")
         cdf = torch.cumsum(self._probs(state).to(torch.float64), -1).to(torch.float32)
         idx = torch.searchsorted(cdf, cdf[..., -1:] * (1.0 - u[..., :1])).squeeze(-1)
         channels = self.combos(u.device)[idx]

@@ -12,10 +12,13 @@ client (Eq. 41-42); the aggregation weights are the normalized
 contributions (Eq. 43).  All functions take flattened (M, P) matrices, or
 (B, M, P) with a leading run axis (per-client tensors (B, M)): every
 reduction runs over the client or the parameter axis of its own run.
-Twin of ``repro/core/contribution.py`` (``exact_shapley`` is not ported).
+``exact_shapley`` is the ground truth the estimator is checked against.
+Twin of ``repro/core/contribution.py``.
 """
 from __future__ import annotations
 
+import itertools
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -99,3 +102,38 @@ def aggregation_weights(contrib: torch.Tensor) -> torch.Tensor:
     over each run's clients."""
     c = contrib.clamp_min(_EPS)
     return c / c.sum(dim=-1, keepdim=True)
+
+
+def exact_shapley(utility_fn: Callable[[torch.Tensor], torch.Tensor], n_clients: int,
+                  device=None) -> torch.Tensor:
+    """Exact Shapley values (Eq. 32) by subset enumeration — O(2^M).
+
+    ``utility_fn`` maps an (M,) f32 0/1 membership mask on ``device``
+    (default ``cuda``) to the coalition's utility U(S).  Each marginal
+    ``U(S + i) - U(S)`` is taken in the utility's dtype and the weighted
+    sum in Python floats, rounded once to f32, as the JAX twin does.
+    Tractable for the paper's scales (M <= ~16); it validates the
+    estimator (Eq. 33), and no round calls it."""
+    dev = resolve_device(device)
+    m = n_clients
+    utils = {}
+
+    def u(bits: int) -> torch.Tensor:
+        if bits not in utils:
+            mask = torch.tensor([(bits >> i) & 1 for i in range(m)], dtype=torch.float32,
+                                device=dev)
+            utils[bits] = utility_fn(mask)
+        return utils[bits]
+
+    values = torch.zeros((m,), dtype=torch.float32, device=dev)
+    fact = math.factorial
+    for i in range(m):
+        acc = 0.0
+        others = [j for j in range(m) if j != i]
+        for r in range(m):
+            w = fact(r) * fact(m - r - 1) / fact(m)
+            for subset in itertools.combinations(others, r):
+                bits = sum(1 << j for j in subset)
+                acc += w * float(u(bits | (1 << i)) - u(bits))
+        values[i] = acc
+    return values

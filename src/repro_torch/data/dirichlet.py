@@ -1,5 +1,6 @@
-"""Dirichlet non-IID federated partitioner (Sec. VI-A, following [36]);
-a copy of ``repro/data/dirichlet.py`` (numpy only).
+"""Dirichlet non-IID federated partitioner (Sec. VI-A, following [36]) and
+its heterogeneity index; a copy of ``repro/data/dirichlet.py`` (numpy
+only).
 
 ``p_k ~ Dir_M(alpha)`` per class k; proportion ``p_{k,j}`` of class-k
 samples goes to client j.  ``alpha -> inf`` approaches IID; ``alpha -> 0``
@@ -41,3 +42,14 @@ def dirichlet_partition(
         rng.shuffle(arr)
         out.append(arr)
     return out
+
+
+def heterogeneity_index(parts: List[np.ndarray], labels: np.ndarray) -> float:
+    """Mean total-variation distance between client label dists and the global."""
+    n_classes = int(labels.max()) + 1
+    global_p = np.bincount(labels, minlength=n_classes) / len(labels)
+    tvs = []
+    for idx in parts:
+        p = np.bincount(labels[idx], minlength=n_classes) / max(len(idx), 1)
+        tvs.append(0.5 * np.abs(p - global_p).sum())
+    return float(np.mean(tvs))

@@ -28,6 +28,8 @@ One round:
           updates older than tau rounds.  AoI resets only on aggregated
           deliveries, and an all-Bad round is a bitwise no-op on
           ``params`` (a ``where`` on |S_t| > 0, not an add of zero).
+          ``aggregate_step`` is this Step 4; the sparse round
+          (``repro_torch.fl.sparse``) runs it on its slot rows too.
 
 Client updates are carried flattened (M, P), sorted-key order.  Each
 round draws two (N,) f32 uniforms, ``u_env`` for the channel states and
@@ -101,6 +103,117 @@ def _over(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
 
 
+def realized_env(env, realize_generator: Optional[torch.Generator], device,
+                 owner: str) -> Tuple[ChannelEnv, Optional[ChannelProcess]]:
+    """A trainer's ``(env, scenario)`` on ``device``: a ``ChannelEnv`` as
+    given (no scenario), or a ``ChannelProcess`` realized from
+    ``realize_generator`` (seeded 0 with a warning when None, JAX's
+    ``PRNGKey(0)`` fallback) and kept as the scenario."""
+    scenario = None
+    if isinstance(env, ChannelProcess):
+        scenario = env
+        if realize_generator is None:
+            warnings.warn(
+                f"{owner}: ChannelProcess env realized with the fixed generator seeded 0 — "
+                "all seeds will share one realized channel trajectory.  Pass "
+                "realize_generator= (e.g. scenario_realize_generator(seed, device)) for "
+                "per-seed scenario draws.", stacklevel=3)
+            realize_generator = torch.Generator(device=device).manual_seed(0)
+        env = env.realize(realize_generator, device)
+    if not isinstance(env, ChannelEnv):
+        raise TypeError(f"{owner}: env must be a ChannelEnv or a ChannelProcess, "
+                        f"got {type(env).__name__}")
+    return env.to(device), scenario
+
+
+def batched_init(trainer, params: Dict[str, Any], batch: int, params_axis: Optional[int],
+                 hp: Any, hp_axis: Optional[int]):
+    """``trainer.init``'s state with a leading (B,) on every tensor leaf,
+    the ``init_batch`` of the dense and the sparse trainer: ``params``
+    shared or stacked (``params_axis=0``), ``hp`` shared or a
+    ``stack_params`` grid (``hp_axis=0``); ``t`` stays one int."""
+    for name, axis in (("params_axis", params_axis), ("hp_axis", hp_axis)):
+        if axis not in (0, None):
+            raise ValueError(f"init_batch: {name} is 0 or None, got {axis}")
+    if hp_axis == 0 and not hp:
+        raise ValueError("init_batch: hp_axis=0 needs an hp grid (stack_params)")
+    dev = trainer.device
+    params = {k: torch.as_tensor(v).to(dev) for k, v in params.items()}
+    if params_axis == 0:
+        bad = {k: tuple(v.shape) for k, v in params.items() if v.shape[:1] != (batch,)}
+        if bad:
+            raise ValueError(f"init_batch: params_axis=0 takes ({batch}, ...) leaves, "
+                             f"got {bad}")
+    one = trainer.init({k: v[0] for k, v in params.items()} if params_axis == 0 else params)
+
+    def rows(x):
+        return x.unsqueeze(0).repeat(batch, *([1] * x.dim()))
+
+    return one._replace(
+        params=params if params_axis == 0 else {k: rows(v) for k, v in params.items()},
+        sched_state=init_sched_batch(trainer.scheduler, batch, dev, hp),
+        **{f: tree_map(rows, getattr(one, f)) for f in one._fields
+           if f not in ("params", "sched_state", "t")})
+
+
+class Step4(NamedTuple):
+    """What Step 4 leaves for the bookkeeping after it."""
+
+    params: Dict[str, torch.Tensor]  # the new global model
+    agg_mask: torch.Tensor           # (..., M) rows aggregated (S_t after the gates)
+    n_succ: torch.Tensor             # (...) |S_t|
+    agg_buffers: torch.Tensor        # (..., M, P) the rows the aggregator saw
+    has_update: torch.Tensor         # (..., M) poisoned buffers revoked
+    last_success: torch.Tensor       # (..., M) who retrains at the next grant
+
+
+def aggregate_step(cfg, m: int, aggregator, agg_params, params, buffers, success, staleness,
+                   has_update, zeta) -> Step4:
+    """Step 4 on M client rows, shared by the dense and the sparse round:
+    the quarantine gate and staleness cap of ``cfg``, Eq. 7 through
+    ``dispatch_aggregate`` (the CUDA kernel on the card), the gated server
+    step, and the degraded-path bookkeeping (poisoned buffers discarded;
+    quarantined or stale-rejected-but-delivered clients re-enter S_t).
+    Every tensor may lead with a run axis."""
+    lead, dev = tuple(success.shape[:-1]), success.device
+    if cfg.quarantine:
+        row_ok = torch.isfinite(buffers).all(dim=-1)
+        if cfg.max_update_norm > 0.0:
+            row_ok = row_ok & (torch.linalg.vector_norm(buffers, dim=-1)
+                               <= cfg.max_update_norm)
+        row_ok = row_ok.to(torch.float32)
+    else:
+        row_ok = torch.ones(lead + (m,), device=dev)
+    if cfg.staleness_cap > 0:
+        fresh_ok = (staleness <= float(cfg.staleness_cap)).to(torch.float32)
+    else:
+        fresh_ok = torch.ones(lead + (m,), device=dev)
+    agg_mask = success * row_ok * fresh_ok
+    n_succ = agg_mask.sum(dim=-1)
+
+    if cfg.quarantine:
+        # zero quarantined rows BEFORE the aggregator: 0 * NaN = NaN
+        agg_buffers = torch.where(agg_mask[..., None] > 0.5, buffers, 0.0)
+    else:
+        agg_buffers = buffers
+    agg_flat = dispatch_aggregate(aggregator, agg_buffers, agg_mask, zeta, n_succ,
+                                  agg_params)  # (P,) or (B, P) f32
+    step_vec = -cfg.server_lr / m * agg_flat
+    delta = tree_unflatten_concat(step_vec, params, len(lead))
+    if cfg.quarantine:
+        any_agg = n_succ > 0.0
+        params = {k: torch.where(_over(any_agg, p_), p_ + delta[k].to(p_.dtype), p_)
+                  for k, p_ in params.items()}
+    else:
+        params = {k: p_ + delta[k].to(p_.dtype) for k, p_ in params.items()}
+
+    bad_row = 1.0 - row_ok
+    stale_reject = success * row_ok * (1.0 - fresh_ok)
+    return Step4(params=params, agg_mask=agg_mask, n_succ=n_succ, agg_buffers=agg_buffers,
+                 has_update=has_update * row_ok,
+                 last_success=torch.maximum(agg_mask, torch.maximum(bad_row, stale_reject)))
+
+
 class AsyncFLState(NamedTuple):
     """One run's state; with a run axis (``init_batch``) every tensor leaf
     has a leading (B,) (a shared hyper-parameter of the scheduler stays
@@ -172,23 +285,10 @@ class AsyncFLTrainer:
                  proxy_loss_fn: Optional[Callable] = None, device=None, faults=None,
                  aggregator=None, realize_generator: Optional[torch.Generator] = None):
         self.device = resolve_device(device)
-        self.scenario: Optional[ChannelProcess] = None
-        if isinstance(env, ChannelProcess):
-            self.scenario = env
-            if realize_generator is None:
-                warnings.warn(
-                    "AsyncFLTrainer: ChannelProcess env realized with the fixed generator "
-                    "seeded 0 — all seeds will share one realized channel trajectory.  Pass "
-                    "realize_generator= (e.g. scenario_realize_generator(seed, device)) for "
-                    "per-seed scenario draws.", stacklevel=2)
-                realize_generator = torch.Generator(device=self.device).manual_seed(0)
-            env = env.realize(realize_generator, self.device)
-        if not isinstance(env, ChannelEnv):
-            raise TypeError(f"AsyncFLTrainer: env must be a ChannelEnv or a ChannelProcess, "
-                            f"got {type(env).__name__}")
+        self.env, self.scenario = realized_env(env, realize_generator, self.device,
+                                               type(self).__name__)
         self.cfg = cfg
         self.scheduler = scheduler
-        self.env = env.to(self.device)
         self.loss_fn = loss_fn
         self.proxy_loss_fn = proxy_loss_fn
         self.faults = faults
@@ -248,28 +348,7 @@ class AsyncFLTrainer:
         scheduler's hyper-parameters: one ``params()`` dict for every run
         (``hp_axis=None``) or a ``stack_params`` grid of (B,) values
         (``hp_axis=0``), which turns the batch into a tuning axis."""
-        for name, axis in (("params_axis", params_axis), ("hp_axis", hp_axis)):
-            if axis not in (0, None):
-                raise ValueError(f"init_batch: {name} is 0 or None, got {axis}")
-        if hp_axis == 0 and not hp:
-            raise ValueError("init_batch: hp_axis=0 needs an hp grid (stack_params)")
-        dev = self.device
-        params = {k: torch.as_tensor(v).to(dev) for k, v in params.items()}
-        if params_axis == 0:
-            bad = {k: tuple(v.shape) for k, v in params.items() if v.shape[:1] != (batch,)}
-            if bad:
-                raise ValueError(f"init_batch: params_axis=0 takes ({batch}, ...) leaves, "
-                                 f"got {bad}")
-        one = self.init({k: v[0] for k, v in params.items()} if params_axis == 0 else params)
-
-        def rows(x):
-            return x.unsqueeze(0).repeat(batch, *([1] * x.dim()))
-
-        return one._replace(
-            params=params if params_axis == 0 else {k: rows(v) for k, v in params.items()},
-            sched_state=init_sched_batch(self.scheduler, batch, dev, hp),
-            **{f: tree_map(rows, getattr(one, f)) for f in AsyncFLState._fields
-               if f not in ("params", "sched_state", "t")})
+        return batched_init(self, params, batch, params_axis, hp, hp_axis)
 
     # ------------------------------------------------------------------ round
     def _round_pre(self, state: AsyncFLState, batches_x, batches_y, u_env, u_fault, env):
@@ -319,44 +398,10 @@ class AsyncFLTrainer:
             success = success * (1.0 - pre.dropped)   # and a dropped one can't transmit
 
         # ---- Step 4: quarantine gate + aggregate (Eq. 7, CUDA kernel) -------
-        if cfg.quarantine:
-            row_ok = torch.isfinite(buffers).all(dim=-1)
-            if cfg.max_update_norm > 0.0:
-                row_ok = row_ok & (torch.linalg.vector_norm(buffers, dim=-1)
-                                   <= cfg.max_update_norm)
-            row_ok = row_ok.to(torch.float32)
-        else:
-            row_ok = torch.ones(lead + (m,), device=dev)
-        if cfg.staleness_cap > 0:
-            fresh_ok = (staleness <= float(cfg.staleness_cap)).to(torch.float32)
-        else:
-            fresh_ok = torch.ones(lead + (m,), device=dev)
-        agg_mask = success * row_ok * fresh_ok
-        n_succ = agg_mask.sum(dim=-1)
-
         zeta = state.zeta if cfg.use_zeta else torch.full(lead + (m,), 1.0 / m, device=dev)
-        if cfg.quarantine:
-            # zero quarantined rows BEFORE the aggregator: 0 * NaN = NaN
-            agg_buffers = torch.where(agg_mask[..., None] > 0.5, buffers, 0.0)
-        else:
-            agg_buffers = buffers
-        agg_flat = dispatch_aggregate(self.aggregator, agg_buffers, agg_mask, zeta, n_succ,
-                                      self._agg_params)  # (P,) or (B, P) f32
-        step_vec = -cfg.server_lr / m * agg_flat
-        delta = tree_unflatten_concat(step_vec, state.params, len(lead))
-        if cfg.quarantine:
-            any_agg = n_succ > 0.0
-            params = {k: torch.where(_over(any_agg, p_), p_ + delta[k].to(p_.dtype), p_)
-                      for k, p_ in state.params.items()}
-        else:
-            params = {k: p_ + delta[k].to(p_.dtype) for k, p_ in state.params.items()}
-
-        # degraded-path bookkeeping: poisoned buffers are discarded, and
-        # quarantined or stale-rejected-but-delivered clients re-enter S_t
-        bad_row = 1.0 - row_ok
-        stale_reject = success * row_ok * (1.0 - fresh_ok)
-        has_update = has_update * row_ok
-        last_success = torch.maximum(agg_mask, torch.maximum(bad_row, stale_reject))
+        step4 = aggregate_step(cfg, m, self.aggregator, self._agg_params, state.params,
+                               buffers, success, staleness, has_update, zeta)
+        params, agg_mask, agg_buffers = step4.params, step4.agg_mask, step4.agg_buffers
 
         # ---- bookkeeping: AoI, contribution, zeta ---------------------------
         aoi = update_aoi(state.aoi, agg_mask > 0.5)
@@ -367,8 +412,8 @@ class AsyncFLTrainer:
         new_zeta = aggregation_weights(contrib)
 
         new_state = AsyncFLState(
-            params=params, buffers=buffers, has_update=has_update,
-            last_success=last_success, aoi=aoi, contrib_buf=contrib_buf,
+            params=params, buffers=buffers, has_update=step4.has_update,
+            last_success=step4.last_success, aoi=aoi, contrib_buf=contrib_buf,
             contrib=contrib, zeta=new_zeta, sched_state=sched_state,
             matcher_state=matcher_state, t=t + 1, env_state=env_state,
             staleness=staleness, fault_state=pre.fault_state,
@@ -379,7 +424,7 @@ class AsyncFLTrainer:
         metrics = {
             "local_loss": (torch.where(loss_ok > 0.5, pre.local_losses, 0.0) * pre.active
                            ).sum(dim=-1) / loss_w.sum(dim=-1).clamp_min(1.0),
-            "n_success": n_succ,
+            "n_success": step4.n_succ,
             "mean_aoi": mean_aoi(aoi),
             "aoi_var": aoi_variance(aoi),
             "beta_t": matcher_state.beta_t,
@@ -513,8 +558,11 @@ class AsyncFLTrainer:
                        for k in per_round[0]}
 
     # ------------------------------------------------- served (SchedServer)
-    def _validate_server(self, server) -> None:
-        m = self.cfg.n_clients
+    def _validate_server(self, server, n_clients: Optional[int] = None) -> None:
+        """``run_served``'s checks of ``server`` against this trainer; the
+        server's client dimension must be ``n_clients`` (default
+        ``cfg.n_clients``; the sparse trainer passes its slot count)."""
+        m = self.cfg.n_clients if n_clients is None else n_clients
         if not (self.cfg.use_matching and server.use_matching):
             raise ValueError(
                 "run_served: requires use_matching=True on both the trainer cfg and the "

@@ -16,6 +16,7 @@ sweep driver, the sharded engines on one card, and the scheduler service.
   sharded_fl_batch /
   sweep_mesh / pad_batch /
   unpad_batch
+  shard_clients / shard_slots  client and slot tensors placed on the mesh
   SchedServer / ServeRequest / ServeDecision   the multi-tenant service
   TenantSlots / init_slots / make_serve_step / make_admit
                                                its functional core
@@ -26,6 +27,8 @@ from repro_torch.sim.engine import simulate_aoi_regret_batch
 from repro_torch.sim.fl_batch import simulate_fl_batch
 from repro_torch.sim.shard import (
     pad_batch,
+    shard_clients,
+    shard_slots,
     sharded_aoi_regret_batch,
     sharded_fl_batch,
     sweep_mesh,
@@ -54,5 +57,5 @@ from repro_torch.sim.serve import (
 __all__ = ["simulate_aoi_regret_batch", "simulate_fl_batch", "SweepCase", "FLSweepCase",
            "BucketReport", "group_cases", "sweep", "sweep_cache_stats", "clear_sweep_cache",
            "sharded_aoi_regret_batch", "sharded_fl_batch", "sweep_mesh", "pad_batch",
-           "unpad_batch", "SchedServer", "ServeDecision", "ServeRequest",
-           "TenantSlots", "init_slots", "make_admit", "make_serve_step", "offline_round_stream"]
+           "unpad_batch", "shard_clients", "shard_slots", "SchedServer", "ServeDecision",
+           "ServeRequest", "TenantSlots", "init_slots", "make_admit", "make_serve_step", "offline_round_stream"]

@@ -8,9 +8,11 @@ of the device count by cycling its entries (index ``i % B``, valid inputs,
 sliced off again by ``unpad_batch``), and ``sharded_aoi_regret_batch`` and
 ``sharded_fl_batch`` are ``simulate_aoi_regret_batch`` and
 ``simulate_fl_batch`` over the mesh (the twin of JAX's
-``build_fl_sharded``).  The port has one card, and a split over several
-has no card to be tested on, so a mesh holds one device: the sharded call
-pads to a multiple of 1 and equals the unsharded call bit for bit.
+``build_fl_sharded``), and ``shard_clients`` / ``shard_slots`` place the
+sparse substrate's client tensors and the service's slot tensors.  The
+port has one card, and a split over several has no card to be tested on,
+so a mesh holds one device: the sharded call pads to a multiple of 1 and
+equals the unsharded call bit for bit, and a placement changes no bits.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.core.channels import ChannelEnv
 from repro_torch.device import resolve_device
 from repro_torch.sim.engine import simulate_aoi_regret_batch
 from repro_torch.sim.fl_batch import simulate_fl_batch
+from repro_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +89,32 @@ def pad_batch(tree, multiple: int) -> Tuple[Any, int]:
 def unpad_batch(tree, b: int):
     """Strip pad rows: every tensor's leading axis cut back to ``b``."""
     return _map(lambda x: x[:b], tree)
+
+
+def _place(tree, mesh: Optional[SweepMesh], label: str):
+    """Every tensor of ``tree`` on the one device of ``mesh``."""
+    mesh = sweep_mesh() if mesh is None else mesh
+    if len(mesh.devices) != 1:
+        raise ValueError(f"{label}: a mesh of {len(mesh.devices)} devices; the port keeps "
+                         "the client and slot axes on one card (no split across cards)")
+    dev = mesh.devices[0]
+    return tree_map(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x, tree)
+
+
+def shard_clients(tree, mesh: Optional[SweepMesh] = None):
+    """Place the sparse FL substrate's (N,)-leading client tensors (the
+    (N, n, ...) datasets, (N,) scalars; ``repro_torch.fl.sparse``) on the
+    mesh's device (default: ``sweep_mesh()``).  The JAX package splits
+    them over the mesh; on the port's one card this is a placement that
+    changes no bits.  A mesh of several devices raises."""
+    return _place(tree, mesh, "shard_clients")
+
+
+def shard_slots(tree, mesh: Optional[SweepMesh] = None):
+    """Place the scheduler service's slot tensors (leading axis the slot
+    rows) on the mesh's device, as ``shard_clients`` does for the client
+    axis: bitwise inert on one card; a mesh of several devices raises."""
+    return _place(tree, mesh, "shard_slots")
 
 
 def sharded_aoi_regret_batch(

@@ -1013,3 +1013,84 @@ def test_fl_batch_of_one_on_the_card_is_run(cuda):
     for k in st.params:
         assert torch.equal(st1.params[k][0], st.params[k]), k
     assert torch.equal(st1.contrib[0], st.contrib) and torch.equal(st1.zeta[0], st.zeta)
+
+
+def test_sparse_top_m_and_batch_draw_on_the_card_equal_the_cpu(cuda):
+    """The sparse substrate's stable top-M at N = 10^5 (all ties, a random
+    mask, tied groups) and its hashed batch draw give the CPU's bits."""
+    from repro_torch.core.availability import MarkovChurn
+    from repro_torch.data import client_batch_indices
+    from repro_torch.fl import SparseAsyncFLTrainer, SparseFLConfig
+
+    n, m, nch = 100_000, 64, 16
+    rng = np.random.default_rng(0)
+    cases = [(np.ones(n), np.ones(n), np.ones(n)),
+             (np.ones(n), np.ones(n), rng.random(n) < 0.0004),
+             (rng.integers(1, 4, n), rng.integers(1, 6, n), rng.random(n) < 0.5)]
+    picks = {}
+    for dev in ("cpu", cuda):
+        tr = SparseAsyncFLTrainer(
+            SparseFLConfig(n_clients=n, n_sched=m, n_channels=nch, batch_size=4),
+            GLRCUCB(nch, m, history=16), make_stationary(torch.full((nch,), 0.5), device=dev),
+            lambda p, x, y: (x @ p["w"] - y).pow(2).mean(), device=dev,
+            availability=MarkovChurn())
+        st = tr.init({"w": torch.zeros(4)})
+        picks[str(dev)] = [tr._select(st._replace(
+            contrib=torch.as_tensor(c, dtype=torch.float32, device=dev),
+            aoi=torch.as_tensor(a, dtype=torch.float32, device=dev),
+            avail=torch.as_tensor(v, dtype=torch.float32, device=dev))).cpu()
+            for c, a, v in cases]
+    for got, want in zip(picks["cuda"], picks["cpu"]):
+        assert torch.equal(got, want)
+    assert torch.equal(picks["cpu"][0], torch.arange(m))
+    ids = torch.randint(0, n, (m,), generator=torch.Generator().manual_seed(1))
+    for seed in (0, 12345, torch.tensor([3, 4])):
+        idx = ids if not isinstance(seed, torch.Tensor) else ids.expand(2, -1)
+        want = client_batch_indices(seed, 7, idx, 8, 2, 4)
+        got = client_batch_indices(seed.to(cuda) if isinstance(seed, torch.Tensor) else seed,
+                                   7, idx.to(cuda), 8, 2, 4)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_sparse_equals_dense_bit_for_bit_on_the_card(cuda):
+    """At M = N the sparse round is the dense round's arithmetic on the
+    card too: the dense trainer fed the sparse draw gives every state leaf
+    and metric bit for bit, and each launches ``weighted_aggregate`` and
+    ``glr_step`` once a round."""
+    from repro_torch.data import client_batch_indices, gather_client_batches
+    from repro_torch.fl import (AsyncFLConfig, AsyncFLTrainer, SparseAsyncFLTrainer,
+                                SparseFLConfig)
+
+    n, nch, r, e, b = 20, 30, 6, 2, 3
+    g = torch.Generator().manual_seed(5)
+    cx, cy = torch.randn((n, 12, 9), generator=g), torch.randn((n, 12), generator=g)
+    u = torch.rand((r, 2, nch), generator=g).to(cuda)
+    means = np.random.default_rng(2).random((3, nch)).astype(np.float32)
+    env = make_piecewise(means, np.array([2, 4]), device=cuda)
+    loss = lambda p, x, y: ((x @ p["w"] + p["b"] - y) ** 2).mean()
+    params = {"w": torch.zeros(9), "b": torch.zeros(())}
+    common = dict(local_epochs=e, max_update_norm=50.0, staleness_cap=3)
+    dense = AsyncFLTrainer(AsyncFLConfig(n_clients=n, n_channels=nch, **common),
+                           GLRCUCB(nch, n, history=32), env, loss, device=cuda)
+    sparse = SparseAsyncFLTrainer(SparseFLConfig(n_clients=n, n_sched=n, n_channels=nch,
+                                                 batch_size=b, **common),
+                                  GLRCUCB(nch, n, history=32), env, loss, device=cuda)
+    ids = torch.arange(n, device=cuda)
+    draws = [gather_client_batches(cx.to(cuda), cy.to(cuda), ids,
+                                   client_batch_indices(0, t, ids, 12, e, b)) for t in range(r)]
+    bx, by = torch.stack([d[0] for d in draws]), torch.stack([d[1] for d in draws])
+    before = weighted_aggregate.launches, glr_step.launches
+    ds, dm = dense.run(dense.init(params), bx, by, uniforms=u)
+    mid = weighted_aggregate.launches, glr_step.launches
+    ss, sm = sparse.run(sparse.init(params), cx, cy, uniforms=u)
+    torch.cuda.synchronize()
+    assert (mid[0] - before[0], mid[1] - before[1]) == (r, r)
+    assert (weighted_aggregate.launches - mid[0], glr_step.launches - mid[1]) == (r, r)
+    for f in ("buffers", "has_update", "last_success", "aoi", "staleness", "contrib", "zeta"):
+        assert torch.equal(getattr(ds, f), getattr(ss, f)), f
+    for k in ds.params:
+        assert torch.equal(ds.params[k], ss.params[k]), k
+    for a, c in zip(ds.sched_state[:5], ss.sched_state[:5]):
+        assert torch.equal(a, c)
+    for k in dm:
+        assert torch.equal(dm[k], sm[k]), k

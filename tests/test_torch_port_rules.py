@@ -26,7 +26,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.bandits import GLRCUCB  # noqa: E402
 from repro_torch.core.channels import make_piecewise, make_scenario, make_stationary  # noqa: E402
 from repro_torch.core.regret import simulate_aoi_regret  # noqa: E402
-from repro_torch.fl import AsyncFLConfig, AsyncFLTrainer  # noqa: E402
+from repro_torch.fl import (  # noqa: E402
+    AsyncFLConfig,
+    AsyncFLTrainer,
+    SparseAsyncFLTrainer,
+    SparseFLConfig,
+)
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
@@ -77,7 +82,8 @@ SLICE_TWINS = ("core/aggregation.py", "core/faults.py", "core/channels/process.p
                "checkpoint/io.py", "core/matching.py", "core/aoi.py", "core/regret.py",
                "core/bandits/base.py", "core/channels/base.py", "core/channels/families.py",
                "sim/engine.py", "sim/sweep.py", "sim/shard.py", "sim/fl_batch.py",
-               "fl/client.py", "core/contribution.py", "data/pipeline.py", "utils/tree.py")
+               "fl/client.py", "core/contribution.py", "data/pipeline.py", "utils/tree.py",
+               "core/availability.py", "fl/sparse.py", "fl/__init__.py", "data/dirichlet.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_TWINS)
@@ -110,6 +116,9 @@ def test_entry_points_default_to_cuda(no_cuda):
         simulate_aoi_regret(sched, env, 10)
     with pytest.raises(RuntimeError, match="CUDA"):
         AsyncFLTrainer(AsyncFLConfig(n_clients=2, n_channels=5), sched, env, lambda p, x, y: 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SparseAsyncFLTrainer(SparseFLConfig(n_clients=100, n_sched=2, n_channels=5,
+                                            batch_size=4), sched, env, lambda p, x, y: 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         sched.init()
     # the explicit CPU request works

@@ -174,7 +174,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    over 24 rounds at (a)'s size, ``always_on`` bit for bit the run without
    a process; (e) ``run_served`` against ``run()`` over 10 rounds on (c)'s
    setup, bit for bit; (f) (a) with a coordinate-median aggregator,
-   ``robust_trimmed`` once a round; (g) a profiled 10-round window of (a).
+   ``robust_trimmed`` once a round; (g) a profiled 10-round window of (a);
+14. the FL training path at LLM scale (``make_fl_train_step``) on
+   qwen1.5-0.5b: (0) ``flash_attention`` bf16 (8, 16/16, 2048, 64) and
+   ``glr_step`` (8, 128) at the path's shapes against their plain
+   versions; (a) at full width, 2 layers, f32: ``loss`` and its gradients
+   on the kernel route against the plain route (rtol/atol 2e-3); (b) three
+   rounds at the smoke config, f32, on the card against the CPU (the
+   discrete state bit for bit, floats rtol 1e-4); (c) ``microbatches = 4``
+   against 1 at (a)'s size in bf16; (d) all 24 layers in bf16 through the
+   launcher's own functions (4 clients over 8 channels, AdamW, ``remat =
+   "full"``, ``ce_chunk = 512``, B = 8, S = 2048, 20 rounds): finite and
+   falling loss, ``flash_attention`` 48 times a step on the tensor-core
+   route, ``glr_step`` once, ms a step, tokens a second, the model-FLOP
+   share, peak device memory and a profiled 3-step window with the plain
+   attention backward's share; (e) the trained parameters through
+   ``save_checkpoint`` and back, bit for bit.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -183,7 +198,7 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 128, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-13 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-14 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
 Every path runs at the paper's sizes, uncut but for phase 9's two cuts
@@ -201,6 +216,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -277,6 +293,14 @@ SUB_REF_ROUNDS = 3             # phase 13 (b): rounds on the card held to the CP
 SUB_PROFILE_ROUNDS = 10        # phase 13 (g)'s window
 PAR_N, PAR_NCH, PAR_ROUNDS, PAR_E, PAR_B = 20, 30, 6, 2, 3   # its dense-vs-sparse parity (:943)
 SUB_SERVED_ROUNDS = 10         # phase 13 (e): run_served against run()
+TRAIN_ARCH = "qwen1.5-0.5b"     # the training path's model, full width and depth (phase 14)
+TRAIN_B, TRAIN_S = 8, 2048      # its batch: sequences x tokens
+TRAIN_ROUNDS, TRAIN_WARM = 20, 2   # rounds of (d), the first two untimed
+TRAIN_PROFILE_STEPS = 3         # (d)'s traced window
+TRAIN_CLIENTS, TRAIN_CHANNELS, TRAIN_HISTORY = 4, 8, 128   # launch/train.py's own
+TRAIN_LR, TRAIN_CE_CHUNK = 3e-4, 512
+TRAIN_REF_LAYERS, TRAIN_REF_S = 2, 512   # (a) and (c): full width, 2 layers
+TRAIN_REF_ROUNDS = 3            # (b): rounds on the card held to the CPU run
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention", "regret_scan", "glr_step_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
@@ -360,6 +384,13 @@ def time_ms(torch, fn, iters):
 def trace_kernels(torch, fn):
     """Run ``fn`` once under ``torch.profiler``: (the device kernels of the
     exported trace, the wall time in us)."""
+    events, wall_us = trace_events(torch, fn)
+    return [e for e in events if e.get("cat") == "kernel" and "dur" in e], wall_us
+
+
+def trace_events(torch, fn):
+    """Run ``fn`` once under ``torch.profiler``: (every event of the
+    exported trace, the wall time in us)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -376,7 +407,7 @@ def trace_kernels(torch, fn):
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
         events = json.loads(trace.read_text()).get("traceEvents", [])
-    return [e for e in events if e.get("cat") == "kernel" and "dur" in e], wall_us
+    return events, wall_us
 
 
 def device_ms(torch, fn, calls):
@@ -435,6 +466,11 @@ def profile_window(torch, label, fn, rounds):
     round and the kernels that take the most device time.  Returns the
     device time by kernel name in us ({} when the trace has none)."""
     kernels, wall_us = trace_kernels(torch, fn)
+    return report_kernels(label, kernels, wall_us, rounds)
+
+
+def report_kernels(label, kernels, wall_us, rounds):
+    """``profile_window``'s lines for the kernels of one trace."""
     if not kernels:
         line(f"  profile {label}: no device kernels in the trace; device busy share not measured")
         return {}
@@ -3484,6 +3520,33 @@ def substrate_trainer(torch, device, availability="churn", aggregator=None):
         device=device, availability=availability, aggregator=aggregator)
 
 
+def glr_step_at(torch, shape, gen, label):
+    """``glr_step`` at a path's (N, H) on {0, 1} rewards against its plain
+    version: the state bitwise, the statistic at rtol 1e-5.  Returns its
+    entry (error, times, bound)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.glr_step import glr_step as glr_kernel
+
+    args = glr_inputs(torch, shape, gen, True)
+    got = ops.glr_step(*args)
+    want = ref.glr_step(*args)
+    for g, w, name in zip(got[:3], want[:3], ("cum", "total", "base")):
+        check(torch.equal(g, w), f"{label}: glr_step {shape} {name} not bitwise")
+    fin = torch.isfinite(want[3])
+    check(torch.equal(fin, torch.isfinite(got[3]))
+          and torch.allclose(got[3][fin], want[3][fin], rtol=1e-5, atol=1e-5),
+          f"{label}: glr_step {shape} statistic beyond rtol 1e-5")
+    cum, total, base, counts, r_vec, sched = args
+    counts_i = counts.to(torch.int32)
+    gl = dict(shape=list(shape),
+              max_abs_err=float((got[3][fin] - want[3][fin]).abs().max()) if bool(fin.any())
+              else 0.0,
+              ms=time_ms(torch, lambda: glr_kernel(cum, total, base, counts_i, r_vec, sched), 2000),
+              plain_ms=time_ms(torch, lambda: ref.glr_step(*args), 200), library_ms=None)
+    gl["bound_ms"], gl["bound_by"] = glr_bound_ms(torch, args, shape[-1], geometric=False)
+    return gl
+
+
 def substrate_kernels(torch, gen, floor_ms):
     """The Step-4 kernels and ``glr_step`` at the sparse round's shapes,
     against their plain versions (not counted as launches of the path):
@@ -3492,7 +3555,6 @@ def substrate_kernels(torch, gen, floor_ms):
     rewards bitwise in state, rtol 1e-5 in the statistic.  Returns each
     kernel's entry (error, times, bound)."""
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.glr_step import glr_step as glr_kernel
     from repro_torch.kernels.robust_agg import robust_trimmed as rt_kernel
     from repro_torch.kernels.weighted_aggregate import weighted_aggregate as wa_kernel
 
@@ -3526,23 +3588,7 @@ def substrate_kernels(torch, gen, floor_ms):
     rt["bound_ms"], rt["bound_by"] = two_way_bound(m * p * 4 + m * 4 + 8 + p * 4,
                                                    RANK_PAIR_OPS * int(n) ** 2 * p, F32_LANE_OPS)
 
-    args = glr_inputs(torch, (SUB_NCH, SUB_H), gen, True)
-    got = ops.glr_step(*args)
-    want = ref.glr_step(*args)
-    for g, w, name in zip(got[:3], want[:3], ("cum", "total", "base")):
-        check(torch.equal(g, w), f"phase 13: glr_step ({SUB_NCH}, {SUB_H}) {name} not bitwise")
-    fin = torch.isfinite(want[3])
-    check(torch.equal(fin, torch.isfinite(got[3]))
-          and torch.allclose(got[3][fin], want[3][fin], rtol=1e-5, atol=1e-5),
-          f"phase 13: glr_step ({SUB_NCH}, {SUB_H}) statistic beyond rtol 1e-5")
-    cum, total, base, counts, r_vec, sched = args
-    counts_i = counts.to(torch.int32)
-    gl = dict(shape=[SUB_NCH, SUB_H],
-              max_abs_err=float((got[3][fin] - want[3][fin]).abs().max()) if bool(fin.any())
-              else 0.0,
-              ms=time_ms(torch, lambda: glr_kernel(cum, total, base, counts_i, r_vec, sched), 2000),
-              plain_ms=time_ms(torch, lambda: ref.glr_step(*args), 200), library_ms=None)
-    gl["bound_ms"], gl["bound_by"] = glr_bound_ms(torch, args, SUB_H, geometric=False)
+    gl = glr_step_at(torch, (SUB_NCH, SUB_H), gen, "phase 13")
     torch.cuda.synchronize()
     for name, t in (("weighted_aggregate", wa), ("robust_trimmed", rt), ("glr_step", gl)):
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
@@ -3749,9 +3795,486 @@ def sparse_substrate(torch, seed, floor_ms):
     return launches, kernels, dict(rounds_per_sec=rps, peak_mib=peak_mib, served=served)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the FL training path at LLM scale
+# ---------------------------------------------------------------------------
+
+def train_kernels(torch, gen, floor_ms):
+    """``flash_attention`` and ``glr_step`` at the training path's shapes
+    against their plain versions (not counted as launches of the path):
+    qwen1.5-0.5b's attention, bf16 (8, 16/16, 2048, 64) causal, on the
+    tensor-core route within rtol 2**-8 / atol 1e-4 of the f32 plain
+    version (phase 2's bf16 tolerance); ``glr_step`` (8, 128) on {0, 1}
+    rewards, state bitwise, the statistic at rtol 1e-5.  Returns each
+    kernel's entry (error, times, bound)."""
+    from torch.nn import functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+
+    cfg = get_config(TRAIN_ARCH)
+    shape = (TRAIN_B, cfg.n_heads, cfg.n_kv_heads, TRAIN_S, cfg.resolved_head_dim)
+    b, hq, hkv, s, d = shape
+    q = (torch.randn((b, hq, s, d), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    k = (torch.randn((b, hkv, s, d), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    before = fa_kernel.tc_launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.mha_attention(q.float(), k.float(), v.float(), causal=True)
+    torch.cuda.synchronize()
+    check(fa_kernel.tc_launches == before + 1,
+          f"phase 14 (0): flash_attention {shape} bf16 not on the tensor-core route")
+    err = float((got.float() - want).abs().max())
+    check(torch.allclose(got.float(), want, rtol=2.0 ** -8, atol=1e-4),
+          f"phase 14 (0): flash_attention {shape} bf16 beyond rtol 2^-8 atol 1e-4 ({err:.3e})")
+    del got, want
+    fa = dict(shape_b_hq_hkv_s_d=list(shape), causal=True, dtype="bfloat16", max_abs_err=err,
+              ms=time_ms(torch, lambda: fa_kernel(q, k, v, causal=True), 50),
+              plain_ms=time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=True), 3),
+              library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                  q, k, v, is_causal=True), 20))
+    fa["bound_ms"], fa["bound_by"] = attn_bound_ms(shape, True, 0, 2, BF16_TC_FLOPS)
+    del q, k, v
+
+    gl = glr_step_at(torch, (TRAIN_CHANNELS, TRAIN_HISTORY), gen, "phase 14 (0)")
+    torch.cuda.synchronize()
+    line(f"  (0) flash_attention (B, Hq, Hkv, S, D)={shape} causal bf16 at the training "
+         f"path's shape: max_abs_err {fa['max_abs_err']:.3e} vs f32 plain (rtol 2^-8 atol 1e-4) "
+         f"ok; kernel {fa['ms']:.4f} ms, plain {fa['plain_ms']:.4f} ms, library (SDPA) "
+         f"{fa['library_ms']:.4f} ms, bound {fa['bound_ms']:.4f} ms ({fa['bound_by']})")
+    line(f"  (0) glr_step {tuple(gl['shape'])} at the training path's shape: max_abs_err "
+         f"{gl['max_abs_err']:.3e} vs plain ok; kernel {gl['ms']:.4f} ms, plain "
+         f"{gl['plain_ms']:.4f} ms, bound {gl['bound_ms']:.2e} ms ({gl['bound_by']}), launch "
+         f"floor {floor_ms:.5f} ms")
+    return dict(flash_attention=fa, glr_step=gl)
+
+
+def adam_step_bound(count, b1=0.9, b2=0.95):
+    """The most one AdamW step moves an entry, in units of lr (weight decay
+    aside): |m_hat| / sqrt(v_hat) after ``count`` steps, by Cauchy-Schwarz
+    over the two moments' sums; 1 at the first step."""
+    q = b1 * b1 / b2
+    return ((1 - b1) / math.sqrt(1 - b2) * math.sqrt((1 - q ** count) / (1 - q))
+            * math.sqrt(1 - b2 ** count) / (1 - b1 ** count))
+
+
+def adam_round_close(torch, params, opt, ref_params, ref_opt, slack, lr, what, b1=0.9, b2=0.95,
+                     eps=1e-8):
+    """Hold one AdamW round's parameters and moments (CPU tensors) against a
+    reference run's after the same round.  ``mu`` and ``nu`` within rtol 1e-4
+    and atol min(1e-6, 1e-4 of the tensor's largest entry).  The parameters
+    within 1e-6 + 1e-4 |p| + ``slack``: AdamW's step is scale free, so an
+    entry whose gradient is rounding noise or cancels to a few thousandths of
+    its terms steps by another fraction of lr in each run.  ``slack`` (an
+    entry, carried over the rounds) grows each round by twice the step's
+    first-order response to the two runs' moment differences (which the
+    moment check bounds), lr (|dm| + |d sqrt v|) / (sqrt v + eps) with the
+    bias corrections, and never by more than two steps can differ, 2 lr
+    ``adam_step_bound``.  Returns the slack and the number of entries beyond
+    the plain tolerance."""
+    count = int(ref_opt["count"])
+    check(int(opt["count"]) == count, f"{what}: count {int(opt['count'])} against {count}")
+    bc1, bc2 = 1 - b1 ** count, 1 - b2 ** count
+    cap = 2 * lr * adam_step_bound(count, b1, b2)
+    beyond = 0
+    for k, want in ref_params.items():
+        for m in ("mu", "nu"):
+            got, ref = opt[m][k], ref_opt[m][k]
+            atol = min(1e-6, 1e-4 * float(ref.abs().max()))
+            check(bool(((got - ref).abs() <= 1e-4 * ref.abs() + atol).all()),
+                  f"{what}: {m} {k} beyond rtol 1e-4 / atol {atol:.2e}")
+        root = (ref_opt["nu"][k] / bc2).sqrt()
+        step = lr * ((opt["mu"][k] - ref_opt["mu"][k]).abs() / bc1
+                     + ((opt["nu"][k] / bc2).sqrt() - root).abs()) / (root + eps)
+        slack[k] = slack[k] + torch.clamp(2 * step, max=cap)
+        err, tol = (params[k].float() - want.float()).abs(), 1e-6 + 1e-4 * want.float().abs()
+        check(bool((err <= tol + slack[k]).all()),
+              f"{what}: params {k} beyond rtol 1e-4 / atol 1e-6 + the AdamW slack")
+        beyond += int((err > tol).sum())
+    return slack, beyond
+
+
+def train_reference(torch, seed):
+    """(a) qwen1.5-0.5b at full width (d 1024, V 151,936), 2 layers, f32:
+    one ``loss`` and its gradients on the kernel route (the FMA kernel,
+    forward and the checkpoint's recompute) against the plain route: the
+    loss at rtol / atol 2e-3 (phase 7's tolerance), each gradient at rtol
+    2e-3 and atol min(2e-3, 1e-4 of its tensor's largest entry)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_REF_LAYERS, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 140)
+    model = build_model(cfg, remat="full")
+    params, _ = model.init(gen, device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, TRAIN_REF_S), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    w = torch.tensor([1.0, 0.5], device="cuda")
+    before = (kernel.fma_launches, kernel.tc_launches)
+    lk, _, gk = loss_and_grads(model, params, batch, w)
+    torch.cuda.synchronize()
+    launched = (kernel.fma_launches - before[0], kernel.tc_launches - before[1])
+    check(launched == (2 * TRAIN_REF_LAYERS, 0),
+          f"phase 14 (a): kernel route launched {launched} (FMA, tensor-core), expected "
+          f"{2 * TRAIN_REF_LAYERS} FMA")
+    lp, _, gp = loss_and_grads(build_model(cfg, remat="full", attn_impl="plain"), params, batch, w)
+    check(kernel.fma_launches - before[0] == 2 * TRAIN_REF_LAYERS, "phase 14 (a): the plain "
+          "route ran the kernel")
+    check(bool(torch.isfinite(lk)) and torch.allclose(lk, lp, rtol=2e-3, atol=2e-3),
+          f"phase 14 (a): loss {float(lk)} against the plain route's {float(lp)}")
+    g_err, g_max, g_rel = 0.0, 0.0, 0.0
+    for k, g in gp.items():
+        top = float(g.abs().max())
+        atol = min(2e-3, 1e-4 * top)
+        check(torch.allclose(gk[k], g, rtol=2e-3, atol=atol),
+              f"phase 14 (a): gradient {k} beyond rtol 2e-3 / atol {atol:.2e} of the plain route")
+        err = (gk[k] - g).abs()
+        g_err, g_max = max(g_err, float(err.max())), max(g_max, top)
+        g_rel = max(g_rel, float(err.max()) / max(top, 1e-30))
+    line(f"  (a) {cfg.name} width {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.n_layers} layers, "
+         f"f32, B=2 S={TRAIN_REF_S}: loss and gradients, kernel route (FMA, {launched[0]} "
+         f"launches: forward and recompute) vs plain route: loss {float(lk):.6f} / "
+         f"{float(lp):.6f}, gradients max_abs_err {g_err:.3e} (max |grad| {g_max:.3e}; worst "
+         f"tensor's max_abs_err / its max |grad| {g_rel:.3e}; rtol 2e-3, atol min(2e-3, 1e-4 "
+         f"max |grad|)) ok")
+    del params, gk, gp
+    release(torch)
+
+
+def _tree_to(tree, dev):
+    from repro_torch.utils.tree import tree_map
+    return tree_map(lambda x: x.to(dev) if hasattr(x, "to") else x, tree)
+
+
+def train_card_vs_cpu(torch, seed):
+    """(b) three ``make_fl_train_step`` rounds at the qwen1.5 smoke config
+    in f32 on the card against the same rounds on the CPU (same initial
+    state, tokens and uniforms): AoI, the scheduler's state, the count and
+    ``n_success`` bit for bit; loss, contributions, zeta at rtol 1e-4;
+    moments and parameters as ``adam_round_close`` holds them.  On the card
+    each round launches ``glr_step`` once and ``flash_attention`` twice a
+    layer on the FMA route (the forward and the checkpoint's recompute); on
+    the CPU nothing launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.bandits import GLRCUCB
+    from repro_torch.core.channels import make_piecewise
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.launch.steps import make_fl_train_step, make_train_state_init
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), dtype="float32")
+    lr, rounds = 1e-3, TRAIN_REF_ROUNDS
+    model, sched, opt = build_model(cfg, remat="full"), GLRCUCB(8, 4, history=32), adamw(lr)
+    means = np.array([np.linspace(0.9, 0.2, 8), np.linspace(0.2, 0.9, 8)], np.float32)
+    state0 = make_train_state_init(model, opt, sched, 4)(
+        torch.Generator().manual_seed(seed + 141), device="cpu")
+    data = synthetic_lm_batches(8, 64, cfg.vocab_size, seed=seed + 142)
+    toks = [torch.from_numpy(next(data)) for _ in range(rounds)]
+    u = torch.rand((rounds, 2, 8), generator=torch.Generator().manual_seed(seed + 143))
+    wrappers = kernel_wrappers()
+    counters = lambda: (wrappers["glr_step"].launches, wrappers["flash_attention"].fma_launches,
+                        wrappers["flash_attention"].tc_launches)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        step = make_fl_train_step(model, opt, sched, make_piecewise(means, [1], device=dev), 4)
+        state, out = _tree_to(state0, dev), []
+        before = counters()
+        for r in range(rounds):
+            state, met = step(state, {"tokens": toks[r].to(dev)}, u[r, 0].to(dev),
+                              u[r, 1].to(dev))
+            out.append(_tree_to((state, met), "cpu"))
+        launched = tuple(a - b for a, b in zip(counters(), before))
+        want = (rounds, rounds * 2 * cfg.n_layers, 0) if dev == "cuda" else (0, 0, 0)
+        check(launched == want, f"phase 14 (b) on {dev}: launched (glr_step, flash_attention "
+              f"FMA, tensor-core) {launched}, expected {want}")
+        runs[dev] = out
+    slack = {k: torch.zeros_like(v) for k, v in state0.params.items()}
+    worst, beyond = 0.0, 0
+    for r, ((cs, cm), (gs, gm)) in enumerate(zip(runs["cpu"], runs["cuda"])):
+        at = f"phase 14 (b) round {r}"
+        check(torch.equal(gs.fl.aoi, cs.fl.aoi) and gs.fl.t == cs.fl.t == r + 1, f"{at}: aoi")
+        check(same_tree(torch, gs.fl.sched_state, cs.fl.sched_state), f"{at}: scheduler state")
+        check(torch.equal(gs.opt_state["count"], cs.opt_state["count"]), f"{at}: count")
+        check(torch.equal(gm["n_success"], cm["n_success"])
+              and torch.equal(gm["mean_aoi"], cm["mean_aoi"]), f"{at}: n_success / mean_aoi")
+        for name, a, c in (("contrib", gs.fl.contrib, cs.fl.contrib),
+                           ("zeta", gs.fl.zeta, cs.fl.zeta), ("loss", gm["loss"], cm["loss"])):
+            check(torch.allclose(a, c, rtol=1e-4, atol=0), f"{at}: {name} beyond rtol 1e-4")
+        slack, n = adam_round_close(torch, gs.params, gs.opt_state, cs.params, cs.opt_state,
+                                    slack, lr, at)
+        beyond = max(beyond, n)
+        for k, p in cs.params.items():
+            worst = max(worst, float(((gs.params[k] - p).abs() / (p.abs() + 1e-6)).max()))
+    n_params = sum(p.numel() for p in state0.params.values())
+    line(f"  (b) {cfg.name} f32, {rounds} rounds of make_fl_train_step on the card equal the CPU "
+         f"run: AoI, scheduler state, n_success bit for bit; loss, contributions, zeta rtol 1e-4; "
+         f"moments rtol 1e-4; params (largest |diff| / (|p| + 1e-6) {worst:.3e}; at most {beyond} "
+         f"of {n_params} entries beyond rtol 1e-4 / atol 1e-6, inside the AdamW slack) ok; "
+         f"launches a round: glr_step 1, flash_attention (FMA) {2 * cfg.n_layers}")
+
+
+def train_microbatches(torch, seed):
+    """(c) ``microbatches = 4`` against 1 for one step at (a)'s 2 layers in
+    bf16, at ``tests/test_scale_steps.py``'s tolerances (loss rtol 2e-4,
+    parameters rtol 2e-2 / atol 3e-3).  AdamW's first step moves every
+    entry by about lr whatever its gradient, so those parameters cannot
+    tell a wrong accumulation; the same step in f32 is held on its
+    accumulated gradient, AdamW's first ``mu`` (0.1 g): rtol 1e-4, atol 1e-4
+    of the tensor's largest entry (the gradients' rule)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.bandits import GLRCUCB
+    from repro_torch.core.channels import make_stationary
+    from repro_torch.launch.steps import make_fl_train_step, make_train_state_init
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+
+    sched, opt = GLRCUCB(8, 4, history=32), adamw(1e-3)
+    # channels good enough that the f32 step's clients all but surely deliver
+    env = make_stationary(torch.linspace(0.95, 0.8, 8, device="cuda"), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 144)
+    u = torch.rand((2, 8), generator=gen, device="cuda")
+
+    def one_step(dtype):
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_REF_LAYERS, dtype=dtype)
+        model = build_model(cfg, remat="full")
+        state = make_train_state_init(model, opt, sched, 4)(
+            torch.Generator(device="cuda").manual_seed(seed + 145), device="cuda")
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (8, TRAIN_REF_S), generator=gen,
+                                         device="cuda", dtype=torch.int32)}
+        return cfg, {mb: make_fl_train_step(model, opt, sched, env, 4, microbatches=mb)(
+            state, batch, u[0], u[1]) for mb in (1, 4)}
+
+    _, out = one_step("float32")
+    (s1, m1), (s4, m4) = out[1], out[4]
+    check(float(m1["n_success"]) > 0, "phase 14 (c): no client delivered in the f32 step")
+    g_rel = 0.0
+    for k, mu in s1.opt_state["mu"].items():
+        top = float(mu.abs().max())
+        check(torch.allclose(s4.opt_state["mu"][k], mu, rtol=1e-4, atol=1e-4 * top),
+              f"phase 14 (c): f32 accumulated gradient {k} beyond rtol 1e-4 / atol 1e-4 max")
+        g_rel = max(g_rel, float((s4.opt_state["mu"][k] - mu).abs().max()) / max(top, 1e-30))
+    del out, s1, s4
+    cfg, out = one_step("bfloat16")
+    (s1, m1), (s4, m4) = out[1], out[4]
+    check(torch.allclose(m4["loss"], m1["loss"], rtol=2e-4, atol=0),
+          f"phase 14 (c): loss {float(m4['loss'])} against {float(m1['loss'])}")
+    check(torch.equal(m4["mean_aoi"], m1["mean_aoi"]), "phase 14 (c): mean_aoi")
+    p_err = 0.0
+    for k, p in s1.params.items():
+        check(s4.params[k].dtype == p.dtype == torch.bfloat16
+              and torch.allclose(s4.params[k].float(), p.float(), rtol=2e-2, atol=3e-3),
+              f"phase 14 (c): params {k} beyond rtol 2e-2 / atol 3e-3")
+        p_err = max(p_err, float((s4.params[k].float() - p.float()).abs().max()))
+    line(f"  (c) {cfg.name} {cfg.n_layers} layers bf16, B=8 S={TRAIN_REF_S}: microbatches=4 vs 1, "
+         f"one step: loss {float(m4['loss']):.6f} / {float(m1['loss']):.6f} (rtol 2e-4), params "
+         f"max_abs_err {p_err:.3e} (rtol 2e-2 atol 3e-3) ok; in f32 the accumulated gradients' "
+         f"worst max_abs_err / max |g| of a tensor {g_rel:.3e} (rtol 1e-4, atol 1e-4 max) ok")
+    del out, s1, s4
+    release(torch)
+
+
+def model_flops(cfg, n_params, b, s):
+    """Model FLOPs of one training step from shapes: 6 P B S (the products
+    with the P parameters, forward and backward; the tied embedding counts
+    once, as the unembedding's product) plus causal attention, 3 x 4 D
+    FLOPs a visible (query, key) pair a head a layer; and what the card
+    executes besides with ``remat="full"``: the blocks' forward again (2
+    P' B S, P' the blocks' parameters), the CE chunks' unembedding again (2
+    V d B S) and attention's forward twice more (the checkpoint's recompute
+    and the plain backward's)."""
+    pairs = attn_pairs(s, True, 0)
+    attn = 12 * cfg.resolved_head_dim * b * cfg.n_heads * cfg.n_layers * pairs
+    blocks = n_params - cfg.vocab_size * cfg.d_model
+    extra = (2 * blocks * b * s + 2 * cfg.vocab_size * cfg.d_model * b * s
+             + 8 * cfg.resolved_head_dim * b * cfg.n_heads * cfg.n_layers * pairs)
+    return 6 * n_params * b * s, attn, extra
+
+
+def range_device_us(events, name):
+    """Device time of the kernels launched inside the ``record_function``
+    ranges called ``name``, and the number of ranges: the kernels whose
+    launch (a CUDA runtime or driver call, matched by correlation id) falls
+    inside one of the ranges on the host."""
+    import bisect
+
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                   if e.get("name") == name and e.get("cat") == "user_annotation")
+    starts = [a for a, _ in spans]
+
+    def inside(ts):
+        i = bisect.bisect_right(starts, ts) - 1
+        return i >= 0 and ts <= spans[i][1]
+
+    corr = {e["args"]["correlation"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "correlation" in e.get("args", {}) and inside(float(e["ts"]))}
+    return sum(float(e["dur"]) for e in events if e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in corr), len(spans)
+
+
+def train_path(torch, seed):
+    """(d) qwen1.5-0.5b at full width and depth in bf16 through the CLI's
+    own functions (``launch.train.parse_args``, ``setup``, ``train_round``):
+    the main path whose launches are counted; then (e) its parameters
+    through ``save_checkpoint`` and back."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.launch import train
+    from repro_torch.models.attention import BACKWARD_RANGE
+
+    args = train.parse_args(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_ROUNDS), "--batch",
+                             str(TRAIN_B), "--seq", str(TRAIN_S), "--clients",
+                             str(TRAIN_CLIENTS), "--channels", str(TRAIN_CHANNELS),
+                             "--lr", str(TRAIN_LR), "--ce-chunk", str(TRAIN_CE_CHUNK),
+                             "--seed", str(seed), "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.setup(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, state = run.cfg, run.state
+    n_params = sum(v.numel() for v in state.params.values())
+    # param_count leaves out the norm gains and the QKV biases
+    extra_p = (cfg.n_layers * 2 * cfg.d_model + cfg.d_model + cfg.qkv_bias * cfg.n_layers
+               * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.resolved_head_dim)
+    check(n_params == cfg.param_count() + extra_p and run.model.remat == "full"
+          and state.params["embed"].dtype == torch.bfloat16,
+          f"phase 14 (d): {n_params} params, config says {cfg.param_count()} + {extra_p}")
+    line(f"  (d) {cfg.name}: {cfg.n_layers} layers, width {cfg.d_model}, vocab {cfg.vocab_size}, "
+         f"bf16, {n_params:,} params, remat={run.model.remat}, ce_chunk={run.model.ce_chunk}; "
+         f"{TRAIN_CLIENTS} clients over {TRAIN_CHANNELS} channels, B={TRAIN_B} S={TRAIN_S}, "
+         f"AdamW lr {TRAIN_LR}; set up on the card in {setup_s:.2f} s")
+
+    reset_launches()
+    mets, marks = [], []
+    for t in range(TRAIN_ROUNDS):
+        if t == TRAIN_WARM:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        state, met = train.train_round(run, state)
+        mets.append(met)
+        marks.append(torch.cuda.Event(enable_timing=True))   # the step's end on the stream
+        marks[-1].record()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / (TRAIN_ROUNDS - TRAIN_WARM) * 1e3
+    spread = sorted(a.elapsed_time(b) for a, b in zip(marks[TRAIN_WARM - 1:], marks[TRAIN_WARM:]))
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(m["loss"]) for m in mets]
+    succ = [int(m["n_success"]) for m in mets]
+    fa_per = 2 * cfg.n_layers
+    check(launches["flash_attention_tc"] == TRAIN_ROUNDS * fa_per
+          and launches["flash_attention"] == TRAIN_ROUNDS * fa_per
+          and launches["glr_step"] == TRAIN_ROUNDS,
+          f"phase 14 (d): launches {launches}; expected flash_attention {fa_per} a step on the "
+          f"tensor-core route and glr_step 1 a step")
+    check(all(math.isfinite(x) for x in losses), f"phase 14 (d): losses {losses}")
+    # a round in which no client delivered weighs every example 0: its loss is 0
+    delivered = [x for x, n in zip(losses, succ) if n > 0]
+    first, last = sum(delivered[:5]) / 5, sum(delivered[-5:]) / 5
+    check(len(delivered) >= 10 and last < first,
+          f"phase 14 (d): loss did not fall: {losses} (|S_t| {succ})")
+    zsum = float(state.fl.zeta.sum())
+    check(abs(zsum - 1.0) < 1e-5 and state.fl.t == TRAIN_ROUNDS,
+          f"phase 14 (d): zeta sums to {zsum}, t = {state.fl.t}")
+    tokens = TRAIN_B * TRAIN_S
+    flops, attn, extra = model_flops(cfg, n_params, TRAIN_B, TRAIN_S)
+    line(f"  (d) {TRAIN_ROUNDS} rounds: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first "
+         f"/ last 5 rounds with a delivery {first:.4f} / {last:.4f}), |S_t| {succ}, zeta sums to "
+         f"{zsum:.7f}, t = {state.fl.t}; launches flash_attention {launches['flash_attention']} "
+         f"({launches['flash_attention_tc'] // TRAIN_ROUNDS} a step, tensor-core route), "
+         f"glr_step {launches['glr_step']}")
+    line(f"  (d) {step_ms:.3f} ms a step untraced (rounds {TRAIN_WARM}-{TRAIN_ROUNDS - 1}, after "
+         f"{TRAIN_WARM} warm-up rounds; between the steps' CUDA events min {spread[0]:.3f}, "
+         f"median {spread[len(spread) // 2]:.3f}, max {spread[-1]:.3f} ms), "
+         f"{tokens / step_ms * 1e3:,.0f} tokens/s; model FLOPs a "
+         f"step 6 P B S = {flops:.4e} + causal attention {attn:.4e} = {flops + attn:.4e}, "
+         f"{(flops + attn) / (step_ms * 1e-3) / 1e12:.1f} TFLOP/s = "
+         f"{100 * (flops + attn) / (step_ms * 1e-3) / BF16_TC_FLOPS:.1f} % of "
+         f"{BF16_TC_FLOPS / 1e12:.0f} TFLOP/s (6 P B S alone "
+         f"{100 * flops / (step_ms * 1e-3) / BF16_TC_FLOPS:.1f} %); with the recompute the card "
+         f"executes about {flops + attn + extra:.4e}")
+    line(f"  (d) peak device memory {peak_gib:.2f} GiB (allocated; parameters "
+         f"{n_params * 2 / 2 ** 30:.2f} GiB bf16, AdamW moments {n_params * 8 / 2 ** 30:.2f} GiB)")
+
+    # not counted: a traced window of the same loop
+    holder = {"state": state}
+
+    def window():
+        for _ in range(TRAIN_PROFILE_STEPS):
+            holder["state"], _ = train.train_round(run, holder["state"])
+
+    events, wall_us = trace_events(torch, window)
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    by_name = report_kernels(f"(d) {cfg.name} training step", kernels, wall_us,
+                             TRAIN_PROFILE_STEPS)
+    total = sum(by_name.values())
+    bwd_us, n_ranges = range_device_us(events, BACKWARD_RANGE)
+    flash_us = sum(v for k, v in by_name.items() if "flash_fwd" in k)
+    gemm_us = sum(v for k, v in by_name.items() if "gemm" in k.lower() or "xmma" in k.lower()
+                  or "cutlass" in k.lower())
+    if total:
+        line(f"  (d) profile: the plain attention backward ({n_ranges} ranges) "
+             f"{bwd_us / TRAIN_PROFILE_STEPS / 1e3:.2f} ms a step = {100 * bwd_us / total:.1f} % "
+             f"of device time; flash_attention {flash_us / TRAIN_PROFILE_STEPS / 1e3:.2f} ms "
+             f"({100 * flash_us / total:.1f} %); kernels named gemm/xmma/cutlass "
+             f"{gemm_us / TRAIN_PROFILE_STEPS / 1e3:.2f} ms ({100 * gemm_us / total:.1f} %)")
+    del holder, events, kernels
+
+    # (e) the trained parameters through the checkpoint and back
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, TRAIN_ROUNDS, {"params": state.params})
+        back, step = restore_checkpoint(tmp, like={"params": state.params})
+        ck_s = time.perf_counter() - t0
+        check(step == TRAIN_ROUNDS and all(torch.equal(back["params"][k], v)
+                                           for k, v in state.params.items()),
+              "phase 14 (e): restored parameters differ")
+        line(f"  (e) checkpoint: {len(state.params)} tensors saved ({Path(path).stat().st_size / 2 ** 30:.2f} "
+             f"GiB npz) and restored bit for bit in {ck_s:.1f} s")
+    del back, state, run, mets
+    release(torch)
+    return launches, dict(step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+                          model_flops=flops + attn, peak_gib=peak_gib,
+                          attn_backward_share=bwd_us / total if total else None)
+
+
+def training(torch, seed, floor_ms):
+    """Phase 14: the FL training path at LLM scale.  Returns the main path's
+    launches ((d)'s 20 rounds), the kernels at its shapes and its numbers."""
+    t_phase = time.perf_counter()
+    kernels = train_kernels(torch, torch.Generator(device="cuda").manual_seed(seed + 139),
+                            floor_ms)
+    release(torch)
+    train_reference(torch, seed)
+    train_card_vs_cpu(torch, seed)
+    train_microbatches(torch, seed)
+    launches, numbers = train_path(torch, seed)
+    for name in kernels:
+        kernels[name]["launches"] = launches[name]
+    line(f"  phase 14 launches: flash_attention {launches['flash_attention']} (tensor-core "
+         f"{launches['flash_attention_tc']}), glr_step {launches['glr_step']}; wall "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, kernels, numbers
+
+
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
                 fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan, reactive_scan,
-                agg_batch, sub_kernels):
+                agg_batch, sub_kernels, train_kernels):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
     (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6, and
@@ -3763,7 +4286,9 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     launches, phase 2's error, row-by-row check and times at (8, 20, 5674)
     and the large shape).  ``glr_step`` and the Step-4 kernels carry the
     sparse round's shapes (``substrate``: phase 13's launches, its check
-    against the plain version and its times there)."""
+    against the plain version and its times there); ``glr_step`` and
+    ``flash_attention`` the training path's (``train``: phase 14's launches,
+    the check and the times at its shapes)."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -3778,6 +4303,7 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     return [
         entry("glr_step", "src/repro/kernels/glr_step.py:163", glr_err, glr_t["fig2"],
               batch_scan=batch_scan, substrate=sub_kernels["glr_step"],
+              train=train_kernels["glr_step"],
               reactive_scan=dict(reactive_scan, launches=launches["regret_scan_reactive"]),
               **fig2_scan),
         entry("glr_step_tenants", "src/repro/kernels/glr_step.py:210", gst_err, serve,
@@ -3818,7 +4344,8 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               f32_ms=fa_t["model_f32"]["ms"],
               f32_plain_ms=fa_t["model_f32"]["plain_ms"],
               f32_library_ms=fa_t["model_f32"]["library_ms"],
-              f32_bound_ms=fa_t["model_f32"]["bound_ms"], jax_test_shapes=fa_t["jax_shapes"]),
+              f32_bound_ms=fa_t["model_f32"]["bound_ms"], jax_test_shapes=fa_t["jax_shapes"],
+              train=train_kernels["flash_attention"]),
     ]
 
 
@@ -3826,7 +4353,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-13) only")
+                    help="build the kernels and run the paths (phases 3-14) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -3918,11 +4445,15 @@ def main(argv=None) -> int:
         release(torch)
         line("[13] the sparse client axis: fl_substrate at N = 100,000, dense-vs-sparse parity, "
              "the availability families, run_served")
-        sub_launches, sub_kernels, _ = sparse_substrate(
-            torch, args.seed, launch_floor(torch)[0] if args.paths else floor_ms)
+        if args.paths:
+            floor_ms = launch_floor(torch)[0]
+        sub_launches, sub_kernels, _ = sparse_substrate(torch, args.seed, floor_ms)
+        release(torch)
+        line("[14] the FL training path: qwen1.5-0.5b at full width and depth")
+        train_launches, train_kernels, _ = training(torch, args.seed, floor_ms)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
                  serve_launches, sched_launches, baseline_launches, batch_launches,
-                 family_launches, fl_launches, sub_launches)
+                 family_launches, fl_launches, sub_launches, train_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
         check(all(launches[k] > 0 for k in KERNEL_NAMES + BATCH_ROUTES
                   + ("flash_attention_tc", "regret_scan_reactive")),
@@ -3939,7 +4470,8 @@ def main(argv=None) -> int:
                                                 rt_t, gs_err, gs_t, fa_err, fa_t, fig2_scan,
                                                 recompute_scan, gst_err, gst_t,
                                                 dict(batch_fields, max_abs_err=batch_err),
-                                                reactive_fields, agg_batch, sub_kernels)}))
+                                                reactive_fields, agg_batch, sub_kernels,
+                                                train_kernels)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -38,6 +38,7 @@ from repro_torch.core.faults import FaultProcess, registered_faults
 from repro_torch.core.matching import MatcherState
 from repro_torch.device import resolve_device
 from repro_torch.fl.round import AsyncFLState
+from repro_torch.launch.steps import FLScaleState, TrainState
 
 
 def tensor(x, device=None) -> torch.Tensor:
@@ -161,6 +162,39 @@ def async_fl_state(src, device=None, scheduler=None) -> AsyncFLState:
                    sched_state=sched,
                    matcher_state=matcher_state(src.matcher_state, device),
                    t=int(t[0]))
+
+
+def optimizer_state(src, device=None):
+    """An optimizer state from the JAX one: AdamW's ``{"mu", "nu", "count"}``
+    (moments keyed like the parameters, ``count`` int32), SGD's momentum
+    dict, or SGD's empty ``()`` without momentum."""
+    if isinstance(src, tuple) and not src:
+        return ()
+    if set(src) == {"mu", "nu", "count"}:
+        return {"mu": params(src["mu"], device), "nu": params(src["nu"], device),
+                "count": tensor(src["count"], device)}
+    return params(src, device)
+
+
+def fl_scale_state(src, device=None, scheduler=None) -> FLScaleState:
+    """The training step's ``FLScaleState`` from the JAX one (its scheduler
+    state GLR-CUCB's unless ``scheduler``, the port's policy, says; the
+    round index as a Python int)."""
+    sched = (glr_cucb_state(src.sched_state, device) if scheduler is None
+             else sched_state(scheduler, src.sched_state, device))
+    return _fields(FLScaleState, src, device, sched_state=sched,
+                   matcher_state=matcher_state(src.matcher_state, device),
+                   t=int(np.array(src.t)))
+
+
+def train_state(src, device=None, scheduler=None) -> TrainState:
+    """A JAX ``TrainState`` (``make_train_state_init`` or a step's output)
+    as the port's: the parameters through ``model_params``, the optimizer
+    state through ``optimizer_state``, the FL state through
+    ``fl_scale_state``."""
+    return TrainState(params=model_params(src.params, device),
+                      opt_state=optimizer_state(src.opt_state, device),
+                      fl=fl_scale_state(src.fl, device, scheduler))
 
 
 def _instance(registry, src, label):

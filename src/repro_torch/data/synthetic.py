@@ -4,10 +4,13 @@
   Gaussian clusters on a learnable-scale manifold, difficult enough that a
   small MLP/CNN shows a real convergence curve (the paper's Fig. 3 metric)
   while staying dependency-free and CPU-fast.
+* ``synthetic_lm_batches`` — endless Zipfian token batches for the model
+  zoo's training path: the JAX package's tokens bit for bit for a seed.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 
@@ -72,3 +75,18 @@ def make_federated_classification(
     return (
         np.stack(cx), np.stack(cy), test_x, test_y, test_x[proxy], test_y[proxy],
     )
+
+
+def synthetic_lm_batches(
+    batch: int, seq_len: int, vocab: int, seed: int = 0,
+) -> Iterator[np.ndarray]:
+    """Endless Zipfian token batches with short-range repetition structure."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1)
+    probs = 1.0 / ranks ** 1.1
+    probs /= probs.sum()
+    while True:
+        toks = rng.choice(vocab, size=(batch, seq_len), p=probs)
+        # inject learnable bigram structure: even positions copy with shift
+        toks[:, 2::2] = (toks[:, 1:-1:2] * 31 + 7) % vocab
+        yield toks.astype(np.int32)

@@ -1,1 +1,2 @@
-"""Serving entry points for the model zoo, twin of ``repro/launch``."""
+"""Entry points of the model zoo and the scheduler service: the training
+and serving steps and their launchers, twin of ``repro/launch``."""

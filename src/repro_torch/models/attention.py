@@ -86,10 +86,15 @@ def _attn_core_plain(q, k, v, causal, window, scale, chunk):
     return torch.cat(outs, dim=2)
 
 
+BACKWARD_RANGE = "attn_core.backward (plain chunked)"   # its profiler range
+
+
 class _KernelAttention(torch.autograd.Function):
     """Forward: ``ops.flash_attention`` (the CUDA kernel on the card).
     Backward: recompute through the plain chunked path, as the JAX package
-    does with its ``custom_vjp`` (the kernel is forward-only)."""
+    does with its ``custom_vjp`` (the kernel is forward-only), inside a
+    ``record_function`` range named ``BACKWARD_RANGE`` so a trace can give
+    its device time."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, chunk):
@@ -100,10 +105,11 @@ class _KernelAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = _attn_core_plain(*leaves, *ctx.args)
-        grads = torch.autograd.grad(out, leaves, g)
+        with torch.profiler.record_function(BACKWARD_RANGE):
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                out = _attn_core_plain(*leaves, *ctx.args)
+            grads = torch.autograd.grad(out, leaves, g)
         return (*grads, None, None, None, None)
 
 

@@ -1,12 +1,12 @@
-"""Model facade: ``build_model(config) -> Model`` with init / apply / cache /
-decode entry points for the dense GQA decoders.
+"""Model facade: ``build_model(config) -> Model`` with init / apply / loss /
+cache / decode entry points for the dense GQA decoders.
 
 Twin of ``repro/models/model.py``.  The parameter layout is the JAX one: a
 flat ``{path: tensor}`` dict plus a parallel ``{path: logical_spec}`` dict,
 the layer stack under ``blocks/`` with a leading layer axis, so
 ``convert.model_params`` carries JAX parameters across as they are.
-``loss`` comes with the training slice; audio and VLM inputs, and the
-hybrid / MoE layouts (``layers/NN/`` unrolled blocks), are not ported yet.
+Audio and VLM inputs, and the hybrid / MoE layouts (``layers/NN/``
+unrolled blocks), are not ported yet.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -21,6 +22,7 @@ from repro_torch.models import kvcache
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.layers import ParamBuilder, rms_norm, torch_dtype
 from repro_torch.models.transformer import (
+    REMAT_POLICIES,
     _ffn_is_moe,
     add_block_params,
     check_ported,
@@ -39,12 +41,21 @@ def _subtree(params: Params, prefix: str) -> Params:
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+    remat: str = "full"          # none | full | dots (activation-checkpoint policy)
+    ce_chunk: int = 0            # >0: compute the CE loss in sequence chunks of
+                                 # this size (recomputed in the backward pass) so
+                                 # (B, S, V) logits never persist
+    seq_shard: bool = False      # sequence-parallel residual stream between
+                                 # blocks: the identity on one card, as JAX's
+                                 # ``constrain`` is without a mesh
     attn_impl: Optional[str] = None  # None: the kernel on CUDA; "plain": the chunked
                                      # reference path; "kernel": the kernel route everywhere
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"Model: unknown attn_impl {self.attn_impl!r}; one of {ATTN_IMPLS}")
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"Model: unknown remat {self.remat!r}; one of {REMAT_POLICIES}")
         cfg = self.cfg
         if cfg.layer_pattern or cfg.first_k_dense or cfg.arch_type in ("audio", "vlm"):
             raise NotImplementedError(f"{cfg.name}: the {cfg.arch_type} layout is not ported yet")
@@ -101,8 +112,49 @@ class Model:
         x = self._embed_inputs(params, batch)
         window = cfg.local_attn_window
         x, aux = scanned_forward(_subtree(params, "blocks"), x, cfg, "attn", False, window,
-                                 self.attn_impl)
+                                 self.remat, attn_impl=self.attn_impl)
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+    # ------------------------------------------------------------------ loss
+    def loss(
+        self, params: Params, batch: Dict[str, torch.Tensor],
+        example_weights: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean loss + metrics.  ``example_weights`` (B,) scales per-example
+        loss — this is how the FL round folds the transmission mask and the
+        zeta aggregation weights (Eq. 7) into one backward pass."""
+        hidden, aux = self._forward_hidden(params, batch)
+        tokens = batch["tokens"]
+        # predict token t+1 from position t
+        nll = self._nll(hidden[:, : tokens.shape[1] - 1], self._unembed_matrix(params),
+                        tokens[:, 1:])                    # (B, T)
+        per_example = nll.mean(dim=1)
+        w = example_weights if example_weights is not None else torch.ones_like(per_example)
+        loss = torch.sum(per_example * w) / torch.sum(w).clamp_min(1e-9)
+        total = loss + self.cfg.router_aux_weight * aux
+        return total, {"loss": loss, "moe_aux": aux, "per_example": per_example}
+
+    def _nll(self, hid: torch.Tensor, w_out: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+        """Per-position NLL (B, T), optionally in recomputed sequence chunks.
+
+        Cross-entropy as logsumexp minus the label's logit, taken with a
+        ``gather`` (the JAX package's one-hot product adds only signed zeros
+        to it, and would be a second (B, T, V) f32 tensor).  With
+        ``ce_chunk`` each chunk's (B, C, V) logits are computed under a
+        checkpoint and recomputed in the backward pass: they never persist."""
+        t = hid.shape[1]
+        c = self.ce_chunk
+        if c <= 0 or t <= c:
+            return _nll_dense(hid, w_out, labels)
+        pad = (-t) % c
+        if pad:
+            hid = torch.nn.functional.pad(hid, (0, 0, 0, pad))
+            labels = torch.nn.functional.pad(labels, (0, pad))
+        nll = [checkpoint(_nll_dense, hid[:, i:i + c], w_out, labels[:, i:i + c],
+                          use_reentrant=False, preserve_rng_state=False)
+               for i in range(0, hid.shape[1], c)]
+        return torch.cat(nll, dim=1)[:, :t]
 
     # ------------------------------------------------------------------ caches
     def init_cache(
@@ -142,5 +194,12 @@ class Model:
         return logits, {"pos": pos + 1, "blocks": blocks}
 
 
-def build_model(cfg: ModelConfig, attn_impl: Optional[str] = None) -> Model:
-    return Model(cfg=cfg, attn_impl=attn_impl)
+def _nll_dense(h: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    lg = (h @ w_out).float()
+    picked = lg.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(lg, dim=-1) - picked
+
+
+def build_model(cfg: ModelConfig, remat: str = "full",
+                attn_impl: Optional[str] = None) -> Model:
+    return Model(cfg=cfg, remat=remat, attn_impl=attn_impl)

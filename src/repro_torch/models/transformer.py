@@ -5,14 +5,25 @@ Twin of ``repro/models/transformer.py`` for the blocks the port has: a
 MLP -> residual).  Per-layer parameters keep the JAX layout, stacked along
 a leading ``layers`` axis under ``blocks/b/...``; where JAX scans over that
 axis, the port loops over it in Python (a layer's parameters are views).
-``remat`` and ``seq_shard`` are training and multi-device options with no
-meaning for serving.  MLA, MoE, SSM and RG-LRU blocks are not ported yet.
+``remat`` is the training path's activation-checkpoint policy around each
+block (``torch.utils.checkpoint``, non-reentrant): ``"none"``, ``"full"``
+(keep the block's input, recompute the rest in the backward pass) or
+``"dots"`` (also keep the outputs of the products with no batch dimension,
+the twin of ``dots_with_no_batch_dims_saveable``).  It acts only where a
+gradient is taken; serving runs the blocks as they are.  MLA, MoE, SSM
+and RG-LRU blocks are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -91,15 +102,50 @@ def _depth(stacked: Dict[str, torch.Tensor]) -> int:
     return next(iter(stacked.values())).shape[0]
 
 
+REMAT_POLICIES = ("none", "full", "dots")
+# the products with no batch dimension: a projection ``x @ W`` reaches autograd as an mm
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat: unknown policy {policy!r}; one of {REMAT_POLICIES}")
+    if policy == "none":
+        return fn
+    extra = {}
+    if policy == "dots":
+        extra["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                _dots_policy)
+    # no random op in a block: nothing to restore on recompute
+    return functools.partial(checkpoint, fn, use_reentrant=False, preserve_rng_state=False,
+                             **extra)
+
+
+def _takes_grad(stacked: Dict[str, torch.Tensor], x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(v.requires_grad for v in stacked.values()))
+
+
 def scanned_forward(
     stacked: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ModelConfig,
-    kind: str, moe_ffn: bool, window: int = 0, attn_impl: Optional[str] = None,
+    kind: str, moe_ffn: bool, window: int = 0, remat: str = "full",
+    attn_impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run a homogeneous block stack; ``stacked`` values have a leading L dim."""
+    """Run a homogeneous block stack; ``stacked`` values have a leading L dim.
+
+    ``remat`` checkpoints each block when a gradient is taken."""
+    def body(layer_params, y):
+        return block_forward(layer_params, "b", y, cfg, kind, moe_ffn, window, attn_impl)
+
+    if _takes_grad(stacked, x):
+        body = _remat(body, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(_depth(stacked)):
-        x, a = block_forward(_slice_tree(stacked, i), "b", x, cfg, kind, moe_ffn, window,
-                             attn_impl)
+        x, a = body(_slice_tree(stacked, i), x)
         aux = aux + a
     return x, aux
 

@@ -48,7 +48,13 @@ Step-4 kernels' batch form (one launch for B runs) equals the single-run
 kernel row by row bit for bit; a batch of FL runs on the card launches
 each Step-4 kernel and ``glr_step`` once a round for the batch and keeps
 the CPU batch's discrete state and ``n_success`` bit for bit (params at
-rtol 1e-4), and a batch of one is ``run()`` bit for bit.
+rtol 1e-4), and a batch of one is ``run()`` bit for bit.  Three rounds of
+the LLM-scale training step (``make_fl_train_step``, qwen1.5's smoke
+config in f32) equal the CPU rounds in the discrete state bit for bit, the
+floats and AdamW's moments at rtol 1e-4 (parameters plus the slack
+that ``chip_smoke.adam_round_close`` derives from the moments), launching ``glr_step`` once and ``flash_attention``
+twice a layer a round; the step synchronises the host only where the
+channel draw does.
 """
 import dataclasses
 
@@ -1094,3 +1100,78 @@ def test_sparse_equals_dense_bit_for_bit_on_the_card(cuda):
         assert torch.equal(a, c)
     for k in dm:
         assert torch.equal(dm[k], sm[k]), k
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (at the repo's root) as a module."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    if "chip_smoke" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = module
+        spec.loader.exec_module(module)
+    return sys.modules["chip_smoke"]
+
+
+def test_fl_train_step_on_the_card_equals_the_cpu(cuda):
+    """``chip_smoke.py`` phase 14 (b), run as it is there: three
+    ``make_fl_train_step`` rounds at the qwen1.5 smoke config in f32
+    (``remat="full"``) on the card against the same rounds on the CPU, from
+    the same initial state with the same tokens and uniforms.  AoI, every
+    scheduler leaf, the count and ``n_success`` bit for bit; loss,
+    contributions and zeta at rtol 1e-4; moments and parameters as
+    ``chip_smoke.adam_round_close`` holds them.  Each round launches
+    ``glr_step`` once and ``flash_attention`` twice a layer (the forward and
+    the checkpoint's recompute) on the FMA route (f32); the CPU rounds launch
+    nothing."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _chip_smoke().train_card_vs_cpu(torch, 0)
+
+
+def test_fl_train_step_adds_no_host_sync(cuda, monkeypatch):
+    """One ``make_fl_train_step`` round on the card synchronises the host only
+    where the FL round's channel draw does: ``ChannelEnv.means_at`` indexes
+    a segment env's means with a 0-d device tensor, once a round.  The step
+    itself (schedule, loss, backward, AdamW, bookkeeping) adds none."""
+    import traceback
+    import warnings
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_fl_train_step, make_train_state_init
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+
+    model, sched, opt = (build_model(get_smoke_config("qwen1.5-0.5b"), remat="full"),
+                         GLRCUCB(8, 4, history=32), adamw(1e-3))
+    means = np.array([np.linspace(0.9, 0.2, 8), np.linspace(0.2, 0.9, 8)], np.float32)
+    step = make_fl_train_step(model, opt, sched, make_piecewise(means, [1], device=cuda), 4)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    state = make_train_state_init(model, opt, sched, 4)(g, device=cuda)
+    batch = {"tokens": torch.randint(0, 512, (8, 32), generator=g, device=cuda,
+                                     dtype=torch.int32)}
+    u = torch.rand((2, 8), generator=g, device=cuda)
+    state, _ = step(state, batch, u[0], u[1])           # build and load first
+    torch.cuda.synchronize()
+    syncs = []
+
+    def record(message, *args, **kwargs):
+        if "synchronizing CUDA operation" in str(message):
+            syncs.append([f.name for f in traceback.extract_stack()
+                          if "repro_torch" in f.filename])
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        monkeypatch.setattr(warnings, "showwarning", record)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(state, batch, u[0], u[1])
+            n_step = len(syncs)
+            float(u.sum())                               # a sync the recorder must see
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert len(syncs) == n_step + 1 and syncs[-1] == [], syncs
+    assert n_step <= 1 and all(s[-1] == "means_at" for s in syncs[:n_step]), syncs

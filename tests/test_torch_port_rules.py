@@ -83,7 +83,9 @@ SLICE_TWINS = ("core/aggregation.py", "core/faults.py", "core/channels/process.p
                "core/bandits/base.py", "core/channels/base.py", "core/channels/families.py",
                "sim/engine.py", "sim/sweep.py", "sim/shard.py", "sim/fl_batch.py",
                "fl/client.py", "core/contribution.py", "data/pipeline.py", "utils/tree.py",
-               "core/availability.py", "fl/sparse.py", "fl/__init__.py", "data/dirichlet.py")
+               "core/availability.py", "fl/sparse.py", "fl/__init__.py", "data/dirichlet.py",
+               "optim/__init__.py", "optim/optimizers.py", "launch/train.py",
+               "data/synthetic.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_TWINS)
@@ -137,6 +139,22 @@ def test_serving_entry_points_default_to_cuda(no_cuda, capsys):
     assert capsys.readouterr().out == ""
     params, _ = model.init(torch.Generator(), device="cpu")     # the explicit CPU request
     assert params["embed"].device.type == "cpu"
+
+
+def test_training_entry_points_default_to_cuda(no_cuda, capsys):
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_state_init
+    from repro_torch.optim import adamw
+
+    model = build_model(get_smoke_config("qwen1.5-0.5b"), remat="none")
+    init = make_train_state_init(model, adamw(1e-3), GLRCUCB(8, 4, history=16), 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init(torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen1.5-0.5b", "--smoke", "--steps", "1"])
+    assert capsys.readouterr().out == ""
+    state = init(torch.Generator(), device="cpu")                # the explicit CPU request
+    assert state.params["embed"].device.type == "cpu" and state.fl.aoi.device.type == "cpu"
 
 
 def test_unported_archs_say_so():

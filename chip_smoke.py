@@ -33,7 +33,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``glr_step`` kernel, and at H = 33 and 130, with both bounds (bytes;
    the FMA count or the split term's MUFU instructions, whose count a
    split is a constant below), device time and, at the serving shape, the
-   host split of a call;
+   host split of a call; ``glr_scan``'s tenant entry (the recompute
+   detector served, read in place from the slot history) against its plain
+   version at the same serving shapes (10 of 64 and all 64 rows detecting;
+   R = 10001 / B = 64, H = 64) and at H = 33 and 130, bitwise on {0, 1}
+   histories, on U[0, 1] ones bitwise the single-run kernel and inside the
+   derived bound, with its time, device time, bound (bytes, split
+   operations) and, at the serving shape, the host split of a call;
    and ``regret_scan`` (the whole regret harness in one launch) against the
    per-round route with the plain detector on eleven short edge runs (a table
    env, S=1, alpha=0.2, the geometric grid, H=33 with restarts, N=30 M=20
@@ -189,7 +195,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    route, ``glr_step`` once, ms a step, tokens a second, the model-FLOP
    share, peak device memory and a profiled 3-step window with the plain
    attention backward's share; (e) the trained parameters through
-   ``save_checkpoint`` and back, bit for bit.
+   ``save_checkpoint`` and back, bit for bit;
+15. the scheduler service for every other policy it serves (random,
+   round-robin, channel-aware, Lyapunov, M-Exp3 with Exp3.S sharing, each
+   in its Fig. 2a configuration, and GLR-CUCB's recompute detector) at the
+   ``serve_suite``'s sizes (N = 16, M = 4, capacity 256, slot batch 64,
+   H = 256, stride 5): (a) one tenant served 1000 rounds equals
+   ``simulate_aoi_regret`` on the card (the scan route for the recompute
+   detector, the per-round route for the rest) and its first 200 rounds
+   the CPU run, the tenant ``glr_scan`` launched once a recompute step and
+   no kernel on the others; (b) 256 tenants with per-tenant hp: the first
+   3 steps equal the CPU run, synchronous and pipelined decisions a second
+   (best of 2), launches against steps, one step under
+   ``set_sync_debug_mode("error")``, a profiled 10-step window for M-Exp3
+   and the recompute detector; (c) ``run_served`` equal to ``run()`` bit
+   for bit over 10 rounds: dense M-Exp3 with the matcher on phase 9's
+   adversarial N = 6, M = 4 problem, sparse Lyapunov on phase 13 (c)'s
+   setup; (d) phase 8's launches: no tenant ``glr_scan``.  A leaf that is
+   not bitwise is named with its tolerance and why (``SERVED_NOT_BITWISE``).
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -198,7 +221,7 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 128, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-14 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-15 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
 Every path runs at the paper's sizes, uncut but for phase 9's two cuts
@@ -302,7 +325,7 @@ TRAIN_LR, TRAIN_CE_CHUNK = 3e-4, 512
 TRAIN_REF_LAYERS, TRAIN_REF_S = 2, 512   # (a) and (c): full width, 2 layers
 TRAIN_REF_ROUNDS = 3            # (b): rounds on the card held to the CPU run
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
-                "flash_attention", "regret_scan", "glr_step_tenants")
+                "flash_attention", "regret_scan", "glr_step_tenants", "glr_scan_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
 BATCH_ROUTES = ("weighted_aggregate_batch", "robust_trimmed_batch")   # the Step-4 batch launches
 COUNTERS = KERNEL_NAMES + FLASH_ROUTES + ("regret_scan_reactive",) + BATCH_ROUTES
@@ -325,7 +348,7 @@ def line(*parts):
 def kernel_wrappers():
     """Each kernel's wrapper, by name: the ``.launches`` counters."""
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.glr_scan import glr_scan
+    from repro_torch.kernels.glr_scan import glr_scan, glr_scan_tenants
     from repro_torch.kernels.glr_step import glr_step
     from repro_torch.kernels.glr_step_tenants import glr_step_tenants
     from repro_torch.kernels.regret_scan import regret_scan
@@ -335,7 +358,7 @@ def kernel_wrappers():
     return dict(glr_step=glr_step, weighted_aggregate=weighted_aggregate,
                 robust_trimmed=robust_trimmed, glr_scan=glr_scan,
                 flash_attention=flash_attention, regret_scan=regret_scan,
-                glr_step_tenants=glr_step_tenants)
+                glr_step_tenants=glr_step_tenants, glr_scan_tenants=glr_scan_tenants)
 
 
 def reset_launches():
@@ -1213,6 +1236,142 @@ def check_glr_scan(torch, gen, floor_ms):
         line(f"  glr_scan time {label} ({n}, {h}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
              f"bound {bound:.2e} ms ({bound_by}), launch floor {floor_ms:.5f} ms, "
              f"per call back to back")
+    return max_err, timings
+
+
+def scan_tenants_inputs(torch, r, b, n, h, frac_detect, pad, gen, binary=True):
+    """A recompute serve step's operands for the tenant ``glr_scan``: slot
+    history (R, N, H), B distinct slots of which the last ``pad`` are
+    padding rows on the scratch slot R - 1 (not detecting), ``frac_detect``
+    of the rows detecting (at least one), counts in [0, H] with the edges
+    0, 1, 2 and H."""
+    dev = "cuda"
+    hist = (torch.randint(0, 2, (r, n, h), generator=gen, device=dev).to(torch.float32)
+            if binary else torch.rand((r, n, h), generator=gen, device=dev))
+    counts = torch.randint(0, h + 1, (b, n), generator=gen, device=dev).to(torch.int32)
+    counts.view(-1)[:4] = torch.tensor([0, 1, min(2, h), h], device=dev)[: counts.numel()]
+    slots = torch.randperm(r - 1 if r > b else r, generator=gen, device=dev)[:b].to(torch.int32)
+    detect = torch.rand(b, generator=gen, device=dev) < frac_detect
+    detect[0] = True
+    if pad:
+        slots[-pad:] = r - 1
+        detect[-pad:] = False
+    return hist, slots, detect, counts
+
+
+def scan_tenants_bound_ms(torch, args):
+    """The least time of one tenant ``glr_scan`` call on these inputs: the
+    samples the detecting rows count read once (a row reads only its first
+    ``counts`` of H), counts, slots and flags read and the statistics
+    written, over HBM; or the split operations (32 a split over this run's
+    splits) and the two scans' adds over those samples, over the f32 rate.
+    Returns (bound ms, bound_by, the split count)."""
+    hist, slots, detect, counts = args
+    h = hist.shape[2]
+    valid = counts[detect].clamp(min=0, max=h)
+    samples = int(valid.sum())
+    splits = int((valid - 1).clamp(min=0).sum())
+    nbytes = samples * 4 + counts.numel() * 8 + slots.numel() * 5
+    bound, bound_by = two_way_bound(nbytes, KL_SPLIT_FLOPS * splits + 2 * samples, F32_FLOPS)
+    return bound, bound_by, splits
+
+
+def check_glr_scan_tenants(torch, gen, floor_ms):
+    """The recompute detector's serving kernel (``glr_scan``'s tenant entry,
+    in place on the slot history) against ``ref.glr_scan_tenants`` on the
+    same inputs: bitwise on {0, 1} histories; on U[0, 1] ones bitwise the
+    single-run kernel on the gathered rows and inside ``ref.glr_scan_bounds``;
+    -inf on every row not detecting; the history never written.  At the
+    serving shapes (R = 257 / B = 64, N = 16, H = 256, 10 of 64 and all 64
+    rows detecting, padding rows; R = 10001 / B = 64, H = 64) and at H = 33
+    and 130.  Times per call back to back, device time from a trace, the
+    plain version, the bound (bytes, split operations); at the serving
+    shape the host split of a call."""
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import glr_scan as gsc_mod
+
+    kernel, single = gsc_mod.glr_scan_tenants, gsc_mod.glr_scan
+    cases = {"serve": (257, 64, 16, 256, 10 / 64, 5), "all": (257, 64, 16, 256, 1.0, 0),
+             "big": (10001, 64, 16, 64, 10 / 64, 3), "h33": (20, 12, 5, 33, 0.6, 2),
+             "h130": (20, 12, 5, 130, 0.6, 2)}
+    max_err = 0.0
+    for label, (r, b, n, h, frac, pad) in cases.items():
+        for binary in (True, False):
+            args = scan_tenants_inputs(torch, r, b, n, h, frac, pad, gen, binary)
+            hist, slots, detect, counts = args
+            before = hist.clone()
+            got = ops.glr_scan_tenants(*args)
+            want = ref.glr_scan_tenants(*args)
+            torch.cuda.synchronize()
+            where = f"glr_scan_tenants ({r}, {b}, {n}, {h})"
+            check(torch.equal(hist, before), f"{where}: the history was written")
+            check(bool(torch.isneginf(got[~detect]).all()), f"{where}: a row not detecting "
+                  "has a statistic")
+            check(torch.equal(torch.isneginf(got), torch.isneginf(want)),
+                  f"{where}: -inf at other places")
+            fin = torch.isfinite(want)
+            err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+            if binary:
+                check(torch.equal(got, want), f"{where} {{0,1}}: not bitwise ({err})")
+                how = "bitwise the plain version"
+            else:
+                rows = hist.index_select(0, slots.long())[detect].reshape(-1, h)
+                one = single(rows.contiguous(), counts[detect].reshape(-1).contiguous())
+                check(torch.equal(got[detect].reshape(-1), one),
+                      f"{where} real: not bitwise the single-run kernel on the gathered rows")
+                lo, hi = (x.reshape(-1, n)[detect.cpu()] for x in ref.glr_scan_bounds(
+                    hist.index_select(0, slots.long()).reshape(-1, h).cpu(),
+                    counts.reshape(-1).cpu()))
+                k64 = got[detect].double().cpu()
+                ok = torch.isneginf(k64) | ((k64 >= lo) & (k64 <= hi))
+                check(bool(ok.all()), f"{where} real: {int((~ok).sum())} rows outside the "
+                                      "derived bound")
+                how = "bitwise the single-run kernel, inside the derived bound"
+            # the plain version on the CPU (its own logf) is no bitwise
+            # reference for the card: how far the kernel lands from it
+            cpu_want = ref.glr_scan_tenants(*(a.cpu() for a in args))
+            both = fin.cpu() & torch.isfinite(cpu_want)
+            gap = (got.cpu() - cpu_want)[both].abs()
+            max_err = max(max_err, err)
+            line(f"  {where} history={'{0,1}' if binary else 'U[0,1]'}: "
+                 f"{int(detect.sum())}/{b} rows detecting, {how}, history untouched, "
+                 f"max_abs_err vs plain={err:.3e} ok; against the plain version on the CPU "
+                 f"{int((gap > 0).sum())} of {int(both.sum())} statistics differ, max "
+                 f"{float(gap.max()) if gap.numel() else 0.0:.3e}")
+
+    timings = {}
+    for label in ("serve", "all", "big"):
+        r, b, n, h, frac, pad = cases[label]
+        args = scan_tenants_inputs(torch, r, b, n, h, frac, 0, gen, True)
+        hist, slots, detect, counts = args
+        call = lambda: kernel(hist, slots, detect, counts)
+        bound, bound_by, splits = scan_tenants_bound_ms(torch, args)
+        t = dict(ms=time_ms(torch, call, 2000),
+                 plain_ms=time_ms(torch, lambda: ref.glr_scan_tenants(*args), 50),
+                 device_ms=device_ms(torch, call, 100), library_ms=None, bound_ms=bound,
+                 bound_by=bound_by, splits=splits, detecting_rows=int(detect.sum()))
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+        line(f"  glr_scan_tenants time {label} ({r}, {b}, {n}, {h}), {t['detecting_rows']}/{b} "
+             f"rows detecting: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, per call "
+             f"back to back, one window each; device time {fmt(t['device_ms'])}; bound "
+             f"{bound:.2e} ms ({bound_by}; {splits} splits); launch floor {floor_ms:.5f} ms")
+        if label == "serve":
+            dev = hist.get_device()
+            fn = _build.load("glr_scan", "glr_scan_tenants_launch", gsc_mod._TENANTS_ARGTYPES)
+            out = torch.empty((b, n), device="cuda")
+            ptrs = (hist.data_ptr(), slots.data_ptr(), detect.data_ptr(), counts.data_ptr(),
+                    out.data_ptr(), b, n, h, _build.stream(dev))
+            t["host_split_us"] = host_split(torch, f"glr_scan_tenants ({r}, {b}, {n}, {h})", {
+                "checks": lambda: gsc_mod._tenants_checked(hist, slots, detect, counts),
+                "load": lambda: _build.load("glr_scan", "glr_scan_tenants_launch",
+                                            gsc_mod._TENANTS_ARGTYPES),
+                "output allocation": lambda: torch.empty((b, n), dtype=torch.float32,
+                                                         device=hist.device),
+                "stream lookup": lambda: _build.stream(dev),
+                "ctypes call + launch": lambda: fn(*ptrs),
+            }, call)
+        timings[label] = t
+        del args, hist
     return max_err, timings
 
 
@@ -2232,7 +2391,8 @@ def sched_serve(torch, seed):
     occupancy = (st1["served"] - st0["served"]) / max(st1["rows_dispatched"]
                                                       - st0["rows_dispatched"], 1)
     p50, p99, p999 = (float(x) * 1e3 for x in np.percentile(lat, [50, 99, 99.9]))
-    check(launches["glr_step_tenants"] == steps and launches["glr_step"] == 0,
+    check(launches["glr_step_tenants"] == steps and launches["glr_step"] == 0
+          and launches["glr_scan_tenants"] == 0,
           f"sched-serve: glr_step_tenants launched {launches['glr_step_tenants']} times over "
           f"{steps} steps; glr_step {launches['glr_step']}")
     check(np.isfinite(lat).all() and (lat > 0).all(), "sched-serve: a latency is not positive")
@@ -4272,9 +4432,306 @@ def training(torch, seed, floor_ms):
     return launches, kernels, numbers
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the scheduler service for every served policy
+# ---------------------------------------------------------------------------
+
+SERVED_NOT_BITWISE = {   # leaf: (rtol, why), where a served leaf may part from its reference
+    "log_w": (1e-5, "M-Exp3's log-weights go through logsumexp, logaddexp and exp, which the "
+                    "card and the CPU round apart"),
+}
+
+
+def served_policies(n, m):
+    """The policies the service serves besides streaming GLR-CUCB, each in
+    its Fig. 2a configuration (``benchmarks/run.py:187-205``) at N, M; the
+    recompute detector at the ``serve_suite``'s history and stride."""
+    from repro_torch.core.bandits import (GLRCUCB, ChannelAwareAsync, LyapunovSched, MExp3,
+                                          RandomScheduler, RoundRobinScheduler)
+
+    return [("random", RandomScheduler(n, m)), ("round-robin", RoundRobinScheduler(n, m)),
+            ("channel-aware", ChannelAwareAsync(n, m)), ("lyapunov", LyapunovSched(n, m)),
+            ("m-exp3", MExp3(n, m, gamma=0.5, share_alpha=1e-3)),
+            ("glr-recompute", GLRCUCB(n, m, history=SCHED_H, detector_stride=5,
+                                      detector_impl="recompute"))]
+
+
+def tree_parts(torch, a, b, path=""):
+    """The leaves of two equal structures that are not bitwise equal:
+    {path: max relative difference}."""
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        out = {}
+        for f in a._fields:
+            out.update(tree_parts(torch, getattr(a, f), getattr(b, f), f"{path}{f}/"))
+        return out
+    if isinstance(a, dict):
+        out = {}
+        for k in a:
+            out.update(tree_parts(torch, a[k], b[k], f"{path}{k}/"))
+        return out
+    x, y = a.cpu(), b.cpu()
+    if torch.equal(x, y):
+        return {}
+    rel = ((x.double() - y.double()).abs() / y.double().abs().clamp_min(1e-30)).max()
+    return {path.rstrip("/"): float(rel)}
+
+
+def held(torch, label, a, b):
+    """``a`` equals ``b`` leaf for leaf, bit for bit but for the leaves of
+    ``SERVED_NOT_BITWISE`` at their rtol; returns the text of what held."""
+    parts = tree_parts(torch, a, b)
+    for path, rel in parts.items():
+        leaf = path.split("/")[-1]
+        check(leaf in SERVED_NOT_BITWISE and rel <= SERVED_NOT_BITWISE[leaf][0],
+              f"{label}: leaf {path} differs (max rel {rel:.3e})")
+    if not parts:
+        return "every leaf bit for bit"
+    return "every leaf bit for bit but " + ", ".join(
+        f"{p} (max rel {r:.2e} <= rtol {SERVED_NOT_BITWISE[p.split('/')[-1]][0]:g}: "
+        f"{SERVED_NOT_BITWISE[p.split('/')[-1]][1]})" for p, r in parts.items())
+
+
+def served_parity(torch, name, sched, seed):
+    """(a) One tenant served ``SCHED_PARITY_ROUNDS`` rounds of
+    ``offline_round_stream`` (N = 16, 3 breakpoints) on the 256-tenant,
+    64-row server against ``simulate_aoi_regret`` on the card (the scan
+    route for the recompute detector, the per-round route for the rest):
+    schedule, AoI and state; its first 200 rounds against the same rounds
+    served on the CPU.  Returns the served run's launches and ms a step."""
+    from repro_torch.core.channels import make_scenario
+    from repro_torch.core.regret import offline_round_stream, simulate_aoi_regret
+    from repro_torch.kernels.regret_scan import regret_scan
+    from repro_torch.sim import SchedServer, ServeRequest
+
+    import numpy as np
+
+    n, rounds, cpu_rounds = sched.n_channels, SCHED_PARITY_ROUNDS, 200
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    env = make_scenario("piecewise", n_channels=n, horizon=rounds, n_breakpoints=3).realize(gen)
+    u = torch.rand((rounds, 2, n), generator=gen, device="cuda")
+    recompute = name == "glr-recompute"
+    before = regret_scan.launches
+    off = simulate_aoi_regret(sched, env, rounds, uniforms=u, collect_curve=False,
+                              return_state=True)
+    route = "scan" if regret_scan.launches == before + 1 else "rounds"
+    check(route == ("scan" if recompute else "rounds"), f"phase 15 (a) {name}: offline route "
+          f"{route}")
+    u_sel, states = (x.cpu().numpy() for x in offline_round_stream(env, u, rounds))
+    reqs = [ServeRequest("parity", states[t], u_sel[t]) for t in range(rounds)]
+    server = SchedServer(sched, capacity=SCHED_CAPACITY, slots=SCHED_SLOTS)
+    server.join("parity")
+    cpu = SchedServer(sched, capacity=4, slots=1, device="cpu")
+    cpu.join("parity")
+    cpu_asg = np.stack([cpu.serve([rq])[0] for rq in reqs[:cpu_rounds]])
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    asg = []
+    for t, rq in enumerate(reqs):
+        asg.append(server.serve([rq])[0])
+        if t + 1 == cpu_rounds:
+            early = server.tenant_state("parity")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    asg = np.stack(asg)
+    row = server.tenant_state("parity")
+    check(np.array_equal(asg, off["channels"].cpu().numpy()),
+          f"phase 15 (a) {name}: the served schedule != the offline run's")
+    check(torch.equal(off["aoi_pi"].cpu(), row.aoi.cpu()),
+          f"phase 15 (a) {name}: AoI != the offline run's")
+    off_held = held(torch, f"phase 15 (a) {name} vs offline", row.sched_state,
+                    off["final_sched_state"])
+    check(np.array_equal(asg[:cpu_rounds], cpu_asg),
+          f"phase 15 (a) {name}: the first {cpu_rounds} rounds' schedule != the CPU run's")
+    cpu_held = held(torch, f"phase 15 (a) {name} vs the CPU", early, cpu.tenant_state("parity"))
+    kernels = {k: v for k, v in launches.items() if v}
+    want = {"glr_scan_tenants": rounds} if recompute else {}
+    check(kernels == want, f"phase 15 (a) {name}: launches {kernels} over {rounds} steps, "
+          f"expected {want}")
+    restarts = (f", restarts={int(row.sched_state.restarts)}" if recompute else "")
+    line(f"  (a) {name}: {rounds} rounds of one tenant (slot batch {server.slots}) equal "
+         f"simulate_aoi_regret's {route} route on the card (schedule, AoI; {off_held}"
+         f"{restarts}); the first {cpu_rounds} equal the CPU run (schedule; {cpu_held}); "
+         f"launches {kernels or 'none'} ({secs / rounds * 1e3:.4f} ms/step)")
+    return launches, secs / rounds * 1e3
+
+
+def served_pool(torch, name, sched, seed):
+    """(b) The 256-tenant server, slot batch 64, per-tenant hp where the
+    policy has knobs: the first 3 steps against the CPU run, synchronous
+    and pipelined decisions a second (best of 2), launches against steps,
+    one step under ``set_sync_debug_mode("error")``; a profiled 10-step
+    window for M-Exp3 and the recompute detector."""
+    from collections import deque
+
+    import numpy as np
+
+    from repro_torch.launch.sched_serve import (make_traffic, pipelined_throughput,
+                                                saturated_throughput)
+    from repro_torch.sim import SchedServer, ServeRequest
+
+    c, b, n = SCHED_CAPACITY, SCHED_SLOTS, sched.n_channels
+    server = SchedServer(sched, capacity=c, slots=b)
+    cpu = SchedServer(sched, capacity=c, slots=b, device="cpu")
+    ids = [f"job-{i}" for i in range(c)]
+    knob = (sched.traced_fields() or (None,))[0]
+    for i, tid in enumerate(ids):
+        hp = None if knob is None else {knob: float(getattr(sched, knob)) * (0.8 + 0.4 * i / c)}
+        server.join(tid, hp=hp)
+        cpu.join(tid, hp=hp)
+    states, uniforms = make_traffic(c, n, SCHED_REQUESTS, seed=seed + 15)
+    req = lambda j: ServeRequest(ids[j % c], states[(j // c) % states.shape[0], j % c],
+                                 uniforms[j])
+    first = [req(j) for j in range(3 * b)]
+    got, want = server.serve(first), cpu.serve(first)
+    check(all(np.array_equal(x, y) for x, y in zip(got, want)),
+          f"phase 15 (b) {name}: assignments of the first 3 steps != the CPU run's")
+    what = held(torch, f"phase 15 (b) {name}", server._state, cpu._state)
+    del cpu
+    st0 = server.stats()
+    reset_launches()
+    rate = max(saturated_throughput(server, ids, states, uniforms, SCHED_REQUESTS)
+               for _ in range(2))
+    pipe = max(pipelined_throughput(server, ids, states, uniforms, SCHED_REQUESTS)
+               for _ in range(2))
+    launches = read_launches()
+    steps = server.stats()["steps"] - st0["steps"]
+    kernels = {k: v for k, v in launches.items() if v}
+    expect = {"glr_scan_tenants": steps} if name == "glr-recompute" else {}
+    check(kernels == expect, f"phase 15 (b) {name}: launches {kernels} over {steps} steps, "
+          f"expected {expect}")
+    pending = deque(enumerate(req(j) for j in range(b)))
+    batch = server._take_batch(pending, b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inflight = server._dispatch(batch, b, False)
+    except RuntimeError as exc:
+        raise SmokeFailure(f"phase 15 (b) {name}: a serve step synchronized with the device: "
+                           f"{exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    server._retire(inflight)
+    line(f"  (b) {name}: {c} tenants, slot batch {b}: the first 3 steps equal the CPU run "
+         f"(assignments; slot state {what}); sync {rate:.1f} decisions/s ({b / rate * 1e3:.4f} "
+         f"ms/step), pipelined {pipe:.1f} decisions/s (best of 2 each; pipelined/sync "
+         f"{pipe / rate:.3f}x); launches {kernels or 'none'} over {steps} steps; a steady step "
+         f"under set_sync_debug_mode('error') ok")
+    if name in ("m-exp3", "glr-recompute"):
+        window = [req(j) for j in range(10 * b)]
+        profile_window(torch, f"(b) {name} {c}-tenant step (slot batch {b})",
+                       lambda: server.serve(window), 10)
+    return launches, dict(rate=rate, pipe_rate=pipe)
+
+
+def served_fl(torch, seed):
+    """(c) ``run_served`` against ``run()`` over ``SCHED_FL_ROUNDS`` rounds,
+    bit for bit: dense, M-Exp3 with the matcher on phase 9's adversarial
+    N = 6, M = 4 problem; sparse, Lyapunov on phase 13 (c)'s setup (M = N
+    = 20 clients, 30 channels, its own draws).  Returns the launches."""
+    import dataclasses
+
+    from repro_torch.core.bandits import LyapunovSched, MExp3
+    from repro_torch.core.channels import make_scenario
+    from repro_torch.fl import AsyncFLTrainer, SparseAsyncFLTrainer, SparseFLConfig
+    from repro_torch.sim import SchedServer
+
+    r, counted = SCHED_FL_ROUNDS, []
+
+    def served(tr, run, run_served, label):
+        ref_s, ref_m = run()
+        # the matcher ranks by the policy's means on an env that says so (the
+        # adversarial table), as the trainer's own round does
+        kind = ("mean" if getattr(tr.env, "score_kind", "ucb") == "mean"
+                and hasattr(tr.scheduler, "mean_scores") else "ucb")
+        server = SchedServer(tr.scheduler, capacity=4, slots=4, use_matching=True,
+                             matcher_beta=tr.cfg.matcher_beta, score_kind=kind)
+        server.join("job")
+        reset_launches()
+        state, mets = run_served(server)
+        counted.append(read_launches())
+        for f in ref_s._fields:
+            if f != "sched_state":
+                check(same_tree(torch, getattr(ref_s, f), getattr(state, f)),
+                      f"phase 15 (c) {label}: run_served {f} != run()'s")
+        check(same_tree(torch, ref_s.sched_state, server.tenant_state("job").sched_state),
+              f"phase 15 (c) {label}: the server's tenant state != run()'s sched_state")
+        check(all(torch.equal(ref_m[k], mets[k]) for k in ref_m),
+              f"phase 15 (c) {label}: metrics differ")
+        got = {k: v for k, v in counted[-1].items() if v}
+        check(got == {"weighted_aggregate": r}, f"phase 15 (c) {label}: launches {got}")
+        line(f"  (c) {label} run_served (score_kind {kind}): {r} rounds equal run() bit for bit "
+             f"(every state leaf, the server's tenant state, metrics; n_success "
+             f"{mets['n_success'].tolist()}); launches {got}")
+
+    S = fig3_setup(torch, seed, n=6, m=4, adversarial=True)
+    sched = MExp3(S["n"], S["m"], share_alpha=1e-3)
+    cfg = dataclasses.replace(S["cfg"], use_matching=True, use_zeta=True)
+    tr = AsyncFLTrainer(cfg, sched, S["env"], S["loss_fn"])
+    args = (S["bx"][:r], S["by"][:r])
+    served(tr, lambda: tr.run(tr.init(S["params"]), *args, uniforms=S["uniforms"][:r]),
+           lambda srv: tr.run_served(tr.init(S["params"]), *args, srv, "job",
+                                     uniforms=S["uniforms"][:r]),
+           f"dense m-exp3+aware (N={S['n']}, M={S['m']}, adversarial)")
+    del S
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 151)
+    pn, pnch, pe, pb, pex = PAR_N, PAR_NCH, PAR_E, PAR_B, 16
+    pcx = torch.randn((pn, pex, 8), generator=gen, device="cuda")
+    pcy = torch.randn((pn, pex), generator=gen, device="cuda")
+    pu = torch.rand((r, 2, pnch), generator=gen, device="cuda")
+    pp0 = {"w": torch.zeros(8, device="cuda"), "b": torch.zeros((), device="cuda")}
+
+    def ploss(p, x, y):
+        return ((x @ p["w"] + p["b"] - y) ** 2).mean()
+
+    proc = make_scenario("piecewise", n_channels=pnch, horizon=r, n_breakpoints=2)
+    sparse = SparseAsyncFLTrainer(
+        SparseFLConfig(n_clients=pn, n_sched=pn, n_channels=pnch, batch_size=pb,
+                       local_epochs=pe, staleness_cap=3, max_update_norm=50.0),
+        LyapunovSched(pnch, pn), proc, ploss,
+        realize_generator=torch.Generator(device="cuda").manual_seed(seed + 152))
+    served(sparse, lambda: sparse.run(sparse.init(pp0), pcx, pcy, uniforms=pu, data_seed=seed),
+           lambda srv: sparse.run_served(sparse.init(pp0), pcx, pcy, srv, "job", uniforms=pu,
+                                         data_seed=seed),
+           f"sparse lyapunov (M=N={pn}, {pnch} channels)")
+    return {k: sum(p[k] for p in counted) for k in COUNTERS}
+
+
+def served_baselines(torch, seed, phase8_launches):
+    """Phase 15: the scheduler service for every policy it serves besides
+    streaming GLR-CUCB, at the ``serve_suite``'s sizes (N = 16, M = 4,
+    capacity 256, slot batch 64).  Returns the launches of the served runs
+    (each counted from zero) and the rates by policy."""
+    t_phase = time.perf_counter()
+    paths, rates = [], {}
+    for name, sched in served_policies(SCHED_N, SCHED_M):
+        launches, ms_step = served_parity(torch, name, sched, seed)
+        paths.append(launches)
+        launches, rate = served_pool(torch, name, sched, seed)
+        paths.append(launches)
+        rates[name] = dict(rate, parity_ms_step=ms_step)
+    paths.append(served_fl(torch, seed))
+    # (d) phase 8's streaming GLR-CUCB service launched no tenant glr_scan
+    check(phase8_launches["glr_scan_tenants"] == 0 and phase8_launches["glr_step_tenants"] > 0,
+          f"phase 15 (d): phase 8's launches {phase8_launches}")
+    line(f"  (d) phase 8 (streaming GLR-CUCB): glr_step_tenants "
+         f"{phase8_launches['glr_step_tenants']}, glr_scan_tenants "
+         f"{phase8_launches['glr_scan_tenants']}, glr_step {phase8_launches['glr_step']}; its "
+         f"parity, 3-step and run_served checks passed above, unchanged")
+    launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
+    check(launches["glr_scan_tenants"] > 0,
+          f"phase 15: a kernel of the slice never launched: {launches}")
+    line(f"  phase 15 launches: glr_scan_tenants {launches['glr_scan_tenants']}, "
+         f"weighted_aggregate {launches['weighted_aggregate']}; wall "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, rates
+
+
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
                 fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan, reactive_scan,
-                agg_batch, sub_kernels, train_kernels):
+                agg_batch, sub_kernels, train_kernels, gsct_err, gsct_t):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
     (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6, and
@@ -4334,6 +4791,13 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               substrate=sub_kernels["robust_trimmed"]),
         entry("glr_scan", "src/repro/kernels/glr_scan.py:70", gs_err, gs_t["fig2"],
               **recompute_scan),
+        entry("glr_scan_tenants", "src/repro/kernels/glr_scan.py:70", gsct_err, gsct_t["serve"],
+              source="src/repro_torch/kernels/csrc/glr_scan.cu", shape_r_b_n_h=[257, 64, 16, 256],
+              device_ms=gsct_t["serve"]["device_ms"],
+              detecting_rows=gsct_t["serve"]["detecting_rows"],
+              splits=gsct_t["serve"]["splits"], host_split_us=gsct_t["serve"]["host_split_us"],
+              all=at(gsct_t["all"], [257, 64, 16, 256]),
+              big=at(gsct_t["big"], [10001, 64, 16, 64])),
         entry("flash_attention", "src/repro/kernels/flash_attention.py:123", fa_err,
               fa_t["model"], source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
               shape_b_hq_hkv_s_d=[4, 64, 8, SERVE_PROMPT, 128], causal=True,
@@ -4353,7 +4817,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-14) only")
+                    help="build the kernels and run the paths (phases 3-15) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -4402,6 +4866,9 @@ def main(argv=None) -> int:
             agg_batch = check_batched_aggregation(
                 torch, torch.Generator(device="cuda").manual_seed(args.seed + 21), floor_ms)
             gs_err, gs_t = check_glr_scan(torch, gen, floor_ms)
+            # its own generator, as glr_step_tenants': the later checks keep their draws
+            gsct_err, gsct_t = check_glr_scan_tenants(
+                torch, torch.Generator(device="cuda").manual_seed(args.seed + 24), floor_ms)
             check_regret_scan(torch, args.seed)
             batch_err = check_regret_scan_batch(torch, args.seed)
             fa_err, fa_t = check_flash_attention(torch, gen, floor_ms)
@@ -4451,9 +4918,13 @@ def main(argv=None) -> int:
         release(torch)
         line("[14] the FL training path: qwen1.5-0.5b at full width and depth")
         train_launches, train_kernels, _ = training(torch, args.seed, floor_ms)
+        release(torch)
+        line("[15] the scheduler service for every served policy: M-Exp3, random, round-robin, "
+             "channel-aware, Lyapunov, the recompute detector")
+        served_launches, _ = served_baselines(torch, args.seed, sched_launches)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
                  serve_launches, sched_launches, baseline_launches, batch_launches,
-                 family_launches, fl_launches, sub_launches, train_launches)
+                 family_launches, fl_launches, sub_launches, train_launches, served_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
         check(all(launches[k] > 0 for k in KERNEL_NAMES + BATCH_ROUTES
                   + ("flash_attention_tc", "regret_scan_reactive")),
@@ -4471,7 +4942,7 @@ def main(argv=None) -> int:
                                                 recompute_scan, gst_err, gst_t,
                                                 dict(batch_fields, max_abs_err=batch_err),
                                                 reactive_fields, agg_batch, sub_kernels,
-                                                train_kernels)}))
+                                                train_kernels, gsct_err, gsct_t)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -16,7 +16,8 @@ from repro_torch.core.bandits.base import (
     stack_params,
 )
 from repro_torch.core.bandits.mexp3 import MExp3, MExp3State
-from repro_torch.core.bandits.glr_cucb import GLRCUCB, GLRCUCBState, SlotRing, glr_threshold
+from repro_torch.core.bandits.glr_cucb import (GLRCUCB, GLRCUCBState, SlotHist, SlotRing,
+                                               glr_threshold)
 from repro_torch.core.bandits.aoi_aware import AoIAware, AoIAwareState
 from repro_torch.core.bandits.channel_aware import ChannelAwareAsync, ChannelAwareState
 from repro_torch.core.bandits.lyapunov import LyapunovSched, LyapunovState
@@ -26,7 +27,7 @@ from repro_torch.core.bandits.oracle import oracle_assign
 
 __all__ = [
     "TracedHyperParams", "init_with_hp", "stack_params", "combinations_array",
-    "rotate_assignment", "MExp3", "MExp3State", "GLRCUCB", "GLRCUCBState", "SlotRing",
+    "rotate_assignment", "MExp3", "MExp3State", "GLRCUCB", "GLRCUCBState", "SlotRing", "SlotHist",
     "glr_threshold", "AoIAware", "AoIAwareState", "ChannelAwareAsync", "ChannelAwareState",
     "LyapunovSched", "LyapunovState", "RandomScheduler", "RandomState",
     "RoundRobinScheduler", "RRState", "oracle_assign",

@@ -24,6 +24,12 @@ of a (B, ...) tensor, scatters replace index adds, and a hyper-parameter
 enters as ``hp[k][..., None]``, so each row gets the bits of the
 unbatched call on it (the JAX package ``vmap``s the unbatched functions).
 
+``update`` is functional: it never writes a leaf of the state it is given
+in place, and returns a new tensor for every leaf it changes.  A leaf it
+returns as the very object it was given is unchanged: the scheduler
+service (``repro_torch.sim.serve``) writes back only the leaves that are
+new objects, so an in-place update would be lost there.
+
 Scalar tuning knobs follow the JAX package's hyper-parameter convention:
 a policy lists them in ``TRACED`` (or overrides ``traced_fields()`` when
 the set depends on a structural field), ``params()`` returns them as a

@@ -46,9 +46,11 @@ Two batched forms, each row's bits those of the single-run call on it
   rows; the recompute detector is one ``ops.glr_scan`` over B*N rows;
 * the scheduler service's tenants (``repro_torch.sim.serve``):
   ``ucb``/``select``/``channel_scores``/``mean_scores`` take a (B,) int32
-  ``t`` as well, and ``update_rows`` updates B rows whose streaming
-  detector state stays in the service's slot tensors (a ``SlotRing``),
-  through ``ops.glr_step_tenants`` in place.
+  ``t`` as well, and ``update_rows`` updates B rows whose detector state
+  stays in the service's slot tensors: the streaming rings (a
+  ``SlotRing``) through ``ops.glr_step_tenants`` in place, or the
+  recompute history (a ``SlotHist``), appended in place and scanned by
+  ``ops.glr_scan_tenants``.
 
 Twin of ``repro/core/bandits/glr_cucb.py``.
 """
@@ -96,6 +98,18 @@ class SlotRing(NamedTuple):
     cum: torch.Tensor
     total: torch.Tensor
     base: torch.Tensor
+    slots: torch.Tensor
+    live: torch.Tensor
+    detect: torch.Tensor
+
+
+class SlotHist(NamedTuple):
+    """The recompute detector's history of a batch of B rows, kept in place
+    in the scheduler service's slot tensors: ``hist`` (R, N, H), of which
+    the rows ``slots`` (B,) are updated where ``live`` (B,) bool; ``detect``
+    (B,) bool marks the rows on a detection round (it implies live)."""
+
+    hist: torch.Tensor
     slots: torch.Tensor
     live: torch.Tensor
     detect: torch.Tensor
@@ -262,36 +276,57 @@ class GLRCUCB(TracedHyperParams):
                             cum, total, base)
 
     def update_rows(self, state: GLRCUCBState, t: torch.Tensor, channels: torch.Tensor,
-                    rewards: torch.Tensor, ring: SlotRing) -> GLRCUCBState:
+                    rewards: torch.Tensor, ring) -> GLRCUCBState:
         """``update`` for a batch of B rows, each at its own round ``t`` (B,)
         int32 and with its own detection flag (``ring.detect``).  ``state``
         holds the rows' ``mu_tilde``/``counts`` (B, N), ``tau``/``restarts``
         (B,) and ``hp`` of (B,) tensors; its ``hist``/``cum``/``total``/
-        ``base`` are not read: the streaming detector state stays in the
-        slot tensors of ``ring``, which this updates in place (the append,
-        then the restart's zeroed totals).  On CUDA every call is one
-        ``ops.glr_step_tenants`` launch, which reads only the detecting
-        rows' rings.  Never waits on the device.  Returns the rows' state,
-        whose detector leaves are the ring's."""
-        if self.detector_impl != "streaming":
-            raise ValueError("GLRCUCB.update_rows: the scheduler service runs the streaming "
-                             "detector only; detector_impl='recompute' is not served")
+        ``base`` are not read: the detector state stays in the slot tensors
+        of ``ring``, which this updates in place.  Streaming (a
+        ``SlotRing``): the append, then the restart's zeroed totals; on
+        CUDA one ``ops.glr_step_tenants`` launch, which reads only the
+        detecting rows' rings.  Recompute (a ``SlotHist``): the rows'
+        append-or-roll written back, one ``ops.glr_scan_tenants`` launch
+        over their B*N channel rows (-inf on the rows not detecting), then
+        the restart's zeroed history.  Rows that are not live write back
+        what they read.  Never waits on the device.  Returns the rows'
+        state, whose detector leaves are the slot tensors."""
         sched, r_vec, d_prev, mu, counts = self._observe(state, channels, rewards)
+        detect = (self._detect_rows_streaming if self.detector_impl == "streaming"
+                  else self._detect_rows_recompute)
+        state, change = detect(state, ring, sched, r_vec, d_prev, counts)
+        return state._replace(mu_tilde=mu.masked_fill(change[:, None], 0.0),
+                              counts=counts.masked_fill(change[:, None], 0.0),
+                              tau=torch.where(change, t, state.tau),
+                              restarts=state.restarts + change.to(torch.int32))
+
+    def _detect_rows_streaming(self, state, ring, sched, r_vec, d_prev, counts):
+        """``update_rows``' streaming detector on a ``SlotRing``: returns
+        ``(state with the ring's slot tensors as cum/total/base, change)``."""
+        rows = ring.slots.to(torch.int64)
         stats = ops.glr_step_tenants(ring.cum, ring.total, ring.base, ring.slots, ring.live,
                                      ring.detect, d_prev, r_vec, sched,
                                      split_grid=self.resolved_split_grid())
         change = self._fire(stats, sched, counts, state.hp)
         # restart, as in `update`; rows that do not restart write back what
         # they read (every row that is not live among them)
-        rows = ring.slots.to(torch.int64)
         for x in (ring.total, ring.base):
             x.index_copy_(0, rows, x.index_select(0, rows).masked_fill(change[:, None], 0.0))
-        mu = mu.masked_fill(change[:, None], 0.0)
-        counts = counts.masked_fill(change[:, None], 0.0)
-        tau = torch.where(change, t, state.tau)
-        restarts = state.restarts + change.to(torch.int32)
-        return GLRCUCBState(mu, counts, tau, state.hist, restarts, state.hp,
-                            ring.cum, ring.total, ring.base)
+        return state._replace(cum=ring.cum, total=ring.total, base=ring.base), change
+
+    def _detect_rows_recompute(self, state, ring, sched, r_vec, d_prev, counts):
+        """``update_rows``' recompute detector on a ``SlotHist``: returns
+        ``(state with the slot history as hist, change)``."""
+        rows = ring.slots.to(torch.int64)
+        old = ring.hist.index_select(0, rows)
+        hist = torch.where(ring.live[:, None, None],
+                           self._hist_append(old, sched, r_vec, d_prev), old)
+        ring.hist.index_copy_(0, rows, hist)
+        stats = ops.glr_scan_tenants(ring.hist, ring.slots, ring.detect,
+                                     counts.clamp_max(float(self.history)).to(torch.int32))
+        change = self._fire(stats, sched, counts, state.hp)
+        ring.hist.index_copy_(0, rows, hist.masked_fill(change[:, None, None], 0.0))
+        return state._replace(hist=ring.hist), change
 
     def _fire(self, stats, sched, counts, hp) -> torch.Tensor:
         """Restart decision from per-channel statistics: () bool, or (B,) for
@@ -333,14 +368,7 @@ class GLRCUCB(TracedHyperParams):
         sum rebuilt by ``ops.glr_scan`` on detection rounds; returns
         ``(hist, cum, total, base, change)``."""
         h = self.history
-        # history write: append at D_prev, or shift the row when it is full
-        full = d_prev >= h
-        writepos = d_prev.to(torch.int64).clamp(0, h - 1)
-        onehot = torch.nn.functional.one_hot(writepos, h).to(torch.float32)
-        appended = state.hist * (1.0 - onehot) + r_vec[..., None] * onehot
-        rolled = torch.cat([state.hist[..., 1:], r_vec[..., None]], dim=-1)
-        hist = torch.where(sched[..., None], torch.where(full[..., None], rolled, appended),
-                           state.hist)
+        hist = self._hist_append(state.hist, sched, r_vec, d_prev)
         if stride_ok:
             stats = ops.glr_scan(hist.reshape(-1, h), counts.clamp_max(float(h)).to(
                 torch.int32).reshape(-1)).reshape(counts.shape)
@@ -348,6 +376,17 @@ class GLRCUCB(TracedHyperParams):
             stats = torch.full_like(d_prev, -torch.inf)
         change = self._fire(stats, sched, counts, state.hp)
         return hist, state.cum, state.total, state.base, change
+
+    def _hist_append(self, hist, sched, r_vec, d_prev):
+        """The recompute history's write: each scheduled channel's reward
+        appended at D_prev, or the row shifted when it is full."""
+        h = self.history
+        full = d_prev >= h
+        writepos = d_prev.to(torch.int64).clamp(0, h - 1)
+        onehot = torch.nn.functional.one_hot(writepos, h).to(torch.float32)
+        appended = hist * (1.0 - onehot) + r_vec[..., None] * onehot
+        rolled = torch.cat([hist[..., 1:], r_vec[..., None]], dim=-1)
+        return torch.where(sched[..., None], torch.where(full[..., None], rolled, appended), hist)
 
     def channel_scores(self, state: GLRCUCBState, t) -> torch.Tensor:
         """UCB values (Eq. 30) rank channels for the Sec.-V matcher."""

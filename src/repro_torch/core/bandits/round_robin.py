@@ -2,8 +2,9 @@
 
 Deterministically cycles all N channels through the M clients: perfectly
 fair channel usage, zero learning.  It draws nothing: ``u`` is ignored.
-Batched over runs (``base.py``), every run takes the same channels.  Twin
-of ``repro/core/bandits/round_robin.py``.
+Batched over runs (``base.py``), every run takes the same channels; with
+a (B,) ``t`` (the scheduler service's rows) each row takes its own
+round's.  Twin of ``repro/core/bandits/round_robin.py``.
 """
 from __future__ import annotations
 
@@ -35,7 +36,10 @@ class RoundRobinScheduler(TracedHyperParams):
 
     def select(self, state: RRState, t: int, u: torch.Tensor,
                aoi: torch.Tensor) -> Tuple[torch.Tensor, None]:
-        base = (t * self.n_clients) % self.n_channels
+        if isinstance(t, torch.Tensor):     # a (B,) round a row (the scheduler service)
+            base = ((t.to(torch.int64) * self.n_clients) % self.n_channels)[..., None]
+        else:
+            base = (t * self.n_clients) % self.n_channels
         channels = (base + torch.arange(self.n_clients, device=state.pulls.device)) \
             % self.n_channels
         return channels.expand(*state.pulls.shape[:-1], self.n_clients), None

@@ -45,11 +45,13 @@ def policy_round(scheduler, sched_state, aoi, t, u_sel, ch_states, ring=None):
     the observed rewards are its scheduled entries (semi-bandit feedback).
     Returns ``(sched_state, aoi, channels, rewards)``.
 
-    The batched twin, for the scheduler service: with ``ring`` (a
-    ``SlotRing``) the state leaves, ``aoi`` (B, M), ``u_sel`` and
-    ``ch_states`` (B, N) carry a tenant axis, ``t`` is (B,) int32, and the
-    update is ``scheduler.update_rows`` on the ring; each row's result
-    equals the unbatched round on it.
+    The batched twin, for the scheduler service: the state leaves, ``aoi``
+    (B, M), ``u_sel`` and ``ch_states`` (B, N) carry a tenant axis and
+    ``t`` is (B,) int32, one round a row; each row's result equals the
+    unbatched round on it.  Without ``ring`` that is any policy's own
+    ``update``; with ``ring`` (GLR-CUCB's detector state in the service's
+    slot tensors, a ``SlotRing`` or a ``SlotHist``) the update is
+    ``scheduler.update_rows`` on it.
     """
     channels, aux = scheduler.select(sched_state, t, u_sel, aoi)
     rewards = ch_states.gather(-1, channels)

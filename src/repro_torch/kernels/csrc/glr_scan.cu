@@ -25,6 +25,13 @@
 // in the block's order (not the plain version's sequential `cumsum`)
 // drifted by several ulps, and the split term amplifies that drift.
 //
+// The scheduler service's tenant form (`glr_scan_tenants_launch`) runs the
+// same row on the B named slots of its (R, N, H) history, in place: one
+// block a (slot, channel) row, -inf where the slot's detect flag is off.
+// Semantics of record: `ref.glr_scan_tenants`.  At the serving shape
+// (B = 64, N = 16, H = 256) it reads at most 1 MB and evaluates some
+// 2.6e5 splits (~8.4 MFLOP): a launch-bound call.
+//
 // What bounds it on the H100: at the paper's sizes (N = 5..30 rows,
 // H = 256..1024) the history is 5-120 KB and the work some 40 flops per
 // split; the launch is bound by launch latency.  At (1000, 1000) the
@@ -67,13 +74,10 @@ __device__ __forceinline__ double block_inclusive_scan(double v, double* warp_to
   return warp > 0 ? __dadd_rn(v, warp_tot[warp - 1]) : v;
 }
 
-__global__ void glr_scan_kernel(const float* __restrict__ hist, const int* __restrict__ counts,
-                                float* __restrict__ stat_out, int h) {
-  __shared__ double warp_tot[32];
-  __shared__ float warp_best[32];
-  const int row = blockIdx.x;
-  const float* x = hist + static_cast<size_t>(row) * h;
-  const int n = counts[row];
+// The statistic of one channel row `x` of `h` samples, of which the first
+// `n` count; every thread of the block gets it.
+__device__ __forceinline__ float row_stat(const float* __restrict__ x, int n, int h,
+                                          double* warp_tot, float* warp_best) {
   const float n_f = static_cast<float>(n);
 
   // pass 1: the window total W (the carry after the last chunk)
@@ -102,8 +106,38 @@ __global__ void glr_scan_kernel(const float* __restrict__ hist, const int* __res
       best = fmaxf(best, glr::split_stat(P, W, static_cast<float>(s), n_f, mu_all));
     }
   }
+  return glr::block_max(best, warp_best);
+}
 
-  const float m = glr::block_max(best, warp_best);
+__global__ void glr_scan_kernel(const float* __restrict__ hist, const int* __restrict__ counts,
+                                float* __restrict__ stat_out, int h) {
+  __shared__ double warp_tot[32];
+  __shared__ float warp_best[32];
+  const int row = blockIdx.x;
+  const float m = row_stat(hist + static_cast<size_t>(row) * h, counts[row], h, warp_tot,
+                           warp_best);
+  if (threadIdx.x == 0) stat_out[row] = m;
+}
+
+// The scheduler service's form: block b * N + c takes channel c of the
+// history of slot slots[b], read in place from the (R, N, H) slot tensor.
+// A row whose detect flag is off writes -inf and reads nothing (the whole
+// block leaves before the first barrier).
+__global__ void glr_scan_tenants_kernel(const float* __restrict__ hist,
+                                        const int* __restrict__ slots,
+                                        const bool* __restrict__ detect,
+                                        const int* __restrict__ counts,
+                                        float* __restrict__ stat_out, int n_chan, int h) {
+  __shared__ double warp_tot[32];
+  __shared__ float warp_best[32];
+  const int row = blockIdx.x;
+  const int b = row / n_chan, c = row - b * n_chan;
+  if (!detect[b]) {
+    if (threadIdx.x == 0) stat_out[row] = -__int_as_float(0x7f800000);
+    return;
+  }
+  const float* x = hist + (static_cast<size_t>(slots[b]) * n_chan + c) * h;
+  const float m = row_stat(x, counts[row], h, warp_tot, warp_best);
   if (threadIdx.x == 0) stat_out[row] = m;
 }
 
@@ -115,5 +149,16 @@ extern "C" int glr_scan_launch(const float* hist, const int* counts, float* stat
   int threads = ((h + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   glr_scan_kernel<<<rows, threads, 0, static_cast<cudaStream_t>(stream)>>>(hist, counts, stat_out, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int glr_scan_tenants_launch(const float* hist, const int* slots, const bool* detect,
+                                       const int* counts, float* stat_out, int b, int n_chan,
+                                       int h, void* stream) {
+  if (b <= 0 || n_chan <= 0 || h <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int threads = ((h + 31) / 32) * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  glr_scan_tenants_kernel<<<b * n_chan, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      hist, slots, detect, counts, stat_out, n_chan, h);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,6 +12,12 @@ What bounds it on the H100: launch latency at the paper's sizes (N =
 5..30, H = 256..1024: 5-120 KB and ~40 flops a split).  One thread block
 per row scans the history in chunks of the block with a carried offset;
 no padding of N or H.
+
+``glr_scan_tenants`` is the scheduler service's form (the recompute
+detector served): the same statistic for the B named slots of the
+service's (R, N, H) history, read in place by slot index, -inf on the
+rows whose detect flag is off (``ref.glr_scan_tenants``).  The JAX serve
+step ``vmap``s ``glr_scan`` over the gathered rows instead.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from repro_torch.kernels import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_TENANTS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
@@ -53,3 +60,48 @@ def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
 
 
 glr_scan.launches = 0
+
+
+def _tenants_checked(hist, slots, detect, counts):
+    """``glr_scan_tenants``'s checks: raises on what the kernel does not
+    take, else returns (B, N, H)."""
+    if not hist.is_cuda:
+        raise ValueError(f"glr_scan_tenants: the kernel takes CUDA tensors, got {hist.device}")
+    if hist.dim() != 3 or counts.dim() != 2:
+        raise ValueError(f"glr_scan_tenants: hist must be (R, N, H) and counts (B, N), got "
+                         f"{tuple(hist.shape)} and {tuple(counts.shape)}")
+    _, n_chan, h = hist.shape
+    b = counts.shape[0]
+    for name, x, dtype, shape in (("hist", hist, torch.float32, hist.shape),
+                                  ("slots", slots, torch.int32, (b,)),
+                                  ("detect", detect, torch.bool, (b,)),
+                                  ("counts", counts, torch.int32, (b, n_chan))):
+        if x.device != hist.device or x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"glr_scan_tenants: {name} must be a contiguous {tuple(shape)} {dtype} tensor "
+                f"on {hist.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if b == 0 or n_chan == 0 or h == 0 or b * n_chan >= 2**31:
+        raise ValueError(f"glr_scan_tenants: unsupported shape {tuple(hist.shape)}, B={b}")
+    return b, n_chan, h
+
+
+def glr_scan_tenants(hist: torch.Tensor, slots: torch.Tensor, detect: torch.Tensor,
+                     counts: torch.Tensor) -> torch.Tensor:
+    """Launch the tenant form on CUDA tensors: ``hist`` (R, N, H) f32 slot
+    state (read in place, never written), ``slots`` (B,) int32 (each < R),
+    ``detect`` (B,) bool, ``counts`` (B, N) int32 valid lengths.  Returns
+    (B, N) f32: the statistic of channel c of slot ``slots[b]``, -inf where
+    ``detect[b]`` is false or the count is below 2."""
+    b, n_chan, h = _tenants_checked(hist, slots, detect, counts)
+    fn = _build.load("glr_scan", "glr_scan_tenants_launch", _TENANTS_ARGTYPES)
+    out = torch.empty((b, n_chan), dtype=torch.float32, device=hist.device)
+    err = fn(hist.data_ptr(), slots.data_ptr(), detect.data_ptr(), counts.data_ptr(),
+             out.data_ptr(), b, n_chan, h, _build.stream(hist.get_device()))
+    if err != 0:
+        raise RuntimeError(f"glr_scan_tenants: kernel launch failed (cudaError {err})")
+    glr_scan_tenants.launches += 1
+    return out
+
+
+glr_scan_tenants.launches = 0

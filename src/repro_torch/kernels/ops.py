@@ -114,6 +114,21 @@ def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     return ref.glr_scan(hist, counts)
 
 
+def glr_scan_tenants(hist: torch.Tensor, slots: torch.Tensor, detect: torch.Tensor,
+                     counts: torch.Tensor) -> torch.Tensor:
+    """The recompute GLR statistic over the scheduler service's slot state:
+    ``hist`` (R, N, H) f32, read in place for the rows ``slots`` (B,);
+    ``counts`` (B, N) valid lengths.  Returns (B, N) f32, -inf where
+    ``detect`` (B,) is false or n < 2.  On CUDA one kernel launch, which
+    never moves the history (so it must be f32 and contiguous)."""
+    if hist.is_cuda:
+        return _gsc.glr_scan_tenants(hist, slots.to(torch.int32).contiguous(),
+                                     detect.contiguous(), counts.to(torch.int32).contiguous())
+    if hist.device.type != "cpu":
+        raise ValueError(f"glr_scan_tenants: no kernel for device {hist.device}")
+    return ref.glr_scan_tenants(hist, slots, detect, counts)
+
+
 def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bool = True,
                 return_state: bool = False, batch=None):
     """GLR-CUCB's AoI-regret harness over the T rounds of ``uniforms`` (T, 2, N)

@@ -48,6 +48,16 @@ def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     return torch.where(valid, stat, -torch.inf).amax(dim=-1)
 
 
+def glr_scan_tenants(hist: torch.Tensor, slots: torch.Tensor, detect: torch.Tensor,
+                     counts: torch.Tensor) -> torch.Tensor:
+    """``glr_scan`` over the rows ``slots`` (B,) of the (R, N, H) history:
+    (B, N), -inf where ``detect`` (B,) is false.  ``counts`` (B, N)."""
+    b, n_chan = counts.shape
+    rows = hist.index_select(0, slots.to(torch.int64)).reshape(b * n_chan, hist.shape[-1])
+    stats = glr_scan(rows, counts.reshape(-1)).reshape(b, n_chan)
+    return torch.where(detect[:, None], stats, -torch.inf)
+
+
 _U = 2.0 ** -24      # f32 unit roundoff
 
 

@@ -5,32 +5,42 @@ This module serves it as a shared online service: many concurrent FL
 deployments (tenants) each submit ``(tenant, reward vector, uniform) ->
 schedule`` requests, and every batch of requests, whichever tenants they
 belong to, runs as one serve step over device-resident per-tenant state.
-Twin of ``repro/sim/serve.py``; GLR-CUCB is the policy served (the port
-has no other yet).
+Twin of ``repro/sim/serve.py``.  It serves every policy the JAX server
+serves: GLR-CUCB (either detector), M-Exp3, random, round-robin,
+channel-aware and Lyapunov.  AoI-Aware is refused, as the JAX server
+cannot serve it (its admit program's hp takes one f32 a knob, and
+AoI-Aware's hp nests its base's under ``"base"``).
 
 Tenant-axis state
 -----------------
 ``TenantSlots`` stacks, per slot, a job's whole decision state: the
-GLR-CUCB state (the streaming detector's prefix rings ``cum`` and totals
-``total``/``base`` among it), the Sec.-V matcher normalizers, per-client
-AoI, the tenant's round clock ``t``, a membership flag and decision and
-success counters.  Every leaf has leading shape ``rows = capacity + 1``:
-row ``capacity`` is a scratch slot that padding rows name and nothing
-reads.
+policy's state (GLR-CUCB's detector state among it: the streaming
+detector's prefix rings ``cum`` and totals ``total``/``base``, or the
+recompute detector's history ``hist``), the Sec.-V matcher normalizers,
+per-client AoI, the tenant's round clock ``t``, a membership flag and
+decision and success counters.  Every leaf has leading shape ``rows =
+capacity + 1``: row ``capacity`` is a scratch slot that padding rows name
+and nothing reads.
 
 The serve step
 --------------
 Requests are batched into ``slots`` rows a step.  A step gathers the named
-rows' small leaves, computes every row's transition (``policy_round``'s
-batched twin, or select -> match -> update with the matcher), merges the
-rows that are not live (padding, masked) back to what they read, and
-writes the rows back by slot index.  The detector's rings never leave the
-slot tensors: ``GLRCUCB.update_rows`` hands them, by slot, to
+rows of every policy leaf, computes every row's transition
+(``policy_round``'s batched twin, or select -> match -> update with the
+matcher; each policy's ``select``/``update`` take the (B,) round clocks),
+merges the rows that are not live (padding, masked) back to what they
+read, and writes the rows back by slot index, as the JAX step's
+``tree_map(x[slots])`` / ``.at[slots].set`` does; a leaf the transition
+passes through unchanged (the hyper-parameters) is not written.
+GLR-CUCB's detector state never leaves the slot tensors:
+``GLRCUCB.update_rows`` hands the rings, by slot, to
 ``ops.glr_step_tenants``, which appends in place and reads a ring only on
-its tenant's detection round (on the card one kernel launch a step).  At
-most one live request per tenant per step (a second is deferred to the next step), so live writes
-never collide; padding rows all name the scratch slot and write back
-identical values.
+its tenant's detection round, or appends to the recompute history in
+place and scans it with ``ops.glr_scan_tenants`` (on the card one kernel
+launch a step, either way).  The other policies launch no kernel of the
+port.  At most one live request per tenant per step (a second is
+deferred to the next step), so live writes never collide; padding rows all
+name the scratch slot and write back identical values.
 
 A step never waits on the device: its operands go up in one copy from
 pinned host memory, its assignment comes back by an asynchronous copy
@@ -74,9 +84,11 @@ from typing import Any, Dict, Iterable, Iterator, List, NamedTuple, Optional, Se
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.io import restore_checkpoint, save_checkpoint
+from repro_torch.checkpoint.io import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.core.aoi import update_aoi
-from repro_torch.core.bandits.glr_cucb import GLRCUCB, GLRCUCBState, SlotRing
+from repro_torch.core.bandits import (AoIAware, ChannelAwareAsync, LyapunovSched, MExp3,
+                                      RandomScheduler, RoundRobinScheduler)
+from repro_torch.core.bandits.glr_cucb import GLRCUCB, SlotHist, SlotRing
 from repro_torch.core.matching import AdaptiveMatcher, MatcherState
 from repro_torch.core.regret import offline_round_stream, policy_round
 from repro_torch.device import resolve_device
@@ -90,7 +102,7 @@ class TenantSlots(NamedTuple):
     """Device-resident state of ``capacity`` tenants and the scratch row;
     every leaf's leading axis is ``rows = capacity + 1``."""
 
-    sched_state: GLRCUCBState     # leaves (rows, ...), the prefix rings among them
+    sched_state: Any              # the policy's state, leaves (rows, ...)
     matcher_state: MatcherState   # Sec.-V normalizers, leaves (rows,)
     aoi: torch.Tensor             # (rows, M) per-client AoI
     t: torch.Tensor               # (rows,) int32 per-tenant round clock
@@ -176,6 +188,21 @@ def init_slots(scheduler, capacity: int, matcher_beta: float = 0.5,
                      _fresh_row(scheduler, matcher_beta, device))
 
 
+SERVED = (GLRCUCB, MExp3, RandomScheduler, RoundRobinScheduler, ChannelAwareAsync,
+          LyapunovSched)
+
+# GLR-CUCB's detector leaves: they stay in the slot tensors (the detector
+# updates them in place by slot) and are never gathered
+_DETECTOR_LEAVES = ("hist", "cum", "total", "base")
+
+
+def _gather_rows(sched_state, take, resident):
+    """The policy state of the step's rows: ``take`` of every leaf but the
+    fields in ``resident``, which stay the slot tensors."""
+    return type(sched_state)(*[v if f in resident else tree_map(take, v)
+                               for f, v in zip(sched_state._fields, sched_state)])
+
+
 def make_serve_step(scheduler, use_matching: bool = False, matcher_beta: float = 0.5,
                     score_kind: str = "ucb"):
     """The serve step ``(state, slots, rewards, u, contrib, aoi, aoi_set,
@@ -187,13 +214,20 @@ def make_serve_step(scheduler, use_matching: bool = False, matcher_beta: float =
     the AoI override applied where ``aoi_set`` (B,); ``mask`` (B,) marks
     the real rows.  Returns the (B, M) assignment (-1 on rows that
     are not live) and the (B,)-leaved post-step ``MatcherState``.
+    ``score_kind`` routes the matcher's channel ranking as
+    ``repro_torch.core.matching.matcher_scores`` does: ``"mean"`` takes the
+    policy's ``mean_scores`` where it has them, ``channel_scores``
+    otherwise.
     """
     matcher = AdaptiveMatcher(matcher_beta)
-    stride = scheduler.detector_stride
+    glr = isinstance(scheduler, GLRCUCB)
+    resident = _DETECTOR_LEAVES if glr else ()
 
     def scores_of(rows, t):
         if score_kind == "mean":
-            return scheduler.mean_scores(rows, t)
+            fn = getattr(scheduler, "mean_scores", None)
+            if fn is not None:
+                return fn(rows, t)
         return scheduler.channel_scores(rows, t)
 
     def serve_step(state: TenantSlots, slots, rewards, u, contrib, aoi, aoi_set, mask):
@@ -202,17 +236,21 @@ def make_serve_step(scheduler, use_matching: bool = False, matcher_beta: float =
         live = mask & take(state.active)
         t, old_aoi = take(state.t), take(state.aoi)
         row_aoi = torch.where(aoi_set[:, None], aoi, old_aoi)
-        rows = ss._replace(mu_tilde=take(ss.mu_tilde), counts=take(ss.counts),
-                           tau=take(ss.tau), restarts=take(ss.restarts),
-                           hp={k: take(v) for k, v in ss.hp.items()})
-        ring = SlotRing(ss.cum, ss.total, ss.base, slots, live, live & (t % stride == 0))
+        rows = _gather_rows(ss, take, resident)
+        ring = None
+        if glr:
+            detect = live & (t % scheduler.detector_stride == 0)
+            ring = (SlotRing(ss.cum, ss.total, ss.base, slots, live, detect)
+                    if scheduler.detector_impl == "streaming"
+                    else SlotHist(ss.hist, slots, live, detect))
         old_m = MatcherState(*[take(x) for x in state.matcher_state])
         if use_matching:
-            channels, _ = scheduler.select(rows, t, u, row_aoi)
+            channels, aux = scheduler.select(rows, t, u, row_aoi)
             assignment, new_m = matcher.match(old_m, channels, scores_of(rows, t), contrib,
                                               row_aoi)
             rewards = rewards.gather(1, assignment)
-            new = scheduler.update_rows(rows, t, assignment, rewards, ring)
+            new = (scheduler.update(rows, t, assignment, rewards, aux) if ring is None
+                   else scheduler.update_rows(rows, t, assignment, rewards, ring))
             new_aoi = update_aoi(row_aoi, rewards > 0.5)
         else:
             new, new_aoi, assignment, rewards = policy_round(scheduler, rows, row_aoi, t, u,
@@ -221,15 +259,18 @@ def make_serve_step(scheduler, use_matching: bool = False, matcher_beta: float =
 
         # rows that are not live merge back to what they read, so their
         # write is a no-op (the padding rows' duplicate writes to the scratch
-        # slot all carry the same values)
+        # slot all carry the same values); a leaf passed through unchanged
+        # (the hyper-parameters, the matcher rows without the matcher, the
+        # detector's slot tensors) is not written
         def put(dst, new_rows, old_rows):
+            if new_rows is old_rows:
+                return old_rows
             keep = live.view((-1,) + (1,) * (new_rows.dim() - 1))
             merged = torch.where(keep, new_rows, old_rows)
             dst.index_copy_(0, slots, merged)
             return merged
 
-        for f in ("mu_tilde", "counts", "tau", "restarts"):
-            put(getattr(ss, f), getattr(new, f), getattr(rows, f))
+        tree_map(put, ss, new, rows)
         merged_m = MatcherState(*[put(d, a, b) for d, a, b in zip(state.matcher_state, new_m,
                                                                    old_m)])
         put(state.aoi, new_aoi, old_aoi)
@@ -260,12 +301,9 @@ def make_admit(scheduler, matcher_beta: float = 0.5, device=None):
 
 
 def _sched_sig(scheduler) -> str:
-    """Structural identity of a scheduler config: every field by value,
-    the traced hyper-parameters by name only."""
-    traced = set(getattr(scheduler, "TRACED", ()))
-    parts = tuple((f.name, "<traced>" if f.name in traced else getattr(scheduler, f.name))
-                  for f in dataclasses.fields(scheduler))
-    return str((type(scheduler).__name__, parts))
+    """Structural identity of a scheduler config (the JAX server's):
+    every field by value, the traced hyper-parameters by name only."""
+    return str(scheduler.hp_signature())
 
 
 class _Inflight(NamedTuple):
@@ -294,14 +332,18 @@ class SchedServer:
     def __init__(self, scheduler, capacity: int = 256, slots: int = 16,
                  use_matching: bool = False, matcher_beta: float = 0.5,
                  score_kind: str = "ucb", shard: bool = False, mesh=None, device=None):
-        if not isinstance(scheduler, GLRCUCB):
-            raise ValueError(f"SchedServer: only GLR-CUCB is served by the port, got "
-                             f"{type(scheduler).__name__}; M-Exp3, AoI-Aware, random, "
-                             "round-robin, channel-aware and Lyapunov are ported but not "
-                             "served yet")
-        if scheduler.detector_impl != "streaming":
-            raise ValueError("SchedServer: the service runs the streaming detector; "
-                             "detector_impl='recompute' is not served")
+        if isinstance(scheduler, AoIAware):
+            raise ValueError(
+                "SchedServer: AoI-Aware is not served: the reference's server cannot serve it "
+                "either (its admit program takes one f32 a hyper-parameter, and AoI-Aware's "
+                "hyper-parameters nest its base policy's under 'base')")
+        if not isinstance(scheduler, SERVED):
+            raise ValueError(f"SchedServer: {type(scheduler).__name__} is not a served policy; "
+                             f"served: {', '.join(c.__name__ for c in SERVED)}")
+        if isinstance(scheduler, MExp3) and scheduler.n_super_arms == 0:
+            raise ValueError(f"SchedServer: M-Exp3 with M={scheduler.n_clients} > "
+                             f"N={scheduler.n_channels} has no super-arm (its select raises); "
+                             "serve M > N with GLR-CUCB or Lyapunov")
         if capacity < 1:
             raise ValueError(f"SchedServer: capacity must be >= 1, got {capacity}")
         if capacity + 1 >= 2**24:
@@ -380,8 +422,9 @@ class SchedServer:
     def join(self, tenant, hp: Optional[Dict[str, Any]] = None) -> int:
         """Admit ``tenant`` into a free slot (fresh policy, matcher and AoI
         state).  ``hp`` overrides traced hyper-parameters for this tenant
-        (per-job gamma/delta/min_samples); unknown names raise.  Returns the
-        slot."""
+        (per-job gamma/delta/min_samples, ema, v, ...); unknown names raise,
+        and so does any name for a policy without knobs (random,
+        round-robin).  Returns the slot."""
         if tenant in self._tenants:
             raise ValueError(f"SchedServer.join: tenant {tenant!r} already live")
         if not len(self._free):
@@ -444,7 +487,11 @@ class SchedServer:
         The server must have the scheduler configuration, capacity and
         slots of the one that saved (checked against the sidecar).  Every
         leaf comes back with its exact dtype and bytes."""
-        state, step = restore_checkpoint(directory, step=step, like=self._state)
+        if step is None:
+            step = latest_step(directory)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints in {directory}")
+        # the sidecar first: a snapshot of another policy has other leaves
         with open(os.path.join(directory, f"serve_{step}.json")) as f:
             meta = json.load(f)
         if meta["sig"] != self._sig:
@@ -454,7 +501,7 @@ class SchedServer:
             if meta[field] != getattr(self, field):
                 raise ValueError(f"SchedServer.restore: snapshot {field}={meta[field]} != "
                                  f"server {field}={getattr(self, field)}")
-        self._state = state
+        self._state, _ = restore_checkpoint(directory, step=step, like=self._state)
         self._tenants = {t: int(s) for t, s in meta["tenants"]}
         self._free = _FreePool(self.capacity)
         self._free._next_fresh = int(meta["free_next_fresh"])

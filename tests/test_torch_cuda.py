@@ -40,7 +40,12 @@ the kernel refuses takes the batched per-round route and says so.  ``glr_step_te
 scheduler service's detector step, in place on the slot state) is held to
 ``ref.glr_step_tenants`` as ``glr_step`` is to its plain version, rows not
 live untouched; a served trace on the card equals the CPU server bit for
-bit, and a serve step makes no host sync.  The baseline policies' runs on
+bit, and a serve step makes no host sync.  ``glr_scan``'s tenant entry (the
+recompute detector served) is bitwise its plain version on {0, 1}
+histories and the single-run kernel on the gathered rows on U[0, 1] ones;
+every served policy's trace on the card equals the CPU server's (M-Exp3's
+log-weights at rtol 1e-5), with one tenant ``glr_scan`` launch a recompute
+step and none for the detector-free policies.  The baseline policies' runs on
 the per-round route equal the CPU runs bit for bit (a draw through
 ``log``/``exp`` may fork only at a near-tie within 1e-5 relative), and the
 mean AoI is the correctly rounded f32 quotient on both devices.  The
@@ -792,6 +797,108 @@ def test_served_tenants_on_the_card_equal_the_cpu(cuda, use_matching):
             assert torch.equal(a, b.cpu())
         # the matcher's AoI variance goes through torch's mean, which divides
         # on the CPU and multiplies by 1/M on CUDA: v_max and beta_t at 1e-6
+        for a, b in zip(cpu_row.matcher_state, card_row.matcher_state):
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=0)
+    batch = card._take_batch(deque(enumerate(reqs[:3])), 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inflight = card._dispatch(batch, 4, False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    card._retire(inflight)
+
+
+@pytest.mark.parametrize("r,b,n,h", [(257, 64, 16, 256), (10001, 64, 16, 64), (20, 12, 5, 33),
+                                     (20, 12, 5, 130)])
+@pytest.mark.parametrize("binary", [True, False], ids=["bernoulli", "uniform"])
+def test_glr_scan_tenants_kernel_matches_plain(cuda, r, b, n, h, binary):
+    """``glr_scan``'s tenant entry reads the named slots' histories in place
+    (never writing them): bitwise ``ref.glr_scan_tenants`` on {0, 1}
+    histories; on U[0, 1] ones bitwise the single-run kernel on the
+    gathered rows; -inf on every row not detecting; one launch."""
+    from repro_torch.kernels.glr_scan import glr_scan_tenants
+
+    rng = np.random.default_rng(r + b + h)
+    hist = (rng.integers(0, 2, (r, n, h)) if binary else rng.random((r, n, h))).astype(np.float32)
+    counts = rng.integers(0, h + 1, (b, n)).astype(np.int32)
+    counts.reshape(-1)[:4] = [0, 1, 2, h]
+    slots = rng.permutation(r - 1)[:b].astype(np.int32)
+    slots[-2:] = r - 1                                          # padding rows on the scratch slot
+    detect = rng.random(b) < 0.3
+    detect[0], detect[-2:] = True, False
+    args = [torch.from_numpy(a) for a in (hist, slots, detect, counts)]
+    card = [a.to(cuda) for a in args]
+    before = glr_scan_tenants.launches
+    got = ops.glr_scan_tenants(*card)
+    assert glr_scan_tenants.launches == before + 1
+    assert torch.equal(card[0].cpu(), args[0])
+    want = ref.glr_scan_tenants(*card)            # the plain version on the card's logf
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert bool(torch.isneginf(got[~card[2]]).all())
+    if binary:
+        assert torch.equal(got, want)
+    else:
+        det = card[2]
+        rows = card[0].index_select(0, card[1].long())[det].reshape(-1, h).contiguous()
+        assert torch.equal(got[det].reshape(-1), glr_scan(rows, card[3][det].reshape(-1)))
+
+
+@pytest.mark.parametrize("name", ["random", "round-robin", "channel-aware", "lyapunov", "m-exp3",
+                                  "recompute", "recompute-matched"])
+def test_served_policies_on_the_card_equal_the_cpu(cuda, name):
+    """Three tenants served 80 requests on the card equal the CPU server:
+    assignments and every slot leaf bit for bit but M-Exp3's ``log_w``
+    (exp and log round apart on the two devices: rtol 1e-5) and the
+    matcher's normalizers (rtol 1e-6, as above); the recompute detector
+    launches the tenant ``glr_scan`` once a step, the others no kernel; a
+    step does not wait on the device."""
+    from collections import deque
+
+    from repro_torch.core.bandits import (ChannelAwareAsync, LyapunovSched, RandomScheduler,
+                                          RoundRobinScheduler)
+    from repro_torch.kernels import glr_scan as gsc
+    from repro_torch.kernels.glr_step_tenants import glr_step_tenants
+    from repro_torch.sim import SchedServer, ServeRequest
+
+    n, m = 8, 3
+    sched = {"random": RandomScheduler(n, m), "round-robin": RoundRobinScheduler(n, m),
+             "channel-aware": ChannelAwareAsync(n, m), "lyapunov": LyapunovSched(n, m),
+             "m-exp3": MExp3(n, m, gamma=0.5, share_alpha=1e-3)}.get(
+        name, GLRCUCB(n, m, history=32, detector_stride=5, min_samples=4, delta=0.1,
+                      detector_impl="recompute"))
+    matched = name.endswith("matched")
+    servers = {dev: SchedServer(sched, capacity=4, slots=4, use_matching=matched, device=dev)
+               for dev in ("cpu", cuda)}
+    rng = np.random.default_rng(9)
+    reqs = [ServeRequest(f"t{j % 3}", (rng.random(n) < 0.6).astype(np.float32),
+                         rng.random(n).astype(np.float32)) for j in range(80)]
+    counters = (gsc.glr_scan_tenants, gsc.glr_scan, glr_step_tenants, glr_step)
+    out = {}
+    for dev, server in servers.items():
+        for i in range(3):
+            server.join(f"t{i}")
+        before = [c.launches for c in counters]
+        out[dev] = server.serve(reqs)
+    card = servers[cuda]
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    steps = card.stats()["steps"]
+    assert launched == ([steps, 0, 0, 0] if name.startswith("recompute") else [0, 0, 0, 0])
+    for a, b in zip(out["cpu"], out[cuda]):
+        np.testing.assert_array_equal(a, b)
+    for tid in ("t0", "t1", "t2"):
+        cpu_row, card_row = servers["cpu"].tenant_state(tid), card.tenant_state(tid)
+        close = ("log_w",) if name == "m-exp3" else ()
+        for f in cpu_row.sched_state._fields:
+            for a, b in zip(_leaves(getattr(cpu_row.sched_state, f)),
+                            _leaves(getattr(card_row.sched_state, f))):
+                if f in close:
+                    torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-6)
+                else:
+                    assert torch.equal(a, b.cpu()), f
+        for a, b in zip(_leaves(cpu_row._replace(sched_state=None, matcher_state=None)),
+                        _leaves(card_row._replace(sched_state=None, matcher_state=None))):
+            assert torch.equal(a, b.cpu())
         for a, b in zip(cpu_row.matcher_state, card_row.matcher_state):
             torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=0)
     batch = card._take_batch(deque(enumerate(reqs[:3])), 4)

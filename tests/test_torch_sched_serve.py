@@ -38,7 +38,7 @@ from repro.sim import SchedServer as JaxServer  # noqa: E402
 from repro.sim import ServeRequest as JaxRequest  # noqa: E402
 from repro.sim import offline_round_stream as jax_round_stream  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.core.bandits import GLRCUCB, glr_threshold  # noqa: E402
+from repro_torch.core.bandits import GLRCUCB, AoIAware, MExp3, glr_threshold  # noqa: E402
 from repro_torch.core.matching import AdaptiveMatcher  # noqa: E402
 from repro_torch.core.regret import simulate_aoi_regret  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
@@ -349,10 +349,21 @@ def test_membership_lifecycle_and_errors():
 
 
 def test_server_refuses_what_it_does_not_serve():
-    with pytest.raises(ValueError, match="only GLR-CUCB"):
+    # what the reference's server serves is served: M-Exp3 (not GLR-CUCB)
+    # and the recompute detector, once refused here, now answer a request
+    states, keys = _stream(jax.random.fold_in(KEY, 10), 1)
+    for sched in (MExp3(N, M, gamma=0.5),
+                  GLRCUCB(N, M, history=16, detector_impl="recompute")):
+        server = SchedServer(sched, capacity=2, slots=1, device="cpu")
+        server.join("a")
+        assert server.serve(_requests("a", states, keys, 1))[0].shape == (M,)
+    with pytest.raises(ValueError, match="not a served policy"):
         SchedServer(object(), device="cpu")
-    with pytest.raises(ValueError, match="recompute"):
-        SchedServer(GLRCUCB(N, M, history=16, detector_impl="recompute"), device="cpu")
+    # AoI-Aware: the reference's server cannot serve it either
+    with pytest.raises(ValueError, match="AoI-Aware is not served"):
+        SchedServer(AoIAware(GLRCUCB(N, M, history=16)), device="cpu")
+    with pytest.raises(ValueError, match="no super-arm"):
+        SchedServer(MExp3(2, 3), device="cpu")
     with pytest.raises(ValueError, match="mesh"):
         _server(mesh=object())
     with pytest.raises(ValueError, match="capacity"):

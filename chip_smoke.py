@@ -212,7 +212,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    for bit over 10 rounds: dense M-Exp3 with the matcher on phase 9's
    adversarial N = 6, M = 4 problem, sparse Lyapunov on phase 13 (c)'s
    setup; (d) phase 8's launches: no tenant ``glr_scan``.  A leaf that is
-   not bitwise is named with its tolerance and why (``SERVED_NOT_BITWISE``).
+   not bitwise is named with its tolerance and why (``SERVED_NOT_BITWISE``);
+16. MLA and MoE serving (minicpm3-4b, deepseek-v2-236b, dbrx-132b), one
+   model at a time: (0) ``flash_attention`` at dbrx's prefill shape (4,
+   48/8, 2048, 128) bf16 causal against its plain version, timed beside
+   SDPA; (a) each at full width, 2 layers, f32 (deepseek-v2: its dense
+   layer 0 and one MoE layer), a 2048-token prompt: the kernel route's
+   prefill against the plain route (rtol/atol 2e-3; dbrx launches
+   ``flash_attention`` twice on the FMA route, the MLA models never), then
+   12 teacher-forced decode steps against ``apply``'s logits (rtol/atol
+   2e-3), the MoE models at the capacity where no token drops; (b)
+   deepseek-v2's router at full width on 2048 bf16 tokens: the card's
+   top-6 ids, expert order, slots and keep mask bitwise those of the
+   port's CPU code on the same probabilities, the ties counted; one MoE
+   layer in f32 at the default capacity against a per-token loop over the
+   kept (token, expert) pairs (rtol 2e-3); (c) bf16 serving at full width:
+   minicpm3-4b at all 62 layers, deepseek-v2-236b and dbrx-132b cut to 8
+   (``MLA_MOE_SERVED``): the parameter count, three prefills of 4 x 2048
+   tokens (the first a warm-up; dbrx's launch ``flash_attention`` once a
+   layer on the tensor-core route, the MLA models' never), the
+   ``serve_loop`` at batch 8, context 2048, 32 tokens, peak memory, a
+   profiled prefill's device time split into expert products, dispatch
+   and combine, attention and the rest, and kernels a decode step.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -221,7 +242,7 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 128, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-15 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-16 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
 Every path runs at the paper's sizes, uncut but for phase 9's two cuts
@@ -324,6 +345,12 @@ TRAIN_CLIENTS, TRAIN_CHANNELS, TRAIN_HISTORY = 4, 8, 128   # launch/train.py's o
 TRAIN_LR, TRAIN_CE_CHUNK = 3e-4, 512
 TRAIN_REF_LAYERS, TRAIN_REF_S = 2, 512   # (a) and (c): full width, 2 layers
 TRAIN_REF_ROUNDS = 3            # (b): rounds on the card held to the CPU run
+MLA_MOE_SERVED = (("minicpm3-4b", 62), ("deepseek-v2-236b", 8), ("dbrx-132b", 8))
+# phase 16's models and the depth each is served at: minicpm3-4b whole (7.94 GiB of bf16
+# weights); the two MoE models cut to 8 layers, 54.07 and 50.86 GiB (full depth: 438.8 and
+# 245.1 GiB, past one card's 80 GB)
+ROUTER_ARCH, ROUTER_TOKENS = "deepseek-v2-236b", 2048   # phase 16 (b): the router on the card
+DBRX_ATTN = (SERVE_PREFILL_BATCH, 48, 8, SERVE_PROMPT, 128)   # dbrx-132b's prefill attention
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention", "regret_scan", "glr_step_tenants", "glr_scan_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
@@ -4729,9 +4756,337 @@ def served_baselines(torch, seed, phase8_launches):
     return launches, rates
 
 
+# ---------------------------------------------------------------------------
+# phase 16: MLA and MoE serving
+# ---------------------------------------------------------------------------
+
+def dbrx_attention(torch, gen, floor_ms):
+    """(0) ``flash_attention`` at dbrx-132b's prefill shape, bf16 causal, 6
+    query heads a KV head, on the tensor-core route within rtol 2**-8 /
+    atol 1e-4 of the f32 plain version (phase 2's bf16 tolerance), timed
+    beside the plain version and SDPA (not counted as launches of the
+    path).  Returns its entry for the kernels line."""
+    from torch.nn import functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+
+    b, hq, hkv, s, d = DBRX_ATTN
+    q = (torch.randn((b, hq, s, d), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    k = (torch.randn((b, hkv, s, d), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
+    v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    before = fa_kernel.tc_launches
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.mha_attention(q.float(), k.float(), v.float(), causal=True)
+    torch.cuda.synchronize()
+    check(fa_kernel.tc_launches == before + 1,
+          f"phase 16 (0): flash_attention {DBRX_ATTN} bf16 not on the tensor-core route")
+    err = float((got.float() - want).abs().max())
+    check(torch.allclose(got.float(), want, rtol=2.0 ** -8, atol=1e-4),
+          f"phase 16 (0): flash_attention {DBRX_ATTN} beyond rtol 2^-8 atol 1e-4 ({err:.3e})")
+    del got, want
+    fa = dict(shape_b_hq_hkv_s_d=list(DBRX_ATTN), causal=True, dtype="bfloat16",
+              max_abs_err=err, ms=time_ms(torch, lambda: fa_kernel(q, k, v, causal=True), 50),
+              plain_ms=time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=True), 3),
+              library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                  q, k, v, is_causal=True, enable_gqa=True), 20))
+    fa["bound_ms"], fa["bound_by"] = attn_bound_ms(DBRX_ATTN, True, 0, 2, BF16_TC_FLOPS)
+    flops = 4 * b * hq * d * attn_pairs(s, True, 0)
+    line(f"  (0) flash_attention (B, Hq, Hkv, S, D)={DBRX_ATTN} causal bf16, dbrx-132b's "
+         f"prefill: max_abs_err {err:.3e} vs f32 plain (rtol 2^-8 atol 1e-4) ok; kernel "
+         f"{fa['ms']:.4f} ms ({flops / fa['ms'] / 1e9:.1f} TFLOP/s), plain "
+         f"{fa['plain_ms']:.4f} ms, library (SDPA, enable_gqa) {fa['library_ms']:.4f} ms, "
+         f"bound {fa['bound_ms']:.4f} ms ({fa['bound_by']} at 989 TFLOP/s), launch floor "
+         f"{floor_ms:.5f} ms")
+    del q, k, v
+    release(torch)
+    return fa
+
+
+def mla_moe_reference(torch, seed, arch):
+    """(a) ``arch`` at full width, 2 layers, f32: the kernel route's prefill
+    of one 2048-token prompt against the plain chunked route (rtol/atol
+    2e-3; GQA launches ``flash_attention`` once a layer on the FMA route,
+    MLA never), then 12 teacher-forced decode steps against ``apply``'s
+    logits (rtol/atol 2e-3), an MoE model at its no-drop capacity."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import capacity
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=SERVE_REF_LAYERS, dtype="float32")
+    note = ""
+    if cfg.n_experts:
+        # every expert a slot for every token of the row: a prefill that drops
+        # cannot equal decode, which never drops
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+        check(capacity(cfg, SERVE_PROMPT) >= SERVE_PROMPT, f"phase 16 (a) {arch}: capacity")
+        note = (f", capacity_factor {cfg.capacity_factor:.4g} (n_experts / experts_per_token: "
+                f"{capacity(cfg, SERVE_PROMPT)} slots an expert, no token drops)")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    model, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    params, _ = model.init(gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    batch = {"tokens": toks}
+    kern = SERVE_REF_LAYERS if cfg.attention == "gqa" else 0
+    before, before_fma = kernel.launches, kernel.fma_launches
+    got = make_prefill_step(model)(params, batch)
+    check(kernel.launches == before + kern and kernel.fma_launches == before_fma + kern,
+          f"phase 16 (a) {arch}: the kernel route launched {kernel.launches - before} kernels, "
+          f"{kernel.fma_launches - before_fma} on the FMA route, expected {kern}")
+    want = make_prefill_step(plain)(params, batch)
+    check(kernel.launches == before + kern, f"phase 16 (a) {arch}: the plain route ran the kernel")
+    err = float((got - want).abs().max())
+    check(got.shape == (1, 1, cfg.vocab_size) and bool(torch.isfinite(got).all()),
+          f"phase 16 (a) {arch}: prefill logits {tuple(got.shape)} not finite or misshapen")
+    check(torch.allclose(got, want, rtol=2e-3, atol=2e-3),
+          f"phase 16 (a) {arch}: kernel-route prefill beyond rtol/atol 2e-3 of the plain route "
+          f"({err:.3e})")
+    line(f"  (a) {arch} width {cfg.d_model}, {cfg.n_layers} layers, {cfg.attention}"
+         f"{' + MoE' if cfg.n_experts else ''}, f32{note}: prefill of {SERVE_PROMPT} tokens, "
+         f"kernel route vs plain chunked route max_abs_err={err:.3e} (max |logit| "
+         f"{float(want.abs().max()):.3f}; rtol/atol 2e-3) ok; flash_attention launches "
+         f"{kern} (FMA route)")
+    full, _ = model.apply(params, batch)
+    cache = model.init_cache(1, SERVE_PROMPT, dtype=torch.float32, device="cuda")
+    dec_err = 0.0
+    for t in range(DECODE_REF_STEPS):
+        lg, cache = model.decode_step(params, cache, toks[:, t])
+        ref_t = full[:, t].float()
+        dec_err = max(dec_err, float((lg - ref_t).abs().max()))
+        check(torch.allclose(lg, ref_t, rtol=2e-3, atol=2e-3),
+              f"phase 16 (a) {arch}: decode step {t} beyond rtol/atol 2e-3 of apply's logits "
+              f"({dec_err:.3e})")
+    line(f"  (a) {arch} f32: {DECODE_REF_STEPS} teacher-forced decode steps match apply's "
+         f"logits, max_abs_err={dec_err:.3e} (rtol/atol 2e-3) ok")
+    del params, got, want, full, cache, lg
+    release(torch)
+
+
+def router_on_card(torch, seed):
+    """(b) deepseek-v2's router at full width on 2048 bf16 tokens: the
+    card's top-6 ids, the expert order of the assignments, their slots and
+    keep mask bitwise those of the port's CPU code on the same
+    probabilities copied down; then one MoE layer in f32 at the default
+    capacity (tokens drop) against a per-token loop over the kept (token,
+    expert) pairs, rtol 2e-3."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import ParamBuilder, swiglu
+
+    cfg = get_config(ROUTER_ARCH)
+    d, e, k = cfg.d_model, cfg.n_experts, cfg.experts_per_token
+    cap = moe.capacity(cfg, ROUTER_TOKENS)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 161)
+    x = torch.randn((1, ROUTER_TOKENS, d), generator=gen, device="cuda").to(torch.bfloat16)
+    router = (torch.randn((d, e), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    probs = torch.softmax((x @ router).float(), dim=-1)
+
+    def plan(pr):
+        topw, topi = moe.route(pr, k)
+        return (topi,) + moe.dispatch(topi, topw, e, cap)
+
+    card = [t.cpu() for t in plan(probs)]
+    cpu = plan(probs.cpu())
+    for name, a, b in zip(("top-k ids", "expert order", "slots"), card, cpu):
+        check(torch.equal(a, b), f"phase 16 (b): the card's {name} differ from the CPU's")
+    keep_card, keep_cpu = card[2] < e * cap, cpu[2] < e * cap
+    check(torch.equal(keep_card, keep_cpu), "phase 16 (b): the card's keep mask differs")
+    w_err = float((card[3] - cpu[3]).abs().max())
+    check(torch.allclose(card[3], cpu[3], rtol=1e-6, atol=0),
+          f"phase 16 (b): kept weights beyond rtol 1e-6 of the CPU's ({w_err:.3e})")
+    desc = torch.sort(probs, dim=-1, descending=True).values
+    boundary = int((desc[..., k - 1] == desc[..., k]).sum())
+    inside = int((desc[..., :k - 1] == desc[..., 1:k]).any(-1).sum())
+    dropped = int((~keep_card).sum())
+    line(f"  (b) {ROUTER_ARCH} router, {ROUTER_TOKENS} bf16 tokens x width {d}, {e} experts, "
+         f"top-{k}, router std 0.02: {boundary} tokens tie across the top-{k} boundary, "
+         f"{inside} inside their top {k}; capacity {cap}, {dropped} of {ROUTER_TOKENS * k} "
+         f"assignments dropped; the card's top-k ids, expert order, slots and keep mask equal "
+         f"the CPU code's on the same probabilities bit for bit (weights max diff "
+         f"{w_err:.3e}) ok")
+    del probs, router, card, cpu
+
+    # one MoE layer in f32 at the default capacity against a per-token loop
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    pb = ParamBuilder(gen, dtype=torch.float32, device="cuda")
+    moe.add_moe_params(pb, "m", cfg32)
+    p = pb.params
+    xf = x.float()
+    out, _ = moe.moe_ffn(p, "m", xf, cfg32)
+    topi, order, slot, keep_w = plan(torch.softmax(xf @ p["m/router"], dim=-1))
+    kept = (slot < e * cap)[0]
+    toks, experts, weights = ((order[0][kept] // k).tolist(), (slot[0][kept] // cap).tolist(),
+                              keep_w[0][kept])
+    by_tok = {}
+    for i, (t, ex) in enumerate(zip(toks, experts)):
+        by_tok.setdefault(t, []).append((ex, i))
+    ref = swiglu(xf[0], p["m/ws_gate"], p["m/ws_up"], p["m/ws_down"])
+    wg, wu, wd = p["m/w_gate"], p["m/w_up"], p["m/w_down"]
+    for t, pairs in by_tok.items():
+        ids = torch.tensor([ex for ex, _ in pairs], device="cuda")
+        w = weights[[i for _, i in pairs]]
+        g = torch.einsum("d,edf->ef", xf[0, t], wg[ids])
+        u = torch.einsum("d,edf->ef", xf[0, t], wu[ids])
+        y = torch.einsum("ef,efd->ed", torch.nn.functional.silu(g) * u, wd[ids])
+        ref[t] += (w[:, None] * y).sum(0)
+    err = float((out[0] - ref).abs().max())
+    check(torch.allclose(out[0], ref, rtol=2e-3, atol=2e-3 * float(ref.abs().max())),
+          f"phase 16 (b): the MoE layer beyond rtol 2e-3 of the per-token loop ({err:.3e})")
+    line(f"  (b) {ROUTER_ARCH} MoE layer, f32, {ROUTER_TOKENS} tokens at capacity {cap}: "
+         f"{len(toks)} kept (token, expert) pairs over {len(by_tok)} tokens; against a "
+         f"per-token loop over them max_abs_err={err:.3e} (max |out| "
+         f"{float(ref.abs().max()):.3f}; rtol 2e-3) ok")
+    del p, pb, out, ref, xf, x
+    release(torch)
+
+
+def mla_moe_serve(torch, seed, arch, n_layers):
+    """(c) ``arch`` at full width and ``n_layers`` depth in bf16: three
+    prefills of 4 x 2048 tokens and the serve loop, the main path whose
+    launches are counted; then (not counted) a profiled prefill split by
+    the model's profiler ranges and a profiled decode window."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.attention import FORWARD_RANGE
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 162)
+    t0 = time.perf_counter()
+    params, _ = model.init(gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    mla = cfg.attention == "mla"
+    norms = (n_layers * (2 * cfg.d_model + (cfg.q_lora_rank + cfg.kv_lora_rank) * mla
+                         + 2 * cfg.resolved_head_dim * cfg.qk_norm) + cfg.d_model)
+    check(n_params == cfg.param_count() + norms,      # param_count leaves out the norm gains
+          f"phase 16 (c) {arch}: {n_params} params, config says {cfg.param_count()} + {norms}")
+    weights_gib = sum(v.numel() * v.element_size() for v in params.values()) / 2 ** 30
+    line(f"  (c) {arch}: {n_layers} of {get_config(arch).n_layers} layers, width {cfg.d_model}, "
+         f"bf16, {n_params / 1e9:.3f} B params = param_count() + {norms} norm gains "
+         f"({weights_gib:.2f} GiB) drawn on the card in {init_s:.2f} s")
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_PREFILL_BATCH, SERVE_PROMPT), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    batch = {"tokens": prompts}
+    prefill = make_prefill_step(model)
+    kern = 0 if mla else n_layers
+
+    reset_launches()
+    prefill_ms = []
+    for _ in range(3):                    # the first one is the warm-up
+        before, before_tc = kernel.launches, kernel.tc_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        check(kernel.launches == before + kern and kernel.tc_launches == before_tc + kern,
+              f"phase 16 (c) {arch}: flash_attention launched {kernel.launches - before} times "
+              f"in a prefill, {kernel.tc_launches - before_tc} on the tensor-core route, "
+              f"expected {kern}")
+        check(logits.shape == (SERVE_PREFILL_BATCH, 1, cfg.vocab_size)
+              and logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
+              f"phase 16 (c) {arch}: prefill logits {tuple(logits.shape)} {logits.dtype} not "
+              f"finite or misshapen")
+    prefill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    release(torch)
+    tok, cache, secs = serve_loop(model, params, SERVE_BATCH, SERVE_CONTEXT, SERVE_TOKENS,
+                                  device="cuda")
+    launches = read_launches()
+    check(int(cache["pos"]) == SERVE_TOKENS, f"phase 16 (c) {arch}: cache pos {int(cache['pos'])}")
+    check(tok.shape == (SERVE_BATCH,) and tok.dtype == torch.int32
+          and bool(((tok >= 0) & (tok < cfg.vocab_size)).all()),
+          f"phase 16 (c) {arch}: decoded tokens invalid")
+    cache_gib = sum(v.numel() * v.element_size() for layer in cache.values()
+                    if isinstance(layer, dict) for v in layer.values()) / 2 ** 30
+    step_ms = secs / SERVE_TOKENS * 1e3
+    line(f"  (c) {arch}: prefill {SERVE_PREFILL_BATCH} x {SERVE_PROMPT} tokens "
+         f"{prefill_ms[1]:.1f} / {prefill_ms[2]:.1f} ms (warm-up {prefill_ms[0]:.1f} ms), "
+         f"{SERVE_PREFILL_BATCH * SERVE_PROMPT / (prefill_ms[1] / 1e3):.0f} prompt tok/s; "
+         f"flash_attention {launches['flash_attention'] // 3} a prefill "
+         f"({launches['flash_attention_tc'] // 3} on the tensor-core route); peak device memory "
+         f"in the prefills {prefill_peak:.2f} GiB")
+    line(f"  (c) [serve] {arch}: {SERVE_TOKENS} tokens x {SERVE_BATCH} seqs in {secs:.2f}s "
+         f"({SERVE_BATCH * SERVE_TOKENS / secs:.1f} tok/s, {step_ms:.2f} ms a decode step, "
+         f"context {SERVE_CONTEXT}, cache {cache_gib:.3f} GiB), cache pos={int(cache['pos'])}")
+
+    # not counted: one profiled prefill split by the model's ranges, a decode window
+    events, wall_us = trace_events(torch, lambda: prefill(params, batch))
+    kernels = [ev for ev in events if ev.get("cat") == "kernel" and "dur" in ev]
+    total = sum(float(ev["dur"]) for ev in kernels)
+    parts = {"expert products": range_device_us(events, moe.EXPERTS_RANGE)[0],
+             "dispatch and combine": range_device_us(events, moe.DISPATCH_RANGE)[0]
+             + range_device_us(events, moe.COMBINE_RANGE)[0],
+             "attention": range_device_us(events, FORWARD_RANGE)[0]}
+    parts["the rest"] = total - sum(parts.values())
+    split = ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / total:.1f} %)" for k, v in parts.items()) \
+        if total else "no device kernels in the trace (not measured)"
+    line(f"  (c) {arch} prefill profile: wall {wall_us / 1e3:.1f} ms, {len(kernels)} kernels, "
+         f"device time {total / 1e3:.2f} ms: {split}")
+    steps = 4
+    out = {}
+
+    def decode():
+        tk, c = tok, cache
+        for _ in range(steps):
+            lg, c = model.decode_step(params, c, tk)
+            tk = lg.argmax(-1).to(torch.int32)
+        out["logits"] = lg
+
+    profile_window(torch, f"{arch} decode batch {SERVE_BATCH}", decode, steps)
+    lg = out["logits"]
+    check(lg.shape == (SERVE_BATCH, cfg.vocab_size) and bool(torch.isfinite(lg).all()),
+          f"phase 16 (c) {arch}: decode logits not finite or misshapen")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    line(f"  (c) {arch}: decode logits finite, peak device memory {peak:.2f} GiB")
+    del params, logits, cache, lg, out
+    release(torch)
+    return launches, dict(weights_gib=weights_gib, prefill_ms=prefill_ms[1:],
+                          decode_step_ms=step_ms, tok_s=SERVE_BATCH * SERVE_TOKENS / secs,
+                          peak_gib=peak, prefill_split_us=parts, prefill_device_us=total)
+
+
+def mla_moe_serving(torch, seed, floor_ms):
+    """Phase 16: MLA and MoE serving, one model at a time.  Returns the
+    launches of the served runs (each counted from zero) and
+    ``flash_attention``'s entry at dbrx's shape for the kernels line."""
+    t_phase = time.perf_counter()
+    fa = dbrx_attention(torch, torch.Generator(device="cuda").manual_seed(seed + 160), floor_ms)
+    for arch, _ in MLA_MOE_SERVED:
+        mla_moe_reference(torch, seed, arch)
+    router_on_card(torch, seed)
+    paths, served = [], {}
+    for arch, n_layers in MLA_MOE_SERVED:
+        launches, served[arch] = mla_moe_serve(torch, seed, arch, n_layers)
+        paths.append(launches)
+    launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
+    dbrx_layers = dict(MLA_MOE_SERVED)["dbrx-132b"]
+    check(launches["flash_attention"] == launches["flash_attention_tc"] == 3 * dbrx_layers,
+          f"phase 16: flash_attention launches {launches}, expected {3 * dbrx_layers} "
+          f"(dbrx's three prefills)")
+    fa["launches"] = launches["flash_attention"]
+    line(f"  phase 16 launches: flash_attention {launches['flash_attention']} (tensor-core "
+         f"{launches['flash_attention_tc']}); wall {time.perf_counter() - t_phase:.1f} s")
+    return launches, fa, served
+
+
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
                 fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan, reactive_scan,
-                agg_batch, sub_kernels, train_kernels, gsct_err, gsct_t):
+                agg_batch, sub_kernels, train_kernels, gsct_err, gsct_t, dbrx_attn):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
     (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6, and
@@ -4745,7 +5100,8 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     sparse round's shapes (``substrate``: phase 13's launches, its check
     against the plain version and its times there); ``glr_step`` and
     ``flash_attention`` the training path's (``train``: phase 14's launches,
-    the check and the times at its shapes)."""
+    the check and the times at its shapes); ``flash_attention`` also dbrx's
+    prefill shape (``dbrx``: phase 16's launches, (0)'s check and times)."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -4809,7 +5165,7 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               f32_plain_ms=fa_t["model_f32"]["plain_ms"],
               f32_library_ms=fa_t["model_f32"]["library_ms"],
               f32_bound_ms=fa_t["model_f32"]["bound_ms"], jax_test_shapes=fa_t["jax_shapes"],
-              train=train_kernels["flash_attention"]),
+              train=train_kernels["flash_attention"], dbrx=dbrx_attn),
     ]
 
 
@@ -4817,7 +5173,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-15) only")
+                    help="build the kernels and run the paths (phases 3-16) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -4922,9 +5278,14 @@ def main(argv=None) -> int:
         line("[15] the scheduler service for every served policy: M-Exp3, random, round-robin, "
              "channel-aware, Lyapunov, the recompute detector")
         served_launches, _ = served_baselines(torch, args.seed, sched_launches)
+        release(torch)
+        line("[16] MLA and MoE serving: minicpm3-4b (62 layers), deepseek-v2-236b and "
+             "dbrx-132b (8 layers) at full width")
+        mla_moe_launches, dbrx_attn, _ = mla_moe_serving(torch, args.seed, floor_ms)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
                  serve_launches, sched_launches, baseline_launches, batch_launches,
-                 family_launches, fl_launches, sub_launches, train_launches, served_launches)
+                 family_launches, fl_launches, sub_launches, train_launches, served_launches,
+                 mla_moe_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
         check(all(launches[k] > 0 for k in KERNEL_NAMES + BATCH_ROUTES
                   + ("flash_attention_tc", "regret_scan_reactive")),
@@ -4942,7 +5303,7 @@ def main(argv=None) -> int:
                                                 recompute_scan, gst_err, gst_t,
                                                 dict(batch_fields, max_abs_err=batch_err),
                                                 reactive_fields, agg_batch, sub_kernels,
-                                                train_kernels, gsct_err, gsct_t)}))
+                                                train_kernels, gsct_err, gsct_t, dbrx_attn)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -2,8 +2,8 @@
 
 get_config(id)  / get_smoke_config(id)  / list_archs().  Twin of
 ``repro/configs/__init__.py``, listing only the architectures whose
-modules the port has (the dense GQA decoders); any other arch raises a
-``KeyError`` saying it is not ported yet.
+modules the port has (the GQA and MLA decoders, dense and MoE); any other
+arch raises a ``KeyError`` saying it is not ported yet.
 """
 from __future__ import annotations
 
@@ -14,7 +14,10 @@ from repro_torch.configs.base import ModelConfig
 
 _MODULES: Dict[str, str] = {
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
 }
 

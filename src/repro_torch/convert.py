@@ -58,8 +58,9 @@ def params(src: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
 
 def model_params(src: Mapping[str, Any], device=None) -> Dict[str, torch.Tensor]:
     """A JAX model's flat parameter dict (``{path: array}``, the layer stack
-    under ``blocks/`` with its leading L) as the port's, on ``device``:
-    the same keys, shapes and dtypes, bf16 bit for bit."""
+    under ``blocks/`` with its leading L, leading dense layers under
+    ``layers/NN/``) as the port's, on ``device``: the same keys, shapes and
+    dtypes, bf16 bit for bit."""
     return params(src, device)
 
 

@@ -1,7 +1,7 @@
-"""Attention blocks: GQA (bias / qk-norm / windowed).
+"""Attention blocks: GQA (bias / qk-norm / windowed) and MLA.
 
-Twin of the GQA half of ``repro/models/attention.py`` (MLA waits for its
-slice).  Two execution paths share one set of weights:
+Twin of ``repro/models/attention.py``.  Two execution paths share one set
+of weights:
 
 * ``prefill`` — full-sequence attention through ``attn_core``.  On a CUDA
   tensor it is the hand-written ``flash_attention`` kernel whenever the
@@ -9,9 +9,16 @@ slice).  Two execution paths share one set of weights:
   package's ``S >= 256`` and TPU-backend tests were a TPU tiling choice).
   Elsewhere, or with ``impl="plain"``, a query-chunked softmax in plain
   PyTorch with the same semantics runs (the twin of ``_attn_core_xla``).
-* ``decode`` — one token against a (possibly ring) KV cache, plain
-  products against the cache as in the JAX package.  The cache is
+* ``decode`` — one token against a (possibly ring / latent) KV cache,
+  plain products against the cache as in the JAX package.  The cache is
   updated in place (one slot written a step) instead of copied.
+
+MLA's value width differs from its query width (minicpm3: 64 against 96;
+deepseek-v2: 128 against 192), so its prefill takes the plain chunked
+path on every device, as JAX's ``attn_core`` sends it to the XLA path.
+MLA decode uses the *absorbed* form by default (queries pulled into
+latent space; scores taken against the compressed cache); ``absorb=False``
+decompresses the cache every step (the naive baseline).
 """
 from __future__ import annotations
 
@@ -48,6 +55,24 @@ def add_gqa_params(pb: ParamBuilder, prefix: str, cfg: ModelConfig, stacked: int
     if cfg.qk_norm:
         pb.add(f"{prefix}/q_norm", lead + (hd,), ls + (None,), init="ones")
         pb.add(f"{prefix}/k_norm", lead + (hd,), ls + (None,), init="ones")
+
+
+def add_mla_params(pb: ParamBuilder, prefix: str, cfg: ModelConfig, stacked: int = 0):
+    d, h = cfg.d_model, cfg.n_heads
+    r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lead = (stacked,) if stacked else ()
+    ls = ("layers",) if stacked else ()
+    if r_q:
+        pb.add(f"{prefix}/wq_down", lead + (d, r_q), ls + ("embed", None))
+        pb.add(f"{prefix}/q_norm", lead + (r_q,), ls + (None,), init="ones")
+        pb.add(f"{prefix}/wq_up", lead + (r_q, h * (dn + dr)), ls + (None, "heads"))
+    else:
+        pb.add(f"{prefix}/wq", lead + (d, h * (dn + dr)), ls + ("embed", "heads"))
+    pb.add(f"{prefix}/wkv_down", lead + (d, r_kv + dr), ls + ("embed", None))
+    pb.add(f"{prefix}/kv_norm", lead + (r_kv,), ls + (None,), init="ones")
+    pb.add(f"{prefix}/wkv_up", lead + (r_kv, h * (dn + dv)), ls + (None, "heads"))
+    pb.add(f"{prefix}/wo", lead + (h * dv, d), ls + ("heads", "embed"))
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +112,7 @@ def _attn_core_plain(q, k, v, causal, window, scale, chunk):
 
 
 BACKWARD_RANGE = "attn_core.backward (plain chunked)"   # its profiler range
+FORWARD_RANGE = "attn_core (forward)"                    # attn_core's, on either route
 
 
 class _KernelAttention(torch.autograd.Function):
@@ -124,15 +150,17 @@ def attn_core(
     Dv == D and the plain chunked path otherwise; ``"kernel"`` forces the
     kernel route (the plain version of the kernel on a CPU tensor: the
     twin of ``REPRO_ATTN_IMPL=flash``); ``"plain"`` forces the chunked path
-    (the card-side reference)."""
+    (the card-side reference).  Runs inside the profiler range
+    ``FORWARD_RANGE``."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn_core: unknown impl {impl!r}; use one of {ATTN_IMPLS}")
     d = q.shape[-1]
     scale = float(scale) if scale is not None else float(1.0 / (d ** 0.5))
     kernel = impl == "kernel" or (impl is None and q.is_cuda)
-    if kernel and v.shape[-1] == d:
-        return _KernelAttention.apply(q, k, v, causal, window, scale, chunk)
-    return _attn_core_plain(q, k, v, causal, window, scale, chunk)
+    with torch.profiler.record_function(FORWARD_RANGE):
+        if kernel and v.shape[-1] == d:
+            return _KernelAttention.apply(q, k, v, causal, window, scale, chunk)
+        return _attn_core_plain(q, k, v, causal, window, scale, chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -198,3 +226,101 @@ def gqa_decode(
     out = out.reshape(b, 1, hq * hd).to(x.dtype)
     y = out @ p[f"{prefix}/wo"]
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA block (deepseek-v2 / minicpm3)
+# ---------------------------------------------------------------------------
+
+def _mla_q(p, prefix, x, cfg: ModelConfig, positions):
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        ql = rms_norm(x @ p[f"{prefix}/wq_down"], p[f"{prefix}/q_norm"], cfg.norm_eps)
+        q = ql @ p[f"{prefix}/wq_up"]
+    else:
+        q = x @ p[f"{prefix}/wq"]
+    q = q.reshape(b, s, h, dn + dr).transpose(1, 2)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    return q[..., :dn], q_rope                            # (B,H,S,dn), (B,H,S,dr)
+
+
+def _mla_latent(p, prefix, x, cfg: ModelConfig, positions):
+    r_kv = cfg.kv_lora_rank
+    kv = x @ p[f"{prefix}/wkv_down"]
+    latent = rms_norm(kv[..., :r_kv], p[f"{prefix}/kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., r_kv:], positions, cfg.rope_theta)   # (B,S,dr) shared
+    return latent, k_rope
+
+
+def mla_prefill(
+    p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor, cfg: ModelConfig,
+    window: int = 0, attn_impl: Optional[str] = None,
+) -> torch.Tensor:
+    b, s, _ = x.shape
+    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    positions = torch.arange(s, device=x.device)
+    q_nope, q_rope = _mla_q(p, prefix, x, cfg, positions)
+    latent, k_rope = _mla_latent(p, prefix, x, cfg, positions)
+    kv = (latent @ p[f"{prefix}/wkv_up"]).reshape(b, s, h, dn + dv).transpose(1, 2)
+    # fold the shared rotary key into every head (a broadcast view until the
+    # concatenation writes it); concatenate the nope | rope dims
+    k = torch.cat([kv[..., :dn], k_rope[:, None].expand(b, h, s, dr)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    scale = 1.0 / ((dn + dr) ** 0.5)
+    out = attn_core(q, k, kv[..., dn:], causal=True, window=window, scale=scale,
+                    impl=attn_impl)                       # Dv != D: the plain chunked path
+    out = out.transpose(1, 2).reshape(b, s, h * dv)
+    return out @ p[f"{prefix}/wo"]
+
+
+def mla_decode(
+    p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor, cfg: ModelConfig,
+    cache_latent: torch.Tensor, cache_krope: torch.Tensor, pos: torch.Tensor,
+    window: int = 0, absorb: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token MLA decode against the latent cache (B,P,r_kv) and the
+    shared rotary keys (B,P,dr), both written in place at the slot of
+    ``pos`` (0-d int tensor).  Returns (y, latent, k_rope).
+
+    absorb=True: queries are pulled into latent space through wkv_up (the
+    deployable O(S * r_kv) path).  absorb=False decompresses the whole
+    cache every step (the naive baseline).  Both in f32, as in JAX.
+    """
+    b = x.shape[0]
+    h, dn, dr, dv, r_kv = (
+        cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank,
+    )
+    phys = cache_latent.shape[1]
+    positions = pos.reshape(1)
+    q_nope, q_rope = _mla_q(p, prefix, x, cfg, positions)   # (B,H,1,dn), (B,H,1,dr)
+    latent_new, krope_new = _mla_latent(p, prefix, x, cfg, positions)
+    slot = (ring_slot(pos, phys) if window > 0 else pos).reshape(1).long()
+    cache_latent.index_copy_(1, slot, latent_new.to(cache_latent.dtype))
+    cache_krope.index_copy_(1, slot, krope_new.to(cache_krope.dtype))
+
+    w_up = p[f"{prefix}/wkv_up"].reshape(r_kv, h, dn + dv).float()
+    w_uk, w_uv = w_up[..., :dn], w_up[..., dn:]
+    scale = 1.0 / ((dn + dr) ** 0.5)
+    lat = cache_latent.float()                               # (B,P,r)
+    if absorb:
+        # q_eff[b,h,r] = sum_dn q_nope[b,h,dn] * w_uk[r,h,dn]
+        q_eff = torch.einsum("bhqd,rhd->bhr", q_nope.float(), w_uk)
+        logits = torch.einsum("bhr,bpr->bhp", q_eff, lat)
+    else:
+        k_nope = torch.einsum("bpr,rhd->bhpd", lat, w_uk)
+        logits = torch.einsum("bhqd,bhpd->bhp", q_nope.float(), k_nope)
+    logits = logits + torch.einsum("bhqd,bpd->bhp", q_rope.float(), cache_krope.float())
+    logits = logits * scale
+    mask = valid_mask(pos, phys, window)
+    logits = torch.where(mask, logits, _NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    if absorb:
+        ctx = torch.einsum("bhp,bpr->bhr", probs, lat)          # context in latent space
+        out = torch.einsum("bhr,rhd->bhd", ctx, w_uv)
+    else:
+        v = torch.einsum("bpr,rhd->bhpd", lat, w_uv)
+        out = torch.einsum("bhp,bhpd->bhd", probs, v)
+    out = out.reshape(b, 1, h * dv).to(x.dtype)
+    y = out @ p[f"{prefix}/wo"]
+    return y, cache_latent, cache_krope

@@ -1,11 +1,11 @@
-"""KV caches: full and ring (sliding-window), GQA layout.
+"""KV caches: full, ring (sliding-window) and MLA-latent.
 
-Twin of ``repro/models/kvcache.py`` (the MLA latent cache waits for the
-MLA slice).  A cache is a flat dict of tensors plus a 0-d int32 ``pos``
+Twin of ``repro/models/kvcache.py``.  A cache is a flat dict of tensors plus a 0-d int32 ``pos``
 on the device, so a decode step reads its position without a host sync.
 The *ring* layout caps memory at ``window`` entries; keys are stored
 post-RoPE (absolute positions), so a ring overwrite needs no re-rotation
-and masking is by age.
+and masking is by age.  An MLA cache stores the compressed latent and the
+shared rotary key (kv_lora + rope dims a token) instead of per-head K/V.
 """
 from __future__ import annotations
 
@@ -29,6 +29,18 @@ def init_gqa_cache(
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def init_mla_cache(
+    batch: int, seq_len: int, kv_lora: int, rope_dim: int,
+    window: int = 0, n_layers: int = 0, dtype=torch.bfloat16, device=None,
+) -> Dict[str, torch.Tensor]:
+    s = cache_len(seq_len, window)
+    lead = (n_layers,) if n_layers else ()
+    return {
+        "latent": torch.zeros(lead + (batch, s, kv_lora), dtype=dtype, device=device),
+        "k_rope": torch.zeros(lead + (batch, s, rope_dim), dtype=dtype, device=device),
     }
 
 

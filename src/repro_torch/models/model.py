@@ -1,12 +1,13 @@
 """Model facade: ``build_model(config) -> Model`` with init / apply / loss /
-cache / decode entry points for the dense GQA decoders.
+cache / decode entry points for the GQA and MLA decoders, dense and MoE.
 
 Twin of ``repro/models/model.py``.  The parameter layout is the JAX one: a
-flat ``{path: tensor}`` dict plus a parallel ``{path: logical_spec}`` dict,
-the layer stack under ``blocks/`` with a leading layer axis, so
+flat ``{path: tensor}`` dict plus a parallel ``{path: logical_spec}`` dict.
+The homogeneous layer stack lives under ``blocks/`` with a leading layer
+axis; the leading dense layers of an MoE model (deepseek-v2's layer 0)
+live under ``layers/NN/`` and run unrolled before it.  So
 ``convert.model_params`` carries JAX parameters across as they are.
-Audio and VLM inputs, and the hybrid / MoE layouts (``layers/NN/``
-unrolled blocks), are not ported yet.
+Audio and VLM inputs, and the hybrid layer pattern, are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ from repro_torch.models.transformer import (
     REMAT_POLICIES,
     _ffn_is_moe,
     add_block_params,
+    block_decode,
+    block_forward,
     check_ported,
     scanned_decode,
     scanned_forward,
@@ -57,9 +60,17 @@ class Model:
         if self.remat not in REMAT_POLICIES:
             raise ValueError(f"Model: unknown remat {self.remat!r}; one of {REMAT_POLICIES}")
         cfg = self.cfg
-        if cfg.layer_pattern or cfg.first_k_dense or cfg.arch_type in ("audio", "vlm"):
+        if cfg.layer_pattern or cfg.arch_type in ("audio", "vlm"):
             raise NotImplementedError(f"{cfg.name}: the {cfg.arch_type} layout is not ported yet")
-        check_ported(cfg, cfg.layer_kind(0), _ffn_is_moe(cfg, 0))
+        check_ported(cfg, cfg.layer_kind(0))
+
+    # ------------------------------------------------------------------ layout
+    def _scanned_layers(self) -> int:
+        return self.cfg.n_layers - self.cfg.first_k_dense
+
+    def _unrolled(self):
+        """Indices of the unrolled layers: the leading dense ones."""
+        return list(range(self.cfg.first_k_dense))
 
     # ------------------------------------------------------------------ init
     def param_specs(self) -> Tuple[Params, Dict[str, tuple]]:
@@ -78,7 +89,12 @@ class Model:
         if not cfg.tie_embeddings:
             pb.add("unembed", (cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
         pb.add("final_norm", (cfg.d_model,), (None,), init="ones")
-        add_block_params(pb, "blocks/b", cfg, "attn", False, stacked=cfg.n_layers)
+        for i in self._unrolled():
+            add_block_params(pb, f"layers/{i:02d}/b", cfg, "attn", _ffn_is_moe(cfg, i), stacked=0)
+        n_scan = self._scanned_layers()
+        if n_scan:
+            add_block_params(pb, "blocks/b", cfg, "attn", _ffn_is_moe(cfg, cfg.first_k_dense),
+                             stacked=n_scan)
         return pb.params, pb.specs
 
     # ------------------------------------------------------------------ forward
@@ -111,8 +127,16 @@ class Model:
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         window = cfg.local_attn_window
-        x, aux = scanned_forward(_subtree(params, "blocks"), x, cfg, "attn", False, window,
-                                 self.remat, attn_impl=self.attn_impl)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in self._unrolled():
+            x, a = block_forward(_subtree(params, f"layers/{i:02d}"), "b", x, cfg, "attn",
+                                 _ffn_is_moe(cfg, i), window, attn_impl=self.attn_impl)
+            aux = aux + a
+        if self._scanned_layers():
+            x, a = scanned_forward(_subtree(params, "blocks"), x, cfg, "attn",
+                                   _ffn_is_moe(cfg, cfg.first_k_dense), window, self.remat,
+                                   attn_impl=self.attn_impl)
+            aux = aux + a
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     # ------------------------------------------------------------------ loss
@@ -168,12 +192,22 @@ class Model:
             raise ValueError(f"{cfg.name} is encoder-only: no decode cache")
         dev = resolve_device(device)
         win = cfg.sliding_window if window is None else window
-        return {
-            "pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "blocks": kvcache.init_gqa_cache(
+
+        def one(n_layers: int = 0):
+            if cfg.attention == "mla":
+                return kvcache.init_mla_cache(
+                    batch, seq_len, cfg.kv_lora_rank, cfg.qk_rope_dim, window=win,
+                    n_layers=n_layers, dtype=torch_dtype(dtype), device=dev)
+            return kvcache.init_gqa_cache(
                 batch, cfg.n_kv_heads, seq_len, cfg.resolved_head_dim, window=win,
-                n_layers=cfg.n_layers, dtype=torch_dtype(dtype), device=dev),
-        }
+                n_layers=n_layers, dtype=torch_dtype(dtype), device=dev)
+
+        cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+        for i in self._unrolled():
+            cache[f"layers/{i:02d}"] = one()
+        if self._scanned_layers():
+            cache["blocks"] = one(self._scanned_layers())
+        return cache
 
     # ------------------------------------------------------------------ decode
     def decode_step(
@@ -181,17 +215,24 @@ class Model:
         window: Optional[int] = None,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One serve step: tokens (B,) -> (logits (B,V) f32, cache').  The
-        cache's K/V tensors are written in place; ``cache'`` holds them with
+        cache's tensors are written in place; ``cache'`` holds them with
         ``pos + 1``."""
         cfg = self.cfg
         win = cfg.sliding_window if window is None else window
         pos = cache["pos"]
         x = params["embed"][tokens.long()][:, None]               # (B,1,d)
-        x, blocks = scanned_decode(_subtree(params, "blocks"), x, cfg, "attn", False,
-                                   cache["blocks"], pos, window=win)
+        new_cache: Dict[str, Any] = {"pos": pos + 1}
+        for i in self._unrolled():
+            name = f"layers/{i:02d}"
+            x, new_cache[name] = block_decode(_subtree(params, name), "b", x, cfg, "attn",
+                                              _ffn_is_moe(cfg, i), cache[name], pos, window=win)
+        if self._scanned_layers():
+            x, new_cache["blocks"] = scanned_decode(
+                _subtree(params, "blocks"), x, cfg, "attn", _ffn_is_moe(cfg, cfg.first_k_dense),
+                cache["blocks"], pos, window=win)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = (x @ self._unembed_matrix(params))[:, 0].float()
-        return logits, {"pos": pos + 1, "blocks": blocks}
+        return logits, new_cache
 
 
 def _nll_dense(h: torch.Tensor, w_out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,18 @@
 """Block composition and the loop over stacked layers.
 
 Twin of ``repro/models/transformer.py`` for the blocks the port has: a
-*block* is (pre-norm -> GQA attention -> residual -> pre-norm -> dense
-MLP -> residual).  Per-layer parameters keep the JAX layout, stacked along
-a leading ``layers`` axis under ``blocks/b/...``; where JAX scans over that
-axis, the port loops over it in Python (a layer's parameters are views).
-``remat`` is the training path's activation-checkpoint policy around each
-block (``torch.utils.checkpoint``, non-reentrant): ``"none"``, ``"full"``
-(keep the block's input, recompute the rest in the backward pass) or
-``"dots"`` (also keep the outputs of the products with no batch dimension,
-the twin of ``dots_with_no_batch_dims_saveable``).  It acts only where a
-gradient is taken; serving runs the blocks as they are.  MLA, MoE, SSM
-and RG-LRU blocks are not ported yet.
+*block* is (pre-norm -> GQA or MLA attention -> residual -> pre-norm ->
+dense MLP or routed MoE -> residual).  Per-layer parameters keep the JAX
+layout, stacked along a leading ``layers`` axis under ``blocks/b/...``;
+where JAX scans over that axis, the port loops over it in Python (a
+layer's parameters are views).  ``remat`` is the training path's
+activation-checkpoint policy around each block (``torch.utils.checkpoint``,
+non-reentrant): ``"none"``, ``"full"`` (keep the block's input, recompute
+the rest in the backward pass) or ``"dots"`` (also keep the outputs of the
+products with no batch dimension, the twin of
+``dots_with_no_batch_dims_saveable``).  It acts only where a gradient is
+taken; serving runs the blocks as they are.  SSM and RG-LRU blocks are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -27,17 +28,14 @@ from torch.utils.checkpoint import (
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import ParamBuilder, add_mlp_params, apply_mlp, rms_norm
 
 
-def check_ported(cfg: ModelConfig, kind: str, moe_ffn: bool) -> None:
+def check_ported(cfg: ModelConfig, kind: str) -> None:
     """Raise for the blocks whose modules the port does not have yet."""
     if kind != "attn":
         raise NotImplementedError(f"{cfg.name}: {kind} blocks are not ported yet")
-    if cfg.attention != "gqa":
-        raise NotImplementedError(f"{cfg.name}: {cfg.attention} attention is not ported yet")
-    if moe_ffn:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs are not ported yet")
 
 
 def _ffn_is_moe(cfg: ModelConfig, layer_idx: int) -> bool:
@@ -48,14 +46,20 @@ def add_block_params(
     pb: ParamBuilder, prefix: str, cfg: ModelConfig, kind: str,
     moe_ffn: bool, stacked: int = 0,
 ):
-    check_ported(cfg, kind, moe_ffn)
+    check_ported(cfg, kind)
     d = cfg.d_model
     lead = (stacked,) if stacked else ()
     ls = ("layers",) if stacked else ()
     pb.add(f"{prefix}/norm1", lead + (d,), ls + (None,), init="ones")
-    attn.add_gqa_params(pb, f"{prefix}/attn", cfg, stacked)
+    if cfg.attention == "mla":
+        attn.add_mla_params(pb, f"{prefix}/attn", cfg, stacked)
+    else:
+        attn.add_gqa_params(pb, f"{prefix}/attn", cfg, stacked)
     pb.add(f"{prefix}/norm2", lead + (d,), ls + (None,), init="ones")
-    add_mlp_params(pb, f"{prefix}/mlp", d, cfg.d_ff, cfg.mlp_act, stacked)
+    if moe_ffn:
+        moe_mod.add_moe_params(pb, f"{prefix}/moe", cfg, stacked)
+    else:
+        add_mlp_params(pb, f"{prefix}/mlp", d, cfg.d_ff, cfg.mlp_act, stacked)
 
 
 def block_forward(
@@ -63,13 +67,16 @@ def block_forward(
     kind: str, moe_ffn: bool, window: int = 0, attn_impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block.  Returns (x, moe_aux_loss)."""
-    check_ported(cfg, kind, moe_ffn)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    check_ported(cfg, kind)
+    prefill = attn.mla_prefill if cfg.attention == "mla" else attn.gqa_prefill
     h = rms_norm(x, p[f"{prefix}/norm1"], cfg.norm_eps)
-    h = attn.gqa_prefill(p, f"{prefix}/attn", h, cfg, window=window, attn_impl=attn_impl)
-    x = x + h
+    x = x + prefill(p, f"{prefix}/attn", h, cfg, window=window, attn_impl=attn_impl)
     h = rms_norm(x, p[f"{prefix}/norm2"], cfg.norm_eps)
-    h = apply_mlp(p, f"{prefix}/mlp", h, cfg.mlp_act)
+    if moe_ffn:
+        h, aux = moe_mod.moe_ffn(p, f"{prefix}/moe", h, cfg)
+    else:
+        h = apply_mlp(p, f"{prefix}/mlp", h, cfg.mlp_act)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h, aux
 
 
@@ -80,14 +87,23 @@ def block_decode(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token block step.  ``cache`` is this block's (unstacked) cache
     dict, updated in place."""
-    check_ported(cfg, kind, moe_ffn)
+    check_ported(cfg, kind)
     h = rms_norm(x, p[f"{prefix}/norm1"], cfg.norm_eps)
-    h, ck, cv = attn.gqa_decode(
-        p, f"{prefix}/attn", h, cfg, cache["k"], cache["v"], pos, window=window)
+    if cfg.attention == "mla":
+        h, lat, kr = attn.mla_decode(
+            p, f"{prefix}/attn", h, cfg, cache["latent"], cache["k_rope"], pos, window=window)
+        new_cache = {"latent": lat, "k_rope": kr}
+    else:
+        h, ck, cv = attn.gqa_decode(
+            p, f"{prefix}/attn", h, cfg, cache["k"], cache["v"], pos, window=window)
+        new_cache = {"k": ck, "v": cv}
     x = x + h
     h = rms_norm(x, p[f"{prefix}/norm2"], cfg.norm_eps)
-    h = apply_mlp(p, f"{prefix}/mlp", h, cfg.mlp_act)
-    return x + h, {"k": ck, "v": cv}
+    if moe_ffn:
+        h, _ = moe_mod.moe_ffn(p, f"{prefix}/moe", h, cfg)
+    else:
+        h = apply_mlp(p, f"{prefix}/mlp", h, cfg.mlp_act)
+    return x + h, new_cache
 
 
 # ---------------------------------------------------------------------------

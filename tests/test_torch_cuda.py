@@ -384,6 +384,7 @@ _FLASH_SHAPES = [
     (1, 4, 4, 100, 128, False, 0),    # group 1, S not a multiple of 64
     (1, 8, 2, 190, 64, True, 8),      # group 4, window 8
     (1, 16, 2, 1500, 128, True, 1024),  # group 8, window 1024, S not a multiple of 128
+    (1, 48, 8, 2048, 128, True, 0),   # dbrx-132b's heads, group 6
     (1, 2, 1, 77, 8, True, 0),        # the smallest tensor-core head dim
     (1, 4, 2, 150, 36, True, 0),      # bf16 on the FMA route: D % 8 != 0
 ]
@@ -1282,3 +1283,42 @@ def test_fl_train_step_adds_no_host_sync(cuda, monkeypatch):
             torch.cuda.set_sync_debug_mode("default")
     assert len(syncs) == n_step + 1 and syncs[-1] == [], syncs
     assert n_step <= 1 and all(s[-1] == "means_at" for s in syncs[:n_step]), syncs
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "dbrx-132b"])
+def test_moe_router_and_dispatch_on_the_card_equal_the_cpu(cuda, arch):
+    """The MoE router's top-k (ties to the lower expert id, a stable sort)
+    and the dispatch plan (the stable expert sort, slots, keep mask) on the
+    card equal the port's CPU code on the same probabilities bit for bit, at
+    full width on 2048 bf16 tokens (router std 0.02, whose bf16 product ties
+    experts often: the test needs ties across the top-k boundary), and at the
+    default capacity, which binds: experts 0 and 1 share a column and a
+    constant input channel draws most tokens to them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(arch)
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = moe.capacity(cfg, 2048)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((2, 2048, cfg.d_model), generator=g, device=cuda).to(torch.bfloat16)
+    router = (torch.randn((cfg.d_model, e), generator=g, device=cuda) * 0.02).to(torch.bfloat16)
+    x[..., 0] = 4.0
+    router[0, :2] = 0.5
+    router[:, 1] = router[:, 0]                   # experts 0 and 1 tie in every token
+    probs = torch.softmax((x @ router).float(), dim=-1)
+
+    def plan(pr):
+        topw, topi = moe.route(pr, k)
+        return (topw, topi) + moe.dispatch(topi, topw, e, cap)
+
+    card = [t.cpu() for t in plan(probs)]
+    cpu = plan(probs.cpu())
+    desc = torch.sort(probs, dim=-1, descending=True).values
+    assert int((desc[..., k - 1] == desc[..., k]).sum()) > 0
+    for a, b in zip(card[1:4], cpu[1:4]):            # ids, token order, slots
+        assert torch.equal(a, b)
+    torch.testing.assert_close(card[0], cpu[0], rtol=1e-6, atol=0)
+    torch.testing.assert_close(card[4], cpu[4], rtol=1e-6, atol=0)
+    assert torch.equal(card[4] == 0, cpu[4] == 0)     # the keep mask
+    assert int((card[3] == e * cap).sum()) > 0        # the capacity binds

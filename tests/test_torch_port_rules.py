@@ -85,7 +85,8 @@ SLICE_TWINS = ("core/aggregation.py", "core/faults.py", "core/channels/process.p
                "fl/client.py", "core/contribution.py", "data/pipeline.py", "utils/tree.py",
                "core/availability.py", "fl/sparse.py", "fl/__init__.py", "data/dirichlet.py",
                "optim/__init__.py", "optim/optimizers.py", "launch/train.py",
-               "data/synthetic.py")
+               "data/synthetic.py", "models/moe.py", "configs/minicpm3_4b.py",
+               "configs/deepseek_v2_236b.py", "configs/dbrx_132b.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_TWINS)
@@ -158,15 +159,29 @@ def test_training_entry_points_default_to_cuda(no_cuda, capsys):
 
 
 def test_unported_archs_say_so():
-    for arch in ("deepseek-v2-236b", "mamba2-1.3b", "hubert-xlarge"):
+    """The four archs whose modules the port lacks (SSM, RG-LRU, the audio and
+    VLM frontends) are not in its registry, and the model refuses each of
+    their configs (JAX's, field for field in the port's schema)."""
+    import dataclasses
+
+    from repro.configs import get_config as j_config
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.models.transformer import check_ported
+
+    for arch in ("mamba2-1.3b", "recurrentgemma-2b", "hubert-xlarge", "phi-3-vision-4.2b"):
         with pytest.raises(KeyError, match="not ported yet"):
             get_config(arch)
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_smoke_config("mamba2-1.3b")
-    import dataclasses
-    moe = dataclasses.replace(get_smoke_config("qwen3-32b"), n_experts=4)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(moe)
+        with pytest.raises(KeyError, match="not ported yet"):
+            get_smoke_config(arch)
+        cfg = ModelConfig(**dataclasses.asdict(j_config(arch)))
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            build_model(cfg)
+    for arch, kind in (("mamba2-1.3b", "ssm"), ("recurrentgemma-2b", "rglru")):
+        cfg = ModelConfig(**dataclasses.asdict(j_config(arch)))
+        with pytest.raises(NotImplementedError, match=f"{kind} blocks are not ported yet"):
+            check_ported(cfg, kind)
+    for arch in ("minicpm3-4b", "deepseek-v2-236b", "dbrx-132b"):   # ported in full
+        build_model(get_config(arch)).param_specs()
 
 
 class _FakeCuda:

@@ -71,6 +71,16 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert "tok/s" in out and out.rstrip().endswith("cache pos=3")
 
 
+@pytest.mark.parametrize("arch,name", [("minicpm3-4b", "minicpm3-smoke"),
+                                       ("deepseek-v2-236b", "deepseek-v2-smoke"),
+                                       ("dbrx-132b", "dbrx-smoke")])
+def test_serve_cli_serves_the_mla_and_moe_archs_on_the_cpu(capsys, arch, name):
+    assert serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--tokens", "3"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith(f"[serve] {name}: 3 tokens x 8 seqs in ")
+    assert "tok/s" in out and out.rstrip().endswith("cache pos=3")
+
+
 def test_serve_loop_with_a_ring_cache():
     pm = build_model(get_smoke_config("qwen2.5-32b"))
     params, _ = pm.init(torch.Generator().manual_seed(0), device="cpu")

@@ -233,7 +233,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    layer on the tensor-core route, the MLA models' never), the
    ``serve_loop`` at batch 8, context 2048, 32 tokens, peak memory, a
    profiled prefill's device time split into expert products, dispatch
-   and combine, attention and the rest, and kernels a decode step.
+   and combine, attention and the rest, and kernels a decode step;
+17. SSM, RG-LRU hybrid and VLM serving (mamba2-1.3b, recurrentgemma-2b,
+   phi-3-vision-4.2b), one model at a time, each at full width and depth:
+   (a) ``flash_attention`` bf16 causal at recurrentgemma's local attention
+   (4, 10/1, 2048, 256), window 2048, on the FMA route, and at
+   phi-3-vision's prefill (4, 32/32, 2192, 96) on the tensor-core route,
+   against the f32 plain version (phase 2's bf16 tolerance), timed beside
+   the plain version and SDPA; (b) f32 references at full width, cut in
+   depth (mamba2 2 layers, recurrentgemma one whole rglru, rglru, attn
+   cycle, phi-3-vision 2 layers): the kernel route's prefill of a
+   2048-token prompt (phi-3-vision's behind 144 patch embeddings) against
+   the plain route and 12 decode steps against ``apply`` (rtol/atol 2e-3);
+   recurrentgemma again with its window cut to 64 and 80 decode steps, so
+   the ring wraps; mamba2's prefill (L = 256 chunks, whose upper triangle
+   overflows ``exp``) finite and equal to the CPU's run of the same
+   weights; (c) bf16 serving: the parameter count against
+   ``param_specs()``, three prefills of 4 x 2048 tokens (phi-3-vision's
+   behind 144 random patch embeddings each; ``flash_attention`` 0, 8 on
+   the FMA route and 32 on the tensor-core route a prefill), the
+   ``serve_loop`` at batch 8, context 2048, 32 tokens, peak memory, a
+   profiled prefill's device time split into attention, the SSD chunk
+   loop, the RG-LRU scan, the causal conv and the rest, and kernels a
+   decode step.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -242,7 +264,7 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 128, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-16 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-17 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 
 Every path runs at the paper's sizes, uncut but for phase 9's two cuts
@@ -351,6 +373,13 @@ MLA_MOE_SERVED = (("minicpm3-4b", 62), ("deepseek-v2-236b", 8), ("dbrx-132b", 8)
 # 245.1 GiB, past one card's 80 GB)
 ROUTER_ARCH, ROUTER_TOKENS = "deepseek-v2-236b", 2048   # phase 16 (b): the router on the card
 DBRX_ATTN = (SERVE_PREFILL_BATCH, 48, 8, SERVE_PROMPT, 128)   # dbrx-132b's prefill attention
+# phase 17's models, each served at full depth, and the depth of its f32 reference: mamba2
+# 2 SSD layers, recurrentgemma one whole (rglru, rglru, attn) cycle, phi-3-vision 2 layers
+HYBRID_REF_LAYERS = (("mamba2-1.3b", 2), ("recurrentgemma-2b", 3), ("phi-3-vision-4.2b", 2))
+RGEMMA_WINDOW = 2048           # recurrentgemma-2b's local attention window
+RGEMMA_ATTN = (SERVE_PREFILL_BATCH, 10, 1, SERVE_PROMPT, 256)         # its prefill attention
+PHI3V_ATTN = (SERVE_PREFILL_BATCH, 32, 32, 144 + SERVE_PROMPT, 96)    # 144 patches + the prompt
+RING_CUT, RING_STEPS = 64, 80  # (b): recurrentgemma's window cut to 64, 80 decode steps
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention", "regret_scan", "glr_step_tenants", "glr_scan_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
@@ -4760,46 +4789,63 @@ def served_baselines(torch, seed, phase8_launches):
 # phase 16: MLA and MoE serving
 # ---------------------------------------------------------------------------
 
-def dbrx_attention(torch, gen, floor_ms):
-    """(0) ``flash_attention`` at dbrx-132b's prefill shape, bf16 causal, 6
-    query heads a KV head, on the tensor-core route within rtol 2**-8 /
-    atol 1e-4 of the f32 plain version (phase 2's bf16 tolerance), timed
-    beside the plain version and SDPA (not counted as launches of the
-    path).  Returns its entry for the kernels line."""
+def attention_at(torch, gen, shape, window, label, floor_ms):
+    """``flash_attention`` at a model's prefill ``shape`` (B, Hq, Hkv, S, D),
+    bf16 causal with ``window``: on the route ``tc_route`` picks, within
+    rtol 2**-8 / atol 1e-4 of the f32 plain version (phase 2's bf16
+    tolerance), timed beside the plain version and SDPA (``enable_gqa``;
+    the window must then cover S, so that causal is the same mask), none of
+    it counted as launches of a path.  Prints ``label``'s line; returns the
+    entry for the kernels line."""
     from torch.nn import functional as F
 
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+    from repro_torch.kernels.flash_attention import tc_route
 
-    b, hq, hkv, s, d = DBRX_ATTN
+    b, hq, hkv, s, d = shape
     q = (torch.randn((b, hq, s, d), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
     k = (torch.randn((b, hkv, s, d), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
     v = torch.randn((b, hkv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
-    before = fa_kernel.tc_launches
-    got = ops.flash_attention(q, k, v, causal=True)
-    want = ref.mha_attention(q.float(), k.float(), v.float(), causal=True)
+    tc = tc_route(torch.bfloat16, d)
+    route = "tensor-core" if tc else "FMA"
+    before = (fa_kernel.tc_launches, fa_kernel.fma_launches)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.mha_attention(q.float(), k.float(), v.float(), causal=True, window=window)
     torch.cuda.synchronize()
-    check(fa_kernel.tc_launches == before + 1,
-          f"phase 16 (0): flash_attention {DBRX_ATTN} bf16 not on the tensor-core route")
+    check((fa_kernel.tc_launches, fa_kernel.fma_launches) == (before[0] + tc, before[1] + (not tc)),
+          f"{label}: flash_attention {shape} bf16 not on the {route} route")
     err = float((got.float() - want).abs().max())
     check(torch.allclose(got.float(), want, rtol=2.0 ** -8, atol=1e-4),
-          f"phase 16 (0): flash_attention {DBRX_ATTN} beyond rtol 2^-8 atol 1e-4 ({err:.3e})")
+          f"{label}: flash_attention {shape} beyond rtol 2^-8 atol 1e-4 ({err:.3e})")
     del got, want
-    fa = dict(shape_b_hq_hkv_s_d=list(DBRX_ATTN), causal=True, dtype="bfloat16",
-              max_abs_err=err, ms=time_ms(torch, lambda: fa_kernel(q, k, v, causal=True), 50),
-              plain_ms=time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=True), 3),
+    check(window == 0 or window >= s, f"{label}: SDPA takes no window shorter than S")
+    fa = dict(shape_b_hq_hkv_s_d=list(shape), causal=True, window=window, dtype="bfloat16",
+              route="cuda-" + ("tc" if tc else "fma"), max_abs_err=err,
+              ms=time_ms(torch, lambda: fa_kernel(q, k, v, causal=True, window=window), 20),
+              plain_ms=time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=True,
+                                                                window=window), 3),
               library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                   q, k, v, is_causal=True, enable_gqa=True), 20))
-    fa["bound_ms"], fa["bound_by"] = attn_bound_ms(DBRX_ATTN, True, 0, 2, BF16_TC_FLOPS)
-    flops = 4 * b * hq * d * attn_pairs(s, True, 0)
-    line(f"  (0) flash_attention (B, Hq, Hkv, S, D)={DBRX_ATTN} causal bf16, dbrx-132b's "
-         f"prefill: max_abs_err {err:.3e} vs f32 plain (rtol 2^-8 atol 1e-4) ok; kernel "
+    fa["bound_ms"], fa["bound_by"] = attn_bound_ms(shape, True, window, 2, BF16_TC_FLOPS)
+    flops = 4 * b * hq * d * attn_pairs(s, True, window)
+    line(f"  {label} flash_attention (B, Hq, Hkv, S, D)={shape} causal window {window} bf16, "
+         f"{route} route: max_abs_err {err:.3e} vs f32 plain (rtol 2^-8 atol 1e-4) ok; kernel "
          f"{fa['ms']:.4f} ms ({flops / fa['ms'] / 1e9:.1f} TFLOP/s), plain "
          f"{fa['plain_ms']:.4f} ms, library (SDPA, enable_gqa) {fa['library_ms']:.4f} ms, "
-         f"bound {fa['bound_ms']:.4f} ms ({fa['bound_by']} at 989 TFLOP/s), launch floor "
-         f"{floor_ms:.5f} ms")
+         f"bound {fa['bound_ms']:.4f} ms ({fa['bound_by']} at 989 TFLOP/s, {flops:.4e} flops), "
+         f"launch floor {floor_ms:.5f} ms")
     del q, k, v
     release(torch)
+    return fa
+
+
+def dbrx_attention(torch, gen, floor_ms):
+    """(0) ``flash_attention`` at dbrx-132b's prefill shape, bf16 causal, 6
+    query heads a KV head, on the tensor-core route (``attention_at``).
+    Returns its entry for the kernels line."""
+    fa = attention_at(torch, gen, DBRX_ATTN, 0, "(0) dbrx-132b's prefill:", floor_ms)
+    check(fa["route"] == "cuda-tc", "phase 16 (0): dbrx's attention not on the tensor-core route")
     return fa
 
 
@@ -5084,9 +5130,252 @@ def mla_moe_serving(torch, seed, floor_ms):
     return launches, fa, served
 
 
+# ---------------------------------------------------------------------------
+# phase 17: SSM, RG-LRU hybrid and VLM serving
+# ---------------------------------------------------------------------------
+
+def hybrid_batch(torch, cfg, b, s, gen):
+    """A prefill batch: ``b`` prompts of ``s`` random tokens, and for a VLM
+    ``frontend_tokens`` random patch embeddings each (std 1, in the model's
+    dtype: the stub frontend's output)."""
+    from repro_torch.models.layers import torch_dtype
+
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda",
+                                     dtype=torch.int32)}
+    if cfg.arch_type == "vlm":
+        batch["vision_embeds"] = torch.randn((b, cfg.frontend_tokens, cfg.d_model), generator=gen,
+                                             device="cuda").to(torch_dtype(cfg.dtype))
+    return batch
+
+
+def hybrid_kernel_launches(cfg, n_layers):
+    """``flash_attention`` launches a prefill: one an attention layer."""
+    return sum(cfg.layer_kind(i) == "attn" for i in range(n_layers))
+
+
+def hybrid_reference(torch, seed, arch, n_layers, window=None, steps=DECODE_REF_STEPS):
+    """(b) ``arch`` at full width, ``n_layers`` deep, f32 (``window``: the
+    local attention window cut to that): the kernel route's prefill of one
+    2048-token prompt (a VLM's behind its patch embeddings) against the
+    plain chunked route (rtol/atol 2e-3), then ``steps`` teacher-forced
+    decode steps against ``apply``'s logits on the same tokens (rtol/atol
+    2e-3).  mamba2's prefill is also run on the CPU, on the same weights
+    and tokens, and must equal the card's (rtol/atol 2e-3): its L = 256
+    chunks take the upper triangle's exponent past exp's f32 overflow."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model
+
+    over = {} if window is None else {"local_attn_window": window}
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32", **over)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 170)
+    model, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    params, _ = model.init(gen, device="cuda")
+    batch = hybrid_batch(torch, cfg, 1, SERVE_PROMPT, gen)
+    kern = hybrid_kernel_launches(cfg, n_layers)
+    before, before_fma = kernel.launches, kernel.fma_launches
+    got = make_prefill_step(model)(params, batch)
+    check(kernel.launches == before + kern and kernel.fma_launches == before_fma + kern,
+          f"phase 17 (b) {arch}: the kernel route launched {kernel.launches - before} kernels, "
+          f"{kernel.fma_launches - before_fma} on the FMA route, expected {kern}")
+    want = make_prefill_step(plain)(params, batch)
+    check(kernel.launches == before + kern, f"phase 17 (b) {arch}: the plain route ran the kernel")
+    err = float((got - want).abs().max())
+    check(got.shape == (1, 1, cfg.vocab_size) and bool(torch.isfinite(got).all()),
+          f"phase 17 (b) {arch}: prefill logits {tuple(got.shape)} not finite or misshapen")
+    check(torch.allclose(got, want, rtol=2e-3, atol=2e-3),
+          f"phase 17 (b) {arch}: kernel-route prefill beyond rtol/atol 2e-3 of the plain route "
+          f"({err:.3e})")
+    cut = "" if window is None else f", local_attn_window cut to {window} (the ring wraps)"
+    vision = f" behind {cfg.frontend_tokens} patch embeddings" if cfg.arch_type == "vlm" else ""
+    line(f"  (b) {arch} width {cfg.d_model}, {n_layers} layers "
+         f"({', '.join(cfg.layer_kind(i) for i in range(n_layers))}), f32{cut}: prefill of "
+         f"{SERVE_PROMPT} tokens{vision}, kernel route vs plain chunked route "
+         f"max_abs_err={err:.3e} (max |logit| {float(want.abs().max()):.3f}; rtol/atol 2e-3) ok; "
+         f"flash_attention launches {kern} (FMA route)")
+    if cfg.arch_type == "ssm":
+        cpu = make_prefill_step(model)({k: v.cpu() for k, v in params.items()},
+                                       {k: v.cpu() for k, v in batch.items()})
+        cpu_err = float((got.cpu() - cpu).abs().max())
+        check(torch.allclose(got.cpu(), cpu, rtol=2e-3, atol=2e-3),
+              f"phase 17 (b) {arch}: the card's prefill beyond rtol/atol 2e-3 of the CPU's "
+              f"({cpu_err:.3e})")
+        line(f"  (b) {arch} f32: the card's prefill ({SERVE_PROMPT // cfg.ssm_chunk} chunks of "
+             f"{cfg.ssm_chunk}) finite and equal to the CPU's run of the same weights, "
+             f"max_abs_err={cpu_err:.3e} (rtol/atol 2e-3) ok")
+    toks = batch["tokens"][:, :steps]
+    full, _ = model.apply(params, {"tokens": toks})
+    cache = model.init_cache(1, steps, dtype=torch.float32, device="cuda")
+    dec_err = 0.0
+    for t in range(steps):
+        lg, cache = model.decode_step(params, cache, toks[:, t])
+        dec_err = max(dec_err, float((lg - full[:, t]).abs().max()))
+        check(torch.allclose(lg, full[:, t], rtol=2e-3, atol=2e-3),
+              f"phase 17 (b) {arch}: decode step {t} beyond rtol/atol 2e-3 of apply's logits "
+              f"({dec_err:.3e})")
+    line(f"  (b) {arch} f32{cut}: {steps} teacher-forced decode steps match apply's logits, "
+         f"max_abs_err={dec_err:.3e} (rtol/atol 2e-3) ok")
+    del params, got, want, full, cache, lg
+    release(torch)
+
+
+def hybrid_serve(torch, seed, arch):
+    """(c) ``arch`` at full width and depth in bf16: three prefills of 4 x
+    2048 tokens (a VLM's behind 144 random patch embeddings) and the serve
+    loop, the main path whose launches are counted; then (not counted) a
+    profiled prefill split by the model's profiler ranges and a profiled
+    decode window."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+    from repro_torch.kernels.flash_attention import tc_route
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model, rglru, ssm
+    from repro_torch.models.attention import FORWARD_RANGE
+
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 171)
+    t0 = time.perf_counter()
+    params, _ = model.init(gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    specs, _ = model.param_specs()
+    n_specs = sum(v.numel() for v in specs.values())
+    check(n_params == n_specs,
+          f"phase 17 (c) {arch}: {n_params} params drawn, param_specs() says {n_specs}")
+    weights_gib = sum(v.numel() * v.element_size() for v in params.values()) / 2 ** 30
+    kinds = sorted({cfg.layer_kind(i) for i in range(cfg.n_layers)})
+    line(f"  (c) {arch}: all {cfg.n_layers} layers ({'/'.join(kinds)}), width {cfg.d_model}, "
+         f"bf16, {n_params / 1e9:.3f} B params = the sum over param_specs() (param_count() "
+         f"{cfg.param_count() / 1e9:.3f} B, approximate for ssm and rglru) ({weights_gib:.2f} "
+         f"GiB) drawn on the card in {init_s:.2f} s")
+    batch = hybrid_batch(torch, cfg, SERVE_PREFILL_BATCH, SERVE_PROMPT, gen)
+    prefill = make_prefill_step(model)
+    kern = hybrid_kernel_launches(cfg, cfg.n_layers)
+    tc = bool(kern) and tc_route(torch.bfloat16, cfg.resolved_head_dim)
+    s_total = batch["tokens"].shape[1] + (cfg.frontend_tokens if "vision_embeds" in batch else 0)
+
+    reset_launches()
+    prefill_ms = []
+    for _ in range(3):                    # the first one is the warm-up
+        before, before_tc = kernel.launches, kernel.tc_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        check(kernel.launches == before + kern and kernel.tc_launches == before_tc + kern * tc,
+              f"phase 17 (c) {arch}: flash_attention launched {kernel.launches - before} times "
+              f"in a prefill, {kernel.tc_launches - before_tc} on the tensor-core route, "
+              f"expected {kern} on the {'tensor-core' if tc else 'FMA'} route")
+        check(logits.shape == (SERVE_PREFILL_BATCH, 1, cfg.vocab_size)
+              and logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
+              f"phase 17 (c) {arch}: prefill logits {tuple(logits.shape)} {logits.dtype} not "
+              f"finite or misshapen")
+    prefill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    release(torch)
+    tok, cache, secs = serve_loop(model, params, SERVE_BATCH, SERVE_CONTEXT, SERVE_TOKENS,
+                                  device="cuda")
+    launches = read_launches()
+    check(int(cache["pos"]) == SERVE_TOKENS, f"phase 17 (c) {arch}: cache pos {int(cache['pos'])}")
+    check(tok.shape == (SERVE_BATCH,) and tok.dtype == torch.int32
+          and bool(((tok >= 0) & (tok < cfg.vocab_size)).all()),
+          f"phase 17 (c) {arch}: decoded tokens invalid")
+    cache_gib = sum(v.numel() * v.element_size() for layer in cache.values()
+                    if isinstance(layer, dict) for v in layer.values()) / 2 ** 30
+    step_ms = secs / SERVE_TOKENS * 1e3
+    line(f"  (c) {arch}: prefill {SERVE_PREFILL_BATCH} x {s_total} positions "
+         f"({batch['tokens'].shape[1]} tokens{' + 144 patches' if tc else ''}) "
+         f"{prefill_ms[1]:.1f} / {prefill_ms[2]:.1f} ms (warm-up {prefill_ms[0]:.1f} ms), "
+         f"{SERVE_PREFILL_BATCH * SERVE_PROMPT / (prefill_ms[1] / 1e3):.0f} prompt tok/s; "
+         f"flash_attention {launches['flash_attention'] // 3} a prefill "
+         f"({launches['flash_attention_tc'] // 3} tensor-core, "
+         f"{launches['flash_attention_fma'] // 3} FMA); peak device memory in the prefills "
+         f"{prefill_peak:.2f} GiB")
+    line(f"  (c) [serve] {arch}: {SERVE_TOKENS} tokens x {SERVE_BATCH} seqs in {secs:.2f}s "
+         f"({SERVE_BATCH * SERVE_TOKENS / secs:.1f} tok/s, {step_ms:.2f} ms a decode step, "
+         f"context {SERVE_CONTEXT}, cache {cache_gib:.3f} GiB), cache pos={int(cache['pos'])}")
+
+    # not counted: one profiled prefill split by the model's ranges, a decode window
+    events, wall_us = trace_events(torch, lambda: prefill(params, batch))
+    kernels = [ev for ev in events if ev.get("cat") == "kernel" and "dur" in ev]
+    total = sum(float(ev["dur"]) for ev in kernels)
+    parts = {"attention": range_device_us(events, FORWARD_RANGE)[0],
+             "SSD chunk loop": range_device_us(events, ssm.SSD_RANGE)[0],
+             "RG-LRU scan": range_device_us(events, rglru.SCAN_RANGE)[0],
+             "causal conv": range_device_us(events, ssm.CONV_RANGE)[0]}
+    parts["the rest"] = total - sum(parts.values())
+    split = ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / total:.1f} %)" for k, v in parts.items()) \
+        if total else "no device kernels in the trace (not measured)"
+    line(f"  (c) {arch} prefill profile: wall {wall_us / 1e3:.1f} ms, {len(kernels)} kernels, "
+         f"device time {total / 1e3:.2f} ms: {split}")
+    report_kernels(f"{arch} prefill 4 x {s_total}", kernels, wall_us, 1)
+    steps = 4
+    out = {}
+
+    def decode():
+        tk, c = tok, cache
+        for _ in range(steps):
+            lg, c = model.decode_step(params, c, tk)
+            tk = lg.argmax(-1).to(torch.int32)
+        out["logits"] = lg
+
+    profile_window(torch, f"{arch} decode batch {SERVE_BATCH}", decode, steps)
+    lg = out["logits"]
+    check(lg.shape == (SERVE_BATCH, cfg.vocab_size) and bool(torch.isfinite(lg).all()),
+          f"phase 17 (c) {arch}: decode logits not finite or misshapen")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    line(f"  (c) {arch}: decode logits finite, peak device memory {peak:.2f} GiB")
+    del params, logits, cache, lg, out, batch
+    release(torch)
+    return launches, dict(weights_gib=weights_gib, prefill_ms=prefill_ms[1:],
+                          decode_step_ms=step_ms, tok_s=SERVE_BATCH * SERVE_TOKENS / secs,
+                          peak_gib=peak, prefill_split_us=parts, prefill_device_us=total)
+
+
+def hybrid_serving(torch, seed, floor_ms):
+    """Phase 17: SSM, RG-LRU hybrid and VLM serving, one model at a time.
+    Returns the launches of the served runs (each counted from zero) and
+    ``flash_attention``'s entries at recurrentgemma's and phi-3-vision's
+    prefill shapes for the kernels line."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 172)
+    fa = {"recurrentgemma": attention_at(torch, gen, RGEMMA_ATTN, RGEMMA_WINDOW,
+                                         "(a) recurrentgemma-2b's local attention:", floor_ms),
+          "phi3v": attention_at(torch, gen, PHI3V_ATTN, 0, "(a) phi-3-vision-4.2b's prefill:",
+                                floor_ms)}
+    check(fa["recurrentgemma"]["route"] == "cuda-fma" and fa["phi3v"]["route"] == "cuda-tc",
+          "phase 17 (a): the attention shapes took the wrong routes")
+    for arch, n_layers in HYBRID_REF_LAYERS:
+        hybrid_reference(torch, seed, arch, n_layers)
+    hybrid_reference(torch, seed, "recurrentgemma-2b", 3, window=RING_CUT, steps=RING_STEPS)
+    paths, served = {}, {}
+    for arch, _ in HYBRID_REF_LAYERS:
+        paths[arch], served[arch] = hybrid_serve(torch, seed, arch)
+    launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
+    want = {"mamba2-1.3b": (0, 0), "recurrentgemma-2b": (0, 24), "phi-3-vision-4.2b": (96, 0)}
+    for arch, (tc, fma) in want.items():
+        got = (paths[arch]["flash_attention_tc"], paths[arch]["flash_attention_fma"])
+        check(got == (tc, fma) and paths[arch]["flash_attention"] == tc + fma,
+              f"phase 17: {arch}'s flash_attention launches (tensor-core, FMA) {got}, "
+              f"expected {(tc, fma)} (three prefills)")
+    fa["recurrentgemma"]["launches"] = paths["recurrentgemma-2b"]["flash_attention"]
+    fa["phi3v"]["launches"] = paths["phi-3-vision-4.2b"]["flash_attention"]
+    line(f"  phase 17 launches: flash_attention {launches['flash_attention']} (tensor-core "
+         f"{launches['flash_attention_tc']}, FMA {launches['flash_attention_fma']}); wall "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, fa, served
+
+
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
                 fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan, reactive_scan,
-                agg_batch, sub_kernels, train_kernels, gsct_err, gsct_t, dbrx_attn):
+                agg_batch, sub_kernels, train_kernels, gsct_err, gsct_t, dbrx_attn, hybrid_attn):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
     (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6, and
@@ -5101,7 +5390,10 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     against the plain version and its times there); ``glr_step`` and
     ``flash_attention`` the training path's (``train``: phase 14's launches,
     the check and the times at its shapes); ``flash_attention`` also dbrx's
-    prefill shape (``dbrx``: phase 16's launches, (0)'s check and times)."""
+    prefill shape (``dbrx``: phase 16's launches, (0)'s check and times),
+    recurrentgemma's local attention on the FMA route (``recurrentgemma``)
+    and phi-3-vision's prefill on the tensor-core route (``phi3v``), each
+    with phase 17's launches and (a)'s check and times."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -5165,7 +5457,7 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               f32_plain_ms=fa_t["model_f32"]["plain_ms"],
               f32_library_ms=fa_t["model_f32"]["library_ms"],
               f32_bound_ms=fa_t["model_f32"]["bound_ms"], jax_test_shapes=fa_t["jax_shapes"],
-              train=train_kernels["flash_attention"], dbrx=dbrx_attn),
+              train=train_kernels["flash_attention"], dbrx=dbrx_attn, **hybrid_attn),
     ]
 
 
@@ -5173,7 +5465,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-16) only")
+                    help="build the kernels and run the paths (phases 3-17) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -5282,10 +5574,14 @@ def main(argv=None) -> int:
         line("[16] MLA and MoE serving: minicpm3-4b (62 layers), deepseek-v2-236b and "
              "dbrx-132b (8 layers) at full width")
         mla_moe_launches, dbrx_attn, _ = mla_moe_serving(torch, args.seed, floor_ms)
+        release(torch)
+        line("[17] SSM, RG-LRU hybrid and VLM serving: mamba2-1.3b, recurrentgemma-2b and "
+             "phi-3-vision-4.2b at full width and depth")
+        hybrid_launches, hybrid_attn, _ = hybrid_serving(torch, args.seed, floor_ms)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
                  serve_launches, sched_launches, baseline_launches, batch_launches,
                  family_launches, fl_launches, sub_launches, train_launches, served_launches,
-                 mla_moe_launches)
+                 mla_moe_launches, hybrid_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
         check(all(launches[k] > 0 for k in KERNEL_NAMES + BATCH_ROUTES
                   + ("flash_attention_tc", "regret_scan_reactive")),
@@ -5303,7 +5599,8 @@ def main(argv=None) -> int:
                                                 recompute_scan, gst_err, gst_t,
                                                 dict(batch_fields, max_abs_err=batch_err),
                                                 reactive_fields, agg_batch, sub_kernels,
-                                                train_kernels, gsct_err, gsct_t, dbrx_attn)}))
+                                                train_kernels, gsct_err, gsct_t, dbrx_attn,
+                                                hybrid_attn)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
 get_config(id)  / get_smoke_config(id)  / list_archs().  Twin of
-``repro/configs/__init__.py``, listing only the architectures whose
-modules the port has (the GQA and MLA decoders, dense and MoE); any other
-arch raises a ``KeyError`` saying it is not ported yet.
+``repro/configs/__init__.py``, listing every decoder of the JAX zoo: the
+GQA and MLA decoders, dense and MoE, the SSD state-space model, the
+RG-LRU hybrid and the VLM backbone.  hubert-xlarge (the encoder-only audio
+model) is not ported yet: asking for it raises a ``KeyError`` saying so.
 """
 from __future__ import annotations
 
@@ -13,10 +14,13 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig
 
 _MODULES: Dict[str, str] = {
+    "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
 }

@@ -9,12 +9,15 @@ head h // (Hq / Hkv).  Semantics of record: ``ref.mha_attention``.
 Two device routes, picked from dtype and head dim before any launch:
 
 * tensor cores (``csrc/flash_attention_tc.cu``): bf16 with D % 8 == 0 and
-  D <= 128, every head dim of the ported zoo.  ``wgmma`` for Q.K^T and P.V
+  D <= 128: the bf16 prefills of the dense GQA models (qwen3, qwen2.5,
+  qwen1.5), dbrx and phi-3-vision (D = 96).  ``wgmma`` for Q.K^T and P.V
   with TMA-fed K/V tiles; P is split into two bf16 terms so that the output
   keeps the f32 plain version's accuracy (see the source's header).
 * f32 FMAs (``csrc/flash_attention.cu``): everything else, every f32 call
   and bf16 at other D, with 64-query tiles and D padded to 64, 128 or 256
-  in shared memory.
+  in shared memory.  recurrentgemma's local attention (D = 256) takes it
+  in bf16 too.  (The MLA models never reach the kernel: their value width
+  differs from their query width.)
 
 What bounds it on the H100: operations (2 B Hq S^2 D multiply-adds for a
 full mask, about half of them causal, against 2 (B Hq + B Hkv) S D

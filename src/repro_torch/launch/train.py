@@ -13,6 +13,9 @@ reduced config of the same family) with none.  Weights, env and the
 rounds' uniforms are drawn from ``--seed`` on ``--device`` (``cuda`` unless
 given; without CUDA and without ``--device`` it raises), the tokens from
 ``--seed`` with numpy.  ``--seq-shard`` is the identity on one card.
+``--arch`` takes the dense and MoE decoders (``TRAINED``): the SSM, hybrid
+and VLM families serve but do not train yet (their gradients are not held
+against JAX's, and a VLM batch needs its patch embeddings).
 """
 from __future__ import annotations
 
@@ -34,6 +37,9 @@ from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 
 
+TRAINED = ("dense", "moe")      # the arch types this launcher trains
+
+
 class TrainRun(NamedTuple):
     """What ``setup`` makes from the flags; ``train_round`` runs one round."""
     cfg: ModelConfig
@@ -48,7 +54,8 @@ class TrainRun(NamedTuple):
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--arch", required=True,
+                    choices=[a for a in list_archs() if get_config(a).arch_type in TRAINED])
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=20)

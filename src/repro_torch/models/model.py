@@ -1,13 +1,19 @@
 """Model facade: ``build_model(config) -> Model`` with init / apply / loss /
-cache / decode entry points for the GQA and MLA decoders, dense and MoE.
+cache / decode entry points for every decoder of the zoo: GQA and MLA,
+dense and MoE, the SSD state-space model, the RG-LRU hybrid and the VLM.
 
 Twin of ``repro/models/model.py``.  The parameter layout is the JAX one: a
 flat ``{path: tensor}`` dict plus a parallel ``{path: logical_spec}`` dict.
-The homogeneous layer stack lives under ``blocks/`` with a leading layer
-axis; the leading dense layers of an MoE model (deepseek-v2's layer 0)
-live under ``layers/NN/`` and run unrolled before it.  So
-``convert.model_params`` carries JAX parameters across as they are.
-Audio and VLM inputs, and the hybrid layer pattern, are not ported yet.
+A homogeneous layer stack lives under ``blocks/`` with a leading layer
+axis; heterogeneous layers live under ``layers/NN/`` and run unrolled:
+every layer of a hybrid pattern (recurrentgemma's rglru, rglru, attn), and
+the leading dense layers of an MoE model (deepseek-v2's layer 0) before
+the stack.  So ``convert.model_params`` carries JAX parameters across as
+they are.  A hybrid's attention layers attend over ``local_attn_window``
+and decode against a ring of that length.  A VLM batch may carry
+``vision_embeds`` (B, frontend_tokens, d), prepended to the token
+embeddings (the stub frontend of the JAX package).  The audio frontend
+(hubert's frames) is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import kvcache
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import ATTN_IMPLS
 from repro_torch.models.layers import ParamBuilder, rms_norm, torch_dtype
 from repro_torch.models.transformer import (
@@ -28,7 +36,6 @@ from repro_torch.models.transformer import (
     add_block_params,
     block_decode,
     block_forward,
-    check_ported,
     scanned_decode,
     scanned_forward,
 )
@@ -60,17 +67,28 @@ class Model:
         if self.remat not in REMAT_POLICIES:
             raise ValueError(f"Model: unknown remat {self.remat!r}; one of {REMAT_POLICIES}")
         cfg = self.cfg
-        if cfg.layer_pattern or cfg.arch_type in ("audio", "vlm"):
-            raise NotImplementedError(f"{cfg.name}: the {cfg.arch_type} layout is not ported yet")
-        check_ported(cfg, cfg.layer_kind(0))
+        if cfg.arch_type == "audio":
+            raise NotImplementedError(
+                f"{cfg.name}: the audio frontend (hubert's frames) is not ported yet")
 
     # ------------------------------------------------------------------ layout
+    def _is_hybrid(self) -> bool:
+        return bool(self.cfg.layer_pattern)
+
     def _scanned_layers(self) -> int:
+        if self._is_hybrid():
+            return 0
         return self.cfg.n_layers - self.cfg.first_k_dense
 
     def _unrolled(self):
-        """Indices of the unrolled layers: the leading dense ones."""
+        """Indices of unrolled layers (hybrid: all; else the leading dense ones)."""
+        if self._is_hybrid():
+            return list(range(self.cfg.n_layers))
         return list(range(self.cfg.first_k_dense))
+
+    def _local_window(self, kind: str) -> int:
+        """A layer's own attention window: a hybrid's local attention."""
+        return self.cfg.local_attn_window if kind == "attn" else 0
 
     # ------------------------------------------------------------------ init
     def param_specs(self) -> Tuple[Params, Dict[str, tuple]]:
@@ -90,10 +108,12 @@ class Model:
             pb.add("unembed", (cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
         pb.add("final_norm", (cfg.d_model,), (None,), init="ones")
         for i in self._unrolled():
-            add_block_params(pb, f"layers/{i:02d}/b", cfg, "attn", _ffn_is_moe(cfg, i), stacked=0)
+            add_block_params(pb, f"layers/{i:02d}/b", cfg, cfg.layer_kind(i), _ffn_is_moe(cfg, i),
+                             stacked=0)
         n_scan = self._scanned_layers()
         if n_scan:
-            add_block_params(pb, "blocks/b", cfg, "attn", _ffn_is_moe(cfg, cfg.first_k_dense),
+            i0 = cfg.first_k_dense
+            add_block_params(pb, "blocks/b", cfg, cfg.layer_kind(i0), _ffn_is_moe(cfg, i0),
                              stacked=n_scan)
         return pb.params, pb.specs
 
@@ -115,10 +135,16 @@ class Model:
         return params["embed"].t() if self.cfg.tie_embeddings else params["unembed"]
 
     def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        if set(batch) != {"tokens"}:
+        extra = set(batch) - {"tokens", "vision_embeds"}
+        if extra:
             raise NotImplementedError(
-                f"{self.cfg.name}: only token inputs are ported, got {sorted(batch)}")
-        return params["embed"][batch["tokens"].long()]
+                f"{self.cfg.name}: only token and vision inputs are ported (hubert's audio "
+                f"frames are not), got {sorted(batch)}")
+        tok = params["embed"][batch["tokens"].long()]
+        if self.cfg.arch_type == "vlm" and "vision_embeds" in batch:
+            # stub frontend carve-out: pre-computed patch embeddings, prepended
+            return torch.cat([batch["vision_embeds"].to(tok.dtype), tok], dim=1)
+        return tok
 
     def _forward_hidden(
         self, params: Params, batch: Dict[str, torch.Tensor]
@@ -126,15 +152,18 @@ class Model:
         """All blocks + final norm; returns (hidden (B,S,d), moe_aux)."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
-        window = cfg.local_attn_window
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in self._unrolled():
-            x, a = block_forward(_subtree(params, f"layers/{i:02d}"), "b", x, cfg, "attn",
-                                 _ffn_is_moe(cfg, i), window, attn_impl=self.attn_impl)
+            kind = cfg.layer_kind(i)
+            x, a = block_forward(_subtree(params, f"layers/{i:02d}"), "b", x, cfg, kind,
+                                 _ffn_is_moe(cfg, i), self._local_window(kind),
+                                 attn_impl=self.attn_impl)
             aux = aux + a
         if self._scanned_layers():
-            x, a = scanned_forward(_subtree(params, "blocks"), x, cfg, "attn",
-                                   _ffn_is_moe(cfg, cfg.first_k_dense), window, self.remat,
+            i0 = cfg.first_k_dense
+            kind = cfg.layer_kind(i0)
+            x, a = scanned_forward(_subtree(params, "blocks"), x, cfg, kind,
+                                   _ffn_is_moe(cfg, i0), self._local_window(kind), self.remat,
                                    attn_impl=self.attn_impl)
             aux = aux + a
         return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
@@ -147,15 +176,17 @@ class Model:
         """Mean loss + metrics.  ``example_weights`` (B,) scales per-example
         loss — this is how the FL round folds the transmission mask and the
         zeta aggregation weights (Eq. 7) into one backward pass."""
+        cfg = self.cfg
         hidden, aux = self._forward_hidden(params, batch)
         tokens = batch["tokens"]
-        # predict token t+1 from position t
-        nll = self._nll(hidden[:, : tokens.shape[1] - 1], self._unembed_matrix(params),
-                        tokens[:, 1:])                    # (B, T)
+        offset = cfg.frontend_tokens if cfg.arch_type == "vlm" else 0
+        # predict token t+1 from position (offset + t)
+        nll = self._nll(hidden[:, offset: offset + tokens.shape[1] - 1],
+                        self._unembed_matrix(params), tokens[:, 1:])   # (B, T)
         per_example = nll.mean(dim=1)
         w = example_weights if example_weights is not None else torch.ones_like(per_example)
         loss = torch.sum(per_example * w) / torch.sum(w).clamp_min(1e-9)
-        total = loss + self.cfg.router_aux_weight * aux
+        total = loss + cfg.router_aux_weight * aux
         return total, {"loss": loss, "moe_aux": aux, "per_example": per_example}
 
     def _nll(self, hid: torch.Tensor, w_out: torch.Tensor,
@@ -193,20 +224,28 @@ class Model:
         dev = resolve_device(device)
         win = cfg.sliding_window if window is None else window
 
-        def one(n_layers: int = 0):
+        dt = torch_dtype(dtype)
+
+        def one(kind: str, n_layers: int = 0, local: int = 0):
+            w = local or win
+            if kind == "ssm":
+                return ssm_mod.init_ssm_cache(batch, cfg, n_layers, dt, dev)
+            if kind == "rglru":
+                return rglru_mod.init_rglru_cache(batch, cfg, n_layers, dt, dev)
             if cfg.attention == "mla":
                 return kvcache.init_mla_cache(
-                    batch, seq_len, cfg.kv_lora_rank, cfg.qk_rope_dim, window=win,
-                    n_layers=n_layers, dtype=torch_dtype(dtype), device=dev)
+                    batch, seq_len, cfg.kv_lora_rank, cfg.qk_rope_dim, window=w,
+                    n_layers=n_layers, dtype=dt, device=dev)
             return kvcache.init_gqa_cache(
-                batch, cfg.n_kv_heads, seq_len, cfg.resolved_head_dim, window=win,
-                n_layers=n_layers, dtype=torch_dtype(dtype), device=dev)
+                batch, cfg.n_kv_heads, seq_len, cfg.resolved_head_dim, window=w,
+                n_layers=n_layers, dtype=dt, device=dev)
 
         cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
         for i in self._unrolled():
-            cache[f"layers/{i:02d}"] = one()
+            kind = cfg.layer_kind(i)
+            cache[f"layers/{i:02d}"] = one(kind, 0, self._local_window(kind))
         if self._scanned_layers():
-            cache["blocks"] = one(self._scanned_layers())
+            cache["blocks"] = one(cfg.layer_kind(cfg.first_k_dense), self._scanned_layers())
         return cache
 
     # ------------------------------------------------------------------ decode
@@ -223,12 +262,14 @@ class Model:
         x = params["embed"][tokens.long()][:, None]               # (B,1,d)
         new_cache: Dict[str, Any] = {"pos": pos + 1}
         for i in self._unrolled():
-            name = f"layers/{i:02d}"
-            x, new_cache[name] = block_decode(_subtree(params, name), "b", x, cfg, "attn",
-                                              _ffn_is_moe(cfg, i), cache[name], pos, window=win)
+            name, kind = f"layers/{i:02d}", cfg.layer_kind(i)
+            x, new_cache[name] = block_decode(_subtree(params, name), "b", x, cfg, kind,
+                                              _ffn_is_moe(cfg, i), cache[name], pos,
+                                              window=self._local_window(kind) or win)
         if self._scanned_layers():
+            i0 = cfg.first_k_dense
             x, new_cache["blocks"] = scanned_decode(
-                _subtree(params, "blocks"), x, cfg, "attn", _ffn_is_moe(cfg, cfg.first_k_dense),
+                _subtree(params, "blocks"), x, cfg, cfg.layer_kind(i0), _ffn_is_moe(cfg, i0),
                 cache["blocks"], pos, window=win)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = (x @ self._unembed_matrix(params))[:, 0].float()

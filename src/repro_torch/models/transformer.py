@@ -1,18 +1,19 @@
 """Block composition and the loop over stacked layers.
 
-Twin of ``repro/models/transformer.py`` for the blocks the port has: a
-*block* is (pre-norm -> GQA or MLA attention -> residual -> pre-norm ->
-dense MLP or routed MoE -> residual).  Per-layer parameters keep the JAX
-layout, stacked along a leading ``layers`` axis under ``blocks/b/...``;
-where JAX scans over that axis, the port loops over it in Python (a
-layer's parameters are views).  ``remat`` is the training path's
-activation-checkpoint policy around each block (``torch.utils.checkpoint``,
-non-reentrant): ``"none"``, ``"full"`` (keep the block's input, recompute
-the rest in the backward pass) or ``"dots"`` (also keep the outputs of the
-products with no batch dimension, the twin of
-``dots_with_no_batch_dims_saveable``).  It acts only where a gradient is
-taken; serving runs the blocks as they are.  SSM and RG-LRU blocks are not
-ported yet.
+Twin of ``repro/models/transformer.py``: a *block* is (pre-norm -> mixer
+-> residual -> pre-norm -> FFN -> residual), where the mixer is GQA / MLA
+attention, an SSD (mamba-2) scan or an RG-LRU recurrence, and the FFN a
+dense MLP or a routed MoE; a mamba block returns after its mixer, with no
+second norm and no FFN, as in the reference architecture.  Per-layer
+parameters keep the JAX layout, stacked along a leading ``layers`` axis
+under ``blocks/b/...``; where JAX scans over that axis, the port loops
+over it in Python (a layer's parameters are views).  ``remat`` is the
+training path's activation-checkpoint policy around each block
+(``torch.utils.checkpoint``, non-reentrant): ``"none"``, ``"full"`` (keep
+the block's input, recompute the rest in the backward pass) or ``"dots"``
+(also keep the outputs of the products with no batch dimension, the twin
+of ``dots_with_no_batch_dims_saveable``).  It acts only where a gradient
+is taken; serving runs the blocks as they are.
 """
 from __future__ import annotations
 
@@ -29,13 +30,9 @@ from torch.utils.checkpoint import (
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import ParamBuilder, add_mlp_params, apply_mlp, rms_norm
-
-
-def check_ported(cfg: ModelConfig, kind: str) -> None:
-    """Raise for the blocks whose modules the port does not have yet."""
-    if kind != "attn":
-        raise NotImplementedError(f"{cfg.name}: {kind} blocks are not ported yet")
 
 
 def _ffn_is_moe(cfg: ModelConfig, layer_idx: int) -> bool:
@@ -46,15 +43,22 @@ def add_block_params(
     pb: ParamBuilder, prefix: str, cfg: ModelConfig, kind: str,
     moe_ffn: bool, stacked: int = 0,
 ):
-    check_ported(cfg, kind)
     d = cfg.d_model
     lead = (stacked,) if stacked else ()
     ls = ("layers",) if stacked else ()
     pb.add(f"{prefix}/norm1", lead + (d,), ls + (None,), init="ones")
-    if cfg.attention == "mla":
-        attn.add_mla_params(pb, f"{prefix}/attn", cfg, stacked)
+    if kind == "attn":
+        if cfg.attention == "mla":
+            attn.add_mla_params(pb, f"{prefix}/attn", cfg, stacked)
+        else:
+            attn.add_gqa_params(pb, f"{prefix}/attn", cfg, stacked)
+    elif kind == "ssm":
+        ssm_mod.add_ssm_params(pb, f"{prefix}/ssm", cfg, stacked)
+        return  # mamba blocks: no separate FFN
+    elif kind == "rglru":
+        rglru_mod.add_rglru_params(pb, f"{prefix}/rglru", cfg, stacked)
     else:
-        attn.add_gqa_params(pb, f"{prefix}/attn", cfg, stacked)
+        raise ValueError(kind)
     pb.add(f"{prefix}/norm2", lead + (d,), ls + (None,), init="ones")
     if moe_ffn:
         moe_mod.add_moe_params(pb, f"{prefix}/moe", cfg, stacked)
@@ -62,22 +66,37 @@ def add_block_params(
         add_mlp_params(pb, f"{prefix}/mlp", d, cfg.d_ff, cfg.mlp_act, stacked)
 
 
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ffn(p, prefix, x, cfg, moe_ffn):
+    """The second half of a block: pre-norm -> MLP or MoE.  Returns (h,
+    moe_aux), the aux None for an MLP (decode makes no tensor for it)."""
+    h = rms_norm(x, p[f"{prefix}/norm2"], cfg.norm_eps)
+    if moe_ffn:
+        return moe_mod.moe_ffn(p, f"{prefix}/moe", h, cfg)
+    return apply_mlp(p, f"{prefix}/mlp", h, cfg.mlp_act), None
+
+
 def block_forward(
     p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor, cfg: ModelConfig,
     kind: str, moe_ffn: bool, window: int = 0, attn_impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block.  Returns (x, moe_aux_loss)."""
-    check_ported(cfg, kind)
-    prefill = attn.mla_prefill if cfg.attention == "mla" else attn.gqa_prefill
     h = rms_norm(x, p[f"{prefix}/norm1"], cfg.norm_eps)
-    x = x + prefill(p, f"{prefix}/attn", h, cfg, window=window, attn_impl=attn_impl)
-    h = rms_norm(x, p[f"{prefix}/norm2"], cfg.norm_eps)
-    if moe_ffn:
-        h, aux = moe_mod.moe_ffn(p, f"{prefix}/moe", h, cfg)
+    if kind == "attn":
+        prefill = attn.mla_prefill if cfg.attention == "mla" else attn.gqa_prefill
+        h = prefill(p, f"{prefix}/attn", h, cfg, window=window, attn_impl=attn_impl)
+    elif kind == "ssm":
+        return x + ssm_mod.ssm_forward(p, f"{prefix}/ssm", h, cfg), _no_aux(x)
+    elif kind == "rglru":
+        h = rglru_mod.rglru_forward(p, f"{prefix}/rglru", h, cfg)
     else:
-        h = apply_mlp(p, f"{prefix}/mlp", h, cfg.mlp_act)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + h, aux
+        raise ValueError(kind)
+    x = x + h
+    h, aux = _ffn(p, prefix, x, cfg, moe_ffn)
+    return x + h, _no_aux(x) if aux is None else aux
 
 
 def block_decode(
@@ -87,22 +106,26 @@ def block_decode(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token block step.  ``cache`` is this block's (unstacked) cache
     dict, updated in place."""
-    check_ported(cfg, kind)
     h = rms_norm(x, p[f"{prefix}/norm1"], cfg.norm_eps)
-    if cfg.attention == "mla":
-        h, lat, kr = attn.mla_decode(
-            p, f"{prefix}/attn", h, cfg, cache["latent"], cache["k_rope"], pos, window=window)
-        new_cache = {"latent": lat, "k_rope": kr}
+    if kind == "attn":
+        if cfg.attention == "mla":
+            h, lat, kr = attn.mla_decode(
+                p, f"{prefix}/attn", h, cfg, cache["latent"], cache["k_rope"], pos,
+                window=window)
+            new_cache = {"latent": lat, "k_rope": kr}
+        else:
+            h, ck, cv = attn.gqa_decode(
+                p, f"{prefix}/attn", h, cfg, cache["k"], cache["v"], pos, window=window)
+            new_cache = {"k": ck, "v": cv}
+    elif kind == "ssm":
+        h, new_cache = ssm_mod.ssm_decode(p, f"{prefix}/ssm", h, cfg, cache)
+        return x + h, new_cache
+    elif kind == "rglru":
+        h, new_cache = rglru_mod.rglru_decode(p, f"{prefix}/rglru", h, cfg, cache)
     else:
-        h, ck, cv = attn.gqa_decode(
-            p, f"{prefix}/attn", h, cfg, cache["k"], cache["v"], pos, window=window)
-        new_cache = {"k": ck, "v": cv}
+        raise ValueError(kind)
     x = x + h
-    h = rms_norm(x, p[f"{prefix}/norm2"], cfg.norm_eps)
-    if moe_ffn:
-        h, _ = moe_mod.moe_ffn(p, f"{prefix}/moe", h, cfg)
-    else:
-        h = apply_mlp(p, f"{prefix}/mlp", h, cfg.mlp_act)
+    h, _ = _ffn(p, prefix, x, cfg, moe_ffn)
     return x + h, new_cache
 
 

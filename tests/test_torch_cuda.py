@@ -1322,3 +1322,67 @@ def test_moe_router_and_dispatch_on_the_card_equal_the_cpu(cuda, arch):
     torch.testing.assert_close(card[4], cpu[4], rtol=1e-6, atol=0)
     assert torch.equal(card[4] == 0, cpu[4] == 0)     # the keep mask
     assert int((card[3] == e * cap).sum()) > 0        # the capacity binds
+
+
+@pytest.mark.parametrize("s,a_log", [(600, 0.0), (256, 2.0)])
+def test_ssd_chunk_loop_on_the_card_equals_the_cpu(cuda, monkeypatch, s, a_log):
+    """mamba2's SSD block at full width (d = 2048, 64 heads of 64, state
+    128, chunk 256) in f32 on the card equals the CPU's run of the same
+    weights (TF32 off): three chunks, the last one short, at rtol 1e-4 and
+    atol 1e-5 of the largest output; and with fast decays (a_log = 2) an
+    upper triangle whose exponent passes exp's f32 overflow, finite all the
+    same, at atol 1e-4 of the largest output: its cumulative sums reach
+    |cum| ~ 10^2-10^3 inside a chunk, where one f32 ulp is 1e-5-6e-5
+    absolute, and the card's cumsum adds in another order than the CPU's
+    (2.2e-5 of the largest output on an H100)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import ParamBuilder
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), dtype="float32")
+    pb = ParamBuilder(torch.Generator(device=cuda).manual_seed(1), dtype=torch.float32,
+                      device=cuda)
+    ssm.add_ssm_params(pb, "s", cfg)
+    p = dict(pb.params)
+    p["s/a_log"] = torch.full_like(p["s/a_log"], a_log)
+    u = torch.randn((1, s, cfg.d_model), generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    got = ssm.ssm_forward(p, "s", u, cfg)
+    want = ssm.ssm_forward({k: v.cpu() for k, v in p.items()}, "s", u.cpu(), cfg)
+    assert bool(torch.isfinite(got).all())
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=(1e-4 if a_log else 1e-5) * scale)
+
+
+def test_doubling_scan_on_the_card_equals_the_cpu(cuda):
+    """The RG-LRU recurrence at recurrentgemma's width (B = 2, S = 2048, W =
+    2560) on the card equals the CPU's (rtol 1e-5, atol 1e-6): the same
+    eleven doubling steps, elementwise."""
+    from repro_torch.models.rglru import linear_scan
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.rand((2, 2048, 2560), generator=g, device=cuda)
+    b = torch.randn((2, 2048, 2560), generator=g, device=cuda)
+    got = linear_scan(a, b)
+    torch.testing.assert_close(got.cpu(), linear_scan(a.cpu(), b.cpu()), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,window,route", [
+    ((4, 10, 1, 2048, 256), 2048, "fma"),       # recurrentgemma-2b's local attention, MQA
+    ((4, 32, 32, 2192, 96), 0, "tc"),           # phi-3-vision: 144 patches + 2048 tokens
+])
+def test_flash_attention_at_the_hybrid_and_vlm_shapes(cuda, shape, window, route):
+    """bf16 causal at the two new serving shapes, on the route each must
+    take, against the plain version in f32 (rtol 2**-8, atol 1e-4)."""
+    b, hq, hkv, s, d = shape
+    q, k, v = _attn_inputs(b, hq, hkv, s, d, torch.bfloat16, cuda, seed=s + d)
+    before = flash_attention.tc_launches, flash_attention.fma_launches
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    tc = route == "tc"
+    assert (flash_attention.tc_launches, flash_attention.fma_launches) == \
+        (before[0] + tc, before[1] + (not tc))
+    want = ref.mha_attention(q.float(), k.float(), v.float(), causal=True, window=window)
+    torch.testing.assert_close(got.float(), want, rtol=2.0 ** -8, atol=1e-4)

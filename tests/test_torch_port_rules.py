@@ -86,7 +86,9 @@ SLICE_TWINS = ("core/aggregation.py", "core/faults.py", "core/channels/process.p
                "core/availability.py", "fl/sparse.py", "fl/__init__.py", "data/dirichlet.py",
                "optim/__init__.py", "optim/optimizers.py", "launch/train.py",
                "data/synthetic.py", "models/moe.py", "configs/minicpm3_4b.py",
-               "configs/deepseek_v2_236b.py", "configs/dbrx_132b.py")
+               "configs/deepseek_v2_236b.py", "configs/dbrx_132b.py", "models/ssm.py",
+               "models/rglru.py", "configs/mamba2_1_3b.py", "configs/recurrentgemma_2b.py",
+               "configs/phi_3_vision_4_2b.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_TWINS)
@@ -159,29 +161,33 @@ def test_training_entry_points_default_to_cuda(no_cuda, capsys):
 
 
 def test_unported_archs_say_so():
-    """The four archs whose modules the port lacks (SSM, RG-LRU, the audio and
-    VLM frontends) are not in its registry, and the model refuses each of
-    their configs (JAX's, field for field in the port's schema)."""
+    """hubert-xlarge (the encoder-only audio model) is not in the port's
+    registry, and the model refuses its config (JAX's, field for field in
+    the port's schema) and any batch of audio frames; the SSM, hybrid and
+    VLM archs build at full width and give their parameter specs."""
     import dataclasses
 
     from repro.configs import get_config as j_config
     from repro_torch.configs.base import ModelConfig
-    from repro_torch.models.transformer import check_ported
 
-    for arch in ("mamba2-1.3b", "recurrentgemma-2b", "hubert-xlarge", "phi-3-vision-4.2b"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_config(arch)
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_smoke_config(arch)
-        cfg = ModelConfig(**dataclasses.asdict(j_config(arch)))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_model(cfg)
-    for arch, kind in (("mamba2-1.3b", "ssm"), ("recurrentgemma-2b", "rglru")):
-        cfg = ModelConfig(**dataclasses.asdict(j_config(arch)))
-        with pytest.raises(NotImplementedError, match=f"{kind} blocks are not ported yet"):
-            check_ported(cfg, kind)
-    for arch in ("minicpm3-4b", "deepseek-v2-236b", "dbrx-132b"):   # ported in full
-        build_model(get_config(arch)).param_specs()
+    with pytest.raises(KeyError, match="not ported yet"):
+        get_config("hubert-xlarge")
+    with pytest.raises(KeyError, match="not ported yet"):
+        get_smoke_config("hubert-xlarge")
+    cfg = ModelConfig(**dataclasses.asdict(j_config("hubert-xlarge")))
+    with pytest.raises(NotImplementedError, match="hubert.*not ported yet"):
+        build_model(cfg)
+    model = build_model(get_smoke_config("phi-3-vision-4.2b"))
+    with pytest.raises(NotImplementedError, match="audio frames are not"):
+        model._embed_inputs({}, {"tokens": torch.zeros((1, 2)), "frames": torch.zeros((1, 2, 8))})
+    for arch in ("minicpm3-4b", "deepseek-v2-236b", "dbrx-132b", "mamba2-1.3b",
+                 "recurrentgemma-2b", "phi-3-vision-4.2b"):   # ported in full
+        specs, _ = build_model(get_config(arch)).param_specs()
+        assert all(v.device.type == "meta" for v in specs.values())
+    from repro_torch.launch import train      # the three new families serve, do not train yet
+    for arch in ("mamba2-1.3b", "recurrentgemma-2b", "phi-3-vision-4.2b"):
+        with pytest.raises(SystemExit):
+            train.parse_args(["--arch", arch])
 
 
 class _FakeCuda:
@@ -381,13 +387,18 @@ def test_route_is_picked_from_dtype_and_head_dim():
 
 def test_model_attention_takes_the_routes(recorded):
     """``ops.flash_attention`` and the model's ``attn_core`` route like the
-    wrapper: qwen3-32b's bf16 head dim of 128 to the tensor cores, f32 to
-    the FMA kernel."""
-    for dtype, name in ((torch.bfloat16, "flash_attention_tc"), (torch.float32, "flash_attention")):
-        q, kv = _qkv(128, dtype, s=3)
+    wrapper: qwen3-32b's bf16 head dim of 128 and phi-3-vision's 96 to the
+    tensor cores, f32 and recurrentgemma's bf16 head dim of 256 (its local
+    attention, window 2048) to the FMA kernel."""
+    for dtype, d, name in ((torch.bfloat16, 128, "flash_attention_tc"),
+                           (torch.bfloat16, 96, "flash_attention_tc"),
+                           (torch.float32, 128, "flash_attention"),
+                           (torch.bfloat16, 256, "flash_attention")):
+        q, kv = _qkv(d, dtype, s=3)
         ops.flash_attention(q, kv, kv)
-        attn_mod.attn_core(q, kv, kv, causal=True)
+        attn_mod.attn_core(q, kv, kv, causal=True, window=2048)
         assert [n for n, _, _ in recorded[-2:]] == [name, name]
+        assert recorded[-1][2][10] == 2048                  # the window reaches the kernel
 
 
 def test_missing_tensor_core_library_raises(monkeypatch):

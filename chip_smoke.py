@@ -237,10 +237,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 17. SSM, RG-LRU hybrid and VLM serving (mamba2-1.3b, recurrentgemma-2b,
    phi-3-vision-4.2b), one model at a time, each at full width and depth:
    (a) ``flash_attention`` bf16 causal at recurrentgemma's local attention
-   (4, 10/1, 2048, 256), window 2048, on the FMA route, and at
-   phi-3-vision's prefill (4, 32/32, 2192, 96) on the tensor-core route,
-   against the f32 plain version (phase 2's bf16 tolerance), timed beside
-   the plain version and SDPA; (b) f32 references at full width, cut in
+   (4, 10/1, 2048, 256), window 2048, and at phi-3-vision's prefill (4,
+   32/32, 2192, 96), both on the tensor-core route, against the f32 plain
+   version (phase 2's bf16 tolerance), timed beside the plain version and
+   SDPA (recurrentgemma's twice, around the FMA route on the same inputs,
+   with its split-P ceiling); (b) f32 references at full width, cut in
    depth (mamba2 2 layers, recurrentgemma one whole rglru, rglru, attn
    cycle, phi-3-vision 2 layers): the kernel route's prefill of a
    2048-token prompt (phi-3-vision's behind 144 patch embeddings) against
@@ -250,8 +251,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    overflows ``exp``) finite and equal to the CPU's run of the same
    weights; (c) bf16 serving: the parameter count against
    ``param_specs()``, three prefills of 4 x 2048 tokens (phi-3-vision's
-   behind 144 random patch embeddings each; ``flash_attention`` 0, 8 on
-   the FMA route and 32 on the tensor-core route a prefill), the
+   behind 144 random patch embeddings each; ``flash_attention`` 0, 8 and
+   32 a prefill, all on the tensor-core route), the
    ``serve_loop`` at batch 8, context 2048, 32 tokens, peak memory, a
    profiled prefill's device time split into attention, the SSD chunk
    loop, the RG-LRU scan, the causal conv and the rest, and kernels a
@@ -262,7 +263,7 @@ the paths start from the same device memory state with or without it.
 Phase 2 also holds ``flash_attention`` against ``ref.mha_attention`` at the
 JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
-D <= 128, the FMA route otherwise), and times both routes, the plain
+D <= 256, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
 ``--paths`` builds the kernels and runs phases 3-17 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
@@ -1450,13 +1451,28 @@ def attn_bound_ms(shape, causal, window, dtype_bytes, rate):
     return two_way_bound(nbytes, flops, rate)
 
 
+def routes_in_turns(torch, q, k, v, window, tc_iters):
+    """Both ``flash_attention`` routes on the same bf16 inputs, causal,
+    timed in turns: tensor-core (``tc_iters`` calls), FMA (10), tensor-core
+    again.  Returns ``ms``, ``fma_ms`` and ``ms_again``; counts nothing."""
+    from repro_torch.kernels import flash_attention as fa_mod
+
+    scale = 1.0 / q.shape[-1] ** 0.5
+    tc_fn = lambda: fa_mod._launch("tensor-core", q, k, v, True, window, scale)
+    ms = time_ms(torch, tc_fn, tc_iters)
+    fma_ms = time_ms(torch, lambda: fa_mod._launch("FMA", q, k, v, True, window, scale), 10)
+    return dict(ms=ms, fma_ms=fma_ms, ms_again=time_ms(torch, tc_fn, tc_iters))
+
+
 def check_flash_attention(torch, gen, floor_ms):
     """Kernel against plain: f32 within rtol/atol 1e-4 of the f32 plain
     version (another order of the D-term sums, an online softmax); bf16
     within rtol 2**-8 / atol 1e-4 of the plain version on the same inputs in
     f32 (the output's one rounding to bf16 is at most 2**-9 relative; the
     tensor-core route splits P into two bf16 terms to stay inside it).
-    Every case checks which route launched.  Times at the JAX package's
+    Every case checks which route launched: bf16 with D % 8 == 0 up to
+    D = 256 on the tensor cores (64-key tiles past D = 128), the rest on
+    the FMA route.  Times at the JAX package's
     test shapes (f32) and at qwen3-32b's prefill shape: bf16 on both routes,
     f32, the plain version and SDPA."""
     from torch.nn import functional as F
@@ -1484,10 +1500,12 @@ def check_flash_attention(torch, gen, floor_ms):
         ((1, 8, 2, 300, 128), True, 8, torch.bfloat16),
         ((1, 8, 2, 300, 32), True, 16, torch.bfloat16),
         ((1, 64, 8, SERVE_PROMPT, 128), False, 0, torch.float32),      # encoder-style
-        ((1, 4, 2, 300, 200), True, 0, torch.bfloat16),                # bf16 on the FMA route
+        ((1, 4, 2, 300, 200), True, 0, torch.bfloat16),    # tensor cores, D padded to 256
+        ((1, 4, 2, 300, 196), True, 0, torch.bfloat16),                # bf16 on the FMA route
         ((1, 4, 2, 300, 128), False, 40, torch.bfloat16),   # non-causal window, tensor cores
-    ] + [((1, 4, 2, 300, 64), True, 0, dt, sc)   # a scale of either sign, and 0
-         for dt in (torch.bfloat16, torch.float32) for sc in (-0.1, 0.0)]
+        ((1, 4, 1, 4096, 256), True, RGEMMA_WINDOW, torch.bfloat16),   # tiles left of the window
+    ] + [((1, 4, 2, 300, d), True, 0, dt, sc)    # a scale of either sign, and 0
+         for d in (64, 256) for dt in (torch.bfloat16, torch.float32) for sc in (-0.1, 0.0)]
     max_err = 0.0
     for shape, causal, window, dtype, *opt in cases:
         scale = opt[0] if opt else None
@@ -1528,18 +1546,13 @@ def check_flash_attention(torch, gen, floor_ms):
              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.2e} ms ({bound_by}, "
              f"f32 rate), launch floor {floor_ms:.5f} ms")
     flops = 4 * model[0] * model[1] * model[4] * attn_pairs(model[3], True, 0)
-    scale = 1.0 / model[4] ** 0.5
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(model, dtype)
         rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
         bound, bound_by = attn_bound_ms(model, True, 0, q.element_size(), rate)
         t = dict(bound_ms=bound, bound_by=bound_by)
-        if dtype == torch.bfloat16:      # both routes, in turns: tc, fma, tc
-            tc_fn = lambda: fa_mod._launch("tensor-core", q, k, v, True, 0, scale)
-            t["ms"] = time_ms(torch, tc_fn, 50)
-            t["fma_ms"] = time_ms(torch, lambda: fa_mod._launch("FMA", q, k, v, True, 0,
-                                                                   scale), 10)
-            t["ms_again"] = time_ms(torch, tc_fn, 50)
+        if dtype == torch.bfloat16:
+            t.update(routes_in_turns(torch, q, k, v, 0, 50))
         else:
             t["ms"] = time_ms(torch, lambda: kernel(q, k, v, causal=True), 10)
         t["plain_ms"] = time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=True), 3)
@@ -4789,14 +4802,16 @@ def served_baselines(torch, seed, phase8_launches):
 # phase 16: MLA and MoE serving
 # ---------------------------------------------------------------------------
 
-def attention_at(torch, gen, shape, window, label, floor_ms):
+def attention_at(torch, gen, shape, window, label, floor_ms, fma_turns=False):
     """``flash_attention`` at a model's prefill ``shape`` (B, Hq, Hkv, S, D),
     bf16 causal with ``window``: on the route ``tc_route`` picks, within
     rtol 2**-8 / atol 1e-4 of the f32 plain version (phase 2's bf16
     tolerance), timed beside the plain version and SDPA (``enable_gqa``;
     the window must then cover S, so that causal is the same mask), none of
-    it counted as launches of a path.  Prints ``label``'s line; returns the
-    entry for the kernels line."""
+    it counted as launches of a path.  With ``fma_turns`` the tensor-core
+    route is timed twice, around the FMA route on the same inputs
+    (``routes_in_turns``), and the line adds the split-P ceiling.  Prints
+    ``label``'s line; returns the entry for the kernels line."""
     from torch.nn import functional as F
 
     from repro_torch.kernels import ops, ref
@@ -4820,18 +4835,28 @@ def attention_at(torch, gen, shape, window, label, floor_ms):
           f"{label}: flash_attention {shape} beyond rtol 2^-8 atol 1e-4 ({err:.3e})")
     del got, want
     check(window == 0 or window >= s, f"{label}: SDPA takes no window shorter than S")
+    check(tc or not fma_turns,
+          f"{label}: the FMA route is timed in turns only beside the tensor cores")
+    times = (routes_in_turns(torch, q, k, v, window, 20) if fma_turns else
+             dict(ms=time_ms(torch, lambda: fa_kernel(q, k, v, causal=True, window=window), 20)))
     fa = dict(shape_b_hq_hkv_s_d=list(shape), causal=True, window=window, dtype="bfloat16",
-              route="cuda-" + ("tc" if tc else "fma"), max_abs_err=err,
-              ms=time_ms(torch, lambda: fa_kernel(q, k, v, causal=True, window=window), 20),
+              route="cuda-" + ("tc" if tc else "fma"), max_abs_err=err, **times,
               plain_ms=time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=True,
                                                                 window=window), 3),
               library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                   q, k, v, is_causal=True, enable_gqa=True), 20))
     fa["bound_ms"], fa["bound_by"] = attn_bound_ms(shape, True, window, 2, BF16_TC_FLOPS)
     flops = 4 * b * hq * d * attn_pairs(s, True, window)
+    turns = ""
+    if fma_turns:
+        split_ms = 1.5 * flops / BF16_TC_FLOPS * 1e3
+        turns = (f" / {fa['ms_again']:.4f} ms around the FMA route {fa['fma_ms']:.4f} ms "
+                 f"({flops / fa['fma_ms'] / 1e9:.1f} TFLOP/s, "
+                 f"{fa['fma_ms'] / fa['ms']:.1f}x), split-P ceiling {split_ms:.4f} ms "
+                 f"(1.5x the products)")
     line(f"  {label} flash_attention (B, Hq, Hkv, S, D)={shape} causal window {window} bf16, "
          f"{route} route: max_abs_err {err:.3e} vs f32 plain (rtol 2^-8 atol 1e-4) ok; kernel "
-         f"{fa['ms']:.4f} ms ({flops / fa['ms'] / 1e9:.1f} TFLOP/s), plain "
+         f"{fa['ms']:.4f} ms ({flops / fa['ms'] / 1e9:.1f} TFLOP/s){turns}, plain "
          f"{fa['plain_ms']:.4f} ms, library (SDPA, enable_gqa) {fa['library_ms']:.4f} ms, "
          f"bound {fa['bound_ms']:.4f} ms ({fa['bound_by']} at 989 TFLOP/s, {flops:.4e} flops), "
          f"launch floor {floor_ms:.5f} ms")
@@ -5290,8 +5315,9 @@ def hybrid_serve(torch, seed, arch):
     cache_gib = sum(v.numel() * v.element_size() for layer in cache.values()
                     if isinstance(layer, dict) for v in layer.values()) / 2 ** 30
     step_ms = secs / SERVE_TOKENS * 1e3
+    patches = f" + {s_total - SERVE_PROMPT} patches" if s_total > SERVE_PROMPT else ""
     line(f"  (c) {arch}: prefill {SERVE_PREFILL_BATCH} x {s_total} positions "
-         f"({batch['tokens'].shape[1]} tokens{' + 144 patches' if tc else ''}) "
+         f"({batch['tokens'].shape[1]} tokens{patches}) "
          f"{prefill_ms[1]:.1f} / {prefill_ms[2]:.1f} ms (warm-up {prefill_ms[0]:.1f} ms), "
          f"{SERVE_PREFILL_BATCH * SERVE_PROMPT / (prefill_ms[1] / 1e3):.0f} prompt tok/s; "
          f"flash_attention {launches['flash_attention'] // 3} a prefill "
@@ -5347,10 +5373,11 @@ def hybrid_serving(torch, seed, floor_ms):
     t_phase = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed + 172)
     fa = {"recurrentgemma": attention_at(torch, gen, RGEMMA_ATTN, RGEMMA_WINDOW,
-                                         "(a) recurrentgemma-2b's local attention:", floor_ms),
+                                         "(a) recurrentgemma-2b's local attention:", floor_ms,
+                                         fma_turns=True),
           "phi3v": attention_at(torch, gen, PHI3V_ATTN, 0, "(a) phi-3-vision-4.2b's prefill:",
                                 floor_ms)}
-    check(fa["recurrentgemma"]["route"] == "cuda-fma" and fa["phi3v"]["route"] == "cuda-tc",
+    check(fa["recurrentgemma"]["route"] == "cuda-tc" and fa["phi3v"]["route"] == "cuda-tc",
           "phase 17 (a): the attention shapes took the wrong routes")
     for arch, n_layers in HYBRID_REF_LAYERS:
         hybrid_reference(torch, seed, arch, n_layers)
@@ -5359,7 +5386,7 @@ def hybrid_serving(torch, seed, floor_ms):
     for arch, _ in HYBRID_REF_LAYERS:
         paths[arch], served[arch] = hybrid_serve(torch, seed, arch)
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
-    want = {"mamba2-1.3b": (0, 0), "recurrentgemma-2b": (0, 24), "phi-3-vision-4.2b": (96, 0)}
+    want = {"mamba2-1.3b": (0, 0), "recurrentgemma-2b": (24, 0), "phi-3-vision-4.2b": (96, 0)}
     for arch, (tc, fma) in want.items():
         got = (paths[arch]["flash_attention_tc"], paths[arch]["flash_attention_fma"])
         check(got == (tc, fma) and paths[arch]["flash_attention"] == tc + fma,
@@ -5391,9 +5418,10 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     ``flash_attention`` the training path's (``train``: phase 14's launches,
     the check and the times at its shapes); ``flash_attention`` also dbrx's
     prefill shape (``dbrx``: phase 16's launches, (0)'s check and times),
-    recurrentgemma's local attention on the FMA route (``recurrentgemma``)
-    and phi-3-vision's prefill on the tensor-core route (``phi3v``), each
-    with phase 17's launches and (a)'s check and times."""
+    recurrentgemma's local attention (``recurrentgemma``) and phi-3-vision's
+    prefill (``phi3v``), both on the tensor-core route, each with phase
+    17's launches and (a)'s check and times; recurrentgemma's and the model
+    shape's also carry ``fma_ms`` and ``ms_again`` (``routes_in_turns``)."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -5452,7 +5480,7 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               dtype="bfloat16", tc_launches=launches["flash_attention_tc"],
               fma_launches=launches["flash_attention_fma"],
               fma_source="src/repro_torch/kernels/csrc/flash_attention.cu",
-              fma_ms=fa_t["model"]["fma_ms"], tc_ms_again=fa_t["model"]["ms_again"],
+              fma_ms=fa_t["model"]["fma_ms"], ms_again=fa_t["model"]["ms_again"],
               f32_ms=fa_t["model_f32"]["ms"],
               f32_plain_ms=fa_t["model_f32"]["plain_ms"],
               f32_library_ms=fa_t["model_f32"]["library_ms"],

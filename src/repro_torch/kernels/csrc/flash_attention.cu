@@ -1,7 +1,9 @@
 // Blockwise (flash) grouped-query attention, forward, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `flash_attention`
-// (src/repro/kernels/flash_attention.py, `_flash_kernel`).  Semantics of
+// (src/repro/kernels/flash_attention.py, `_flash_kernel`) for every f32 call
+// and for bf16 calls with D % 8 != 0; bf16 with D % 8 == 0 and D <= 256
+// takes the tensor-core kernel of `flash_attention_tc.cu`.  Semantics of
 // record: `repro_torch.kernels.ref.mha_attention`.
 //
 // q (B, Hq, S, D), k and v (B, Hkv, S, D), contiguous, f32 or bf16; out
@@ -37,8 +39,8 @@
 // first version runs the products as f32 FMAs from shared memory (each
 // thread a 4 x 4 logit tile, two FMAs per loaded element at least), not
 // on the tensor cores: its ceiling is the 67 TFLOP/s f32 rate, some 15x
-// under the bf16 tensor-core bound.  `mma.sync`/`wgmma` with TMA-fed tiles
-// are the later step.
+// under the bf16 tensor-core bound.  The bf16 calls that fit `wgmma`'s
+// shapes go to `flash_attention_tc.cu` instead.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

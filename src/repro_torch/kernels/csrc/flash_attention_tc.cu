@@ -3,9 +3,9 @@
 //
 // Replaces the Pallas TPU kernel `flash_attention`
 // (src/repro/kernels/flash_attention.py, `_flash_kernel`) for bf16 inputs
-// with D % 8 == 0 and D <= 128; every other call takes the f32-FMA kernel of
-// `flash_attention.cu`.  Semantics of record:
-// `repro_torch.kernels.ref.mha_attention`.
+// with D % 8 == 0 and 8 <= D <= 256; every other call (f32, or bf16 with
+// D % 8 != 0) takes the f32-FMA kernel of `flash_attention.cu`.  Semantics
+// of record: `repro_torch.kernels.ref.mha_attention`.
 //
 // q (B, Hq, S, D), k and v (B, Hkv, S, D), contiguous bf16; out (B, Hq, S, D)
 // bf16.  Query head h reads KV head h / (Hq / Hkv).  Logits scale * q.k in
@@ -17,24 +17,28 @@
 // What bounds it on the H100: bf16 tensor-core operations.  A causal prefill
 // at qwen3-32b's (4, 64/8, 2048, 128) does 2.75e11 flops of Q.K^T and P.V
 // (0.278 ms at 989 TFLOP/s) against 302 MB of q, k, v and out (0.090 ms at
-// 3.35 TB/s).  This kernel issues P.V twice (below), so its tensor-core work
-// is 1.5x the algorithm's: a ceiling of 0.417 ms.
+// 3.35 TB/s); recurrentgemma's local attention (4, 10/1, 2048, 256) does
+// 8.59e10 flops (0.0869 ms) against 92 MB (0.0276 ms).  This kernel issues
+// P.V twice (below), so its tensor-core work is 1.5x the algorithm's: a
+// ceiling of 0.417 and 0.130 ms.
 //
 // Design.  One block per (128-query tile, q head, batch), the query tiles
 // launched last-first so that the longest causal rows start first; the
 // q heads of one KV head are neighbours in the grid, so their K and V tiles
-// meet in L2.  Two consumer warpgroups own 64 query rows each (wgmma's M);
-// one thread of a producer warpgroup issues TMA loads: the Q tile once, then
-// K and V tiles of 128 keys through a ring of 2 stages, each stage with a
-// full barrier for K, one for V and an empty barrier that all 256 consumer
-// threads arrive on.  `setmaxnreg` moves registers from the producer (24 a
-// thread) to the consumers (240): 128 x 24 + 256 x 240 is the 384 x 168 the
-// block starts with (with a lone producer warp the increase never returns).
+// meet in L2 (recurrentgemma's ten q heads read one K/V stream).  Two
+// consumer warpgroups own 64 query rows each (wgmma's M); one thread of a
+// producer warpgroup issues TMA loads: the Q tile once, then K and V tiles
+// of BK keys through a ring of 2 stages, each stage with a full barrier for
+// K, one for V and an empty barrier that all 256 consumer threads arrive on.
+// `setmaxnreg` moves registers from the producer (24 a thread) to the
+// consumers (240): 128 x 24 + 256 x 240 is the 384 x 168 the block starts
+// with (with a lone producer warp the increase never returns).
 // Tiles land in shared memory with the 128-byte swizzle, in column blocks of
 // 64 (one 128-byte row each): the tensor maps are of rank 3, (D, S, B * H)
 // innermost first, so rows past S and columns past D are zero-filled by the
-// TMA unit and never read from the next head.
-//   S = Q.K^T: wgmma m64n128k16, Q and K from shared memory, both K-major, f32
+// TMA unit and never read from the next head.  D is padded to DP = 64, 128
+// or 256 in shared memory only (D = 136-248 runs as 256).
+//   S = Q.K^T: wgmma m64nBKk16, Q and K from shared memory, both K-major, f32
 //   accumulators in registers (bf16 products are exact in f32).  The mask is
 //   applied only on tiles that cross the diagonal, the window's left edge or
 //   S; whole tiles outside every row of a warpgroup are skipped.  A row's
@@ -44,17 +48,29 @@
 //   right for a scale of any sign, 0 included.  m = -inf is guarded
 //   (a row with nothing visible yet shifts by 0), so a window narrower than
 //   a tile adds exp2(-inf) = 0 and a correction of 0, never NaN.
-//   O += P.V: the accumulator layout of S is the A-operand layout of wgmma
-//   with A in registers, so P never goes through shared memory.  One bf16
-//   rounding of P puts the output outside the card check (rtol 2^-8, atol
-//   1e-4 against the f32 plain version; tests/test_torch_flash_split.py
-//   emulates both roundings), so P is split, P_hi = bf16(P) and
-//   P_lo = bf16(P - P_hi), and both products go into the one f32
-//   accumulator; V is an MN-major B.  l sums the f32 probabilities.
+//   O += P.V: wgmma m64nDPk16; the accumulator layout of S is the A-operand
+//   layout of wgmma with A in registers, so P never goes through shared
+//   memory.  One bf16 rounding of P puts the output outside the card check
+//   (rtol 2^-8, atol 1e-4 against the f32 plain version;
+//   tests/test_torch_flash_split.py emulates both roundings), so P is split,
+//   P_hi = bf16(P) and P_lo = bf16(P - P_hi), and both products go into the
+//   one f32 accumulator; V is an MN-major B.  l sums the f32 probabilities.
 //   A warpgroup runs S, the softmax and P.V of a tile in turn; the other
 //   warpgroup's products fill the tensor cores meanwhile.
 //   Epilogue: rows < S and columns < D only, stored from registers (a TMA
 //   store would cross into the next head).
+// The key tile BK follows the registers a consumer thread holds across a
+// tile: O (64 x DP f32 over 128 threads, DP / 2), S (BK / 2) and the two
+// bf16 halves of P (BK / 4 each), within setmaxnreg's 240.
+//   DP <= 128, BK = 128: 64 + 64 + 32 + 32 = 192 at DP = 128.  Shared memory:
+//     Q 32 KB, 2 stages of K and V at 32 KB each: 160 KB.
+//   DP = 256, BK = 64: O alone is 128; with BK = 128 the tile would need
+//     128 + 64 + 32 + 32 = 256 and spill, so the key tile halves: 128 + 32 +
+//     16 + 16 = 192.  S is m64n64k16 (16 a tile), P.V one m64n256k16 for
+//     each 16 keys and half of P (8 a tile).  Shared memory: Q 64 KB, a K or
+//     V stage 32 KB, 2 stages of each 128 KB, 192 KB in all with the
+//     barriers and 1 KB of alignment, one block an SM (3 stages would need
+//     256 KB, past the 227 KB a block can use).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,14 +83,13 @@ constexpr int kBQ = 128;                  // queries a block
 constexpr int kConsumers = 256;           // two warpgroups of 64 rows
 constexpr int kThreads = kConsumers + 128; // and a producer warpgroup: one thread loads
 constexpr int kRowBytes = 128;            // one swizzled row: 64 bf16 columns
-constexpr int kBK = 128;                  // keys a K/V tile
 constexpr int kStages = 2;                // K/V tiles in flight
 
-template <int DP>
+template <int DP, int BK>
 struct Layout {
   static constexpr int kColBlocks = DP / 64;
   static constexpr uint32_t kQBytes = kColBlocks * kBQ * kRowBytes;
-  static constexpr uint32_t kTileBytes = kColBlocks * kBK * kRowBytes;  // one K or V stage
+  static constexpr uint32_t kTileBytes = kColBlocks * BK * kRowBytes;   // one K or V stage
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kK = kQ + kQBytes;
   static constexpr uint32_t kV = kK + kStages * kTileBytes;
@@ -182,6 +197,26 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 64, f32) (+)= A (64 x 16, smem) . B (64 x 16, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                              uint64_t desc_b) {
@@ -232,37 +267,95 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D (64 x 256, f32) += A (64 x 16, registers) . B (16 x 256, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  if constexpr (N == 64) wgmma_ss_n64(d, desc_a, desc_b, accumulate);
+  else wgmma_ss_n128(d, desc_a, desc_b, accumulate);
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
   if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b);
-  else wgmma_rs_n128(d, a, desc_b);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, desc_b);
+  else wgmma_rs_n256(d, a, desc_b);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// S = Q . K^T (64 x kBK, f32) for one warpgroup's rows, issued and committed
-template <int DP>
-__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], uint32_t q_rows, uint32_t k_tile) {
+// S = Q . K^T (64 x BK, f32) for one warpgroup's rows, issued and committed
+template <int DP, int BK>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t q_rows, uint32_t k_tile) {
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;      // 16 columns = 32 bytes
     const uint64_t da = smem_desc(q_rows + (kk / 4) * kBQ * kRowBytes + off, 16, 1024);
-    const uint64_t db = smem_desc(k_tile + (kk / 4) * kBK * kRowBytes + off, 16, 1024);
-    wgmma_ss_n128(sc, da, db, kk > 0);
+    const uint64_t db = smem_desc(k_tile + (kk / 4) * BK * kRowBytes + off, 16, 1024);
+    wgmma_ss<BK>(sc, da, db, kk > 0);
   }
   wgmma_commit();
 }
 
-// O += P_hi . V + P_lo . V, issued and committed; V (kBK x DP) is an MN-major B
-template <int DP>
-__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&p_hi)[kBK / 16][4],
-                                         const uint32_t (&p_lo)[kBK / 16][4], uint32_t v_tile) {
+// O += P_hi . V + P_lo . V, issued and committed; V (BK x DP) is an MN-major B
+template <int DP, int BK>
+__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&p_hi)[BK / 16][4],
+                                         const uint32_t (&p_lo)[BK / 16][4], uint32_t v_tile) {
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) {
-    const uint64_t db = smem_desc(v_tile + kk * 16 * kRowBytes, kBK * kRowBytes, 1024);
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t db = smem_desc(v_tile + kk * 16 * kRowBytes, BK * kRowBytes, 1024);
     wgmma_rs<DP>(acc, p_hi[kk], db);
     wgmma_rs<DP>(acc, p_lo[kk], db);
   }
@@ -279,16 +372,17 @@ struct RowView {
 // mask (when `masked`), the online-softmax update of m and l, and the
 // probabilities split into the two bf16 A fragments of P.V.  `corr` is the
 // factor that carries O to the new row max.
-__device__ __forceinline__ void softmax(float (&sc)[kBK / 2], const RowView& rv, int k0,
+template <int BK>
+__device__ __forceinline__ void softmax(float (&sc)[BK / 2], const RowView& rv, int k0,
                                         bool masked, float (&m_run)[2], float (&l_run)[2],
-                                        float (&corr)[2], uint32_t (&p_hi)[kBK / 16][4],
-                                        uint32_t (&p_lo)[kBK / 16][4]) {
+                                        float (&corr)[2], uint32_t (&p_hi)[BK / 16][4],
+                                        uint32_t (&p_lo)[BK / 16][4]) {
   // scaled before the mask and the max, in log2 units: right for any sign of scale
 #pragma unroll
-  for (int i = 0; i < kBK / 2; ++i) sc[i] *= rv.scale_log2;
+  for (int i = 0; i < BK / 2; ++i) sc[i] *= rv.scale_log2;
   if (masked) {
 #pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) {
+    for (int i = 0; i < BK / 2; ++i) {
       const int kpos = k0 + 8 * (i / 4) + rv.col0 + (i % 2);
       const int qpos = rv.row + 8 * ((i / 2) % 2);
       bool ok = kpos < rv.s;
@@ -303,7 +397,7 @@ __device__ __forceinline__ void softmax(float (&sc)[kBK / 2], const RowView& rv,
   for (int h = 0; h < 2; ++h) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kBK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
       mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -314,7 +408,7 @@ __device__ __forceinline__ void softmax(float (&sc)[kBK / 2], const RowView& rv,
   }
   float rs[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk)
+  for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       // A-fragment register r of k-slice kk holds accumulator pair 8 kk + 2 r
@@ -331,14 +425,14 @@ __device__ __forceinline__ void softmax(float (&sc)[kBK / 2], const RowView& rv,
   for (int h = 0; h < 2; ++h) l_run[h] = l_run[h] * corr[h] + rs[h];
 }
 
-// DP: the head dim padded to 64 or 128
-template <int DP>
+// DP: the head dim padded to 64, 128 or 256; BK: keys a K/V tile
+template <int DP, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
                     int hq, int hkv, int s, int d, int causal, int window, float scale_log2) {
-  using L = Layout<DP>;
+  using L = Layout<DP, BK>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base + L::kQ, sk = base + L::kK, sv = base + L::kV;
@@ -351,9 +445,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q_last = min(q_first + kBQ, s) - 1;
 
   // the key tiles any row of this block can see
-  int kj_lo = 0, kj_hi = (s - 1) / kBK;
-  if (causal) kj_hi = min(kj_hi, q_last / kBK);
-  if (window > 0 && q_first - window + 1 > 0) kj_lo = (q_first - window + 1) / kBK;
+  int kj_lo = 0, kj_hi = (s - 1) / BK;
+  if (causal) kj_hi = min(kj_hi, q_last / BK);
+  if (window > 0 && q_first - window + 1 > 0) kj_lo = (q_first - window + 1) / BK;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -380,12 +474,12 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(bar_e + 8 * st, phase ^ 1);   // the consumers are done with this stage
         mbar_expect_tx(bar_k + 8 * st, L::kTileBytes);
         for (int c = 0; c < L::kColBlocks; ++c)
-          tma_load(sk + st * L::kTileBytes + c * kBK * kRowBytes, &tm_k, bar_k + 8 * st, 64 * c,
-                   kj * kBK, kvh);
+          tma_load(sk + st * L::kTileBytes + c * BK * kRowBytes, &tm_k, bar_k + 8 * st, 64 * c,
+                   kj * BK, kvh);
         mbar_expect_tx(bar_v + 8 * st, L::kTileBytes);
         for (int c = 0; c < L::kColBlocks; ++c)
-          tma_load(sv + st * L::kTileBytes + c * kBK * kRowBytes, &tm_v, bar_v + 8 * st, 64 * c,
-                   kj * kBK, kvh);
+          tma_load(sv + st * L::kTileBytes + c * BK * kRowBytes, &tm_v, bar_v + 8 * st, 64 * c,
+                   kj * BK, kvh);
         if (++st == kStages) {
           st = 0;
           phase ^= 1;
@@ -405,33 +499,33 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.0f;
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};   // l: this thread's part
-    float sc[kBK / 2], corr[2];
-    uint32_t p_hi[kBK / 16][4], p_lo[kBK / 16][4];
+    float sc[BK / 2], corr[2];
+    uint32_t p_hi[BK / 16][4], p_lo[BK / 16][4];
 
     mbar_wait(bar_q, 0);
     int st = 0;
     uint32_t phase = 0;
     for (int kj = kj_lo; kj <= kj_hi; ++kj) {
-      const int k0 = kj * kBK;
+      const int k0 = kj * BK;
       // a warpgroup waits for every stage it passes, skipped or not, so that
       // its arrival counts toward the phase of that stage's load and no other
       mbar_wait(bar_k + 8 * st, phase);
       if (r0 < s && (!causal || k0 <= min(r1, s - 1)) &&
-          (window == 0 || k0 + kBK - 1 > r0 - window)) {       // some row of ours sees the tile
+          (window == 0 || k0 + BK - 1 > r0 - window)) {       // some row of ours sees the tile
         hold(sc);
         wgmma_fence();
-        issue_qk<DP>(sc, q_rows, sk + st * L::kTileBytes);
+        issue_qk<DP, BK>(sc, q_rows, sk + st * L::kTileBytes);
         wgmma_wait_all();
         hold(sc);
-        const bool masked = k0 + kBK > s || (causal && k0 + kBK - 1 > r0) ||
+        const bool masked = k0 + BK > s || (causal && k0 + BK - 1 > r0) ||
                             (window > 0 && k0 <= r1 - window);
-        softmax(sc, rv, k0, masked, m_run, l_run, corr, p_hi, p_lo);
+        softmax<BK>(sc, rv, k0, masked, m_run, l_run, corr, p_hi, p_lo);
 #pragma unroll
         for (int i = 0; i < DP / 2; ++i) acc[i] *= corr[(i / 2) % 2];
         mbar_wait(bar_v + 8 * st, phase);
         hold(acc);
         wgmma_fence();
-        issue_pv<DP>(acc, p_hi, p_lo, sv + st * L::kTileBytes);
+        issue_pv<DP, BK>(acc, p_hi, p_lo, sv + st * L::kTileBytes);
         wgmma_wait_all();
         hold(acc);
         hold(p_hi);
@@ -510,13 +604,14 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int heads, 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP>
+template <int DP, int BK>
 int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int s,
            int d, int causal, int window, float scale, cudaStream_t stream) {
-  using L = Layout<DP>;
+  using L = Layout<DP, BK>;
+  static_assert(L::kAlloc <= 232448, "above the 227 KB a block can use");
   static bool attr_set = false;     // once per instantiation: above 48 KB needs the opt-in
   if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<DP>,
+    const cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<DP, BK>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(L::kAlloc));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -526,11 +621,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, 
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap tm_q, tm_k, tm_v;
   if (!make_map(encode, &tm_q, q, b * hq, s, d, kBQ) ||
-      !make_map(encode, &tm_k, k, b * hkv, s, d, kBK) ||
-      !make_map(encode, &tm_v, v, b * hkv, s, d, kBK))
+      !make_map(encode, &tm_k, k, b * hkv, s, d, BK) ||
+      !make_map(encode, &tm_v, v, b * hkv, s, d, BK))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(b * hq, (s + kBQ - 1) / kBQ);
-  flash_fwd_tc_kernel<DP><<<grid, kThreads, L::kAlloc, stream>>>(
+  flash_fwd_tc_kernel<DP, BK><<<grid, kThreads, L::kAlloc, stream>>>(
       tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), hq, hkv, s, d, causal, window,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
@@ -538,15 +633,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, 
 
 }  // namespace
 
-// bf16 q, k, v and out; 8 <= d <= 128 with d % 8 == 0, hq % hkv == 0, b * hq
+// bf16 q, k, v and out; 8 <= d <= 256 with d % 8 == 0, hq % hkv == 0, b * hq
 // below 2^31, 16-byte aligned pointers (the tensor maps refuse others).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* o,
                                          int b, int hq, int hkv, int s, int d, int causal,
                                          int window, float scale, void* stream) {
-  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || s <= 0 || d < 8 || d > 128 ||
+  if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || s <= 0 || d < 8 || d > 256 ||
       d % 8 != 0 || window < 0 || static_cast<long long>(b) * hq > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 64) return launch<64>(q, k, v, o, b, hq, hkv, s, d, causal, window, scale, st);
-  return launch<128>(q, k, v, o, b, hq, hkv, s, d, causal, window, scale, st);
+  if (d <= 64) return launch<64, 128>(q, k, v, o, b, hq, hkv, s, d, causal, window, scale, st);
+  if (d <= 128) return launch<128, 128>(q, k, v, o, b, hq, hkv, s, d, causal, window, scale, st);
+  return launch<256, 64>(q, k, v, o, b, hq, hkv, s, d, causal, window, scale, st);
 }

@@ -9,14 +9,18 @@ head h // (Hq / Hkv).  Semantics of record: ``ref.mha_attention``.
 Two device routes, picked from dtype and head dim before any launch:
 
 * tensor cores (``csrc/flash_attention_tc.cu``): bf16 with D % 8 == 0 and
-  D <= 128: the bf16 prefills of the dense GQA models (qwen3, qwen2.5,
-  qwen1.5), dbrx and phi-3-vision (D = 96).  ``wgmma`` for Q.K^T and P.V
-  with TMA-fed K/V tiles; P is split into two bf16 terms so that the output
-  keeps the f32 plain version's accuracy (see the source's header).
-* f32 FMAs (``csrc/flash_attention.cu``): everything else, every f32 call
-  and bf16 at other D, with 64-query tiles and D padded to 64, 128 or 256
-  in shared memory.  recurrentgemma's local attention (D = 256) takes it
-  in bf16 too.  (The MLA models never reach the kernel: their value width
+  8 <= D <= 256: the bf16 prefills of the dense GQA models (qwen3, qwen2.5,
+  qwen1.5), dbrx, phi-3-vision (D = 96) and recurrentgemma's local
+  attention (D = 256, MQA, window 2048).  ``wgmma`` for Q.K^T and P.V with
+  TMA-fed K/V tiles, D padded to 64, 128 or 256 in shared memory only; up
+  to D = 128 with 128-key tiles, at D = 256 with 64-key tiles, so that the
+  64 x 256 f32 output a warpgroup holds (128 registers a thread) and the
+  tile's logits and P fit the 240 registers a consumer thread gets.  P is
+  split into two bf16 terms so that the output keeps the f32 plain
+  version's accuracy (see the source's header).
+* f32 FMAs (``csrc/flash_attention.cu``): every f32 call and bf16 with
+  D % 8 != 0, with 64-query tiles and D padded to 64, 128 or 256 in shared
+  memory.  (The MLA models never reach the kernel: their value width
   differs from their query width.)
 
 What bounds it on the H100: operations (2 B Hq S^2 D multiply-adds for a
@@ -41,7 +45,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"tensor-core": ("flash_attention_tc", "flash_attention_tc_launch", _TC_ARGTYPES),
            "FMA": ("flash_attention", "flash_attention_launch", _ARGTYPES)}
 MAX_HEAD_DIM = 256
-TC_MAX_HEAD_DIM = 128
+TC_MAX_HEAD_DIM = 256
 _MAX_GRID_YZ = 65535
 
 

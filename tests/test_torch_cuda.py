@@ -24,7 +24,7 @@ f32 plain version at rtol/atol 1e-4 (another order of the D-term sums and
 an online softmax: a few ulps of logits of size ~10, carried through exp);
 in bf16 to the plain version on the same inputs in f32, at rtol 2**-8 (the
 output's one rounding to bf16 is at most 2**-9 relative) and atol 1e-4;
-bf16 with D % 8 == 0 and D <= 128 must take the tensor-core route (which
+bf16 with D % 8 == 0 and D <= 256 must take the tensor-core route (which
 splits P into two bf16 terms to stay inside that tolerance), every other
 call the FMA route.  ``regret_scan`` (a whole regret-harness run in one
 launch) equals the per-round route with the plain detector bit for bit in
@@ -387,6 +387,10 @@ _FLASH_SHAPES = [
     (1, 48, 8, 2048, 128, True, 0),   # dbrx-132b's heads, group 6
     (1, 2, 1, 77, 8, True, 0),        # the smallest tensor-core head dim
     (1, 4, 2, 150, 36, True, 0),      # bf16 on the FMA route: D % 8 != 0
+    (1, 10, 1, 300, 256, True, 0),    # tensor cores at D = 256, 64-key tiles: MQA
+    (1, 4, 1, 600, 256, True, 40),    # a window narrower than a 64-key tile
+    (2, 8, 2, 257, 200, True, 0),     # D = 200 padded to 256 in shared memory
+    (1, 4, 2, 300, 136, False, 0),    # D = 136, the narrowest head dim padded to 256
 ]
 
 
@@ -415,13 +419,15 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal, wi
         torch.testing.assert_close(got.float(), want, rtol=2.0 ** -8, atol=1e-4)
 
 
+@pytest.mark.parametrize("d", [64, 256])
 @pytest.mark.parametrize("scale", [-0.1, 0.0])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_attention_takes_a_scale_of_any_sign(cuda, scale, dtype):
+def test_flash_attention_takes_a_scale_of_any_sign(cuda, scale, dtype, d):
     """Both routes scale each logit before the mask and the row max, so a
     negative scale (the max of the scaled logits is the min of the raw ones)
-    and a scale of 0 (masked keys stay at -inf) match the plain version."""
-    q, k, v = _attn_inputs(1, 4, 2, 300, 64, dtype, cuda, seed=7)
+    and a scale of 0 (masked keys stay at -inf) match the plain version, at
+    both key tiles of the tensor-core route (D = 64 and 256)."""
+    q, k, v = _attn_inputs(1, 4, 2, 300, d, dtype, cuda, seed=7)
     got = ops.flash_attention(q, k, v, causal=True, window=0, scale=scale)
     want = ref.mha_attention(q.float(), k.float(), v.float(), causal=True, scale=scale)
     if dtype == torch.float32:
@@ -1371,7 +1377,7 @@ def test_doubling_scan_on_the_card_equals_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("shape,window,route", [
-    ((4, 10, 1, 2048, 256), 2048, "fma"),       # recurrentgemma-2b's local attention, MQA
+    ((4, 10, 1, 2048, 256), 2048, "tc"),        # recurrentgemma-2b's local attention, MQA
     ((4, 32, 32, 2192, 96), 0, "tc"),           # phi-3-vision: 144 patches + 2048 tokens
 ])
 def test_flash_attention_at_the_hybrid_and_vlm_shapes(cuda, shape, window, route):

@@ -32,6 +32,12 @@ JAX_SHAPES = [
     (1, 2, 2, 300, 64, True, 64),
     (2, 8, 4, 64, 96, True, 16),
 ]
+# head dims past 128, which the card's tensor-core route takes with 64-key tiles:
+# recurrentgemma's D = 256 with one KV head and a window, and D = 200 padded to 256
+WIDE_SHAPES = [
+    (1, 4, 1, 300, 256, True, 128),
+    (1, 4, 2, 257, 200, True, 0),
+]
 
 
 def _qkv(b, hq, hkv, s, d, seed):
@@ -50,7 +56,7 @@ def _j(*arrays):
     return [jnp.asarray(a) for a in arrays]
 
 
-@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", JAX_SHAPES)
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", JAX_SHAPES + WIDE_SHAPES)
 def test_flash_attention_matches_jax(b, hq, hkv, s, d, causal, window):
     q, k, v = _qkv(b, hq, hkv, s, d, seed=s * d)
     got = ops.flash_attention(*_t(q, k, v), causal=causal, window=window).numpy()

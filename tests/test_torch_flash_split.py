@@ -1,7 +1,8 @@
 """Why the tensor-core route of the port's ``flash_attention`` splits P.
 
 A plain-torch emulation of the kernel's arithmetic
-(``csrc/flash_attention_tc.cu``: 128-key tiles, a causal online softmax on
+(``csrc/flash_attention_tc.cu``: 128-key tiles up to D = 128 and 64-key
+tiles at D = 256, a causal online softmax on
 f32 logits of bf16 q and k, f32 accumulation, the output rounded once to
 bf16) meets the card check's tolerance (rtol 2^-8 / atol 1e-4, here
 against an f64 softmax) when P enters P.V as two bf16 terms,
@@ -16,7 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 
-def _emulate(q, k, v, split, tile=128):
+def _emulate(q, k, v, split, tile):
     """Causal attention over (H, S, D) bf16 inputs as the tensor-core kernel
     computes it: f32 logits, an online softmax over key tiles, P rounded to
     bf16 once or split into two bf16 terms, f32 accumulation, the output
@@ -52,15 +53,15 @@ def _exact(q, k, v):
     return torch.softmax(logits, -1) @ v.double()
 
 
-@pytest.mark.parametrize("h,s,d", [(4, 300, 32), (4, 257, 72)])
-def test_split_p_meets_the_card_tolerance_and_one_rounding_does_not(h, s, d):
+@pytest.mark.parametrize("h,s,d,tile", [(4, 300, 32, 128), (4, 257, 72, 128), (2, 300, 256, 64)])
+def test_split_p_meets_the_card_tolerance_and_one_rounding_does_not(h, s, d, tile):
     rng = np.random.default_rng(s * d)
     q, k, v = (torch.from_numpy((rng.standard_normal((h, s, d)) * sd).astype(np.float32))
                .to(torch.bfloat16) for sd in (0.5, 0.5, 1.0))
     want = _exact(q, k, v)
     outside = {}
     for split in (True, False):
-        got = _emulate(q, k, v, split).double()
+        got = _emulate(q, k, v, split, tile).double()
         outside[split] = int((~torch.isclose(got, want, rtol=2.0 ** -8, atol=1e-4)).sum())
     assert outside[True] == 0
     assert outside[False] > 0.02 * want.numel()

@@ -352,7 +352,7 @@ def _qkv(d, dtype, s=5):
     return q, kv
 
 
-@pytest.mark.parametrize("d", [8, 32, 64, 72, 96, 128])
+@pytest.mark.parametrize("d", [8, 32, 64, 72, 96, 128, 136, 200, 248, 256])
 def test_bf16_reaches_the_tensor_core_kernel(recorded, d):
     q, kv = _qkv(d, torch.bfloat16)
     before = _flash_counts()
@@ -367,7 +367,7 @@ def test_bf16_reaches_the_tensor_core_kernel(recorded, d):
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 8), (torch.float32, 64),
                                      (torch.float32, 128), (torch.float32, 256),
-                                     (torch.bfloat16, 36), (torch.bfloat16, 200),
+                                     (torch.bfloat16, 36), (torch.bfloat16, 196),
                                      (torch.bfloat16, 1)])
 def test_other_calls_reach_the_fma_kernel(recorded, dtype, d):
     q, kv = _qkv(d, dtype)
@@ -381,19 +381,19 @@ def test_other_calls_reach_the_fma_kernel(recorded, dtype, d):
 
 def test_route_is_picked_from_dtype_and_head_dim():
     assert [d for d in range(1, 257) if flash_mod.tc_route(torch.bfloat16, d)] == \
-        list(range(8, 129, 8))
+        list(range(8, 257, 8))
     assert not any(flash_mod.tc_route(torch.float32, d) for d in range(1, 257))
 
 
 def test_model_attention_takes_the_routes(recorded):
     """``ops.flash_attention`` and the model's ``attn_core`` route like the
-    wrapper: qwen3-32b's bf16 head dim of 128 and phi-3-vision's 96 to the
-    tensor cores, f32 and recurrentgemma's bf16 head dim of 256 (its local
-    attention, window 2048) to the FMA kernel."""
+    wrapper: qwen3-32b's bf16 head dim of 128, phi-3-vision's 96 and
+    recurrentgemma's 256 (its local attention, window 2048) to the tensor
+    cores, f32 to the FMA kernel."""
     for dtype, d, name in ((torch.bfloat16, 128, "flash_attention_tc"),
                            (torch.bfloat16, 96, "flash_attention_tc"),
                            (torch.float32, 128, "flash_attention"),
-                           (torch.bfloat16, 256, "flash_attention")):
+                           (torch.bfloat16, 256, "flash_attention_tc")):
         q, kv = _qkv(d, dtype, s=3)
         ops.flash_attention(q, kv, kv)
         attn_mod.attn_core(q, kv, kv, causal=True, window=2048)

@@ -73,9 +73,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``weighted_aggregate`` 150 times in the others.  Three rounds of two
    runs are first held against the same rounds on the CPU;
 6. the Fig. 2 path with ``detector_impl="recompute"`` on phase 3's env and
-   uniforms, on both routes as in phase 3 (``glr_scan`` T/5 times on the
-   rounds); the recompute scan must equal phase 3's streaming scan bit for
-   bit;
+   uniforms, on both routes as in phase 3 but for the rounds route's cut
+   (its first 5000 rounds, held to the scan's run of them: ``glr_scan``
+   1000 times); the recompute scan must equal phase 3's streaming scan bit
+   for bit at T=20000;
 7. the model zoo's serving path on qwen3-32b at full width: (a) 2 layers
    in f32, the prefill of one 2048-token prompt through the kernel route
    against the plain chunked route, then 12 teacher-forced decode steps
@@ -101,7 +102,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    env with 5 breakpoints, six on the adversarial table (flip_prob 0.002);
    the three ``regret_scan`` takes (piecewise glr-cucb and cucb-static,
    adversarial glr-cucb) at T=20000 on the scan route, the other twelve on
-   the per-round route at T=2000 (the cut: that route is host-bound), each
+   the per-round route at T=1000 (the cut: that route is host-bound), each
    with regret, sublinearity index, growth exponent, ms/round, route and
    counters, and its first 500 rounds held against the CPU run (bitwise;
    channel-aware and M-Exp3 rows may fork only at a near-tie); (b) Fig.
@@ -121,8 +122,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    chain, and the occupancy the runtime reports; (d) fig2c on M-Exp3, N in
    {4, 5, 6, 7}, 24 seeds with their own adversarial tables (flip_prob
    0.002) and one shared stream (as the JAX benchmark), on the batched
-   per-round route cut to T=2000, seeds 0 and 23 equal to their serial runs
-   over 500 rounds; (e) Fig. 2a's fifteen rows x 4 seeds at T=2000 as one
+   per-round route cut to T=1000, seeds 0 and 23 equal to their serial runs
+   over 500 rounds; (e) Fig. 2a's fifteen rows x 4 seeds at T=1000 as one
    ``sweep`` (15 buckets), each row's seed 0 equal to phase 9's run; (f) a
    recompute-detector bucket of 8 seeds at T=20000 on the scan; (g)
    ``sweep(shard=True)`` equal to ``sweep()`` for a bucket of 5;
@@ -143,7 +144,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    matched open-loop jammer (different restarts and regret); (d) Fig. 2's
    run (phase 3's env as the reactive jammer's base, T=20000) on the
    reactive template beside phase 3's open-loop scan in turns, its first
-   2000 rounds equal to the per-round route, and the occupancy of the
+   1000 rounds equal to the per-round route, and the occupancy of the
    three templates; (e) phase 4's Fig. 3 trainer on a reactive jammer over
    phase 4's env and on a Gilbert-Elliott process handed in unrealized
    (realized by the trainer from ``realize_generator``), three rounds of
@@ -256,7 +257,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``serve_loop`` at batch 8, context 2048, 32 tokens, peak memory, a
    profiled prefill's device time split into attention, the SSD chunk
    loop, the RG-LRU scan, the causal conv and the rest, and kernels a
-   decode step.
+   decode step;
+18. training the SSM, RG-LRU hybrid, VLM and audio families (hubert-xlarge,
+   mamba2-1.3b, recurrentgemma-2b, phi-3-vision-4.2b), one model at a
+   time: (0) ``flash_attention`` bf16 at the three attending models'
+   training shapes (hubert (8, 16/16, 2048, 80) non-causal, recurrentgemma
+   (8, 10/1, 2048, 256) window 2048, phi-3-vision (8, 32/32, 2192, 96)),
+   each on the tensor-core route against the f32 plain version (phase 2's
+   bf16 tolerance), timed beside the plain version and SDPA; (a) f32 at
+   full width, cut in depth (hubert, mamba2 and phi-3-vision 2 layers,
+   recurrentgemma one rglru, rglru, attn cycle), B=2 x 512: ``loss`` and
+   its gradients on the kernel route against the plain route (rtol/atol
+   2e-3, as phase 14 (a)), mamba2's (L = 256 chunks, the upper triangle's
+   exponent past exp's overflow) finite and equal to the CPU's run of the
+   same weights; (b) each smoke config in f32, three
+   ``make_fl_train_step`` rounds on the card against the CPU run, as phase
+   14 (b); (c) bf16 at full width and depth through ``launch/train.py``'s
+   ``setup`` / ``train_round`` (B = 8 x 2048, phi-3-vision's behind 144
+   patch embeddings, hubert's 2048 frames; ``remat="full"``, ``ce_chunk =
+   512``, the launcher's clients, channels and history, the step donating
+   its state), one warm-up round and three timed: the parameter count
+   against ``param_specs()``, finite losses, moved parameters (hubert's
+   never-read ``embed`` unchanged), ``flash_attention`` 96 / 0 / 16 / 64 a
+   step on the tensor-core route and ``glr_step`` once, ms a step,
+   positions a second, the model-FLOP share of 989 TFLOP/s, peak device
+   memory and a profiled step split into attention forward, the plain
+   attention backward, the SSD chunk loop, the RG-LRU scan and the rest.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -265,11 +291,17 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 256, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-17 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-18 only (no kernel line):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
+To keep the whole near 900 s with phase 18, three host-bound depths are
+cut, each printed where it runs: phase 6's rounds route to 5000 rounds
+(20000 before), the per-round Fig. 2a rows of phases 9 and 10 to T=1000
+(2000 before), phase 11 (d)'s rounds-route reference to 1000 rounds (2000
+before).
 
-Every path runs at the paper's sizes, uncut but for phase 9's two cuts
-and phase 10's per-round cut (T=2000), which they print (phases 11, 12 and 13
+Every path runs at the paper's sizes, uncut but for phase 9's two cuts,
+phase 10's per-round cut (T=1000) and phase 6's rounds route (5000 of
+its 20000 rounds), which they print (phases 11, 12 and 13
 run the JAX benchmarks' own non-quick sizes).  Weights, envs and randomness
 are made on the card from ``--seed``; the Fig. 3 data is the benchmark's
 synthetic problem, made on the host from seeds offset by ``--seed`` (seed
@@ -308,6 +340,7 @@ OLD_RANK_PAIR_OPS = 4          # the bound stated before: two compares, a select
 HOST_SPLIT_CALLS = 10_000      # calls averaged in each host-split piece
 FIG2_ROUNDS = 20000            # the paper's Fig. 2 horizon (benchmarks/run.py:175)
 FIG2_REF_ROUNDS = 5000         # the card-vs-CPU reference run of Fig. 2
+RECOMPUTE_ROUNDS_CUT = 5000    # phase 6's rounds route (host-bound, ~3.5 ms a round): T, cut
 SCAN_EDGE_ROUNDS = 1500        # each edge run of regret_scan against the rounds route (phase 2)
 FIG3_ROUNDS = 150              # the paper's Fig. 3 large-scale rounds (benchmarks/run.py:744-760)
 FIG3_REF_ROUNDS = 3            # the card-vs-CPU reference rounds of Fig. 3
@@ -327,7 +360,7 @@ SCHED_REQUESTS = 12 * SCHED_CAPACITY   # saturated and Poisson requests (:1382)
 SCHED_SERIAL_REQUESTS = 8 * SCHED_SLOTS   # the serial (slots=1) baseline's (:1383)
 SCHED_BIG_CAPACITY, SCHED_BIG_H = 10_000, 64   # the 10^4-tenant server (:1451-1455)
 SCHED_FL_ROUNDS = 10                   # run_served rounds on the Fig. 3 setup
-FIG2A_ROUNDS_CUT = 2000        # Fig. 2a rows on the per-round route (phase 9): T, cut from 20000
+FIG2A_ROUNDS_CUT = 1000        # Fig. 2a rows on the per-round route (phase 9): T, cut from 20000
 FL_SEEDS = 8                   # seeds a Fig. 3/4 row and fl_batch_bench (run.py:747, :804)
 FL_CHECKPOINTS = (40, 80, 150)  # a Fig. 3/4 row's segments, an accuracy eval at each end (:748)
 FL_BENCH_SEGMENT, FL_BENCH_SEGMENTS = 10, 6   # fl_batch_bench's segments (:805)
@@ -348,7 +381,7 @@ SCEN_ROUNDS = 2000             # its horizon (:509, non-quick)
 SCEN_SEEDS = 8                 # its seeds a scenario (:510)
 CHAOS_N, CHAOS_M = 8, 3        # chaos_suite's regret half (:1049-1050)
 CHAOS_ROUNDS = 4000            # its horizon, non-quick (:1049)
-REACT_REF_ROUNDS = 2000        # phase 11 (d): the reactive Fig. 2 run's rounds held to the rounds route
+REACT_REF_ROUNDS = 1000        # phase 11 (d): the reactive Fig. 2 run's rounds held to the rounds route
 # operations a channel a round of the reactive template beyond the open-loop scan:
 # reactive_means' sub, mul, neg, add, mul, rsub, mul and interact_step's mul, mul,
 # add (10), expf (~4: a scale, ex2, two fix-ups) and a correctly rounded division (~4)
@@ -381,6 +414,12 @@ RGEMMA_WINDOW = 2048           # recurrentgemma-2b's local attention window
 RGEMMA_ATTN = (SERVE_PREFILL_BATCH, 10, 1, SERVE_PROMPT, 256)         # its prefill attention
 PHI3V_ATTN = (SERVE_PREFILL_BATCH, 32, 32, 144 + SERVE_PROMPT, 96)    # 144 patches + the prompt
 RING_CUT, RING_STEPS = 64, 80  # (b): recurrentgemma's window cut to 64, 80 decode steps
+# phase 18's models, trained at full width and depth, and the depth of each one's f32
+# reference: hubert and phi-3-vision 2 layers, mamba2 2 SSD layers, recurrentgemma one whole
+# (rglru, rglru, attn) cycle
+TRAIN_FAMILIES = (("hubert-xlarge", 2), ("mamba2-1.3b", 2), ("recurrentgemma-2b", 3),
+                  ("phi-3-vision-4.2b", 2))
+FAMILY_ROUNDS, FAMILY_WARM = 4, 1   # (c): rounds a model, the first untimed
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention", "regret_scan", "glr_step_tenants", "glr_scan_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
@@ -1758,17 +1797,20 @@ def scan_work(sched, rounds, splits):
     return nbytes, KL_SPLIT_FLOPS * splits
 
 
-def fig2_routes(torch, label, sched, env, uniforms):
+def fig2_routes(torch, label, sched, env, uniforms, rounds_cut=None):
     """The T = FIG2_ROUNDS run on both routes, in turns scan, rounds, scan:
-    launch counts, bit-for-bit equality and each route's ms/round.  Returns
-    (the scan's output, summed launches, the scan's kernel-line fields)."""
+    launch counts, bit-for-bit equality and each route's ms/round.  With
+    ``rounds_cut`` the rounds route runs the first ``rounds_cut`` rounds
+    only and is held to the scan route's run of those rounds.  Returns (the
+    scan's output, summed launches, the scan's kernel-line fields)."""
     from repro_torch.core.regret import simulate_aoi_regret
     from repro_torch.kernels.regret_scan import regret_scan
 
     rounds = uniforms.shape[0]
+    cut = rounds_cut or rounds
     kernel = "glr_scan" if sched.detector_impl == "recompute" else "glr_step"
-    run = lambda impl: simulate_aoi_regret(sched, env, rounds, uniforms=uniforms,
-                                           return_state=True, impl=impl)
+    run = lambda impl, t=rounds: simulate_aoi_regret(sched, env, t, uniforms=uniforms[:t],
+                                                     return_state=True, impl=impl)
     reset_launches()
     scan, secs_scan = timed_run(torch, lambda: run(None))
     scan_launches = read_launches()
@@ -1777,30 +1819,32 @@ def fig2_routes(torch, label, sched, env, uniforms):
           and scan_launches["glr_step"] + scan_launches["glr_scan"] == 0,
           f"{label} scan: launches {scan_launches}, expected regret_scan once and no {kernel}")
     reset_launches()
-    rounds_out, secs_rounds = timed_run(torch, lambda: run("rounds"))
+    rounds_out, secs_rounds = timed_run(torch, lambda: run("rounds", cut))
     rounds_launches = read_launches()
-    check(rounds_launches[kernel] == rounds // sched.detector_stride
+    check(rounds_launches[kernel] == cut // sched.detector_stride
           and rounds_launches["regret_scan"] == 0,
           f"{label} rounds: {kernel} launched {rounds_launches[kernel]} times, expected "
-          f"{rounds // sched.detector_stride}, regret_scan {rounds_launches['regret_scan']}")
+          f"{cut // sched.detector_stride}, regret_scan {rounds_launches['regret_scan']}")
     _, secs_scan_again = timed_run(torch, lambda: run(None))
-    err = compare_routes(torch, scan, rounds_out, f"{label} scan vs rounds")
+    err = compare_routes(torch, scan if cut == rounds else run(None, cut), rounds_out,
+                         f"{label} scan vs rounds")
     bound, bound_by = two_way_bound(*scan_work(sched, rounds, splits), F32_FLOPS)
     ms_scan, ms_scan_again, ms_rounds = secs_scan * 1e3, secs_scan_again * 1e3, secs_rounds * 1e3
     line(f"  {label} scan route: T={rounds} {ms_scan:.3f} ms a run ({ms_scan / rounds:.6f} "
          f"ms/round), again {ms_scan_again:.3f} ms; regret_scan.launches="
          f"{scan_launches['regret_scan']}, {splits} GLR splits, bound {bound:.2e} ms ({bound_by})")
-    line(f"  {label} rounds route: T={rounds} {ms_rounds:.1f} ms a run ({ms_rounds / rounds:.4f} "
-         f"ms/round), {ms_rounds / ms_scan:.0f}x the scan's; {kernel}.launches="
-         f"{rounds_launches[kernel]}")
-    line(f"  {label}: schedule, restarts={int(scan['restarts'])}, regret, AoI, success rate and "
-         f"final state of the two routes bitwise equal, variance sums within rtol 1e-6")
+    line(f"  {label} rounds route: T={cut}{' (cut)' if cut < rounds else ''} {ms_rounds:.1f} ms "
+         f"a run ({ms_rounds / cut:.4f} ms/round), {ms_rounds / cut / (ms_scan / rounds):.0f}x "
+         f"the scan's a round; {kernel}.launches={rounds_launches[kernel]}")
+    line(f"  {label}: schedule, restarts={int(rounds_out['restarts'])}, regret, AoI, success rate "
+         f"and final state of the two routes over {cut} rounds bitwise equal, variance sums "
+         f"within rtol 1e-6")
     launches = {k: scan_launches[k] + rounds_launches[k] for k in COUNTERS}
     fields = dict(scan_source="src/repro_torch/kernels/csrc/regret_scan.cu",
                   scan_launches=scan_launches["regret_scan"], scan_rounds=rounds,
                   scan_ms=ms_scan, scan_ms_again=ms_scan_again, scan_ms_per_round=ms_scan / rounds,
-                  scan_plain_ms=ms_rounds, scan_bound_ms=bound, scan_bound_by=bound_by,
-                  scan_splits=splits, scan_max_abs_err=err)
+                  scan_plain_ms=ms_rounds, scan_plain_rounds=cut, scan_bound_ms=bound,
+                  scan_bound_by=bound_by, scan_splits=splits, scan_max_abs_err=err)
     return scan, launches, fields
 
 
@@ -1910,7 +1954,7 @@ def fig2_recompute(torch, f2):
 
     sched = GLRCUCB(f2["n"], f2["m"], history=1024, detector_stride=5, detector_impl="recompute")
     out, launches, scan_fields = fig2_routes(torch, "fig2 recompute", sched, f2["env"],
-                                             f2["uniforms"])
+                                             f2["uniforms"], RECOMPUTE_ROUNDS_CUT)
     ref = f2["out"]
     for k in BITWISE_OUT + VAR_OUT:
         check(torch.equal(out[k], ref[k]), f"fig2 recompute: {k} differs from the streaming scan")
@@ -4124,12 +4168,58 @@ def adam_round_close(torch, params, opt, ref_params, ref_opt, slack, lr, what, b
     return slack, beyond
 
 
-def train_reference(torch, seed):
-    """(a) qwen1.5-0.5b at full width (d 1024, V 151,936), 2 layers, f32:
-    one ``loss`` and its gradients on the kernel route (the FMA kernel,
-    forward and the checkpoint's recompute) against the plain route: the
-    loss at rtol / atol 2e-3 (phase 7's tolerance), each gradient at rtol
-    2e-3 and atol min(2e-3, 1e-4 of its tensor's largest entry)."""
+def grads_close(torch, got, want, what):
+    """Each gradient of ``got`` within rtol 2e-3 and atol min(2e-3, 1e-4 of
+    its tensor's largest entry) of ``want``'s.  Returns (the largest
+    |diff|, the largest |grad|, the worst tensor's largest |diff| over its
+    largest |grad|)."""
+    g_err, g_max, g_rel = 0.0, 0.0, 0.0
+    for k, g in want.items():
+        top = float(g.abs().max())
+        atol = min(2e-3, 1e-4 * top)
+        check(bool(torch.isfinite(got[k]).all()) and torch.allclose(got[k], g, rtol=2e-3, atol=atol),
+              f"{what}: gradient {k} beyond rtol 2e-3 / atol {atol:.2e}")
+        err = float((got[k] - g).abs().max())
+        g_err, g_max = max(g_err, err), max(g_max, top)
+        g_rel = max(g_rel, err / max(top, 1e-30))
+    return g_err, g_max, g_rel
+
+
+def attn_layers(cfg, n_layers=None):
+    """The layers of ``cfg`` (its first ``n_layers``) that attend: one
+    ``flash_attention`` launch each a prefill."""
+    return sum(cfg.layer_kind(i) == "attn"
+               for i in range(cfg.n_layers if n_layers is None else n_layers))
+
+
+def ssd_upper_exponent(torch, params, cfg, batch):
+    """The largest upper-triangle decay exponent cum_i - cum_j (i < j) of
+    the first SSD layer's chunks on ``batch``: exp overflows f32 past 88.7."""
+    from torch.nn import functional as F
+
+    from repro_torch.models.layers import rms_norm
+
+    u = rms_norm(params["embed"][batch["tokens"].long()], params["blocks/b/norm1"][0],
+                 cfg.norm_eps)
+    dt = F.softplus((u @ params["blocks/b/ssm/w_dt"][0]).float()
+                    + params["blocks/b/ssm/dt_bias"][0].float())
+    rate = dt * torch.exp(params["blocks/b/ssm/a_log"][0].float())          # -a dt >= 0
+    s = rate.shape[1] // cfg.ssm_chunk * cfg.ssm_chunk
+    chunks = rate[:, :s].reshape(rate.shape[0], -1, cfg.ssm_chunk, rate.shape[-1])
+    return float((chunks.sum(2) - chunks[:, :, 0]).max())
+
+
+def train_reference(torch, seed, arch=TRAIN_ARCH, n_layers=TRAIN_REF_LAYERS,
+                    label="phase 14 (a)"):
+    """(a) ``arch`` at full width, ``n_layers`` deep, f32, B=2 and
+    ``TRAIN_REF_S`` positions (a VLM's behind its patch embeddings, an
+    audio model's frames): one ``loss`` and its gradients on the kernel
+    route (the FMA kernel, forward and the checkpoint's recompute: twice an
+    attention layer) against the plain route: the loss at rtol / atol 2e-3
+    (phase 7's tolerance), each gradient at ``grads_close``'s rule.  An SSM
+    (its L = 256 chunks take the upper triangle's exponent past exp's f32
+    overflow) is also run on the CPU on the same weights: its gradients
+    finite and equal to the card's by the same rule."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4137,40 +4227,44 @@ def train_reference(torch, seed):
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_REF_LAYERS, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
     gen = torch.Generator(device="cuda").manual_seed(seed + 140)
     model = build_model(cfg, remat="full")
     params, _ = model.init(gen, device="cuda")
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, TRAIN_REF_S), generator=gen,
-                                     device="cuda", dtype=torch.int32)}
+    batch = model_batch(torch, cfg, 2, TRAIN_REF_S, gen)
     w = torch.tensor([1.0, 0.5], device="cuda")
+    n_attn = 2 * attn_layers(cfg)
     before = (kernel.fma_launches, kernel.tc_launches)
     lk, _, gk = loss_and_grads(model, params, batch, w)
     torch.cuda.synchronize()
     launched = (kernel.fma_launches - before[0], kernel.tc_launches - before[1])
-    check(launched == (2 * TRAIN_REF_LAYERS, 0),
-          f"phase 14 (a): kernel route launched {launched} (FMA, tensor-core), expected "
-          f"{2 * TRAIN_REF_LAYERS} FMA")
+    check(launched == (n_attn, 0),
+          f"{label}: kernel route launched {launched} (FMA, tensor-core), expected {n_attn} FMA")
     lp, _, gp = loss_and_grads(build_model(cfg, remat="full", attn_impl="plain"), params, batch, w)
-    check(kernel.fma_launches - before[0] == 2 * TRAIN_REF_LAYERS, "phase 14 (a): the plain "
-          "route ran the kernel")
+    check(kernel.fma_launches - before[0] == n_attn, f"{label}: the plain route ran the kernel")
     check(bool(torch.isfinite(lk)) and torch.allclose(lk, lp, rtol=2e-3, atol=2e-3),
-          f"phase 14 (a): loss {float(lk)} against the plain route's {float(lp)}")
-    g_err, g_max, g_rel = 0.0, 0.0, 0.0
-    for k, g in gp.items():
-        top = float(g.abs().max())
-        atol = min(2e-3, 1e-4 * top)
-        check(torch.allclose(gk[k], g, rtol=2e-3, atol=atol),
-              f"phase 14 (a): gradient {k} beyond rtol 2e-3 / atol {atol:.2e} of the plain route")
-        err = (gk[k] - g).abs()
-        g_err, g_max = max(g_err, float(err.max())), max(g_max, top)
-        g_rel = max(g_rel, float(err.max()) / max(top, 1e-30))
-    line(f"  (a) {cfg.name} width {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.n_layers} layers, "
-         f"f32, B=2 S={TRAIN_REF_S}: loss and gradients, kernel route (FMA, {launched[0]} "
+          f"{label}: loss {float(lk)} against the plain route's {float(lp)}")
+    g_err, g_max, g_rel = grads_close(torch, gk, gp, f"{label} kernel vs plain route")
+    kinds = ", ".join(sorted({cfg.layer_kind(i) for i in range(n_layers)}))
+    s_total = TRAIN_REF_S + (cfg.frontend_tokens if cfg.arch_type == "vlm" else 0)
+    line(f"  (a) {cfg.name} width {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.n_layers} layers "
+         f"({kinds}), f32, B=2 S={s_total}: loss and gradients, kernel route (FMA, {launched[0]} "
          f"launches: forward and recompute) vs plain route: loss {float(lk):.6f} / "
          f"{float(lp):.6f}, gradients max_abs_err {g_err:.3e} (max |grad| {g_max:.3e}; worst "
          f"tensor's max_abs_err / its max |grad| {g_rel:.3e}; rtol 2e-3, atol min(2e-3, 1e-4 "
          f"max |grad|)) ok")
+    if cfg.arch_type == "ssm":
+        expo = ssd_upper_exponent(torch, params, cfg, batch)
+        check(expo > 88.72, f"{label}: the upper-triangle exponent {expo:.1f} does not overflow")
+        cpu = lambda t: {k: v.cpu() for k, v in t.items()}
+        lc, _, gc = loss_and_grads(model, cpu(params), cpu(batch), w.cpu())
+        check(torch.allclose(lk.cpu(), lc, rtol=2e-3, atol=2e-3),
+              f"{label}: the card's loss {float(lk)} against the CPU's {float(lc)}")
+        c_err, _, c_rel = grads_close(torch, cpu(gk), gc, f"{label} card vs CPU")
+        line(f"  (a) {cfg.name} f32: L = {cfg.ssm_chunk} chunks, upper-triangle exponent up to "
+             f"{expo:.1f} (exp's f32 overflow 88.7): the card's gradients finite and equal to the "
+             f"CPU's run of the same weights, max_abs_err {c_err:.3e} (worst tensor's / its max "
+             f"|grad| {c_rel:.3e}) ok")
     del params, gk, gp
     release(torch)
 
@@ -4180,15 +4274,17 @@ def _tree_to(tree, dev):
     return tree_map(lambda x: x.to(dev) if hasattr(x, "to") else x, tree)
 
 
-def train_card_vs_cpu(torch, seed):
-    """(b) three ``make_fl_train_step`` rounds at the qwen1.5 smoke config
-    in f32 on the card against the same rounds on the CPU (same initial
-    state, tokens and uniforms): AoI, the scheduler's state, the count and
+def train_card_vs_cpu(torch, seed, arch=TRAIN_ARCH, label="phase 14 (b)"):
+    """(b) three ``make_fl_train_step`` rounds at ``arch``'s smoke config in
+    f32 on the card against the same rounds on the CPU (same initial
+    state, batches and uniforms): AoI, the scheduler's state, the count and
     ``n_success`` bit for bit; loss, contributions, zeta at rtol 1e-4;
-    moments and parameters as ``adam_round_close`` holds them.  On the card
-    each round launches ``glr_step`` once and ``flash_attention`` twice a
-    layer on the FMA route (the forward and the checkpoint's recompute); on
-    the CPU nothing launches."""
+    moments and parameters as ``adam_round_close`` holds them, on the run
+    carried over the rounds and on each round stepped on the card from the
+    CPU's state before it.  On the card each round launches ``glr_step``
+    once and ``flash_attention`` twice an attention layer on the FMA route
+    (the forward and the checkpoint's recompute); on the CPU nothing
+    launches."""
     import dataclasses
 
     import numpy as np
@@ -4201,36 +4297,48 @@ def train_card_vs_cpu(torch, seed):
     from repro_torch.models import build_model
     from repro_torch.optim import adamw
 
-    cfg = dataclasses.replace(get_smoke_config(TRAIN_ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     lr, rounds = 1e-3, TRAIN_REF_ROUNDS
     model, sched, opt = build_model(cfg, remat="full"), GLRCUCB(8, 4, history=32), adamw(lr)
     means = np.array([np.linspace(0.9, 0.2, 8), np.linspace(0.2, 0.9, 8)], np.float32)
     state0 = make_train_state_init(model, opt, sched, 4)(
         torch.Generator().manual_seed(seed + 141), device="cpu")
     data = synthetic_lm_batches(8, 64, cfg.vocab_size, seed=seed + 142)
-    toks = [torch.from_numpy(next(data)) for _ in range(rounds)]
+    gen = torch.Generator().manual_seed(seed + 146)
+    batches = []
+    for _ in range(rounds):
+        batch = model_batch(torch, cfg, 8, 64, gen, "cpu")
+        if "tokens" in batch:
+            batch["tokens"] = torch.from_numpy(next(data))
+        batches.append(batch)
     u = torch.rand((rounds, 2, 8), generator=torch.Generator().manual_seed(seed + 143))
     wrappers = kernel_wrappers()
     counters = lambda: (wrappers["glr_step"].launches, wrappers["flash_attention"].fma_launches,
                         wrappers["flash_attention"].tc_launches)
+    to = lambda batch, dev: {k: v.to(dev) for k, v in batch.items()}
+    n_attn = 2 * attn_layers(cfg)
+    steps = {dev: make_fl_train_step(model, opt, sched, make_piecewise(means, [1], device=dev), 4)
+             for dev in ("cpu", "cuda")}
     runs = {}
     for dev in ("cpu", "cuda"):
-        step = make_fl_train_step(model, opt, sched, make_piecewise(means, [1], device=dev), 4)
         state, out = _tree_to(state0, dev), []
         before = counters()
         for r in range(rounds):
-            state, met = step(state, {"tokens": toks[r].to(dev)}, u[r, 0].to(dev),
-                              u[r, 1].to(dev))
+            state, met = steps[dev](state, to(batches[r], dev), u[r, 0].to(dev), u[r, 1].to(dev))
             out.append(_tree_to((state, met), "cpu"))
         launched = tuple(a - b for a, b in zip(counters(), before))
-        want = (rounds, rounds * 2 * cfg.n_layers, 0) if dev == "cuda" else (0, 0, 0)
-        check(launched == want, f"phase 14 (b) on {dev}: launched (glr_step, flash_attention "
+        want = (rounds, rounds * n_attn, 0) if dev == "cuda" else (0, 0, 0)
+        check(launched == want, f"{label} on {dev}: launched (glr_step, flash_attention "
               f"FMA, tensor-core) {launched}, expected {want}")
         runs[dev] = out
+    # each round again on the card, from the CPU's state before it
+    forced = [_tree_to(steps["cuda"](_tree_to(state0 if r == 0 else runs["cpu"][r - 1][0], "cuda"),
+                                     to(batches[r], "cuda"), u[r, 0].cuda(), u[r, 1].cuda())[0],
+                       "cpu") for r in range(rounds)]
     slack = {k: torch.zeros_like(v) for k, v in state0.params.items()}
     worst, beyond = 0.0, 0
     for r, ((cs, cm), (gs, gm)) in enumerate(zip(runs["cpu"], runs["cuda"])):
-        at = f"phase 14 (b) round {r}"
+        at = f"{label} round {r}"
         check(torch.equal(gs.fl.aoi, cs.fl.aoi) and gs.fl.t == cs.fl.t == r + 1, f"{at}: aoi")
         check(same_tree(torch, gs.fl.sched_state, cs.fl.sched_state), f"{at}: scheduler state")
         check(torch.equal(gs.opt_state["count"], cs.opt_state["count"]), f"{at}: count")
@@ -4241,6 +4349,9 @@ def train_card_vs_cpu(torch, seed):
             check(torch.allclose(a, c, rtol=1e-4, atol=0), f"{at}: {name} beyond rtol 1e-4")
         slack, n = adam_round_close(torch, gs.params, gs.opt_state, cs.params, cs.opt_state,
                                     slack, lr, at)
+        adam_round_close(torch, forced[r].params, forced[r].opt_state, cs.params, cs.opt_state,
+                         {k: torch.zeros_like(v) for k, v in slack.items()}, lr,
+                         f"{at} (stepped from the CPU's state)")
         beyond = max(beyond, n)
         for k, p in cs.params.items():
             worst = max(worst, float(((gs.params[k] - p).abs() / (p.abs() + 1e-6)).max()))
@@ -4248,8 +4359,9 @@ def train_card_vs_cpu(torch, seed):
     line(f"  (b) {cfg.name} f32, {rounds} rounds of make_fl_train_step on the card equal the CPU "
          f"run: AoI, scheduler state, n_success bit for bit; loss, contributions, zeta rtol 1e-4; "
          f"moments rtol 1e-4; params (largest |diff| / (|p| + 1e-6) {worst:.3e}; at most {beyond} "
-         f"of {n_params} entries beyond rtol 1e-4 / atol 1e-6, inside the AdamW slack) ok; "
-         f"launches a round: glr_step 1, flash_attention (FMA) {2 * cfg.n_layers}")
+         f"of {n_params} entries beyond rtol 1e-4 / atol 1e-6, inside the AdamW slack) ok, each "
+         f"round also from the CPU's state ok; launches a round: glr_step 1, flash_attention "
+         f"(FMA) {n_attn}")
 
 
 def train_microbatches(torch, seed):
@@ -4353,6 +4465,27 @@ def range_device_us(events, name):
                and e.get("args", {}).get("correlation") in corr), len(spans)
 
 
+def timed_rounds(torch, train, run, state, rounds, warm):
+    """``rounds`` of ``train.train_round`` from ``state``, the launch
+    counters reset first: (the state, each round's metrics, ms a step over
+    the rounds after the first ``warm`` (host clock), ms between the timed
+    steps' CUDA events, the launches)."""
+    reset_launches()
+    mets, marks = [], []
+    for t in range(rounds):
+        if t == warm:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        state, met = train.train_round(run, state)
+        mets.append(met)
+        marks.append(torch.cuda.Event(enable_timing=True))   # the step's end on the stream
+        marks[-1].record()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) / (rounds - warm) * 1e3
+    spread = [a.elapsed_time(b) for a, b in zip(marks[warm - 1:], marks[warm:])]
+    return state, mets, step_ms, spread, read_launches()
+
+
 def train_path(torch, seed):
     """(d) qwen1.5-0.5b at full width and depth in bf16 through the CLI's
     own functions (``launch.train.parse_args``, ``setup``, ``train_round``):
@@ -4387,20 +4520,9 @@ def train_path(torch, seed):
          f"{TRAIN_CLIENTS} clients over {TRAIN_CHANNELS} channels, B={TRAIN_B} S={TRAIN_S}, "
          f"AdamW lr {TRAIN_LR}; set up on the card in {setup_s:.2f} s")
 
-    reset_launches()
-    mets, marks = [], []
-    for t in range(TRAIN_ROUNDS):
-        if t == TRAIN_WARM:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-        state, met = train.train_round(run, state)
-        mets.append(met)
-        marks.append(torch.cuda.Event(enable_timing=True))   # the step's end on the stream
-        marks[-1].record()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t1) / (TRAIN_ROUNDS - TRAIN_WARM) * 1e3
-    spread = sorted(a.elapsed_time(b) for a, b in zip(marks[TRAIN_WARM - 1:], marks[TRAIN_WARM:]))
-    launches = read_launches()
+    state, mets, step_ms, spread, launches = timed_rounds(torch, train, run, state, TRAIN_ROUNDS,
+                                                          TRAIN_WARM)
+    spread = sorted(spread)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(m["loss"]) for m in mets]
     succ = [int(m["n_success"]) for m in mets]
@@ -4802,12 +4924,12 @@ def served_baselines(torch, seed, phase8_launches):
 # phase 16: MLA and MoE serving
 # ---------------------------------------------------------------------------
 
-def attention_at(torch, gen, shape, window, label, floor_ms, fma_turns=False):
+def attention_at(torch, gen, shape, window, label, floor_ms, fma_turns=False, causal=True):
     """``flash_attention`` at a model's prefill ``shape`` (B, Hq, Hkv, S, D),
-    bf16 causal with ``window``: on the route ``tc_route`` picks, within
-    rtol 2**-8 / atol 1e-4 of the f32 plain version (phase 2's bf16
+    bf16, causal (or not) with ``window``: on the route ``tc_route`` picks,
+    within rtol 2**-8 / atol 1e-4 of the f32 plain version (phase 2's bf16
     tolerance), timed beside the plain version and SDPA (``enable_gqa``;
-    the window must then cover S, so that causal is the same mask), none of
+    the window must then cover S, so that SDPA's mask is the same), none of
     it counted as launches of a path.  With ``fma_turns`` the tensor-core
     route is timed twice, around the FMA route on the same inputs
     (``routes_in_turns``), and the line adds the split-P ceiling.  Prints
@@ -4825,8 +4947,8 @@ def attention_at(torch, gen, shape, window, label, floor_ms, fma_turns=False):
     tc = tc_route(torch.bfloat16, d)
     route = "tensor-core" if tc else "FMA"
     before = (fa_kernel.tc_launches, fa_kernel.fma_launches)
-    got = ops.flash_attention(q, k, v, causal=True, window=window)
-    want = ref.mha_attention(q.float(), k.float(), v.float(), causal=True, window=window)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.mha_attention(q.float(), k.float(), v.float(), causal=causal, window=window)
     torch.cuda.synchronize()
     check((fa_kernel.tc_launches, fa_kernel.fma_launches) == (before[0] + tc, before[1] + (not tc)),
           f"{label}: flash_attention {shape} bf16 not on the {route} route")
@@ -4835,18 +4957,19 @@ def attention_at(torch, gen, shape, window, label, floor_ms, fma_turns=False):
           f"{label}: flash_attention {shape} beyond rtol 2^-8 atol 1e-4 ({err:.3e})")
     del got, want
     check(window == 0 or window >= s, f"{label}: SDPA takes no window shorter than S")
-    check(tc or not fma_turns,
-          f"{label}: the FMA route is timed in turns only beside the tensor cores")
+    check(tc and causal or not fma_turns,
+          f"{label}: the FMA route is timed in turns only beside the tensor cores, causal")
     times = (routes_in_turns(torch, q, k, v, window, 20) if fma_turns else
-             dict(ms=time_ms(torch, lambda: fa_kernel(q, k, v, causal=True, window=window), 20)))
-    fa = dict(shape_b_hq_hkv_s_d=list(shape), causal=True, window=window, dtype="bfloat16",
+             dict(ms=time_ms(torch, lambda: fa_kernel(q, k, v, causal=causal, window=window),
+                             20)))
+    fa = dict(shape_b_hq_hkv_s_d=list(shape), causal=causal, window=window, dtype="bfloat16",
               route="cuda-" + ("tc" if tc else "fma"), max_abs_err=err, **times,
-              plain_ms=time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=True,
+              plain_ms=time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=causal,
                                                                 window=window), 3),
               library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-                  q, k, v, is_causal=True, enable_gqa=True), 20))
-    fa["bound_ms"], fa["bound_by"] = attn_bound_ms(shape, True, window, 2, BF16_TC_FLOPS)
-    flops = 4 * b * hq * d * attn_pairs(s, True, window)
+                  q, k, v, is_causal=causal, enable_gqa=True), 20))
+    fa["bound_ms"], fa["bound_by"] = attn_bound_ms(shape, causal, window, 2, BF16_TC_FLOPS)
+    flops = 4 * b * hq * d * attn_pairs(s, causal, window)
     turns = ""
     if fma_turns:
         split_ms = 1.5 * flops / BF16_TC_FLOPS * 1e3
@@ -4854,7 +4977,8 @@ def attention_at(torch, gen, shape, window, label, floor_ms, fma_turns=False):
                  f"({flops / fa['fma_ms'] / 1e9:.1f} TFLOP/s, "
                  f"{fa['fma_ms'] / fa['ms']:.1f}x), split-P ceiling {split_ms:.4f} ms "
                  f"(1.5x the products)")
-    line(f"  {label} flash_attention (B, Hq, Hkv, S, D)={shape} causal window {window} bf16, "
+    line(f"  {label} flash_attention (B, Hq, Hkv, S, D)={shape} "
+         f"{'causal' if causal else 'non-causal'} window {window} bf16, "
          f"{route} route: max_abs_err {err:.3e} vs f32 plain (rtol 2^-8 atol 1e-4) ok; kernel "
          f"{fa['ms']:.4f} ms ({flops / fa['ms'] / 1e9:.1f} TFLOP/s){turns}, plain "
          f"{fa['plain_ms']:.4f} ms, library (SDPA, enable_gqa) {fa['library_ms']:.4f} ms, "
@@ -5159,23 +5283,26 @@ def mla_moe_serving(torch, seed, floor_ms):
 # phase 17: SSM, RG-LRU hybrid and VLM serving
 # ---------------------------------------------------------------------------
 
-def hybrid_batch(torch, cfg, b, s, gen):
-    """A prefill batch: ``b`` prompts of ``s`` random tokens, and for a VLM
-    ``frontend_tokens`` random patch embeddings each (std 1, in the model's
-    dtype: the stub frontend's output)."""
+def model_batch(torch, cfg, b, s, gen, device="cuda"):
+    """A batch of ``cfg``'s family drawn from ``gen`` on ``device``: ``b``
+    sequences of ``s`` random tokens, and for a VLM ``frontend_tokens``
+    random patch embeddings each (std 1, in the model's dtype: the stub
+    frontend's output); for the audio encoder ``s`` frames (std 1, in the
+    model's dtype), random labels and a mask at ``mask_prob``."""
     from repro_torch.models.layers import torch_dtype
 
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda",
+    dt = torch_dtype(cfg.dtype)
+    if cfg.arch_type == "audio":
+        return {"frames": torch.randn((b, s, cfg.d_model), generator=gen, device=device).to(dt),
+                "labels": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=device,
+                                        dtype=torch.int32),
+                "mask": torch.rand((b, s), generator=gen, device=device) < cfg.mask_prob}
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=device,
                                      dtype=torch.int32)}
     if cfg.arch_type == "vlm":
         batch["vision_embeds"] = torch.randn((b, cfg.frontend_tokens, cfg.d_model), generator=gen,
-                                             device="cuda").to(torch_dtype(cfg.dtype))
+                                             device=device).to(dt)
     return batch
-
-
-def hybrid_kernel_launches(cfg, n_layers):
-    """``flash_attention`` launches a prefill: one an attention layer."""
-    return sum(cfg.layer_kind(i) == "attn" for i in range(n_layers))
 
 
 def hybrid_reference(torch, seed, arch, n_layers, window=None, steps=DECODE_REF_STEPS):
@@ -5199,8 +5326,8 @@ def hybrid_reference(torch, seed, arch, n_layers, window=None, steps=DECODE_REF_
     gen = torch.Generator(device="cuda").manual_seed(seed + 170)
     model, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
     params, _ = model.init(gen, device="cuda")
-    batch = hybrid_batch(torch, cfg, 1, SERVE_PROMPT, gen)
-    kern = hybrid_kernel_launches(cfg, n_layers)
+    batch = model_batch(torch, cfg, 1, SERVE_PROMPT, gen)
+    kern = attn_layers(cfg, n_layers)
     before, before_fma = kernel.launches, kernel.fma_launches
     got = make_prefill_step(model)(params, batch)
     check(kernel.launches == before + kern and kernel.fma_launches == before_fma + kern,
@@ -5280,9 +5407,9 @@ def hybrid_serve(torch, seed, arch):
          f"bf16, {n_params / 1e9:.3f} B params = the sum over param_specs() (param_count() "
          f"{cfg.param_count() / 1e9:.3f} B, approximate for ssm and rglru) ({weights_gib:.2f} "
          f"GiB) drawn on the card in {init_s:.2f} s")
-    batch = hybrid_batch(torch, cfg, SERVE_PREFILL_BATCH, SERVE_PROMPT, gen)
+    batch = model_batch(torch, cfg, SERVE_PREFILL_BATCH, SERVE_PROMPT, gen)
     prefill = make_prefill_step(model)
-    kern = hybrid_kernel_launches(cfg, cfg.n_layers)
+    kern = attn_layers(cfg, cfg.n_layers)
     tc = bool(kern) and tc_route(torch.bfloat16, cfg.resolved_head_dim)
     s_total = batch["tokens"].shape[1] + (cfg.frontend_tokens if "vision_embeds" in batch else 0)
 
@@ -5400,9 +5527,183 @@ def hybrid_serving(torch, seed, floor_ms):
     return launches, fa, served
 
 
+# ---------------------------------------------------------------------------
+# phase 18: training for the SSM, RG-LRU hybrid, VLM and audio families
+# ---------------------------------------------------------------------------
+
+def family_attention_shape(cfg):
+    """(shape (B, Hq, Hkv, S, D), causal, window) of ``cfg``'s attention at
+    the training batch: ``TRAIN_B`` sequences of ``TRAIN_S`` positions (a
+    VLM's behind its patch embeddings)."""
+    s = TRAIN_S + (cfg.frontend_tokens if cfg.arch_type == "vlm" else 0)
+    return ((TRAIN_B, cfg.n_heads, cfg.n_kv_heads, s, cfg.resolved_head_dim), cfg.is_decoder,
+            cfg.local_attn_window)
+
+
+def family_attention(torch, gen, floor_ms):
+    """(0) ``flash_attention`` bf16 at the three attending families'
+    training shapes (``attention_at``: hubert's non-causal, the first at
+    full size), each on the tensor-core route.  Returns their entries."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch, _ in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        if not attn_layers(cfg):
+            continue
+        shape, causal, window = family_attention_shape(cfg)
+        out[arch] = attention_at(torch, gen, shape, window, f"(0) {arch}'s training:", floor_ms,
+                                 causal=causal)
+        check(out[arch]["route"] == "cuda-tc",
+              f"phase 18 (0): {arch}'s attention not on the tensor-core route")
+    return out
+
+
+def train_flops(cfg, n_params, b, s):
+    """Model FLOPs of one training step: 6 P B S, P the parameters that
+    enter a product (all but the untied embedding table, a lookup), plus
+    attention, 3 x 4 D FLOPs a visible (query, key) pair a head an
+    attention layer (causal or not, windowed or not, as the model's)."""
+    p = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    attn = 0
+    if attn_layers(cfg):
+        _, causal, window = family_attention_shape(cfg)
+        attn = 12 * cfg.resolved_head_dim * b * cfg.n_heads * attn_layers(cfg) * attn_pairs(
+            s, causal, window)
+    return 6 * p * b * s, attn, p
+
+
+def family_train_path(torch, seed, arch):
+    """(c) ``arch`` at full width and depth in bf16 through the CLI's own
+    functions (``launch.train.parse_args``, ``setup``, ``train_round``:
+    ``remat="full"``, ``ce_chunk`` 512, the launcher's clients, channels and
+    history, the step donating its state), B = ``TRAIN_B`` x ``TRAIN_S``:
+    one warm-up round and ``FAMILY_ROUNDS - 1`` timed ones, the main path
+    whose launches are counted; then (not counted) one profiled round split
+    by the model's profiler ranges."""
+    from repro_torch.launch import train
+    from repro_torch.models import rglru, ssm
+    from repro_torch.models.attention import BACKWARD_RANGE, FORWARD_RANGE
+
+    args = train.parse_args(["--arch", arch, "--steps", str(FAMILY_ROUNDS), "--batch",
+                             str(TRAIN_B), "--seq", str(TRAIN_S), "--clients",
+                             str(TRAIN_CLIENTS), "--channels", str(TRAIN_CHANNELS),
+                             "--lr", str(TRAIN_LR), "--ce-chunk", str(TRAIN_CE_CHUNK),
+                             "--seed", str(seed), "--device", "cuda"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train.setup(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, state = run.cfg, run.state
+    n_params = sum(v.numel() for v in state.params.values())
+    specs, _ = run.model.param_specs()
+    n_specs = sum(v.numel() for v in specs.values())
+    check(n_params == n_specs and run.model.remat == "full"
+          and state.params["unembed"].dtype == torch.bfloat16,
+          f"phase 18 (c) {arch}: {n_params} params, param_specs() says {n_specs}")
+    static_gib = torch.cuda.memory_allocated() / 2 ** 30
+    s_total = family_attention_shape(cfg)[0][3]
+    line(f"  (c) {arch}: all {cfg.n_layers} layers, width {cfg.d_model}, vocab {cfg.vocab_size}, "
+         f"bf16, {n_params:,} params = the sum over param_specs() (param_count() "
+         f"{cfg.param_count():,}), remat={run.model.remat}, ce_chunk={run.model.ce_chunk}; "
+         f"{TRAIN_CLIENTS} clients over {TRAIN_CHANNELS} channels, B={TRAIN_B} x {s_total} "
+         f"positions, AdamW lr {TRAIN_LR}; set up on the card in {setup_s:.2f} s, "
+         f"{static_gib:.2f} GiB allocated (weights and moments)")
+    unembed0 = state.params["unembed"][:, :64].clone()
+    embed0 = state.params["embed"].clone() if cfg.arch_type == "audio" else None
+
+    state, mets, step_ms, spread, launches = timed_rounds(torch, train, run, state, FAMILY_ROUNDS,
+                                                          FAMILY_WARM)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(m["loss"]) for m in mets]
+    succ = [int(m["n_success"]) for m in mets]
+    fa_per = 2 * attn_layers(cfg)
+    check(launches["flash_attention_tc"] == FAMILY_ROUNDS * fa_per
+          and launches["flash_attention"] == FAMILY_ROUNDS * fa_per
+          and launches["glr_step"] == FAMILY_ROUNDS,
+          f"phase 18 (c) {arch}: launches {launches}; expected flash_attention {fa_per} a step on "
+          f"the tensor-core route and glr_step 1 a step")
+    check(all(math.isfinite(x) for x in losses), f"phase 18 (c) {arch}: losses {losses}")
+    check(not torch.equal(state.params["unembed"][:, :64], unembed0),
+          f"phase 18 (c) {arch}: the parameters did not move")
+    never_read = ""
+    if embed0 is not None:
+        check(torch.equal(state.params["embed"], embed0),
+              f"phase 18 (c) {arch}: embed (never read: zero gradient) moved")
+        never_read = "; embed (never read) unchanged bit for bit"
+    del unembed0, embed0
+    positions = TRAIN_B * s_total
+    flops, attn, p_prod = train_flops(cfg, n_params, TRAIN_B, s_total)
+    share = (flops + attn) / (step_ms * 1e-3) / BF16_TC_FLOPS
+    line(f"  (c) {arch}: {FAMILY_ROUNDS} rounds: loss {', '.join(f'{x:.4f}' for x in losses)} "
+         f"(finite), |S_t| {succ}, the parameters moved{never_read}; launches flash_attention "
+         f"{launches['flash_attention']} ({fa_per} a step, tensor-core route), glr_step "
+         f"{launches['glr_step']}")
+    line(f"  (c) {arch}: {step_ms:.1f} ms a step untraced (rounds {FAMILY_WARM}-"
+         f"{FAMILY_ROUNDS - 1} after {FAMILY_WARM} warm-up; between the steps' CUDA events "
+         f"{', '.join(f'{x:.1f}' for x in spread)} ms), {positions / step_ms * 1e3:,.0f} "
+         f"positions/s ({TRAIN_B * TRAIN_S / step_ms * 1e3:,.0f} tokens/s of the {TRAIN_S} a "
+         f"sequence); model FLOPs a step 6 P B S = {flops:.4e} (P = {p_prod:,} in products) + "
+         f"{'non-causal ' if not cfg.is_decoder else ''}attention {attn:.4e} = "
+         f"{flops + attn:.4e}, {(flops + attn) / (step_ms * 1e-3) / 1e12:.1f} TFLOP/s = "
+         f"{100 * share:.1f} % of {BF16_TC_FLOPS / 1e12:.0f} TFLOP/s; peak device memory "
+         f"{peak_gib:.2f} GiB (allocated; {static_gib:.2f} GiB of weights and moments)")
+
+    holder = {"state": state}
+
+    def one_round():
+        holder["state"], _ = train.train_round(run, holder["state"])
+
+    events, wall_us = trace_events(torch, one_round)
+    kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    total = sum(float(e["dur"]) for e in kernels)
+    parts = {"attention forward": range_device_us(events, FORWARD_RANGE)[0],
+             "plain attention backward": range_device_us(events, BACKWARD_RANGE)[0],
+             "SSD chunk loop": range_device_us(events, ssm.SSD_RANGE)[0],
+             "RG-LRU scan": range_device_us(events, rglru.SCAN_RANGE)[0]}
+    parts["the rest"] = total - sum(parts.values())
+    split = ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / total:.1f} %)" for k, v in parts.items()) \
+        if total else "no device kernels in the trace (not measured)"
+    line(f"  (c) {arch} step profile: wall {wall_us / 1e3:.1f} ms, {len(kernels)} kernels, device "
+         f"time {total / 1e3:.2f} ms: {split} (the SSD and scan ranges hold their forward and "
+         f"recompute, not their backward)")
+    report_kernels(f"(c) {arch} training step", kernels, wall_us, 1)
+    del holder, events, kernels, state, run, mets
+    release(torch)
+    return launches, dict(step_ms=step_ms, positions_per_s=positions / step_ms * 1e3,
+                          model_flops=flops + attn, flop_share=share, peak_gib=peak_gib,
+                          static_gib=static_gib, split_us=parts, device_us=total)
+
+
+def family_training(torch, seed, floor_ms):
+    """Phase 18: training for the SSM, RG-LRU hybrid, VLM and audio
+    families, one model at a time.  Returns the main path's launches ((c),
+    each model counted from zero), ``flash_attention``'s entries at the
+    three training shapes and each model's numbers."""
+    t_phase = time.perf_counter()
+    attn = family_attention(torch, torch.Generator(device="cuda").manual_seed(seed + 180),
+                            floor_ms)
+    for arch, n_layers in TRAIN_FAMILIES:
+        train_reference(torch, seed, arch, n_layers, f"phase 18 (a) {arch}")
+    for arch, _ in TRAIN_FAMILIES:
+        train_card_vs_cpu(torch, seed, arch, f"phase 18 (b) {arch}")
+    paths, numbers = {}, {}
+    for arch, _ in TRAIN_FAMILIES:
+        paths[arch], numbers[arch] = family_train_path(torch, seed, arch)
+    launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
+    for arch, fa in attn.items():
+        fa["launches"] = paths[arch]["flash_attention"]
+    line(f"  phase 18 launches: flash_attention {launches['flash_attention']} (tensor-core "
+         f"{launches['flash_attention_tc']}), glr_step {launches['glr_step']}; wall "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, attn, numbers
+
+
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
                 fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan, reactive_scan,
-                agg_batch, sub_kernels, train_kernels, gsct_err, gsct_t, dbrx_attn, hybrid_attn):
+                agg_batch, sub_kernels, train_kernels, gsct_err, gsct_t, dbrx_attn, hybrid_attn,
+                family_attn):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
     (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6, and
@@ -5421,7 +5722,10 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     recurrentgemma's local attention (``recurrentgemma``) and phi-3-vision's
     prefill (``phi3v``), both on the tensor-core route, each with phase
     17's launches and (a)'s check and times; recurrentgemma's and the model
-    shape's also carry ``fma_ms`` and ``ms_again`` (``routes_in_turns``)."""
+    shape's also carry ``fma_ms`` and ``ms_again`` (``routes_in_turns``);
+    and the three training shapes of phase 18 (``train_hubert``, non-causal,
+    ``train_recurrentgemma``, ``train_phi3v``), each with phase 18's
+    launches and (0)'s check and times."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -5485,7 +5789,10 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               f32_plain_ms=fa_t["model_f32"]["plain_ms"],
               f32_library_ms=fa_t["model_f32"]["library_ms"],
               f32_bound_ms=fa_t["model_f32"]["bound_ms"], jax_test_shapes=fa_t["jax_shapes"],
-              train=train_kernels["flash_attention"], dbrx=dbrx_attn, **hybrid_attn),
+              train=train_kernels["flash_attention"], dbrx=dbrx_attn, **hybrid_attn,
+              train_hubert=family_attn["hubert-xlarge"],
+              train_recurrentgemma=family_attn["recurrentgemma-2b"],
+              train_phi3v=family_attn["phi-3-vision-4.2b"]),
     ]
 
 
@@ -5493,7 +5800,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--paths", action="store_true",
-                    help="build the kernels and run the paths (phases 3-17) only")
+                    help="build the kernels and run the paths (phases 3-18) only")
     args = ap.parse_args(argv)
 
     import torch
@@ -5606,10 +5913,14 @@ def main(argv=None) -> int:
         line("[17] SSM, RG-LRU hybrid and VLM serving: mamba2-1.3b, recurrentgemma-2b and "
              "phi-3-vision-4.2b at full width and depth")
         hybrid_launches, hybrid_attn, _ = hybrid_serving(torch, args.seed, floor_ms)
+        release(torch)
+        line("[18] training the SSM, RG-LRU hybrid, VLM and audio families: hubert-xlarge, "
+             "mamba2-1.3b, recurrentgemma-2b and phi-3-vision-4.2b at full width and depth")
+        family_train_launches, family_attn, _ = family_training(torch, args.seed, floor_ms)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
                  serve_launches, sched_launches, baseline_launches, batch_launches,
                  family_launches, fl_launches, sub_launches, train_launches, served_launches,
-                 mla_moe_launches, hybrid_launches)
+                 mla_moe_launches, hybrid_launches, family_train_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
         check(all(launches[k] > 0 for k in KERNEL_NAMES + BATCH_ROUTES
                   + ("flash_attention_tc", "regret_scan_reactive")),
@@ -5628,7 +5939,7 @@ def main(argv=None) -> int:
                                                 dict(batch_fields, max_abs_err=batch_err),
                                                 reactive_fields, agg_batch, sub_kernels,
                                                 train_kernels, gsct_err, gsct_t, dbrx_attn,
-                                                hybrid_attn)}))
+                                                hybrid_attn, family_attn)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

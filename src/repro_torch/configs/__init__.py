@@ -3,8 +3,8 @@
 get_config(id)  / get_smoke_config(id)  / list_archs().  Twin of
 ``repro/configs/__init__.py``, listing every decoder of the JAX zoo: the
 GQA and MLA decoders, dense and MoE, the SSD state-space model, the
-RG-LRU hybrid and the VLM backbone.  hubert-xlarge (the encoder-only audio
-model) is not ported yet: asking for it raises a ``KeyError`` saying so.
+RG-LRU hybrid, the VLM backbone and the encoder-only audio model
+(hubert-xlarge): the same ids as JAX's registry.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ _MODULES: Dict[str, str] = {
     "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
@@ -32,7 +33,7 @@ def list_archs() -> List[str]:
 
 def _module(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"arch {arch!r} is not ported yet; ported: {list_archs()}")
+        raise KeyError(f"unknown arch {arch!r}; available: {list_archs()}")
     return importlib.import_module(_MODULES[arch])
 
 

@@ -1,4 +1,5 @@
-"""Serving launcher: batched greedy decode for the ported archs.
+"""Serving launcher: batched greedy decode for every decoder of the zoo
+(hubert-xlarge, the encoder, has no decode step and is not offered).
 
 Twin of ``repro/launch/serve.py``.  Usage:
   python -m repro_torch.launch.serve --arch qwen3-32b                  # on the card
@@ -45,7 +46,8 @@ def serve_loop(model, params, batch: int, context: int, tokens: int, window: int
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=list_archs())
+    ap.add_argument("--arch", required=True,
+                    choices=[a for a in list_archs() if not get_config(a).is_encoder])
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--context", type=int, default=128)

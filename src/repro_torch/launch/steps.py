@@ -81,11 +81,13 @@ def make_train_state_init(model: Model, optimizer: Optimizer, scheduler,
 def loss_and_grads(model: Model, params, batch, weights=None):
     """``model.loss`` (total, metrics) and its gradients with respect to
     ``params``, in the parameters' dtype, as ``jax.value_and_grad`` gives
-    them; everything returned is detached."""
+    them: zeros for a parameter the loss never reads (hubert's ``embed``);
+    everything returned is detached."""
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
     with torch.enable_grad():
         loss, metrics = model.loss(leaves, batch, example_weights=weights)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
+                                materialize_grads=True)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, dict(zip(leaves, grads))
 
@@ -99,11 +101,20 @@ def make_fl_train_step(
     matcher_beta: float = 0.5,
     contrib_ema: float = 0.9,
     microbatches: int = 1,
+    donate: bool = False,
 ) -> Callable:
     """``microbatches`` > 1 splits the batch and accumulates gradients in
     f32 (gradient accumulation): live activation memory divides by the
     factor with the same math.  The batch must split evenly over the
-    ``n_clients`` clients (and the microbatches)."""
+    ``n_clients`` clients (and the microbatches).  ``donate`` consumes the
+    state a step is given: the optimizer's ``step_`` writes the new
+    parameters and moments into its tensors (the same bits as the
+    functional update), so a step holds one copy of them where the
+    functional update holds two and an f32 update of every parameter; the
+    launcher donates, which is what fits a 3-4 B-parameter model's AdamW
+    state beside its training step on one card."""
+    if donate and optimizer.step_ is None:
+        raise ValueError("make_fl_train_step: donate=True needs an optimizer with step_ (adamw)")
     matcher = AdaptiveMatcher(matcher_beta)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], u_env: torch.Tensor,
@@ -157,8 +168,12 @@ def make_fl_train_step(
             loss = torch.sum(torch.stack(ls))
             metrics = {"loss": loss, "moe_aux": torch.mean(torch.stack(auxs)),
                        "per_example": torch.cat(per_ex)}
-        updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
-        params = apply_updates(state.params, updates)
+        if donate:
+            params = state.params
+            opt_state = optimizer.step_(grads, state.opt_state, params)
+        else:
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.params)
+            params = apply_updates(state.params, updates)
 
         # ---- bookkeeping ---------------------------------------------------
         aoi = update_aoi(fl.aoi, success > 0.5)

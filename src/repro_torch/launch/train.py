@@ -1,27 +1,30 @@
-"""Training launcher: the FL round at LLM scale for the ported archs.
+"""Training launcher: the FL round at LLM scale for every arch of the zoo.
 
 Twin of ``repro/launch/train.py``.  Usage:
   python -m repro_torch.launch.train --arch qwen1.5-0.5b                  # on the card
-  python -m repro_torch.launch.train --arch qwen1.5-0.5b --smoke --steps 3 --device cpu
+  python -m repro_torch.launch.train --arch hubert-xlarge --seq 2048 --ce-chunk 512
+  python -m repro_torch.launch.train --arch mamba2-1.3b --smoke --steps 3 --device cpu
 
 Runs ``make_fl_train_step`` for ``--steps`` rounds: ``--clients`` FL
-clients share each batch of ``--batch`` sequences of ``--seq`` tokens from
-``synthetic_lm_batches``, GLR-CUCB (history 128) schedules them over
-``--channels`` channels of a random piecewise env, AdamW updates the
-model.  The full config trains with ``remat="full"``, ``--smoke`` (the
-reduced config of the same family) with none.  Weights, env and the
-rounds' uniforms are drawn from ``--seed`` on ``--device`` (``cuda`` unless
-given; without CUDA and without ``--device`` it raises), the tokens from
-``--seed`` with numpy.  ``--seq-shard`` is the identity on one card.
-``--arch`` takes the dense and MoE decoders (``TRAINED``): the SSM, hybrid
-and VLM families serve but do not train yet (their gradients are not held
-against JAX's, and a VLM batch needs its patch embeddings).
+clients share each batch of ``--batch`` sequences of ``--seq`` positions,
+GLR-CUCB (history 128) schedules them over ``--channels`` channels of a
+random piecewise env, AdamW updates the model (in place: the step donates
+its state).  ``make_batch`` builds a round's input as JAX's does: the next
+token batch of ``synthetic_lm_batches`` (a VLM's behind bf16 patch
+embeddings), or for the audio encoder (hubert) bf16 frames, per-frame
+cluster labels and a mask drawn at ``mask_prob``, with no token stream.
+The full config trains with ``remat="full"``, ``--smoke`` (the reduced
+config of the same family) with none.  Weights, env, the rounds'
+uniforms and the batches' draws come from ``--seed`` on ``--device``
+(``cuda`` unless given; without CUDA and without ``--device`` it raises),
+the tokens from ``--seed`` with numpy; the draws equal JAX's in
+distribution only.  ``--seq-shard`` is the identity on one card.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Any, Callable, Dict, Iterator, NamedTuple, Tuple
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -37,25 +40,25 @@ from repro_torch.models.model import Model
 from repro_torch.optim import adamw
 
 
-TRAINED = ("dense", "moe")      # the arch types this launcher trains
-
-
 class TrainRun(NamedTuple):
     """What ``setup`` makes from the flags; ``train_round`` runs one round."""
     cfg: ModelConfig
     model: Model
-    state: TrainState               # the initial state
+    state: TrainState               # the initial state (the rounds donate it: a round
+                                    # writes the new parameters and moments into it)
     step: Callable
-    data: Iterator                  # (batch, seq) int32 token batches (numpy)
+    data: Optional[Iterator]        # (batch, seq) int32 token batches (numpy); None for audio
+    draws: torch.Generator          # frames, labels, masks and patch embeddings
     uniforms: torch.Generator       # the rounds' (2, channels) uniforms
     n_channels: int
+    batch: int
+    seq: int
     device: torch.device
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True,
-                    choices=[a for a in list_archs() if get_config(a).arch_type in TRAINED])
+    ap.add_argument("--arch", required=True, choices=list_archs())
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=20)
@@ -74,15 +77,34 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def make_batch(tokens, device) -> Dict[str, torch.Tensor]:
-    """A token batch (numpy (B, S) int32) as the step's input on ``device``.
-    To the card it goes from pinned memory without blocking: a blocking copy
-    from pageable memory waits for the stream, so the host could not queue
-    a step while the card runs the last one."""
-    toks = torch.from_numpy(tokens)
-    if device.type == "cuda":
-        return {"tokens": toks.pin_memory().to(device, non_blocking=True)}
-    return {"tokens": toks.to(device)}
+def make_batch(cfg: ModelConfig, batch: int, seq: int, generator: torch.Generator,
+               device: torch.device, data: Optional[Iterator] = None) -> Dict[str, torch.Tensor]:
+    """One round's input on ``device``, as JAX's ``make_batch`` builds it.
+    Audio: ``frames`` (batch, seq, d) bf16 from a normal, ``labels`` (batch,
+    seq) int32 uniform over the vocabulary and ``mask`` (batch, seq), each
+    entry True with probability ``mask_prob``.  Every other arch: the next
+    token batch of ``data`` (numpy (batch, seq) int32) and, for a VLM,
+    ``vision_embeds`` (batch, frontend_tokens, d) bf16 from a normal.  The
+    draws come from ``generator`` on ``device``.  Tokens go to the card from
+    pinned memory without blocking: a blocking copy from pageable memory
+    waits for the stream, so the host could not queue a step while the
+    card runs the last one."""
+    d = cfg.d_model
+    if cfg.arch_type == "audio":
+        return {
+            "frames": torch.randn((batch, seq, d), generator=generator, device=device,
+                                  dtype=torch.bfloat16),
+            "labels": torch.randint(0, cfg.vocab_size, (batch, seq), generator=generator,
+                                    device=device, dtype=torch.int32),
+            "mask": torch.rand((batch, seq), generator=generator, device=device) < cfg.mask_prob,
+        }
+    toks = torch.from_numpy(next(data))
+    out = {"tokens": toks.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
+           else toks.to(device)}
+    if cfg.arch_type == "vlm":
+        out["vision_embeds"] = torch.randn((batch, cfg.frontend_tokens, d), generator=generator,
+                                           device=device, dtype=torch.bfloat16)
+    return out
 
 
 def setup(args: argparse.Namespace) -> TrainRun:
@@ -100,15 +122,18 @@ def setup(args: argparse.Namespace) -> TrainRun:
     opt = adamw(args.lr)
     state = make_train_state_init(model, opt, sched, args.clients)(gen(0), device=dev)
     step = make_fl_train_step(model, opt, sched, env, args.clients,
-                              microbatches=args.microbatch)
-    data = synthetic_lm_batches(args.batch, args.seq, cfg.vocab_size, seed=args.seed)
-    return TrainRun(cfg, model, state, step, data, gen(3), args.channels, dev)
+                              microbatches=args.microbatch, donate=True)
+    data = (synthetic_lm_batches(args.batch, args.seq, cfg.vocab_size, seed=args.seed)
+            if cfg.arch_type != "audio" else None)
+    return TrainRun(cfg, model, state, step, data, gen(2), gen(3), args.channels, args.batch,
+                    args.seq, dev)
 
 
 def train_round(run: TrainRun, state: TrainState) -> Tuple[TrainState, Dict[str, Any]]:
-    """One round: the next token batch and the round's uniforms."""
+    """One round: the next batch and the round's uniforms."""
     u = torch.rand((2, run.n_channels), generator=run.uniforms, device=run.device)
-    return run.step(state, make_batch(next(run.data), run.device), u[0], u[1])
+    batch = make_batch(run.cfg, run.batch, run.seq, run.draws, run.device, run.data)
+    return run.step(state, batch, u[0], u[1])
 
 
 def main(argv=None) -> int:

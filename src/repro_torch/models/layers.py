@@ -95,6 +95,16 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     return out.to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in f32 (the population variance), returned in x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * gamma.float() + beta.float()
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings
 # ---------------------------------------------------------------------------

@@ -12,12 +12,19 @@ the stack.  So ``convert.model_params`` carries JAX parameters across as
 they are.  A hybrid's attention layers attend over ``local_attn_window``
 and decode against a ring of that length.  A VLM batch may carry
 ``vision_embeds`` (B, frontend_tokens, d), prepended to the token
-embeddings (the stub frontend of the JAX package).  The audio frontend
-(hubert's frames) is not ported yet.
+embeddings (the stub frontend of the JAX package).  An audio batch
+(hubert, the encoder) carries ``frames`` (B, T, d) in place of tokens, with
+a sinusoidal position embedding added, and trains on the cluster ids
+``labels`` (B, T) of the frames ``mask`` (B, T) selects; its ``embed`` is
+a parameter the forward never reads, as in the JAX package.  Where a
+gradient is taken the unrolled layers run under the model's ``remat``
+policy too (the JAX package runs them as they are): the same numbers,
+and a hybrid's 26 layers of scan intermediates are not held at once.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -33,6 +40,8 @@ from repro_torch.models.layers import ParamBuilder, rms_norm, torch_dtype
 from repro_torch.models.transformer import (
     REMAT_POLICIES,
     _ffn_is_moe,
+    _remat,
+    _takes_grad,
     add_block_params,
     block_decode,
     block_forward,
@@ -46,6 +55,15 @@ Params = Dict[str, torch.Tensor]
 def _subtree(params: Params, prefix: str) -> Params:
     pre = prefix + "/"
     return {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+
+
+def _sinusoidal_pe(seq: int, d: int, dtype, device=None) -> torch.Tensor:
+    """Absolute PE for the encoder path (stands in for hubert's conv-pos
+    stub): sin at the even dims, cos at the odd ones, angles in f32."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d)
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(seq, d).to(dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,10 +84,6 @@ class Model:
             raise ValueError(f"Model: unknown attn_impl {self.attn_impl!r}; one of {ATTN_IMPLS}")
         if self.remat not in REMAT_POLICIES:
             raise ValueError(f"Model: unknown remat {self.remat!r}; one of {REMAT_POLICIES}")
-        cfg = self.cfg
-        if cfg.arch_type == "audio":
-            raise NotImplementedError(
-                f"{cfg.name}: the audio frontend (hubert's frames) is not ported yet")
 
     # ------------------------------------------------------------------ layout
     def _is_hybrid(self) -> bool:
@@ -135,11 +149,12 @@ class Model:
         return params["embed"].t() if self.cfg.tie_embeddings else params["unembed"]
 
     def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        extra = set(batch) - {"tokens", "vision_embeds"}
-        if extra:
-            raise NotImplementedError(
-                f"{self.cfg.name}: only token and vision inputs are ported (hubert's audio "
-                f"frames are not), got {sorted(batch)}")
+        if self.cfg.arch_type == "audio":
+            # the PE is added in the frames' dtype, as in JAX; then the sum goes to the
+            # parameters' dtype (JAX promotes bf16 frames at the first f32 product)
+            x = batch["frames"]
+            x = x + _sinusoidal_pe(x.shape[1], self.cfg.d_model, x.dtype, x.device)[None]
+            return x.to(params["final_norm"].dtype)
         tok = params["embed"][batch["tokens"].long()]
         if self.cfg.arch_type == "vlm" and "vision_embeds" in batch:
             # stub frontend carve-out: pre-computed patch embeddings, prepended
@@ -155,9 +170,13 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in self._unrolled():
             kind = cfg.layer_kind(i)
-            x, a = block_forward(_subtree(params, f"layers/{i:02d}"), "b", x, cfg, kind,
-                                 _ffn_is_moe(cfg, i), self._local_window(kind),
-                                 attn_impl=self.attn_impl)
+            layer = _subtree(params, f"layers/{i:02d}")
+            body = functools.partial(block_forward, prefix="b", cfg=cfg, kind=kind,
+                                     moe_ffn=_ffn_is_moe(cfg, i),
+                                     window=self._local_window(kind), attn_impl=self.attn_impl)
+            if _takes_grad(layer, x):
+                body = _remat(body, self.remat)
+            x, a = body(layer, x=x)
             aux = aux + a
         if self._scanned_layers():
             i0 = cfg.first_k_dense
@@ -178,12 +197,18 @@ class Model:
         zeta aggregation weights (Eq. 7) into one backward pass."""
         cfg = self.cfg
         hidden, aux = self._forward_hidden(params, batch)
-        tokens = batch["tokens"]
-        offset = cfg.frontend_tokens if cfg.arch_type == "vlm" else 0
-        # predict token t+1 from position (offset + t)
-        nll = self._nll(hidden[:, offset: offset + tokens.shape[1] - 1],
-                        self._unembed_matrix(params), tokens[:, 1:])   # (B, T)
-        per_example = nll.mean(dim=1)
+        if cfg.arch_type == "audio":
+            # masked-frame prediction: a cluster id a frame, the loss over the masked ones
+            nll = self._nll(hidden, self._unembed_matrix(params), batch["labels"])
+            mask = batch["mask"].float()
+            per_example = torch.sum(nll * mask, dim=1) / mask.sum(dim=1).clamp_min(1.0)
+        else:
+            tokens = batch["tokens"]
+            offset = cfg.frontend_tokens if cfg.arch_type == "vlm" else 0
+            # predict token t+1 from position (offset + t)
+            nll = self._nll(hidden[:, offset: offset + tokens.shape[1] - 1],
+                            self._unembed_matrix(params), tokens[:, 1:])   # (B, T)
+            per_example = nll.mean(dim=1)
         w = example_weights if example_weights is not None else torch.ones_like(per_example)
         loss = torch.sum(per_example * w) / torch.sum(w).clamp_min(1e-9)
         total = loss + cfg.router_aux_weight * aux

@@ -11,8 +11,11 @@ steps: inside a chunk the quadratic "attention-like" form runs as batched
 products, and a Python loop over the chunks carries the (B, H, P, N) f32
 state (8 chunks at S = 2048, L = 256).  The last chunk may be shorter:
 that equals JAX's zero padding, since dt = 0 past the end carries the
-state unchanged and adds nothing.  The JAX package checkpoints the chunk
-body for its backward pass; serving needs no such thing.
+state unchanged and adds nothing.  Where a gradient is taken each chunk
+runs under a checkpoint, as JAX's ``jax.checkpoint`` of the chunk body:
+its (B, H, L, L) decay weights are recomputed in the backward pass, so
+those of all the chunks are never held at once; serving runs the chunks
+as they are.
 
 Two choices keep the chunk finite and small at full width:
 
@@ -33,10 +36,12 @@ causal convolutions run inside the profiler ranges ``SSD_RANGE`` and
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import ParamBuilder, rms_norm
@@ -142,12 +147,17 @@ def ssm_forward(
     xh = x.reshape(bsz, s, h, pdim).float()
     bf, cf = b.float(), c.float()
     el = min(cfg.ssm_chunk, s)
+    chunk = _ssd_chunk
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xh, bf, cf, dt, a_heads)):
+        # no random op in a chunk: nothing to restore on recompute
+        chunk = functools.partial(checkpoint, _ssd_chunk, use_reentrant=False,
+                                  preserve_rng_state=False)
     with torch.profiler.record_function(SSD_RANGE):
         state = torch.zeros((bsz, h, pdim, n), dtype=torch.float32, device=u.device)
         ys = []
         for i in range(0, s, el):
-            state, y = _ssd_chunk(state, (xh[:, i:i + el], bf[:, i:i + el], cf[:, i:i + el],
-                                          dt[:, i:i + el]), a_heads)
+            state, y = chunk(state, (xh[:, i:i + el], bf[:, i:i + el], cf[:, i:i + el],
+                                     dt[:, i:i + el]), a_heads)
             ys.append(y)
         y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     y = y + xh * p[f"{prefix}/d_skip"].float()[:, None]

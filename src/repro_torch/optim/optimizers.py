@@ -9,6 +9,12 @@ global-norm clip summing the leaves' squares in JAX's leaf order (the
 sorted keys of the flat dict), the bias corrections ``b ** count`` in f32.
 A scalar that divides is made on the tensor's device (``full_like``):
 torch turns ``number / tensor`` into a reciprocal times the number.
+
+AdamW also has ``step_``, which writes the new moments and parameters into
+the given state's and parameters' tensors (the step ``make_fl_train_step``
+takes with ``donate=True``, the twin of donating them to a jitted JAX
+step): the same arithmetic leaf for leaf, so the same bits, with one copy
+of the moments and parameters held instead of two.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ Params = Dict[str, torch.Tensor]
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]  # (grads, state, params)
+    step_: Optional[Callable[[Any, Any, Any], Any]] = None   # (grads, state, params) -> state
 
 
 def _zeros_f32(params: Params) -> Params:
@@ -66,7 +73,9 @@ def adamw(
             "count": torch.zeros((), dtype=torch.int32, device=some.device),
         }
 
-    def update(grads, state, params):
+    def leaves(grads, state, params):
+        """(key, new mu, new nu, update) a leaf at a time, in JAX's leaf
+        order: a leaf's f32 temporaries go before the next one's."""
         keys = sorted(grads)                     # JAX's leaf order of a flat dict
         scale = None
         if grad_clip is not None:
@@ -77,21 +86,38 @@ def adamw(
         cnt = state["count"] + 1
         bc1 = 1 - b1 ** cnt.float()
         bc2 = 1 - b2 ** cnt.float()
-        mu, nu, upd = {}, {}, {}
-        for k in keys:                           # one leaf at a time: its f32 temporaries go
+        for k in keys:
             g = grads[k].float()
             if scale is not None:
                 g = g * scale
-            mu[k] = b1 * state["mu"][k] + (1 - b1) * g
-            nu[k] = b2 * state["nu"][k] + (1 - b2) * g * g
-            u = -lr * (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)
+            mu = b1 * state["mu"][k] + (1 - b1) * g
+            nu = b2 * state["nu"][k] + (1 - b2) * g * g
+            u = -lr * (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
             if weight_decay:
                 u = u - lr * weight_decay * params[k].float()
-            upd[k] = u
-        return upd, {"mu": mu, "nu": nu, "count": cnt}
+            yield k, mu, nu, u
 
-    return Optimizer(init, update)
+    def update(grads, state, params):
+        mu, nu, upd = {}, {}, {}
+        for k, m, v, u in leaves(grads, state, params):
+            mu[k], nu[k], upd[k] = m, v, u
+        return upd, {"mu": mu, "nu": nu, "count": state["count"] + 1}
+
+    def step_(grads, state, params):
+        """``update`` then ``apply_updates``, written into ``state``'s moments
+        and ``params``' tensors; returns the new state (the same tensors)."""
+        for k, mu, nu, u in leaves(grads, state, params):
+            state["mu"][k].copy_(mu)
+            state["nu"][k].copy_(nu)
+            params[k].copy_(_applied(params[k], u))
+        return {"mu": state["mu"], "nu": state["nu"], "count": state["count"] + 1}
+
+    return Optimizer(init, update, step_)
+
+
+def _applied(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    return (p.float() + u).to(p.dtype)
 
 
 def apply_updates(params: Params, updates: Params) -> Params:
-    return {k: (p.float() + updates[k]).to(p.dtype) for k, p in params.items()}
+    return {k: _applied(p, updates[k]) for k, p in params.items()}

@@ -391,6 +391,7 @@ _FLASH_SHAPES = [
     (1, 4, 1, 600, 256, True, 40),    # a window narrower than a 64-key tile
     (2, 8, 2, 257, 200, True, 0),     # D = 200 padded to 256 in shared memory
     (1, 4, 2, 300, 136, False, 0),    # D = 136, the narrowest head dim padded to 256
+    (1, 16, 16, 2048, 80, False, 0),  # hubert-xlarge's heads: non-causal at full length, D = 80
 ]
 
 
@@ -1392,3 +1393,26 @@ def test_flash_attention_at_the_hybrid_and_vlm_shapes(cuda, shape, window, route
         (before[0] + tc, before[1] + (not tc))
     want = ref.mha_attention(q.float(), k.float(), v.float(), causal=True, window=window)
     torch.testing.assert_close(got.float(), want, rtol=2.0 ** -8, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,n_layers", [("hubert-xlarge", 2), ("mamba2-1.3b", 2),
+                                           ("recurrentgemma-2b", 3), ("phi-3-vision-4.2b", 2)])
+def test_family_gradients_on_the_kernel_route_equal_the_plain_route(cuda, arch, n_layers):
+    """``chip_smoke.py`` phase 18 (a), run as it is there: each new family at
+    full width, cut in depth, f32, B = 2 x 512: the loss and every gradient
+    on the kernel route (``flash_attention`` on the FMA route, forward and
+    the checkpoint's recompute) equal the plain route's (rtol 2e-3, atol
+    min(2e-3, 1e-4 of the tensor's largest entry)); mamba2's (its L = 256
+    chunks overflow exp's upper triangle) finite and equal to the CPU's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _chip_smoke().train_reference(torch, 0, arch, n_layers, f"{arch} (a)")
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "mamba2-1.3b", "recurrentgemma-2b",
+                                  "phi-3-vision-4.2b"])
+def test_family_fl_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """``chip_smoke.py`` phase 18 (b): three rounds of each new family's
+    smoke config in f32 on the card against the CPU's, as phase 14 (b)
+    holds the dense model."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _chip_smoke().train_card_vs_cpu(torch, 0, arch, f"{arch} (b)")

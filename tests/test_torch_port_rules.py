@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that hold whatever the numbers.
 
-* No module of ``src/repro_torch/`` and not ``chip_smoke.py`` imports JAX
-  or anything of the JAX package ``repro``.
+* No module of ``src/repro_torch/``, not ``chip_smoke.py`` and no example
+  under ``examples/torch/`` imports JAX or anything of the JAX package
+  ``repro``.
 * Entry points run on CUDA unless the caller passes a device: without
   CUDA and without ``device=``, they raise.
 * A CUDA tensor goes to the kernel or raises; nothing falls back to the
@@ -44,7 +45,8 @@ from repro_torch.models import attention as attn_mod  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples" / "torch").glob("*.py")))
 
 
 def _imported_roots(path):
@@ -88,7 +90,7 @@ SLICE_TWINS = ("core/aggregation.py", "core/faults.py", "core/channels/process.p
                "data/synthetic.py", "models/moe.py", "configs/minicpm3_4b.py",
                "configs/deepseek_v2_236b.py", "configs/dbrx_132b.py", "models/ssm.py",
                "models/rglru.py", "configs/mamba2_1_3b.py", "configs/recurrentgemma_2b.py",
-               "configs/phi_3_vision_4_2b.py")
+               "configs/phi_3_vision_4_2b.py", "configs/hubert_xlarge.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_TWINS)
@@ -161,33 +163,26 @@ def test_training_entry_points_default_to_cuda(no_cuda, capsys):
 
 
 def test_unported_archs_say_so():
-    """hubert-xlarge (the encoder-only audio model) is not in the port's
-    registry, and the model refuses its config (JAX's, field for field in
-    the port's schema) and any batch of audio frames; the SSM, hybrid and
-    VLM archs build at full width and give their parameter specs."""
-    import dataclasses
+    """No arch is left unported: the registry lists JAX's ids, each config
+    builds at full width and gives its parameter specs, and the training
+    launcher takes every arch.  The one refusal left is JAX's own: the
+    serving launcher does not offer hubert-xlarge (an encoder has no
+    decode step), and its model has no decode cache."""
+    from repro.configs import list_archs as j_list_archs
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import train
 
-    from repro.configs import get_config as j_config
-    from repro_torch.configs.base import ModelConfig
-
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("hubert-xlarge")
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_smoke_config("hubert-xlarge")
-    cfg = ModelConfig(**dataclasses.asdict(j_config("hubert-xlarge")))
-    with pytest.raises(NotImplementedError, match="hubert.*not ported yet"):
-        build_model(cfg)
-    model = build_model(get_smoke_config("phi-3-vision-4.2b"))
-    with pytest.raises(NotImplementedError, match="audio frames are not"):
-        model._embed_inputs({}, {"tokens": torch.zeros((1, 2)), "frames": torch.zeros((1, 2, 8))})
-    for arch in ("minicpm3-4b", "deepseek-v2-236b", "dbrx-132b", "mamba2-1.3b",
-                 "recurrentgemma-2b", "phi-3-vision-4.2b"):   # ported in full
+    assert list_archs() == j_list_archs()
+    for arch in list_archs():
         specs, _ = build_model(get_config(arch)).param_specs()
-        assert all(v.device.type == "meta" for v in specs.values())
-    from repro_torch.launch import train      # the three new families serve, do not train yet
-    for arch in ("mamba2-1.3b", "recurrentgemma-2b", "phi-3-vision-4.2b"):
-        with pytest.raises(SystemExit):
-            train.parse_args(["--arch", arch])
+        assert all(v.device.type == "meta" for v in specs.values()), arch
+        assert train.parse_args(["--arch", arch]).arch == arch
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "hubert-xlarge", "--smoke", "--device", "cpu"])
+    with pytest.raises(ValueError, match="encoder-only"):
+        build_model(get_smoke_config("hubert-xlarge")).init_cache(1, 4, device="cpu")
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("hubert-base")
 
 
 class _FakeCuda:

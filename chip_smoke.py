@@ -10,7 +10,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``nvcc`` processes started together), with its seconds;
 2. kernels against their plain PyTorch versions on the card, at the main
    path's shapes and larger ones, with the stated tolerances, and their
-   times beside the plain version's, the bound and a library call; the
+   times beside the plain version's, the bound (each wrapper's ``cost``,
+   the count the dry run's walker uses) and a library call; the
    card's floor per launch, from an empty kernel launched back to back;
    ``weighted_aggregate`` bitwise against the row-order sum at every load
    width, and ``robust_trimmed``'s median bitwise on rows of NaN, +-inf,
@@ -282,7 +283,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    step on the tensor-core route and ``glr_step`` once, ms a step,
    positions a second, the model-FLOP share of 989 TFLOP/s, peak device
    memory and a profiled step split into attention forward, the plain
-   attention backward, the SSD chunk loop, the RG-LRU scan and the rest.
+   attention backward, the SSD chunk loop, the RG-LRU scan and the rest;
+19. the dry run against the card, on the host (no step of its own): for
+   every config and shape phases 7, 14, 16, 17 and 18 ran (qwen3-32b,
+   minicpm3-4b, deepseek-v2-236b and dbrx-132b at 8 layers, mamba2-1.3b,
+   recurrentgemma-2b and phi-3-vision-4.2b served; qwen1.5-0.5b,
+   hubert-xlarge, mamba2, recurrentgemma and phi-3-vision trained),
+   ``repro_torch.launch.dryrun`` on meta tensors in six host processes,
+   held against what those phases measured: (a) the step's static bytes
+   (the weights and AdamW state after the launcher's setup; weights and
+   prompts; weights, cache and tokens), as the allocator's requests count
+   them, to 512 bytes a storage, with ``memory_allocated`` printed beside
+   the allocator model's count; (b) the peak of a step
+   (``max_memory_allocated`` from a reset before it, above what was held
+   before the model was set up) within 10 %; (c) each kernel's launches a
+   step exactly; (d) printed: the counted FLOPs, the roofline bound, the
+   measured ms, the step's share of its roofline and the model-FLOP
+   share; (e) printed: the dry run's training predictions for minicpm3-4b
+   (62 layers) and deepseek-v2 and dbrx (8 layers) at B = 8 x 2048.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -291,7 +309,7 @@ JAX package's five test shapes and at qwen3-32b's (4, 64/8, 2048, 128), in
 f32 (the FMA route) and bf16 (the tensor-core route for D % 8 == 0 and
 D <= 256, the FMA route otherwise), and times both routes, the plain
 version and SDPA at the model shape in one call.
-``--paths`` builds the kernels and runs phases 3-18 only (no kernel line):
+``--paths`` builds the kernels and runs phases 3-18 only (no kernel line, no phase 19):
 the paths' own times, for comparing two checkouts (``tools/ab_smoke.py``).
 To keep the whole near 900 s with phase 18, three host-bound depths are
 cut, each printed where it runs: phase 6's rounds route to 5000 rounds
@@ -322,30 +340,21 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
-F32_FLOPS = 67e12              # H100 SXM f32 outside the tensor cores
-F32_LANE_OPS = F32_FLOPS / 2   # FP32 lane instructions a second (an FMA counts 2 flops)
-KL_SPLIT_FLOPS = 32            # f32 operations per evaluated GLR split
-H100_SMS = 132
-MUFU_PER_SM_CLOCK = 16         # special-function (MUFU) results a clock on each SM
-LANES_PER_SM_CLOCK = 128       # lane instructions issued a clock on each SM (4 x 32)
-# one GLR split term of csrc/glr_kl.cuh, loads and store included, counted once in
-# its sm_90a SASS (cuobjdump -sass; PERF.md gives the count's run), and the H100
-# SXM's maximum SM clock (nvidia-smi --query-gpu=clocks.max.sm, the same run)
+# the card's rates and the kernels' counts are repro_torch's (utils/roofline.py, each
+# wrapper's cost); one GLR split term of csrc/glr_kl.cuh, loads and store included,
+# counted once in its sm_90a SASS (cuobjdump -sass; PERF.md gives the count's run)
 SPLIT_SASS = 336
-SPLIT_MUFU = 8
-SM_CLOCK_HZ = 1980e6
-RANK_PAIR_OPS = 1              # lane instructions per ordered pair: the least a rank count issues
+RANK_PAIR_OPS = 1              # lane instructions per ordered pair (kernels/robust_agg.py's)
 OLD_RANK_PAIR_OPS = 4          # the bound stated before: two compares, a select, an add
 HOST_SPLIT_CALLS = 10_000      # calls averaged in each host-split piece
 FIG2_ROUNDS = 20000            # the paper's Fig. 2 horizon (benchmarks/run.py:175)
 FIG2_REF_ROUNDS = 5000         # the card-vs-CPU reference run of Fig. 2
+FIG2_ROUNDS_CUT = 5000         # phase 3's rounds route (host-bound, ~3-4.5 ms a round): T, cut
 RECOMPUTE_ROUNDS_CUT = 5000    # phase 6's rounds route (host-bound, ~3.5 ms a round): T, cut
 SCAN_EDGE_ROUNDS = 1500        # each edge run of regret_scan against the rounds route (phase 2)
 FIG3_ROUNDS = 150              # the paper's Fig. 3 large-scale rounds (benchmarks/run.py:744-760)
 FIG3_REF_ROUNDS = 3            # the card-vs-CPU reference rounds of Fig. 3
 FIG3_REF_MAX_ROUNDS = 12       # ... extended, under attack, until a corrupted row is aggregated
-BF16_TC_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense (NVIDIA data sheet)
 SERVE_ARCH = "qwen3-32b"       # the most demanding dense GQA config of the zoo
 SERVE_PROMPT = 2048            # prefill prompt length
 SERVE_PREFILL_BATCH = 4        # prompts a prefill
@@ -382,10 +391,7 @@ SCEN_SEEDS = 8                 # its seeds a scenario (:510)
 CHAOS_N, CHAOS_M = 8, 3        # chaos_suite's regret half (:1049-1050)
 CHAOS_ROUNDS = 4000            # its horizon, non-quick (:1049)
 REACT_REF_ROUNDS = 1000        # phase 11 (d): the reactive Fig. 2 run's rounds held to the rounds route
-# operations a channel a round of the reactive template beyond the open-loop scan:
-# reactive_means' sub, mul, neg, add, mul, rsub, mul and interact_step's mul, mul,
-# add (10), expf (~4: a scale, ex2, two fix-ups) and a correctly rounded division (~4)
-REACT_FLOPS = 18
+FAMILY_REF_ROUNDS = 1000       # phase 11 (b), (c): the rounds route's references (~3.5 ms a round), cut
 SUB_N, SUB_M, SUB_NCH, SUB_H = 100_000, 64, 16, 128   # fl_substrate (benchmarks/run.py:913, :924)
 SUB_D, SUB_NEX, SUB_B = 16, 8, 4                       # its linear model and data (:913)
 SUB_ROUNDS = 24                # its non-quick rounds (:914)
@@ -479,11 +485,90 @@ def read_launches():
     return out
 
 
-def two_way_bound(nbytes, ops, rate):
-    """The least time for the work: bytes over HBM bandwidth or operations
-    over ``rate``, whichever is larger, in ms, and which one it is."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def per_step(launches, steps, label):
+    """Each counter's launches a step from a total over ``steps`` steps;
+    fails unless every total splits evenly."""
+    check(all(v % steps == 0 for v in launches.values()),
+          f"{label}: launches {launches} do not split evenly over {steps} steps")
+    return {k: v // steps for k, v in launches.items()}
+
+
+def allocator_bytes(torch):
+    """(allocated, requested) bytes of the caching allocator now: the blocks
+    of live tensors (``memory_allocated``) and what their allocations asked
+    for."""
+    stats = torch.cuda.memory_stats()
+    return stats["allocated_bytes.all.current"], stats.get("requested_bytes.all.current", 0)
+
+
+def minus(a, b, plus=(0, 0)):
+    return tuple(x - y + z for x, y, z in zip(a, b, plus))
+
+
+def free_blocks(torch):
+    """The caching allocator's free cached blocks in its default pool now,
+    as (bytes, small pool) pairs: what ``release`` could not hand back,
+    because live tensors of earlier work share their segments, and what a
+    new request may land in."""
+    return [(b["size"], seg["segment_type"] == "small")
+            for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", (0, 0))) == (0, 0)
+            for b in seg["blocks"] if b["state"] == "inactive"]
+
+
+def env_sizes(env):
+    """The storage sizes of the launcher's env (``TrainRun.env``), which the
+    training step holds beside the state it is handed."""
+    import dataclasses
+
+    from repro_torch.utils.cost import storages
+
+    return list(storages([getattr(env, f.name) for f in dataclasses.fields(env)]).values())
+
+
+def card_step(static, peak, launches, ms, free, held=()):
+    """A step's measurements for phase 19: the bytes it is handed (weights
+    and AdamW state, or weights, prompts or cache; ``allocator_bytes``'
+    pair) and its peak, both above what was held before the model was set
+    up, its launches of each kernel and its ms; ``free``, the allocator's
+    free blocks (``free_blocks``) where each run of the state's
+    allocations began (the weights', and a decode step's cache's), and
+    ``held``, the sizes of what setup made beside that state (training's
+    env)."""
+    return dict(static_bytes=static[0], static_requested=static[1], peak_bytes=peak,
+                launches=launches, ms=ms, free=free, held=list(held))
+
+
+def decode_step_card(torch, model, params, cache, tok, m_pre, weights, step_ms, free):
+    """One more decode step after a serve loop, the peak statistics reset
+    before it (not counted with the loop's launches): its measurements for
+    phase 19.  ``m_pre`` was allocated before the loop made its cache;
+    ``weights`` the parameters' bytes; ``free`` as ``card_step``'s."""
+    from repro_torch.launch.steps import make_serve_step
+
+    static = minus(allocator_bytes(torch), m_pre, weights)
+    before = read_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    make_serve_step(model)(params, cache, tok)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - m_pre[0] + weights[0]
+    after = read_launches()
+    return card_step(static, peak, {k: after[k] - before[k] for k in after}, step_ms, free)
+
+
+def scan_cost(sched, rounds, **kw):
+    """``regret_scan.cost`` of ``rounds`` rounds of ``sched``'s scan
+    (``runs``, ``splits`` and ``reactive`` as there)."""
+    from repro_torch.kernels import regret_scan
+
+    return regret_scan.cost(sched.n_channels, sched.n_clients, sched.history, rounds, **kw)
+
+
+def bound_of(kcost):
+    """(bound ms, what bounds it) of a kernel call's ``KernelCost`` (each
+    wrapper's ``cost``: the count the dry run's walker uses too)."""
+    return kcost.bound_ms, kcost.bound_by
 
 
 def time_ms(torch, fn, iters):
@@ -672,12 +757,12 @@ def glr_split_count(torch, counts, sched, h, geometric):
 
 
 def glr_bound_ms(torch, args, h, geometric):
+    """``glr_step.cost`` on these inputs: the splits their counts make."""
+    from repro_torch.kernels import glr_step
+
     cum, total, base, counts, r_vec, sched = args
-    rows = cum.numel() // h
-    nbytes = 2 * cum.numel() * 4 + rows * (4 * 4 + 1) + rows * 3 * 4
-    flops = KL_SPLIT_FLOPS * glr_split_count(torch, counts, sched, h, geometric) + rows
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return bound_of(glr_step.cost(cum.numel() // h, h, glr_split_count(torch, counts, sched, h,
+                                                                        geometric)))
 
 
 def check_glr_step(torch, gen, floor_ms):
@@ -767,16 +852,19 @@ def tenants_bound_ms(torch, args, geometric):
     (32 a split) over the f32 rate and the split term's MUFU instructions
     over 16 a clock on each of 132 SMs.  Returns (bound ms, bound_by, the
     split count, {bytes, fma, mufu ms})."""
+    from repro_torch.kernels import glr_step_tenants
+    from repro_torch.kernels.glr_step import KL_SPLIT_FLOPS
+    from repro_torch.utils import roofline as rl
+
     cum, total, base, slots, live, detect, counts, r_vec, sched = args
     n, h = cum.shape[1:]
     det = detect & live
     splits = glr_split_count(torch, counts[det], sched[det], h, geometric)
-    nbytes = int(det.sum()) * n * h * 4 + int(live.sum()) * n * (16 + 1) + slots.numel() * 6
-    parts = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3,
-                 fma=KL_SPLIT_FLOPS * splits / F32_FLOPS * 1e3,
-                 mufu=splits * SPLIT_MUFU / (MUFU_PER_SM_CLOCK * H100_SMS * SM_CLOCK_HZ) * 1e3)
-    bound = max(parts.values())
-    return bound, "bytes" if parts["bytes"] >= bound else "operations", splits, parts
+    kc = glr_step_tenants.cost(n, h, slots.numel(), int(det.sum()), int(live.sum()), splits)
+    parts = dict(bytes=kc.nbytes / rl.HBM_BW * 1e3,
+                 fma=KL_SPLIT_FLOPS * splits / rl.PEAK_FLOPS_F32 * 1e3,
+                 mufu=kc.ops / kc.rate * 1e3)
+    return kc.bound_ms, kc.bound_by, splits, parts
 
 
 def check_glr_step_tenants(torch, gen, floor_ms):
@@ -793,6 +881,7 @@ def check_glr_step_tenants(torch, gen, floor_ms):
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import glr_step_tenants as gst_mod
     from repro_torch.kernels.glr_step import glr_step as old_kernel
+    from repro_torch.utils import roofline as rl
 
     kernel = gst_mod.glr_step_tenants
     cases = {"full": (256, 256, 16, 1024, 1.0, 0), "serve": (257, 64, 16, 256, 0.2, 5),
@@ -842,7 +931,8 @@ def check_glr_step_tenants(torch, gen, floor_ms):
                  plain_ms=time_ms(torch, lambda: ref.glr_step_tenants(*args), 50),
                  device_ms=device_ms(torch, call, 100), library_ms=None)
         bound, bound_by, splits, parts = tenants_bound_ms(torch, args, False)
-        issue_ms = splits * SPLIT_SASS / (LANES_PER_SM_CLOCK * H100_SMS * SM_CLOCK_HZ) * 1e3
+        issue_ms = splits * SPLIT_SASS / (rl.LANES_PER_SM_CLOCK * rl.SM_COUNT
+                                          * rl.SM_CLOCK_HZ) * 1e3
         t.update(bound_ms=bound, bound_by=bound_by, splits=splits,
                  detecting_rows=int(detect.sum()))
         fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
@@ -856,9 +946,10 @@ def check_glr_step_tenants(torch, gen, floor_ms):
              f"rows detecting: kernel {t['ms']:.4f} ms{old}, plain {t['plain_ms']:.4f} ms, per "
              f"call back to back, one window each; device time {fmt(t['device_ms'])}; bound "
              f"{bound:.5f} ms ({bound_by}; bytes {parts['bytes']:.5f}, FMA {parts['fma']:.5f}, "
-             f"MUFU {parts['mufu']:.5f} ms over {splits} splits, {SPLIT_MUFU} MUFU a split); "
+             f"MUFU {parts['mufu']:.5f} ms over {splits} splits, {gst_mod.SPLIT_MUFU} MUFU a "
+             f"split); "
              f"issue at {SPLIT_SASS} SASS instructions a split {issue_ms:.5f} ms (SM clock "
-             f"{SM_CLOCK_HZ / 1e6:.0f} MHz); launch floor {floor_ms:.5f} ms")
+             f"{rl.SM_CLOCK_HZ / 1e6:.0f} MHz); launch floor {floor_ms:.5f} ms")
         if label == "serve":
             dev = cum.get_device()
             fn = _build.load("glr_step_tenants", "glr_step_tenants_launch", gst_mod._ARGTYPES)
@@ -946,7 +1037,7 @@ def check_weighted_aggregate(torch, gen, floor_ms):
                  device_ms=device_ms(torch, call, 100 if small else 10),
                  library_device_ms=device_ms(torch, library, 100 if small else 10))
         nbytes = m * p * 4 + m * 4 + p * 4
-        t["bound_ms"], t["bound_by"] = two_way_bound(nbytes, 2 * m * p, F32_FLOPS)
+        t["bound_ms"], t["bound_by"] = bound_of(wa_mod.cost((m, p), 4))
         timings[label] = t
         fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
         each = lambda xs: " / ".join(f"{x:.4f}" for x in xs)
@@ -1019,6 +1110,7 @@ def check_robust_trimmed(torch, gen, floor_ms):
     bound at ``RANK_PAIR_OPS`` with the older ``OLD_RANK_PAIR_OPS`` beside."""
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import robust_agg as rt_mod
+    from repro_torch.utils import roofline as rl
 
     kernel = rt_mod.robust_trimmed
     max_err = 0.0
@@ -1088,8 +1180,8 @@ def check_robust_trimmed(torch, gen, floor_ms):
         same = bool(torch.equal(library(), kernel(x, mask, n, k)))
         nbytes = m * p * 4 + m * 4 + 8 + p * 4
         pairs = m * m * p                              # every row participates
-        t["bound_ms"], t["bound_by"] = two_way_bound(nbytes, RANK_PAIR_OPS * pairs, F32_LANE_OPS)
-        old_bound, _ = two_way_bound(nbytes, OLD_RANK_PAIR_OPS * pairs, F32_LANE_OPS)
+        t["bound_ms"], t["bound_by"] = bound_of(rt_mod.cost((m, p), 4))
+        old_bound = rl.KernelCost(OLD_RANK_PAIR_OPS * pairs, nbytes, rl.PEAK_LANE_OPS_F32).bound_ms
         timings[label] = t
         fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
         each = lambda xs: " / ".join(f"{x:.4f}" for x in xs)
@@ -1100,8 +1192,8 @@ def check_robust_trimmed(torch, gen, floor_ms):
              f"{each(t['library_turns_ms'])}; "
              f"device time: kernel {fmt(t['device_ms'])}, library {fmt(t['library_device_ms'])}; "
              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {pairs:.3e} ordered pairs x "
-             f"{RANK_PAIR_OPS} instruction / {F32_LANE_OPS:.3g} lane instructions/s; bytes "
-             f"{nbytes / HBM_BYTES_PER_S * 1e3:.2e} ms), the older {OLD_RANK_PAIR_OPS}-op bound "
+             f"{RANK_PAIR_OPS} instruction / {rl.PEAK_LANE_OPS_F32:.3g} lane instructions/s; "
+             f"bytes {nbytes / rl.HBM_BW * 1e3:.2e} ms), the older {OLD_RANK_PAIR_OPS}-op bound "
              f"{old_bound:.4f} ms, launch floor {floor_ms:.5f} ms, "
              f"{pairs / (t['ms'] * 1e-3) / 1e12:.2f} T pairs/s")
         if label == "fig3":
@@ -1174,8 +1266,7 @@ def check_batched_aggregation(torch, gen, floor_ms):
                                         iters),
                  library_ms=time_ms(torch, lambda: torch.bmm(scale[:, None, :], upd), iters),
                  device_ms=device_ms(torch, lambda: wa(upd, scale), 100 if iters > 100 else 10))
-        nbytes = b * (m * p * 4 + m * 4 + p * 4)
-        t["bound_ms"], t["bound_by"] = two_way_bound(nbytes, 2 * b * m * p, F32_FLOPS)
+        t["bound_ms"], t["bound_by"] = bound_of(wa_mod.cost((b, m, p), 4))
         line(f"  weighted_aggregate batch time ({b}, {m}, {p}) f32: batch launch {t['ms']:.4f} "
              f"ms, the {b} single-run launches it replaces {t['single_loop_ms']:.4f} ms, plain "
              f"{t['plain_ms']:.4f} ms, library (torch.bmm) {t['library_ms']:.4f} ms, device "
@@ -1252,10 +1343,8 @@ def check_batched_aggregation(torch, gen, floor_ms):
                  library_ms=time_ms(torch, lambda: torch.sort(x, dim=1).values[:, lo:hi]
                                     .mean(dim=1), iters),
                  device_ms=device_ms(torch, lambda: rt(x, mask, n, k), 100 if small else 10))
-        nbytes = b * (m * p * 4 + m * 4 + 8 + p * 4)
         pairs_n = b * m * m * p
-        t["bound_ms"], t["bound_by"] = two_way_bound(nbytes, RANK_PAIR_OPS * pairs_n,
-                                                     F32_LANE_OPS)
+        t["bound_ms"], t["bound_by"] = bound_of(rt_mod.cost((b, m, p), 4))
         line(f"  robust_trimmed batch time ({b}, {m}, {p}) f32 median: batch launch "
              f"{t['ms']:.4f} ms, the {b} single-run launches it replaces "
              f"{t['single_loop_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library (sort + "
@@ -1277,6 +1366,7 @@ def check_glr_scan(torch, gen, floor_ms):
     window total once from an f64 scan, and its statistic must land inside
     ``ref.glr_scan_bounds``: the split term's derived forward error around
     the exact statistic (per row, the max over splits of value +- bound)."""
+    from repro_torch.kernels import glr_scan as gsc_mod
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.glr_scan import glr_scan as kernel
 
@@ -1325,9 +1415,7 @@ def check_glr_scan(torch, gen, floor_ms):
         hist, counts = inputs(n, h, True, full=True)   # the steady state: full windows
         ms = time_ms(torch, lambda: kernel(hist, counts), 2000)
         plain_ms = time_ms(torch, lambda: ref.glr_scan(hist, counts), 200)
-        splits = n * (h - 1)
-        nbytes = n * h * 4 + n * 4 + n * 4
-        bound, bound_by = two_way_bound(nbytes, KL_SPLIT_FLOPS * splits + 2 * n * h, F32_FLOPS)
+        bound, bound_by = bound_of(gsc_mod.cost(n, h))     # full windows: n (h - 1) splits
         timings[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by)
         line(f"  glr_scan time {label} ({n}, {h}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
              f"bound {bound:.2e} ms ({bound_by}), launch floor {floor_ms:.5f} ms, "
@@ -1362,13 +1450,15 @@ def scan_tenants_bound_ms(torch, args):
     written, over HBM; or the split operations (32 a split over this run's
     splits) and the two scans' adds over those samples, over the f32 rate.
     Returns (bound ms, bound_by, the split count)."""
+    from repro_torch.kernels import glr_scan
+
     hist, slots, detect, counts = args
     h = hist.shape[2]
     valid = counts[detect].clamp(min=0, max=h)
     samples = int(valid.sum())
     splits = int((valid - 1).clamp(min=0).sum())
-    nbytes = samples * 4 + counts.numel() * 8 + slots.numel() * 5
-    bound, bound_by = two_way_bound(nbytes, KL_SPLIT_FLOPS * splits + 2 * samples, F32_FLOPS)
+    bound, bound_by = bound_of(glr_scan.tenants_cost(counts.shape[1], h, slots.numel(), samples,
+                                                     splits))
     return bound, bound_by, splits
 
 
@@ -1472,22 +1562,21 @@ def check_glr_scan_tenants(torch, gen, floor_ms):
 
 
 def attn_pairs(s, causal, window):
-    """(query, key) pairs the mask lets through: the work of a prefill."""
-    total = 0
-    for q in range(s):
-        lo = max(0, q - window + 1) if window > 0 else 0
-        total += (q if causal else s - 1) - lo + 1
-    return total
+    """(query, key) pairs the mask lets through: the work of a prefill
+    (``flash_attention.pairs``, which its ``cost`` counts)."""
+    from repro_torch.kernels.flash_attention import pairs
+
+    return pairs(s, causal, window)
 
 
-def attn_bound_ms(shape, causal, window, dtype_bytes, rate):
-    """The least time of one attention call: 4 D flops a visible pair (q.k
-    and p.v) over ``rate``, or q, k, v read and the output written once over
-    HBM bandwidth, whichever is larger."""
-    b, hq, hkv, s, d = shape
-    flops = 4 * b * hq * d * attn_pairs(s, causal, window)
-    nbytes = (2 * b * hq + 2 * b * hkv) * s * d * dtype_bytes
-    return two_way_bound(nbytes, flops, rate)
+def attn_bound_ms(torch, shape, causal, window, dtype):
+    """The least time of one attention call (``flash_attention.cost``): 4 D
+    flops a visible pair (q.k and p.v) over the dtype's rate, or q, k, v
+    read and the output written once over HBM bandwidth, whichever is
+    larger."""
+    from repro_torch.kernels import flash_attention
+
+    return bound_of(flash_attention.cost(shape, causal, window, dtype))
 
 
 def routes_in_turns(torch, q, k, v, window, tc_iters):
@@ -1518,6 +1607,7 @@ def check_flash_attention(torch, gen, floor_ms):
 
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import ops, ref
+    from repro_torch.utils import roofline as rl
 
     kernel = fa_mod.flash_attention
 
@@ -1578,7 +1668,7 @@ def check_flash_attention(torch, gen, floor_ms):
         ms = time_ms(torch, lambda: kernel(q, k, v, causal=causal, window=window), 200)
         plain_ms = time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=causal,
                                                             window=window), 50)
-        bound, bound_by = attn_bound_ms(shape, causal, window, 4, F32_FLOPS)
+        bound, bound_by = attn_bound_ms(torch, shape, causal, window, torch.float32)
         timings["jax_shapes"].append(dict(shape=list(shape), causal=causal, window=window,
                                           ms=ms, plain_ms=plain_ms, bound_ms=bound))
         line(f"  flash_attention time {shape} f32 causal={causal} window={window}: "
@@ -1587,8 +1677,8 @@ def check_flash_attention(torch, gen, floor_ms):
     flops = 4 * model[0] * model[1] * model[4] * attn_pairs(model[3], True, 0)
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = inputs(model, dtype)
-        rate = BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-        bound, bound_by = attn_bound_ms(model, True, 0, q.element_size(), rate)
+        rate = rl.PEAK_FLOPS_BF16 if dtype == torch.bfloat16 else rl.PEAK_FLOPS_F32
+        bound, bound_by = attn_bound_ms(torch, model, True, 0, dtype)
         t = dict(bound_ms=bound, bound_by=bound_by)
         if dtype == torch.bfloat16:
             t.update(routes_in_turns(torch, q, k, v, 0, 50))
@@ -1600,7 +1690,7 @@ def check_flash_attention(torch, gen, floor_ms):
         label = "model" if dtype == torch.bfloat16 else "model_f32"
         timings[label] = t
         if dtype == torch.bfloat16:
-            split_ms = 1.5 * flops / BF16_TC_FLOPS * 1e3
+            split_ms = 1.5 * flops / rl.PEAK_FLOPS_BF16 * 1e3
             line(f"  flash_attention time qwen3-32b prefill {model} causal bf16: tensor-core "
                  f"route {t['ms']:.4f} / {t['ms_again']:.4f} ms ({flops / t['ms'] / 1e9:.1f} "
                  f"TFLOP/s of attention), FMA route "
@@ -1788,15 +1878,6 @@ def timed_run(torch, fn):
     return out, time.perf_counter() - t0
 
 
-def scan_work(sched, rounds, splits):
-    """The work of a scan run, (bytes, operations): its bytes (uniforms in,
-    schedule and curves out, the state in and out) and the GLR splits it
-    evaluated at ``KL_SPLIT_FLOPS`` each."""
-    n, m, h = sched.n_channels, sched.n_clients, sched.history
-    nbytes = rounds * 2 * n * 4 + rounds * m * 8 + 2 * rounds * 4 + 2 * (n * h * 4 + 4 * n * 4 + 8)
-    return nbytes, KL_SPLIT_FLOPS * splits
-
-
 def fig2_routes(torch, label, sched, env, uniforms, rounds_cut=None):
     """The T = FIG2_ROUNDS run on both routes, in turns scan, rounds, scan:
     launch counts, bit-for-bit equality and each route's ms/round.  With
@@ -1828,7 +1909,8 @@ def fig2_routes(torch, label, sched, env, uniforms, rounds_cut=None):
     _, secs_scan_again = timed_run(torch, lambda: run(None))
     err = compare_routes(torch, scan if cut == rounds else run(None, cut), rounds_out,
                          f"{label} scan vs rounds")
-    bound, bound_by = two_way_bound(*scan_work(sched, rounds, splits), F32_FLOPS)
+    kc = scan_cost(sched, rounds, splits=splits)
+    bound, bound_by = kc.bound_ms, kc.bound_by
     ms_scan, ms_scan_again, ms_rounds = secs_scan * 1e3, secs_scan_again * 1e3, secs_rounds * 1e3
     line(f"  {label} scan route: T={rounds} {ms_scan:.3f} ms a run ({ms_scan / rounds:.6f} "
          f"ms/round), again {ms_scan_again:.3f} ms; regret_scan.launches="
@@ -1923,7 +2005,7 @@ def fig2(torch, seed):
 
     # drawn as simulate_aoi_regret would draw them from gen; kept for phase 6
     uniforms = torch.rand((rounds, 2, n), generator=gen, device="cuda")
-    out, launches, scan_fields = fig2_routes(torch, "fig2", sched, env, uniforms)
+    out, launches, scan_fields = fig2_routes(torch, "fig2", sched, env, uniforms, FIG2_ROUNDS_CUT)
     regret = out["regret"]
     check(regret.shape == (rounds,) and bool(torch.isfinite(regret).all()), "fig2: regret not finite")
     chain_us = scan_chain_cost(torch, sched, env, uniforms, scan_fields["scan_ms"])
@@ -2287,12 +2369,16 @@ def serve_path(torch, seed, n_layers):
 
     cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=n_layers)
     model = build_model(cfg)
+    release(torch)
     torch.cuda.reset_peak_memory_stats()
+    h0, free0 = allocator_bytes(torch), free_blocks(torch)
+    m0 = h0[0]
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
     t0 = time.perf_counter()
     params, _ = model.init(gen, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    weights = minus(allocator_bytes(torch), h0)
     n_params = sum(v.numel() for v in params.values())
     norms = n_layers * (2 * cfg.d_model + 2 * cfg.resolved_head_dim * cfg.qk_norm) + cfg.d_model
     check(n_params == cfg.param_count() + norms,      # param_count leaves out the norm gains
@@ -2304,12 +2390,15 @@ def serve_path(torch, seed, n_layers):
                             device="cuda", dtype=torch.int32)
     batch = {"tokens": prompts}
     prefill = make_prefill_step(model)
+    prefill_static = minus(allocator_bytes(torch), h0)
 
     reset_launches()
     prefill_ms = []
-    for _ in range(3):                    # the first one is the warm-up
+    for i in range(3):                    # the first one is the warm-up
         before, before_tc = kernel.launches, kernel.tc_launches
         torch.cuda.synchronize()
+        if i == 2:
+            torch.cuda.reset_peak_memory_stats()      # phase 19 (b): the peak of one prefill
         t0 = time.perf_counter()
         logits = prefill(params, batch)
         torch.cuda.synchronize()
@@ -2320,7 +2409,11 @@ def serve_path(torch, seed, n_layers):
         check(logits.shape == (SERVE_PREFILL_BATCH, 1, cfg.vocab_size)
               and logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
               f"serve: prefill logits {tuple(logits.shape)} {logits.dtype} not finite or misshapen")
+    card = {"card_prefill": card_step(prefill_static, torch.cuda.max_memory_allocated() - m0,
+                                      per_step(read_launches(), 3, "serve prefill"),
+                                      sum(prefill_ms[1:]) / 2, (free0,))}
     release(torch)
+    m_pre, free1 = allocator_bytes(torch), free_blocks(torch)
     tok, cache, secs = serve_loop(model, params, SERVE_BATCH, SERVE_CONTEXT, SERVE_TOKENS,
                                   device="cuda")
     launches = read_launches()
@@ -2328,6 +2421,8 @@ def serve_path(torch, seed, n_layers):
     check(tok.shape == (SERVE_BATCH,) and tok.dtype == torch.int32
           and bool(((tok >= 0) & (tok < cfg.vocab_size)).all()), "serve: decoded tokens invalid")
     step_ms = secs / SERVE_TOKENS * 1e3
+    card["card_decode"] = decode_step_card(torch, model, params, cache, tok, m_pre, weights,
+                                           step_ms, (free0, free1))
     line(f"  serve {cfg.name}: prefill {SERVE_PREFILL_BATCH} x {SERVE_PROMPT} tokens "
          f"{prefill_ms[1]:.1f} / {prefill_ms[2]:.1f} ms (warm-up {prefill_ms[0]:.1f} ms), "
          f"{SERVE_PREFILL_BATCH * SERVE_PROMPT / (prefill_ms[1] / 1e3):.0f} prompt tok/s; "
@@ -2373,7 +2468,7 @@ def serve_path(torch, seed, n_layers):
     del params, logits, cache, lg, out
     release(torch)
     return launches, dict(prefill_ms=prefill_ms[1:], decode_step_ms=step_ms,
-                          tok_s=SERVE_BATCH * SERVE_TOKENS / secs)
+                          tok_s=SERVE_BATCH * SERVE_TOKENS / secs, card=card)
 
 
 # ---------------------------------------------------------------------------
@@ -2947,8 +3042,8 @@ def batched_engine(torch, seed, chain_us, fig2a_refs):
             want, _ = serial(sched, env, T, ub[i])
             for k in ("final_regret", "final_cum_aoi_var", "restarts", "aoi_pi"):
                 check(torch.equal(out[k][i], want[k]), f"phase 10 (c) B={bb} run {i}: {k}")
-        nbytes = bb * (T * 2 * n * 4 + T * m * 8 + 2 * (n * 1024 * 4 + 4 * n * 4 + 8) + 4 * 4)
-        bound, bound_by = two_way_bound(nbytes, KL_SPLIT_FLOPS * splits, F32_FLOPS)
+        kc = scan_cost(sched, T, runs=bb, splits=splits)
+        bound, bound_by = kc.bound_ms, kc.bound_by
         chain = math.ceil(bb / in_flight) * T * chain_us / 1e3
         fill.append(dict(b=bb, ms=secs * 1e3, ms_per_run_round=secs * 1e3 / (bb * T),
                          bound_ms=bound, bound_by=bound_by, splits=splits))
@@ -3085,17 +3180,21 @@ def realized(case, dev):
     return case.env.realize(scenario_realize_generator(case.seed, dev), dev)
 
 
-def family_runs(torch, sched, cases, results, label, **kw):
+def family_runs(torch, sched, cases, results, label, rounds=None, **kw):
     """The first case of each family run alone (``kw``: the route) from the
-    case's own realization and uniforms, equal to its row of ``results``."""
+    case's own realization and uniforms, equal to its row of ``results``;
+    with ``rounds``, its first ``rounds`` rounds only, equal to the default
+    route's run of those rounds."""
     from repro_torch.core.channels import scenario_realize_generator
     from repro_torch.core.regret import simulate_aoi_regret
 
     for c in family_firsts(cases):
-        want = simulate_aoi_regret(sched, c.env, c.horizon, uniforms=c.draw_uniforms("cuda"),
-                                   generator=scenario_realize_generator(c.seed, "cuda"),
-                                   collect_curve=False, **kw)
-        same_run(torch, results[c.name], want, f"{label} {c.name}")
+        t = rounds or c.horizon
+        run = lambda **k: simulate_aoi_regret(
+            sched, c.env, t, uniforms=c.draw_uniforms("cuda")[:t],
+            generator=scenario_realize_generator(c.seed, "cuda"), collect_curve=False, **k)
+        want = run(**kw)
+        same_run(torch, results[c.name] if rounds is None else run(), want, f"{label} {c.name}")
 
 
 def channel_families(torch, seed, fig2_env, fig2_u, chain_us):
@@ -3113,6 +3212,7 @@ def channel_families(torch, seed, fig2_env, fig2_u, chain_us):
     from repro_torch.core.regret import simulate_aoi_regret
     from repro_torch.fl import AsyncFLTrainer
     from repro_torch.kernels.regret_scan import occupancy, regret_scan
+    from repro_torch.kernels.regret_scan import REACT_FLOPS
     from repro_torch.sim import SweepCase, sweep
 
     t_start, dev = time.perf_counter(), torch.device("cuda")
@@ -3160,11 +3260,13 @@ def channel_families(torch, seed, fig2_env, fig2_u, chain_us):
         want = simulate_aoi_regret(glr, realized(c, dev), SCEN_ROUNDS,
                                    uniforms=c.draw_uniforms(dev), collect_curve=False)
         same_run(torch, results[c.name], want, f"phase 11 (b) {c.name}")
-    family_runs(torch, glr, cases, results, "phase 11 (b) rounds route", impl="rounds")
+    family_runs(torch, glr, cases, results, "phase 11 (b) rounds route", FAMILY_REF_ROUNDS,
+                impl="rounds")
     line(f"  (b) scenario_suite_glr glr-cucb(H=512, stride 5): {len(cases)} cases in one "
          f"regret_scan launch (table template), {b_ms:.3f} ms a launch "
          f"({b_ms / (len(cases) * SCEN_ROUNDS):.3e} ms a run-round); every row equals its "
-         f"single-run scan, the first case of each family the rounds route, bit for bit ok")
+         f"single-run scan, the first case of each family the rounds route over its first "
+         f"{FAMILY_REF_ROUNDS} rounds (cut), bit for bit ok")
 
     # (c) chaos_suite's regret half: the reactive grid in one launch of the reactive template
     chaos = GLRCUCB(CHAOS_N, CHAOS_M, history=256, detector_stride=5)
@@ -3190,7 +3292,8 @@ def channel_families(torch, seed, fig2_env, fig2_u, chain_us):
                                                  collect_curve=False))
     check(got["regret_scan_reactive"] == 1, f"phase 11 (c) batch of 1: launches {got}")
     family_runs(torch, chaos, cases[:1], {cases[0].name: one["one"]}, "phase 11 (c) batch of 1")
-    family_runs(torch, chaos, cases, results, "phase 11 (c) rounds route", impl="rounds")
+    family_runs(torch, chaos, cases, results, "phase 11 (c) rounds route", FAMILY_REF_ROUNDS,
+                impl="rounds")
     react = make_scenario("reactive_jammer", base=base, strength=0.9)
     openl = JammingOverlay(base=base, horizon=CHAOS_ROUNDS, strength=0.9)
     u_c = cases[1].draw_uniforms(dev)
@@ -3207,7 +3310,8 @@ def channel_families(torch, seed, fig2_env, fig2_u, chain_us):
     line(f"  (c) chaos regret half glr-cucb(N={CHAOS_N}, M={CHAOS_M}, H=256, stride 5), "
          f"T={CHAOS_ROUNDS}: {len(cases)} reactive cases in one bucket, one launch of the "
          f"reactive template, {c_ms:.3f} ms; batch of 1 equals serial; reactive-jam/0.6 and "
-         f"congestion/0.4 equal the rounds route bit for bit ok")
+         f"congestion/0.4 equal the rounds route over their first {FAMILY_REF_ROUNDS} rounds "
+         f"(cut), bit for bit ok")
     line(f"  (c) reactive vs matched open loop (strength 0.9, one base and seed): reactive "
          f"regret {float(rr['final_regret']):.0f} restarts {int(rr['restarts'])}, open-loop "
          f"regret {float(ro['final_regret']):.0f} restarts {int(ro['restarts'])}: both differ ok")
@@ -3233,10 +3337,8 @@ def channel_families(torch, seed, fig2_env, fig2_u, chain_us):
         fig2, renv, REACT_REF_ROUNDS, uniforms=fig2_u[:REACT_REF_ROUNDS], impl="rounds"))
     r_err = same_run(torch, r_out, want, "phase 11 (d) first rounds", rounds=REACT_REF_ROUNDS)
     react_ms = min(ms["react1"], ms["react2"])
-    nbytes, ops = scan_work(fig2, FIG2_ROUNDS, splits)
-    # plus the env's table and react leaf read, and the reaction's flops a channel-round
-    bound, bound_by = two_way_bound(nbytes + FIG2_ROUNDS * 5 * 4 + 4 * 4,
-                                    ops + REACT_FLOPS * 5 * FIG2_ROUNDS, F32_FLOPS)
+    kc = scan_cost(fig2, FIG2_ROUNDS, splits=splits, reactive=True)
+    bound, bound_by = kc.bound_ms, kc.bound_by
     chain = FIG2_ROUNDS * chain_us / 1e3
     occ = {f: occupancy(fig2, f) for f in ("segments", "table", "reactive")}
     line(f"  (d) fig2 reactive scan: reactive_jammer(strength 0.9) over phase 3's env, T="
@@ -3828,6 +3930,8 @@ def substrate_kernels(torch, gen, floor_ms):
     rewards bitwise in state, rtol 1e-5 in the statistic.  Returns each
     kernel's entry (error, times, bound)."""
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import robust_agg as rt_mod
+    from repro_torch.kernels import weighted_aggregate as wa_mod
     from repro_torch.kernels.robust_agg import robust_trimmed as rt_kernel
     from repro_torch.kernels.weighted_aggregate import weighted_aggregate as wa_kernel
 
@@ -3842,8 +3946,7 @@ def substrate_kernels(torch, gen, floor_ms):
               ms=time_ms(torch, lambda: wa_kernel(upd, scale), 2000),
               plain_ms=time_ms(torch, lambda: ref.weighted_aggregate(upd, scale), 2000),
               library_ms=time_ms(torch, lambda: scale @ upd, 2000))
-    wa["bound_ms"], wa["bound_by"] = two_way_bound(m * p * 4 + m * 4 + p * 4, 2 * m * p,
-                                                   F32_FLOPS)
+    wa["bound_ms"], wa["bound_by"] = bound_of(wa_mod.cost((m, p), 4))
 
     x, mask = trim_inputs(torch, m, p, torch.float32, "random", gen)
     n = mask.sum()
@@ -3858,8 +3961,7 @@ def substrate_kernels(torch, gen, floor_ms):
               plain_ms=time_ms(torch, lambda: ref.robust_trimmed(x, mask, n, k), 500),
               library_ms=time_ms(torch, lambda: torch.sort(xk, dim=0).values[lo:hi].mean(0),
                                  2000))
-    rt["bound_ms"], rt["bound_by"] = two_way_bound(m * p * 4 + m * 4 + 8 + p * 4,
-                                                   RANK_PAIR_OPS * int(n) ** 2 * p, F32_LANE_OPS)
+    rt["bound_ms"], rt["bound_by"] = bound_of(rt_mod.cost((m, p), 4, participants=int(n)))
 
     gl = glr_step_at(torch, (SUB_NCH, SUB_H), gen, "phase 13")
     torch.cuda.synchronize()
@@ -4107,7 +4209,7 @@ def train_kernels(torch, gen, floor_ms):
               plain_ms=time_ms(torch, lambda: ref.mha_attention(q, k, v, causal=True), 3),
               library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                   q, k, v, is_causal=True), 20))
-    fa["bound_ms"], fa["bound_by"] = attn_bound_ms(shape, True, 0, 2, BF16_TC_FLOPS)
+    fa["bound_ms"], fa["bound_by"] = attn_bound_ms(torch, shape, True, 0, torch.bfloat16)
     del q, k, v
 
     gl = glr_step_at(torch, (TRAIN_CHANNELS, TRAIN_HISTORY), gen, "phase 14 (0)")
@@ -4469,12 +4571,15 @@ def timed_rounds(torch, train, run, state, rounds, warm):
     """``rounds`` of ``train.train_round`` from ``state``, the launch
     counters reset first: (the state, each round's metrics, ms a step over
     the rounds after the first ``warm`` (host clock), ms between the timed
-    steps' CUDA events, the launches)."""
+    steps' CUDA events, the launches, the peak ``max_memory_allocated`` of
+    the ``warm`` rounds, the peak statistics reset before the first)."""
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     mets, marks = [], []
     for t in range(rounds):
         if t == warm:
             torch.cuda.synchronize()
+            warm_peak = torch.cuda.max_memory_allocated()
             t1 = time.perf_counter()
         state, met = train.train_round(run, state)
         mets.append(met)
@@ -4483,7 +4588,7 @@ def timed_rounds(torch, train, run, state, rounds, warm):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t1) / (rounds - warm) * 1e3
     spread = [a.elapsed_time(b) for a, b in zip(marks[warm - 1:], marks[warm:])]
-    return state, mets, step_ms, spread, read_launches()
+    return state, mets, step_ms, spread, read_launches(), warm_peak
 
 
 def train_path(torch, seed):
@@ -4496,17 +4601,22 @@ def train_path(torch, seed):
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.launch import train
     from repro_torch.models.attention import BACKWARD_RANGE
+    from repro_torch.utils import roofline as rl
 
     args = train.parse_args(["--arch", TRAIN_ARCH, "--steps", str(TRAIN_ROUNDS), "--batch",
                              str(TRAIN_B), "--seq", str(TRAIN_S), "--clients",
                              str(TRAIN_CLIENTS), "--channels", str(TRAIN_CHANNELS),
                              "--lr", str(TRAIN_LR), "--ce-chunk", str(TRAIN_CE_CHUNK),
                              "--seed", str(seed), "--device", "cuda"])
+    release(torch)
     torch.cuda.reset_peak_memory_stats()
+    h0, free0 = allocator_bytes(torch), free_blocks(torch)
+    m0 = h0[0]
     t0 = time.perf_counter()
     run = train.setup(args)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    static = minus(allocator_bytes(torch), h0)
     cfg, state = run.cfg, run.state
     n_params = sum(v.numel() for v in state.params.values())
     # param_count leaves out the norm gains and the QKV biases
@@ -4520,8 +4630,10 @@ def train_path(torch, seed):
          f"{TRAIN_CLIENTS} clients over {TRAIN_CHANNELS} channels, B={TRAIN_B} S={TRAIN_S}, "
          f"AdamW lr {TRAIN_LR}; set up on the card in {setup_s:.2f} s")
 
-    state, mets, step_ms, spread, launches = timed_rounds(torch, train, run, state, TRAIN_ROUNDS,
-                                                          TRAIN_WARM)
+    state, mets, step_ms, spread, launches, warm_peak = timed_rounds(torch, train, run, state,
+                                                                     TRAIN_ROUNDS, TRAIN_WARM)
+    card = card_step(static, warm_peak - m0, per_step(launches, TRAIN_ROUNDS, "phase 14 (d)"),
+                     step_ms, (free0,), env_sizes(run.env))
     spread = sorted(spread)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(m["loss"]) for m in mets]
@@ -4554,9 +4666,9 @@ def train_path(torch, seed):
          f"{tokens / step_ms * 1e3:,.0f} tokens/s; model FLOPs a "
          f"step 6 P B S = {flops:.4e} + causal attention {attn:.4e} = {flops + attn:.4e}, "
          f"{(flops + attn) / (step_ms * 1e-3) / 1e12:.1f} TFLOP/s = "
-         f"{100 * (flops + attn) / (step_ms * 1e-3) / BF16_TC_FLOPS:.1f} % of "
-         f"{BF16_TC_FLOPS / 1e12:.0f} TFLOP/s (6 P B S alone "
-         f"{100 * flops / (step_ms * 1e-3) / BF16_TC_FLOPS:.1f} %); with the recompute the card "
+         f"{100 * (flops + attn) / (step_ms * 1e-3) / rl.PEAK_FLOPS_BF16:.1f} % of "
+         f"{rl.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s (6 P B S alone "
+         f"{100 * flops / (step_ms * 1e-3) / rl.PEAK_FLOPS_BF16:.1f} %); with the recompute the card "
          f"executes about {flops + attn + extra:.4e}")
     line(f"  (d) peak device memory {peak_gib:.2f} GiB (allocated; parameters "
          f"{n_params * 2 / 2 ** 30:.2f} GiB bf16, AdamW moments {n_params * 8 / 2 ** 30:.2f} GiB)")
@@ -4601,7 +4713,8 @@ def train_path(torch, seed):
     release(torch)
     return launches, dict(step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
                           model_flops=flops + attn, peak_gib=peak_gib,
-                          attn_backward_share=bwd_us / total if total else None)
+                          attn_backward_share=bwd_us / total if total else None,
+                          card={"card_train": card})
 
 
 def training(torch, seed, floor_ms):
@@ -4939,6 +5052,7 @@ def attention_at(torch, gen, shape, window, label, floor_ms, fma_turns=False, ca
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
     from repro_torch.kernels.flash_attention import tc_route
+    from repro_torch.utils import roofline as rl
 
     b, hq, hkv, s, d = shape
     q = (torch.randn((b, hq, s, d), generator=gen, device="cuda") * 0.5).to(torch.bfloat16)
@@ -4968,11 +5082,11 @@ def attention_at(torch, gen, shape, window, label, floor_ms, fma_turns=False, ca
                                                                 window=window), 3),
               library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
                   q, k, v, is_causal=causal, enable_gqa=True), 20))
-    fa["bound_ms"], fa["bound_by"] = attn_bound_ms(shape, causal, window, 2, BF16_TC_FLOPS)
+    fa["bound_ms"], fa["bound_by"] = attn_bound_ms(torch, shape, causal, window, torch.bfloat16)
     flops = 4 * b * hq * d * attn_pairs(s, causal, window)
     turns = ""
     if fma_turns:
-        split_ms = 1.5 * flops / BF16_TC_FLOPS * 1e3
+        split_ms = 1.5 * flops / rl.PEAK_FLOPS_BF16 * 1e3
         turns = (f" / {fa['ms_again']:.4f} ms around the FMA route {fa['fma_ms']:.4f} ms "
                  f"({flops / fa['fma_ms'] / 1e9:.1f} TFLOP/s, "
                  f"{fa['fma_ms'] / fa['ms']:.1f}x), split-P ceiling {split_ms:.4f} ms "
@@ -5158,12 +5272,16 @@ def mla_moe_serve(torch, seed, arch, n_layers):
 
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     model = build_model(cfg)
+    release(torch)
     torch.cuda.reset_peak_memory_stats()
+    h0, free0 = allocator_bytes(torch), free_blocks(torch)
+    m0 = h0[0]
     gen = torch.Generator(device="cuda").manual_seed(seed + 162)
     t0 = time.perf_counter()
     params, _ = model.init(gen, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    weights = minus(allocator_bytes(torch), h0)
     n_params = sum(v.numel() for v in params.values())
     mla = cfg.attention == "mla"
     norms = (n_layers * (2 * cfg.d_model + (cfg.q_lora_rank + cfg.kv_lora_rank) * mla
@@ -5179,12 +5297,16 @@ def mla_moe_serve(torch, seed, arch, n_layers):
     batch = {"tokens": prompts}
     prefill = make_prefill_step(model)
     kern = 0 if mla else n_layers
+    prefill_static = minus(allocator_bytes(torch), h0)
 
     reset_launches()
     prefill_ms = []
-    for _ in range(3):                    # the first one is the warm-up
+    for i in range(3):                    # the first one is the warm-up
         before, before_tc = kernel.launches, kernel.tc_launches
         torch.cuda.synchronize()
+        if i == 2:
+            prefill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()      # phase 19 (b): the peak of one prefill
         t0 = time.perf_counter()
         logits = prefill(params, batch)
         torch.cuda.synchronize()
@@ -5197,8 +5319,12 @@ def mla_moe_serve(torch, seed, arch, n_layers):
               and logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
               f"phase 16 (c) {arch}: prefill logits {tuple(logits.shape)} {logits.dtype} not "
               f"finite or misshapen")
-    prefill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card = {"card_prefill": card_step(prefill_static, torch.cuda.max_memory_allocated() - m0,
+                                      per_step(read_launches(), 3, f"phase 16 (c) {arch}"),
+                                      sum(prefill_ms[1:]) / 2, (free0,))}
+    prefill_peak = max(prefill_peak, torch.cuda.max_memory_allocated() / 2 ** 30)
     release(torch)
+    m_pre, free1 = allocator_bytes(torch), free_blocks(torch)
     tok, cache, secs = serve_loop(model, params, SERVE_BATCH, SERVE_CONTEXT, SERVE_TOKENS,
                                   device="cuda")
     launches = read_launches()
@@ -5209,6 +5335,8 @@ def mla_moe_serve(torch, seed, arch, n_layers):
     cache_gib = sum(v.numel() * v.element_size() for layer in cache.values()
                     if isinstance(layer, dict) for v in layer.values()) / 2 ** 30
     step_ms = secs / SERVE_TOKENS * 1e3
+    card["card_decode"] = decode_step_card(torch, model, params, cache, tok, m_pre, weights,
+                                           step_ms, (free0, free1))
     line(f"  (c) {arch}: prefill {SERVE_PREFILL_BATCH} x {SERVE_PROMPT} tokens "
          f"{prefill_ms[1]:.1f} / {prefill_ms[2]:.1f} ms (warm-up {prefill_ms[0]:.1f} ms), "
          f"{SERVE_PREFILL_BATCH * SERVE_PROMPT / (prefill_ms[1] / 1e3):.0f} prompt tok/s; "
@@ -5252,7 +5380,8 @@ def mla_moe_serve(torch, seed, arch, n_layers):
     release(torch)
     return launches, dict(weights_gib=weights_gib, prefill_ms=prefill_ms[1:],
                           decode_step_ms=step_ms, tok_s=SERVE_BATCH * SERVE_TOKENS / secs,
-                          peak_gib=peak, prefill_split_us=parts, prefill_device_us=total)
+                          peak_gib=peak, prefill_split_us=parts, prefill_device_us=total,
+                          card=card)
 
 
 def mla_moe_serving(torch, seed, floor_ms):
@@ -5390,12 +5519,16 @@ def hybrid_serve(torch, seed, arch):
 
     cfg = get_config(arch)
     model = build_model(cfg)
+    release(torch)
     torch.cuda.reset_peak_memory_stats()
+    h0, free0 = allocator_bytes(torch), free_blocks(torch)
+    m0 = h0[0]
     gen = torch.Generator(device="cuda").manual_seed(seed + 171)
     t0 = time.perf_counter()
     params, _ = model.init(gen, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    weights = minus(allocator_bytes(torch), h0)
     n_params = sum(v.numel() for v in params.values())
     specs, _ = model.param_specs()
     n_specs = sum(v.numel() for v in specs.values())
@@ -5412,12 +5545,16 @@ def hybrid_serve(torch, seed, arch):
     kern = attn_layers(cfg, cfg.n_layers)
     tc = bool(kern) and tc_route(torch.bfloat16, cfg.resolved_head_dim)
     s_total = batch["tokens"].shape[1] + (cfg.frontend_tokens if "vision_embeds" in batch else 0)
+    prefill_static = minus(allocator_bytes(torch), h0)
 
     reset_launches()
     prefill_ms = []
-    for _ in range(3):                    # the first one is the warm-up
+    for i in range(3):                    # the first one is the warm-up
         before, before_tc = kernel.launches, kernel.tc_launches
         torch.cuda.synchronize()
+        if i == 2:
+            prefill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()      # phase 19 (b): the peak of one prefill
         t0 = time.perf_counter()
         logits = prefill(params, batch)
         torch.cuda.synchronize()
@@ -5430,8 +5567,12 @@ def hybrid_serve(torch, seed, arch):
               and logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
               f"phase 17 (c) {arch}: prefill logits {tuple(logits.shape)} {logits.dtype} not "
               f"finite or misshapen")
-    prefill_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    card = {"card_prefill": card_step(prefill_static, torch.cuda.max_memory_allocated() - m0,
+                                      per_step(read_launches(), 3, f"phase 17 (c) {arch}"),
+                                      sum(prefill_ms[1:]) / 2, (free0,))}
+    prefill_peak = max(prefill_peak, torch.cuda.max_memory_allocated() / 2 ** 30)
     release(torch)
+    m_pre, free1 = allocator_bytes(torch), free_blocks(torch)
     tok, cache, secs = serve_loop(model, params, SERVE_BATCH, SERVE_CONTEXT, SERVE_TOKENS,
                                   device="cuda")
     launches = read_launches()
@@ -5442,6 +5583,8 @@ def hybrid_serve(torch, seed, arch):
     cache_gib = sum(v.numel() * v.element_size() for layer in cache.values()
                     if isinstance(layer, dict) for v in layer.values()) / 2 ** 30
     step_ms = secs / SERVE_TOKENS * 1e3
+    card["card_decode"] = decode_step_card(torch, model, params, cache, tok, m_pre, weights,
+                                           step_ms, (free0, free1))
     patches = f" + {s_total - SERVE_PROMPT} patches" if s_total > SERVE_PROMPT else ""
     line(f"  (c) {arch}: prefill {SERVE_PREFILL_BATCH} x {s_total} positions "
          f"({batch['tokens'].shape[1]} tokens{patches}) "
@@ -5489,7 +5632,8 @@ def hybrid_serve(torch, seed, arch):
     release(torch)
     return launches, dict(weights_gib=weights_gib, prefill_ms=prefill_ms[1:],
                           decode_step_ms=step_ms, tok_s=SERVE_BATCH * SERVE_TOKENS / secs,
-                          peak_gib=peak, prefill_split_us=parts, prefill_device_us=total)
+                          peak_gib=peak, prefill_split_us=parts, prefill_device_us=total,
+                          card=card)
 
 
 def hybrid_serving(torch, seed, floor_ms):
@@ -5584,17 +5728,22 @@ def family_train_path(torch, seed, arch):
     from repro_torch.launch import train
     from repro_torch.models import rglru, ssm
     from repro_torch.models.attention import BACKWARD_RANGE, FORWARD_RANGE
+    from repro_torch.utils import roofline as rl
 
     args = train.parse_args(["--arch", arch, "--steps", str(FAMILY_ROUNDS), "--batch",
                              str(TRAIN_B), "--seq", str(TRAIN_S), "--clients",
                              str(TRAIN_CLIENTS), "--channels", str(TRAIN_CHANNELS),
                              "--lr", str(TRAIN_LR), "--ce-chunk", str(TRAIN_CE_CHUNK),
                              "--seed", str(seed), "--device", "cuda"])
+    release(torch)
     torch.cuda.reset_peak_memory_stats()
+    h0, free0 = allocator_bytes(torch), free_blocks(torch)
+    m0 = h0[0]
     t0 = time.perf_counter()
     run = train.setup(args)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    static = minus(allocator_bytes(torch), h0)
     cfg, state = run.cfg, run.state
     n_params = sum(v.numel() for v in state.params.values())
     specs, _ = run.model.param_specs()
@@ -5613,8 +5762,11 @@ def family_train_path(torch, seed, arch):
     unembed0 = state.params["unembed"][:, :64].clone()
     embed0 = state.params["embed"].clone() if cfg.arch_type == "audio" else None
 
-    state, mets, step_ms, spread, launches = timed_rounds(torch, train, run, state, FAMILY_ROUNDS,
-                                                          FAMILY_WARM)
+    state, mets, step_ms, spread, launches, warm_peak = timed_rounds(
+        torch, train, run, state, FAMILY_ROUNDS, FAMILY_WARM)
+    card = card_step(static, warm_peak - m0,
+                     per_step(launches, FAMILY_ROUNDS, f"phase 18 (c) {arch}"), step_ms,
+                     (free0,), env_sizes(run.env))
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(m["loss"]) for m in mets]
     succ = [int(m["n_success"]) for m in mets]
@@ -5635,7 +5787,7 @@ def family_train_path(torch, seed, arch):
     del unembed0, embed0
     positions = TRAIN_B * s_total
     flops, attn, p_prod = train_flops(cfg, n_params, TRAIN_B, s_total)
-    share = (flops + attn) / (step_ms * 1e-3) / BF16_TC_FLOPS
+    share = (flops + attn) / (step_ms * 1e-3) / rl.PEAK_FLOPS_BF16
     line(f"  (c) {arch}: {FAMILY_ROUNDS} rounds: loss {', '.join(f'{x:.4f}' for x in losses)} "
          f"(finite), |S_t| {succ}, the parameters moved{never_read}; launches flash_attention "
          f"{launches['flash_attention']} ({fa_per} a step, tensor-core route), glr_step "
@@ -5647,7 +5799,7 @@ def family_train_path(torch, seed, arch):
          f"sequence); model FLOPs a step 6 P B S = {flops:.4e} (P = {p_prod:,} in products) + "
          f"{'non-causal ' if not cfg.is_decoder else ''}attention {attn:.4e} = "
          f"{flops + attn:.4e}, {(flops + attn) / (step_ms * 1e-3) / 1e12:.1f} TFLOP/s = "
-         f"{100 * share:.1f} % of {BF16_TC_FLOPS / 1e12:.0f} TFLOP/s; peak device memory "
+         f"{100 * share:.1f} % of {rl.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s; peak device memory "
          f"{peak_gib:.2f} GiB (allocated; {static_gib:.2f} GiB of weights and moments)")
 
     holder = {"state": state}
@@ -5673,7 +5825,8 @@ def family_train_path(torch, seed, arch):
     release(torch)
     return launches, dict(step_ms=step_ms, positions_per_s=positions / step_ms * 1e3,
                           model_flops=flops + attn, flop_share=share, peak_gib=peak_gib,
-                          static_gib=static_gib, split_us=parts, device_us=total)
+                          static_gib=static_gib, split_us=parts, device_us=total,
+                          card={"card_train": card})
 
 
 def family_training(torch, seed, floor_ms):
@@ -5698,6 +5851,150 @@ def family_training(torch, seed, floor_ms):
          f"{launches['flash_attention_tc']}), glr_step {launches['glr_step']}; wall "
          f"{time.perf_counter() - t_phase:.1f} s")
     return launches, attn, numbers
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the dry run against the card
+# ---------------------------------------------------------------------------
+
+PEAK_BAND = 0.10               # (b): the predicted peak within 10 % of the card's
+DRYRUN_WORKERS = 6             # host processes running the dry runs at once
+
+
+def dryrun_job(job):
+    """One dry run on the host (meta tensors: no card, nothing allocated), in
+    a worker process: ``job`` = (arch, layers or None for the full depth,
+    shape, ce_chunk).  Returns (job, the record's numbers)."""
+    import dataclasses
+
+    import torch
+
+    torch.set_num_threads(1)          # meta ops compute nothing: one thread a worker
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import run_one
+
+    arch, n_layers, shape, ce_chunk = job
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    rec = run_one(cfg, shape, ce_chunk=ce_chunk, verbose=False)
+    return job, {k: rec.get(k) for k in ("status", "error", "memory", "kernel_launches",
+                                          "roofline", "cost_logical", "trace_s")}
+
+
+def dry_runs(jobs):
+    """The dry runs of ``jobs`` in ``DRYRUN_WORKERS`` spawned processes (the
+    longest first); every worker has exited when this returns."""
+    import concurrent.futures
+    import multiprocessing
+
+    order = sorted(jobs, key=lambda j: (j[2] != "card_train", j[0] != "mamba2-1.3b"))
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=ctx) as pool:
+        return dict(pool.map(dryrun_job, order))
+
+
+def dry_run_vs_card(torch, measured):
+    """Phase 19: for each config and shape phases 7, 14, 16, 17 and 18 ran,
+    the dry run's prediction (``repro_torch.launch.dryrun``, on meta
+    tensors on the host) against the card's measurement: (a) the step's
+    static bytes exactly, as the allocator's requests count them (the
+    dry run's storages and the launcher's env a training step holds) and
+    as ``memory_allocated`` counts them (``utils/cost.py``
+    ``allocated_bytes`` over the dry run's storage sizes, from the free
+    blocks the card's allocator held when each run of allocations began:
+    the cached blocks that live tensors of earlier work keep), (b) its
+    peak within ``PEAK_BAND``, (c) each kernel's launches a step exactly;
+    (d) printed: the counted FLOPs, the roofline bound, the measured ms and
+    the step's share of its roofline, the model-FLOP share; (e) printed:
+    the dry run's training predictions for the MLA and MoE models (phase
+    16's depths, B = 8 x 2048, ``remat="full"``, the donated step).  Runs
+    no step on the card."""
+    from repro_torch.launch.specs import CARD_SHAPES
+    from repro_torch.utils import roofline as rl
+    from repro_torch.utils.cost import allocated_bytes
+
+    t_phase = time.perf_counter()
+    smoke = {"card_train": (TRAIN_S, TRAIN_B, (TRAIN_CLIENTS, TRAIN_CHANNELS, TRAIN_HISTORY)),
+             "card_prefill": (SERVE_PROMPT, SERVE_PREFILL_BATCH),
+             "card_decode": (SERVE_CONTEXT, SERVE_BATCH)}
+    spec = {k: (v.seq_len, v.global_batch, v.fl[:3])[:len(smoke[k])]
+            for k, v in CARD_SHAPES.items()}
+    check(spec == smoke, f"phase 19: the card shapes {spec} are not the smoke's steps {smoke}")
+    jobs = [(arch, n, shape, TRAIN_CE_CHUNK if shape == "card_train" else 0)
+            for (arch, n), steps in measured.items() for shape in steps]
+    jobs += [(arch, n, "card_train", TRAIN_CE_CHUNK) for arch, n in MLA_MOE_SERVED]
+    recs = dry_runs(jobs)
+    bad = {j: r["error"] for j, r in recs.items() if r["status"] != "ok"}
+    check(not bad, f"phase 19: dry runs failed: {bad}")
+    gib = lambda b: b / 2 ** 30
+    out = {}
+    for (arch, n), steps in measured.items():
+        for shape, card in steps.items():
+            ce = TRAIN_CE_CHUNK if shape == "card_train" else 0
+            rec = recs[(arch, n, shape, ce)]
+            mem, roof = rec["memory"], rec["roofline"]
+            what = f"{arch}{f' ({n} layers)' if n else ''} {shape}"
+            held, sizes, free = card["held"], mem["static_sizes"], card["free"]
+            if shape == "card_decode":      # the weights, then the serve loop's cache and token
+                model = (allocated_bytes(sizes[0], free[0])
+                         + allocated_bytes(sum(sizes[1:], []), free[1]))
+            else:                           # (training: the env, then the state)
+                model = allocated_bytes(held + sum(sizes, []), free[0])
+            diff = card["static_requested"] - mem["static_bytes_exact"] - sum(held)
+            line(f"  (a) {what}: static {mem['static_bytes_exact']:,} bytes predicted "
+                 f"({mem['static_storages']} storages) + {sum(held):,} of env held beside it, "
+                 f"{card['static_requested']:,} requested on the card (difference {diff:,}); "
+                 f"memory_allocated {card['static_bytes']:,} ({gib(card['static_bytes']):.4f} "
+                 f"GiB) against the allocator model's {model:,} "
+                 f"({card['static_bytes'] - model:+,}) from "
+                 f"{' and '.join(f'{sum(n for n, _ in f):,} bytes in {len(f)}' for f in free)} "
+                 f"free cached blocks; from an empty cache "
+                 f"{mem['static_allocated']:,}, 512-byte rounding {mem['static_bytes']:,}")
+            check(diff == 0, f"phase 19 (a) {what}: {card['static_requested']:,} bytes requested "
+                  f"on the card, {mem['static_bytes_exact']:,} predicted + {sum(held):,} of env")
+            check(card["static_bytes"] == model, f"phase 19 (a) {what}: memory_allocated "
+                  f"{card['static_bytes']:,} on the card, the allocator model {model:,}")
+            ratio = mem["peak_bytes"] / card["peak_bytes"]
+            line(f"  (b) {what}: peak {gib(mem['peak_bytes']):.3f} GiB predicted, "
+                 f"{gib(card['peak_bytes']):.3f} GiB on the card (max_memory_allocated over the "
+                 f"step), ratio {ratio:.4f}")
+            check(abs(ratio - 1) <= PEAK_BAND, f"phase 19 (b) {what}: predicted peak "
+                  f"{gib(mem['peak_bytes']):.3f} GiB against {gib(card['peak_bytes']):.3f} GiB")
+            want = {k: rec["kernel_launches"].get(k, 0) for k in KERNEL_NAMES}
+            got = {k: card["launches"][k] for k in KERNEL_NAMES}
+            line(f"  (c) {what}: launches a step predicted "
+                 f"{ {k: v for k, v in want.items() if v} }, on the card "
+                 f"{ {k: v for k, v in got.items() if v} }")
+            check(want == got, f"phase 19 (c) {what}: launches {got} on the card, {want} predicted")
+            bound_ms = roof["step_time_lower_bound_s"] * 1e3
+            mshare = roof["model_flops"] / (card["ms"] * 1e-3) / rl.PEAK_FLOPS_BF16
+            line(f"  (d) {what}: {rec['cost_logical']['flops']:.4e} FLOPs counted, roofline "
+                 f"bound {bound_ms:.3f} ms ({roof['bottleneck']}), {card['ms']:.2f} ms measured: "
+                 f"the step's share of its roofline {100 * bound_ms / card['ms']:.1f} %; "
+                 f"model FLOPs {roof['model_flops']:.4e}, {100 * mshare:.2f} % of "
+                 f"{rl.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s (dry run {rec['trace_s']:.1f} s)")
+            out[what] = dict(predicted=dict(static=mem["static_bytes_exact"],
+                                            static_allocated=model,
+                                            peak=mem["peak_bytes"],
+                                            launches=rec["kernel_launches"],
+                                            flops=rec["cost_logical"]["flops"],
+                                            bound_ms=bound_ms),
+                             card=card)
+    for arch, n in MLA_MOE_SERVED:
+        rec = recs[(arch, n, "card_train", TRAIN_CE_CHUNK)]
+        mem = rec["memory"]
+        line(f"  (e) {arch} ({n} layers) training, B = {TRAIN_B} x {TRAIN_S}, remat=full, the "
+             f"donated AdamW step (predicted, not run): static {gib(mem['static_bytes']):.2f} GiB, "
+             f"peak {gib(mem['peak_bytes']):.2f} GiB, fits the card's 80 GiB: {mem['fits']}; "
+             f"launches a step {rec['kernel_launches']}, "
+             f"{rec['cost_logical']['flops']:.4e} FLOPs")
+        out[f"{arch} ({n} layers) card_train (predicted)"] = dict(
+            static=mem["static_bytes"], peak=mem["peak_bytes"], fits=mem["fits"])
+    line(f"  phase 19: {len(recs)} dry runs; wall {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
@@ -5876,7 +6173,7 @@ def main(argv=None) -> int:
         release(torch)
         line("[7] serving path: qwen3-32b prefill and greedy decode")
         serve_reference(torch, args.seed)
-        serve_launches, _ = serve_path(torch, args.seed, SERVE_LAYERS)
+        serve_launches, serve_numbers = serve_path(torch, args.seed, SERVE_LAYERS)
         line("[8] the multi-tenant scheduler service")
         sched_launches, _ = sched_serve(torch, args.seed)
         line("[9] the paper's baseline rows: Fig. 2a and Fig. 3/4")
@@ -5900,7 +6197,7 @@ def main(argv=None) -> int:
         sub_launches, sub_kernels, _ = sparse_substrate(torch, args.seed, floor_ms)
         release(torch)
         line("[14] the FL training path: qwen1.5-0.5b at full width and depth")
-        train_launches, train_kernels, _ = training(torch, args.seed, floor_ms)
+        train_launches, train_kernels, train_numbers = training(torch, args.seed, floor_ms)
         release(torch)
         line("[15] the scheduler service for every served policy: M-Exp3, random, round-robin, "
              "channel-aware, Lyapunov, the recompute detector")
@@ -5908,15 +6205,28 @@ def main(argv=None) -> int:
         release(torch)
         line("[16] MLA and MoE serving: minicpm3-4b (62 layers), deepseek-v2-236b and "
              "dbrx-132b (8 layers) at full width")
-        mla_moe_launches, dbrx_attn, _ = mla_moe_serving(torch, args.seed, floor_ms)
+        mla_moe_launches, dbrx_attn, mla_moe_numbers = mla_moe_serving(torch, args.seed, floor_ms)
         release(torch)
         line("[17] SSM, RG-LRU hybrid and VLM serving: mamba2-1.3b, recurrentgemma-2b and "
              "phi-3-vision-4.2b at full width and depth")
-        hybrid_launches, hybrid_attn, _ = hybrid_serving(torch, args.seed, floor_ms)
+        hybrid_launches, hybrid_attn, hybrid_numbers = hybrid_serving(torch, args.seed, floor_ms)
         release(torch)
         line("[18] training the SSM, RG-LRU hybrid, VLM and audio families: hubert-xlarge, "
              "mamba2-1.3b, recurrentgemma-2b and phi-3-vision-4.2b at full width and depth")
-        family_train_launches, family_attn, _ = family_training(torch, args.seed, floor_ms)
+        family_train_launches, family_attn, family_numbers = family_training(torch, args.seed,
+                                                                             floor_ms)
+        release(torch)
+        if not args.paths:
+            line("[19] the dry run against the card: static bytes, peaks, launches and roofline "
+                 "shares of phases 7, 14, 16, 17 and 18's steps")
+            measured = {}
+            for key, numbers in ([((SERVE_ARCH, None), serve_numbers),
+                                  ((TRAIN_ARCH, None), train_numbers)]
+                                 + [((a, n), mla_moe_numbers[a]) for a, n in MLA_MOE_SERVED]
+                                 + [((a, None), hybrid_numbers[a]) for a, _ in HYBRID_REF_LAYERS]
+                                 + [((a, None), family_numbers[a]) for a, _ in TRAIN_FAMILIES]):
+                measured.setdefault(key, {}).update(numbers["card"])
+            dry_run_vs_card(torch, measured)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
                  serve_launches, sched_launches, baseline_launches, batch_launches,
                  family_launches, fl_launches, sub_launches, train_launches, served_launches,

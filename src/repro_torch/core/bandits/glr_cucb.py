@@ -135,7 +135,8 @@ class GLRCUCB(TracedHyperParams):
     detector_stride: int = 1     # run the GLR detector every k rounds
     min_samples: int = 8         # don't test before this many samples
     detector_backend: Optional[str] = None  # None (auto: fused path iff the
-                                            # state is on CUDA) | "kernel"
+                                            # state is on CUDA, or on meta as
+                                            # the card would) | "kernel"
                                             # (fused) | "torch" (split)
     detector_impl: str = "streaming"  # "streaming" | "recompute"
     split_grid: str = "all"      # "all" | "geometric" | "auto"
@@ -173,7 +174,7 @@ class GLRCUCB(TracedHyperParams):
 
     def _fused(self, state: GLRCUCBState) -> bool:
         return (self.detector_backend == "kernel"
-                or (self.detector_backend is None and state.cum.is_cuda))
+                or (self.detector_backend is None and (state.cum.is_cuda or state.cum.is_meta)))
 
     # ------------------------------------------------------------------ api
     def init(self, device=None, hp: Optional[Dict[str, Any]] = None) -> GLRCUCBState:

@@ -37,6 +37,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.utils.roofline import PEAK_FLOPS_BF16, PEAK_FLOPS_F32, KernelCost
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
                                                            ctypes.c_void_p]
@@ -93,6 +94,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
 flash_attention.launches = 0       # every launch, both routes
 flash_attention.tc_launches = 0    # the tensor-core kernel's
 flash_attention.fma_launches = 0   # the f32-FMA kernel's
+
+
+def pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through at sequence length ``s``:
+    key j is visible to query i where j <= i (causal) and j > i - window
+    (window > 0)."""
+    if causal:
+        if window <= 0 or window >= s:
+            return s * (s + 1) // 2
+        return window * (window + 1) // 2 + (s - window) * window
+    if window <= 0 or window > s:
+        return s * s
+    return s * s - (s - window) * (s - window + 1) // 2
+
+
+def cost(shape, causal: bool = True, window: int = 0,
+         dtype: torch.dtype = torch.bfloat16) -> KernelCost:
+    """One call's work at ``shape`` = (B, Hq, Hkv, S, D): 4 D flops a visible
+    (query, key) pair a query head (q.k and p.v; 2 B Hq S^2 D causal, half of
+    the full mask's 4 B Hq S^2 D), at the tensor cores' bf16 rate or the f32
+    rate; q, k, v read and the output written once."""
+    b, hq, hkv, s, d = shape
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    flops = 4 * b * hq * d * pairs(s, causal, window)
+    nbytes = (2 * b * hq + 2 * b * hkv) * s * d * itemsize
+    return KernelCost(flops, nbytes, PEAK_FLOPS_BF16 if dtype == torch.bfloat16 else PEAK_FLOPS_F32)
+
+
+def meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The kernel's output on meta tensors: (B, Hq, S, D) in q's dtype."""
+    return q.new_empty(q.shape)
 
 
 def tc_route(dtype: torch.dtype, d: int) -> bool:

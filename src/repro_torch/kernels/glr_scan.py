@@ -26,6 +26,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.glr_step import KL_SPLIT_FLOPS
+from repro_torch.utils.roofline import PEAK_FLOPS_F32, KernelCost
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _TENANTS_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -105,3 +107,37 @@ def glr_scan_tenants(hist: torch.Tensor, slots: torch.Tensor, detect: torch.Tens
 
 
 glr_scan_tenants.launches = 0
+
+
+def cost(rows: int, h: int, samples=None, splits=None) -> KernelCost:
+    """One call's work on ``rows`` histories of ``h``: the ``samples`` the
+    counts cover read once, each row's count read and statistic written;
+    ``KL_SPLIT_FLOPS`` f32 operations a split and the two scans' adds, 2 a
+    sample.  ``None`` counts every history full (``rows * h`` samples,
+    ``rows * (h - 1)`` splits: the most, what a step on meta tensors is
+    charged)."""
+    samples = rows * h if samples is None else samples
+    splits = rows * (h - 1) if splits is None else splits
+    return KernelCost(KL_SPLIT_FLOPS * splits + 2 * samples, samples * 4 + rows * 8,
+                      PEAK_FLOPS_F32)
+
+
+def tenants_cost(n_chan: int, h: int, b: int, samples=None, splits=None) -> KernelCost:
+    """``glr_scan_tenants``' work over ``b`` rows of ``n_chan`` histories:
+    as ``cost`` over the detecting rows' samples and splits, and each of the
+    B rows' counts read (4 bytes a channel), statistics written (4) and slot
+    and flag read (5 bytes a row)."""
+    samples = b * n_chan * h if samples is None else samples
+    splits = b * n_chan * (h - 1) if splits is None else splits
+    return KernelCost(KL_SPLIT_FLOPS * splits + 2 * samples,
+                      samples * 4 + b * n_chan * 8 + b * 5, PEAK_FLOPS_F32)
+
+
+def meta(hist, counts):
+    """``glr_scan``'s output on meta tensors: (N,) f32."""
+    return hist.new_empty(hist.shape[:1], dtype=torch.float32)
+
+
+def tenants_meta(hist, slots, detect, counts):
+    """``glr_scan_tenants``' output on meta tensors: (B, N) f32."""
+    return counts.new_empty(counts.shape, dtype=torch.float32)

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.utils.roofline import PEAK_FLOPS_F32, KernelCost
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                       ctypes.c_void_p]
@@ -77,3 +78,31 @@ def glr_step(cum, total, base, counts, r_vec, sched, split_grid: str = "all"):
 
 
 glr_step.launches = 0
+KL_SPLIT_FLOPS = 32        # f32 operations an evaluated split (the KL pair and the max)
+
+
+def full_window_splits(h: int, geometric: bool = False) -> int:
+    """Splits 1 <= s <= H - 1 a full window of H evaluates: all of them, or
+    on the geometric grid those with s or H - s a power of two."""
+    pow2 = lambda x: x > 0 and x & (x - 1) == 0
+    return sum(1 for s in range(1, h) if not geometric or pow2(s) or pow2(h - s))
+
+
+def cost(rows: int, h: int, splits=None, geometric: bool = False) -> KernelCost:
+    """One call's work on ``rows`` rings of ``h``: ``KL_SPLIT_FLOPS`` f32
+    operations a split evaluated and one a row; the ring read and written
+    once, a row's total, base, count, reward and flag read and its total,
+    base and statistic written.  ``splits`` is what the inputs' counts
+    make the kernel evaluate; None counts every row's window full (the
+    most, what a step on meta tensors is charged)."""
+    if splits is None:
+        splits = rows * full_window_splits(h, geometric)
+    nbytes = 2 * rows * h * 4 + rows * (4 * 4 + 1) + rows * 3 * 4
+    return KernelCost(KL_SPLIT_FLOPS * splits + rows, nbytes, PEAK_FLOPS_F32)
+
+
+def meta(cum, total, base, counts, r_vec, sched):
+    """The kernel's outputs on meta tensors: fresh f32 ``(cum, total, base,
+    stats)`` of the inputs' shapes."""
+    f32 = lambda x: x.new_empty(x.shape, dtype=torch.float32)
+    return f32(cum), f32(total), f32(base), f32(total)

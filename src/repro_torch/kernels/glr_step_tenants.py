@@ -25,6 +25,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.glr_step import full_window_splits
+from repro_torch.utils.roofline import MUFU_RATE, KernelCost
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -92,3 +94,29 @@ def glr_step_tenants(cum, total, base, slots, live, detect, counts, r_vec, sched
 
 
 glr_step_tenants.launches = 0
+# the split term's special-function (MUFU) instructions, counted once in its sm_90a SASS
+# (csrc/glr_kl.cuh); the card's MUFU rate is utils/roofline.py's
+SPLIT_MUFU = 8
+
+
+def cost(n_chan: int, h: int, b: int, detecting=None, live=None, splits=None,
+         geometric: bool = False) -> KernelCost:
+    """One step's work over ``b`` rows of ``n_chan`` rings of ``h``, in
+    place: the ``detecting`` rows' rings read once, every ``live`` row's
+    total, base, count, reward and flag (17 bytes a channel), 6 bytes a row
+    of slot and flags; the split term's MUFU instructions (``SPLIT_MUFU``
+    a split, which outweighs its 32 FMA-pipe flops) at ``MUFU_RATE``.
+    ``None`` counts every row live and detecting with a full window (the
+    most: what a step on meta tensors is charged)."""
+    detecting = b if detecting is None else detecting
+    live = b if live is None else live
+    if splits is None:
+        splits = detecting * n_chan * full_window_splits(h, geometric)
+    nbytes = detecting * n_chan * h * 4 + live * n_chan * (16 + 1) + b * 6
+    return KernelCost(SPLIT_MUFU * splits, nbytes, MUFU_RATE)
+
+
+def meta(cum, total, base, slots, live, detect, counts, r_vec, sched):
+    """The kernel's output on meta tensors: the (B, N) f32 statistics (the
+    slot state it updates in place has no values on meta)."""
+    return counts.new_empty(counts.shape, dtype=torch.float32)

@@ -2,11 +2,17 @@
 
 A CPU tensor goes to the plain PyTorch version in ``ref``; a CUDA tensor
 goes to the hand-written CUDA kernel, which launches or raises — there is
-no fallback from the card to the plain version.  Twin of
+no fallback from the card to the plain version; a meta tensor goes to the
+kernel's meta route, which returns outputs of the kernel's shapes and
+dtypes and computes nothing (the dry run's path).  Under an active cost
+walker (``utils/cost.py``) a meta or CPU call counts as one launch of its
+kernel with the kernel's own count (its wrapper's ``cost``); a CUDA call
+goes straight to its kernel and is not counted.  Twin of
 ``repro/kernels/ops.py``.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -19,8 +25,28 @@ from repro_torch.kernels import ref as ref  # re-export the plain versions
 from repro_torch.kernels import regret_scan as _rs
 from repro_torch.kernels import robust_agg as _ra
 from repro_torch.kernels import weighted_aggregate as _wa
+from repro_torch.utils import cost as _cost
 
 _GLR_SPLIT_GRIDS = ("all", "geometric")
+
+
+def _counted(name, kernel_cost):
+    """The context of a meta or CPU call of the entry point: in the active
+    cost walker, one launch of kernel ``name`` with ``kernel_cost()``'s
+    ``KernelCost``; without a walker, nothing."""
+    walker = _cost.active()
+    return contextlib.nullcontext() if walker is None else walker.kernel(name, kernel_cost())
+
+
+def _on_meta(name, *tensors) -> bool:
+    """Whether the call takes the meta route: its first tensor is on meta,
+    and then every tensor must be."""
+    if not tensors[0].is_meta:
+        return False
+    off = sorted({str(t.device) for t in tensors if not t.is_meta})
+    if off:
+        raise ValueError(f"{name}: the meta route takes meta tensors, got some on {off}")
+    return True
 
 
 def glr_step(cum, total, base, counts, r_vec, sched, split_grid: str = "all"):
@@ -42,13 +68,17 @@ def glr_step(cum, total, base, counts, r_vec, sched, split_grid: str = "all"):
         return _gs.glr_step(f32(cum), f32(total), f32(base),
                             counts.to(torch.int32).contiguous(), f32(r_vec),
                             sched.to(torch.bool).contiguous(), split_grid=split_grid)
-    if cum.device.type != "cpu":
-        raise ValueError(f"glr_step: no kernel for device {cum.device}")
     rows_shape, h = cum.shape[:-1], cum.shape[-1]
-    flat = lambda x: x.reshape(-1)
-    outs = ref.glr_step(cum.reshape(-1, h), flat(total), flat(base), flat(counts),
-                        flat(r_vec), flat(sched), split_grid=split_grid)
-    return (outs[0].reshape(cum.shape),) + tuple(o.reshape(rows_shape) for o in outs[1:])
+    with _counted("glr_step", lambda: _gs.cost(cum.numel() // h, h,
+                                               geometric=split_grid == "geometric")):
+        if _on_meta("glr_step", cum, total, base, counts, r_vec, sched):
+            return _gs.meta(cum, total, base, counts, r_vec, sched)
+        if cum.device.type != "cpu":
+            raise ValueError(f"glr_step: no kernel for device {cum.device}")
+        flat = lambda x: x.reshape(-1)
+        outs = ref.glr_step(cum.reshape(-1, h), flat(total), flat(base), flat(counts),
+                            flat(r_vec), flat(sched), split_grid=split_grid)
+        return (outs[0].reshape(cum.shape),) + tuple(o.reshape(rows_shape) for o in outs[1:])
 
 
 def glr_step_tenants(cum, total, base, slots, live, detect, counts, r_vec, sched,
@@ -69,10 +99,15 @@ def glr_step_tenants(cum, total, base, slots, live, detect, counts, r_vec, sched
                                      counts.to(torch.int32).contiguous(),
                                      r_vec.to(torch.float32).contiguous(),
                                      sched.to(torch.bool).contiguous(), split_grid=split_grid)
-    if cum.device.type != "cpu":
-        raise ValueError(f"glr_step_tenants: no kernel for device {cum.device}")
-    return ref.glr_step_tenants(cum, total, base, slots, live, detect, counts, r_vec, sched,
-                                split_grid=split_grid)
+    with _counted("glr_step_tenants", lambda: _gst.cost(
+            cum.shape[1], cum.shape[2], counts.shape[0], geometric=split_grid == "geometric")):
+        if _on_meta("glr_step_tenants", cum, total, base, slots, live, detect, counts, r_vec,
+                    sched):
+            return _gst.meta(cum, total, base, slots, live, detect, counts, r_vec, sched)
+        if cum.device.type != "cpu":
+            raise ValueError(f"glr_step_tenants: no kernel for device {cum.device}")
+        return ref.glr_step_tenants(cum, total, base, slots, live, detect, counts, r_vec, sched,
+                                    split_grid=split_grid)
 
 
 def weighted_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -82,9 +117,13 @@ def weighted_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tens
     if updates.is_cuda:
         return _wa.weighted_aggregate(updates.contiguous(),
                                       scale.to(torch.float32).contiguous())
-    if updates.device.type != "cpu":
-        raise ValueError(f"weighted_aggregate: no kernel for device {updates.device}")
-    return ref.weighted_aggregate(updates, scale)
+    with _counted("weighted_aggregate",
+                  lambda: _wa.cost(updates.shape, updates.element_size())):
+        if _on_meta("weighted_aggregate", updates, scale):
+            return _wa.meta(updates, scale)
+        if updates.device.type != "cpu":
+            raise ValueError(f"weighted_aggregate: no kernel for device {updates.device}")
+        return ref.weighted_aggregate(updates, scale)
 
 
 def robust_trimmed(updates: torch.Tensor, mask: torch.Tensor, n_succ, k_trim) -> torch.Tensor:
@@ -98,9 +137,12 @@ def robust_trimmed(updates: torch.Tensor, mask: torch.Tensor, n_succ, k_trim) ->
         return _ra.robust_trimmed(updates.contiguous(), mask.to(torch.float32).contiguous(),
                                   n_succ.to(torch.float32).contiguous(),
                                   k_trim.to(torch.float32).contiguous())
-    if updates.device.type != "cpu":
-        raise ValueError(f"robust_trimmed: no kernel for device {updates.device}")
-    return ref.robust_trimmed(updates, mask, n_succ, k_trim)
+    with _counted("robust_trimmed", lambda: _ra.cost(updates.shape, updates.element_size())):
+        if _on_meta("robust_trimmed", updates, mask, n_succ, k_trim):
+            return _ra.meta(updates, mask, n_succ, k_trim)
+        if updates.device.type != "cpu":
+            raise ValueError(f"robust_trimmed: no kernel for device {updates.device}")
+        return ref.robust_trimmed(updates, mask, n_succ, k_trim)
 
 
 def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
@@ -109,9 +151,12 @@ def glr_scan(hist: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     if hist.is_cuda:
         return _gsc.glr_scan(hist.to(torch.float32).contiguous(),
                              counts.to(torch.int32).contiguous())
-    if hist.device.type != "cpu":
-        raise ValueError(f"glr_scan: no kernel for device {hist.device}")
-    return ref.glr_scan(hist, counts)
+    with _counted("glr_scan", lambda: _gsc.cost(*hist.shape)):
+        if _on_meta("glr_scan", hist, counts):
+            return _gsc.meta(hist, counts)
+        if hist.device.type != "cpu":
+            raise ValueError(f"glr_scan: no kernel for device {hist.device}")
+        return ref.glr_scan(hist, counts)
 
 
 def glr_scan_tenants(hist: torch.Tensor, slots: torch.Tensor, detect: torch.Tensor,
@@ -124,9 +169,13 @@ def glr_scan_tenants(hist: torch.Tensor, slots: torch.Tensor, detect: torch.Tens
     if hist.is_cuda:
         return _gsc.glr_scan_tenants(hist, slots.to(torch.int32).contiguous(),
                                      detect.contiguous(), counts.to(torch.int32).contiguous())
-    if hist.device.type != "cpu":
-        raise ValueError(f"glr_scan_tenants: no kernel for device {hist.device}")
-    return ref.glr_scan_tenants(hist, slots, detect, counts)
+    with _counted("glr_scan_tenants",
+                  lambda: _gsc.tenants_cost(hist.shape[1], hist.shape[2], counts.shape[0])):
+        if _on_meta("glr_scan_tenants", hist, slots, detect, counts):
+            return _gsc.tenants_meta(hist, slots, detect, counts)
+        if hist.device.type != "cpu":
+            raise ValueError(f"glr_scan_tenants: no kernel for device {hist.device}")
+        return ref.glr_scan_tenants(hist, slots, detect, counts)
 
 
 def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bool = True,
@@ -138,10 +187,17 @@ def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bo
     the per-round loop.  Returns the dict of ``simulate_aoi_regret``."""
     if uniforms.is_cuda:
         return _rs.regret_scan(scheduler, env, state, uniforms, collect_curve, return_state)
-    if uniforms.device.type != "cpu":
-        raise ValueError(f"regret_scan: no kernel for device {uniforms.device}")
-    from repro_torch.core.regret import _simulate_rounds   # the plain version imports ops
-    return _simulate_rounds(scheduler, env, state, uniforms, collect_curve, return_state, batch)
+    runs = uniforms.shape[0] if uniforms.dim() == 4 else (batch or 1)
+    with _counted("regret_scan", lambda: _rs.cost(
+            scheduler.n_channels, scheduler.n_clients, scheduler.history, uniforms.shape[-3],
+            runs, stride=scheduler.detector_stride, reactive=env.form == _rs.FORM_REACTIVE)):
+        if _on_meta("regret_scan", uniforms, state.mu_tilde):
+            return _rs.meta(scheduler, env, state, uniforms, collect_curve, return_state)
+        if uniforms.device.type != "cpu":
+            raise ValueError(f"regret_scan: no kernel for device {uniforms.device}")
+        from repro_torch.core.regret import _simulate_rounds   # the plain version imports ops
+        return _simulate_rounds(scheduler, env, state, uniforms, collect_curve, return_state,
+                                batch)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
@@ -155,6 +211,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     if q.is_cuda:
         return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                    causal=causal, window=window, scale=scale)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return ref.mha_attention(q, k, v, causal=causal, window=window, scale=scale)
+    b, hq, s, d = q.shape
+    with _counted("flash_attention",
+                  lambda: _fa.cost((b, hq, k.shape[1], s, d), causal, window, q.dtype)):
+        if _on_meta("flash_attention", q, k, v):
+            return _fa.meta(q, k, v)
+        if q.device.type != "cpu":
+            raise ValueError(f"flash_attention: no kernel for device {q.device}")
+        return ref.mha_attention(q, k, v, causal=causal, window=window, scale=scale)

@@ -44,6 +44,8 @@ import torch
 
 from repro_torch.core.channels.base import FORM_REACTIVE, FORMS, N_REACT, TABLE_FORMS
 from repro_torch.kernels import _build
+from repro_torch.kernels.glr_step import KL_SPLIT_FLOPS
+from repro_torch.utils.roofline import PEAK_FLOPS_F32, KernelCost
 
 _ARGTYPES = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 16 + [ctypes.c_void_p] * 2
 _OCCUPANCY_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -183,17 +185,10 @@ def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bo
         _check(f"hp[{name!r}]", v, f32, (batch,) if v.dim() else (), dev)
 
     fn = _build.load("regret_scan", "regret_scan_launch", _ARGTYPES)
-    new = lambda shape, dtype=f32: uniforms.new_empty(lead + shape, dtype=dtype)
-    schedule = new((horizon, m), torch.int64)
-    regret_curve = new((horizon,)) if collect_curve else None
-    var_curve = new((horizon,)) if collect_curve else None
-    scalars = new((4,))      # cum regret, cum policy variance, cum oracle variance, successes
-    aoi_pi, aoi_star = new((m,)), new((m,))
-    mu, counts, total, base = new((n,)), new((n,)), new((n,)), new((n,))
-    tau, restarts = new((), torch.int32), new((), torch.int32)
-    ring = new((n, h))
+    o = _outputs(uniforms, lead, horizon, n, m, h, collect_curve)
     splits = uniforms.new_empty((batch,), dtype=torch.int64)
     ptr = lambda x: x.data_ptr() if x is not None else None
+    out = lambda *names: [o[k].data_ptr() for k in names]
     # one flag for the three: a shared value beside per-run ones is repeated
     hp_b = axes["hp"]
     hp = {k: state.hp[k].expand(batch).contiguous() if hp_b and not state.hp[k].dim()
@@ -203,10 +198,10 @@ def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bo
              state.total.data_ptr(), state.base.data_ptr(), hp["gamma"].data_ptr(),
              hp["delta"].data_ptr(), hp["min_samples"].data_ptr(),
              None if table else env.means.data_ptr(), None if table else env.breaks.data_ptr(),
-             env.table.data_ptr() if table else None, uniforms.data_ptr(), schedule.data_ptr(),
-             ptr(regret_curve), ptr(var_curve), scalars.data_ptr(), aoi_pi.data_ptr(),
-             aoi_star.data_ptr(), mu.data_ptr(), counts.data_ptr(), tau.data_ptr(),
-             ring.data_ptr(), restarts.data_ptr(), total.data_ptr(), base.data_ptr(),
+             env.table.data_ptr() if table else None, uniforms.data_ptr(), *out("schedule"),
+             ptr(o["regret"]), ptr(o["var"]),
+             *out("scalars", "aoi_pi", "aoi_star", "mu", "counts", "tau", "ring", "restarts",
+                  "total", "base"),
              splits.data_ptr(), horizon, n, m, h, n_seg, scheduler.detector_stride, period,
              int(recompute), int(geometric), form, batch, t_tab, int(axes["state"]),
              int(axes["env"]), int(axes["uniforms"]), int(hp_b),
@@ -217,26 +212,83 @@ def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bo
     if reactive:
         regret_scan.reactive_launches += 1
     regret_scan.splits = splits
+    return _result(o, state, horizon, m, ring_name, collect_curve, return_state)
 
+
+def _outputs(uniforms, lead, horizon, n, m, h, collect_curve):
+    """The launch's output tensors, each with the run axis ``lead``."""
+    f32 = torch.float32
+    new = lambda shape, dtype=f32: uniforms.new_empty(lead + shape, dtype=dtype)
+    return dict(schedule=new((horizon, m), torch.int64),
+                regret=new((horizon,)) if collect_curve else None,
+                var=new((horizon,)) if collect_curve else None,
+                scalars=new((4,)),   # cum regret, cum policy variance, cum oracle variance, successes
+                aoi_pi=new((m,)), aoi_star=new((m,)), mu=new((n,)), counts=new((n,)),
+                total=new((n,)), base=new((n,)), tau=new((), torch.int32),
+                restarts=new((), torch.int32), ring=new((n, h)))
+
+
+def _result(o, state, horizon, m, ring_name, collect_curve, return_state):
+    """``simulate_aoi_regret``'s dict from the launch's outputs."""
+    scalars = o["scalars"]
     cum_regret, cum_var_pi = scalars[..., 0], scalars[..., 1]
     out = {
-        "regret": regret_curve if collect_curve else cum_regret,
+        "regret": o["regret"] if collect_curve else cum_regret,
         "final_regret": cum_regret,
-        "cum_aoi_var": var_curve if collect_curve else cum_var_pi,
+        "cum_aoi_var": o["var"] if collect_curve else cum_var_pi,
         "final_cum_aoi_var": cum_var_pi,
         "oracle_cum_aoi_var": scalars[..., 2],
-        "aoi_pi": aoi_pi,
-        "aoi_star": aoi_star,
+        "aoi_pi": o["aoi_pi"],
+        "aoi_star": o["aoi_star"],
         "success_rate": scalars[..., 3] / (horizon * m),   # the per-round route's own op
-        "channels": schedule,
-        "restarts": restarts,
+        "channels": o["schedule"],
+        "restarts": o["restarts"],
     }
     if return_state:
-        ring_field = {ring_name: ring}
-        out["final_sched_state"] = state._replace(mu_tilde=mu, counts=counts, tau=tau,
-                                                  restarts=restarts, total=total, base=base,
-                                                  **ring_field)
+        out["final_sched_state"] = state._replace(
+            mu_tilde=o["mu"], counts=o["counts"], tau=o["tau"], restarts=o["restarts"],
+            total=o["total"], base=o["base"], **{ring_name: o["ring"]})
     return out
+
+
+def meta(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bool = True,
+         return_state: bool = False):
+    """The kernel's outputs on meta tensors: ``simulate_aoi_regret``'s dict
+    with the shapes and dtypes ``regret_scan`` returns (a run axis where
+    the operands have one)."""
+    _, sizes = _run_axes(env, state, uniforms)
+    lead = (next(iter(sizes.values())),) if sizes else ()
+    n, m, h = scheduler.n_channels, scheduler.n_clients, scheduler.history
+    horizon = uniforms.shape[-3]
+    ring_name = "hist" if scheduler.detector_impl == "recompute" else "cum"
+    o = _outputs(uniforms, lead, horizon, n, m, h, collect_curve)
+    return _result(o, state, horizon, m, ring_name, collect_curve, return_state)
+
+
+# operations a channel a round of the reactive template beyond the open-loop scan:
+# reactive_means' sub, mul, neg, add, mul, rsub, mul and interact_step's mul, mul,
+# add (10), expf (~4: a scale, ex2, two fix-ups) and a correctly rounded division (~4)
+REACT_FLOPS = 18
+
+
+def cost(n: int, m: int, h: int, rounds: int, runs: int = 1, splits=None,
+         stride: int = 1, reactive: bool = False) -> KernelCost:
+    """One launch's work for ``runs`` runs of ``rounds`` rounds: a run's
+    uniforms read, its schedule and two curves written, its state read and
+    written once; ``KL_SPLIT_FLOPS`` f32 operations a GLR split evaluated.
+    ``splits`` is what the runs evaluated (``regret_scan.splits``); None
+    counts every channel's window full on every detection round (every
+    ``stride``-th: the most, what a step on meta tensors is charged).  The
+    ``reactive`` template also reads its env's table row a round and its
+    react leaf, and does ``REACT_FLOPS`` a channel a round."""
+    if splits is None:
+        splits = runs * -(-rounds // stride) * n * (h - 1)
+    nbytes = rounds * 2 * n * 4 + rounds * m * 8 + 2 * rounds * 4 + 2 * (n * h * 4 + 4 * n * 4 + 8)
+    ops = KL_SPLIT_FLOPS * splits
+    if reactive:
+        nbytes += rounds * n * 4 + N_REACT * 4
+        ops += runs * REACT_FLOPS * n * rounds
+    return KernelCost(ops, runs * nbytes, PEAK_FLOPS_F32)
 
 
 regret_scan.launches = 0

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.utils.roofline import PEAK_LANE_OPS_F32, KernelCost
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_void_p]
@@ -104,3 +105,21 @@ def robust_trimmed(updates: torch.Tensor, mask: torch.Tensor, n_succ: torch.Tens
 
 robust_trimmed.launches = 0
 robust_trimmed.batch_launches = 0
+RANK_PAIR_OPS = 1      # lane instructions per ordered pair of rows: the least a rank count issues
+
+
+def cost(shape, itemsize: int = 4, participants=None) -> KernelCost:
+    """One call's work at ``shape`` = (M, P) or (B, M, P): one f32 lane
+    instruction an ordered pair of participating rows a coordinate (n^2 P a
+    run, n = ``participants``, every row when None: M^2 P); each update read
+    once, the (M,) mask, n and k read and the (P,) f32 output written
+    once."""
+    b, (m, p) = (shape[0] if len(shape) == 3 else 1), shape[-2:]
+    n = m if participants is None else participants
+    return KernelCost(RANK_PAIR_OPS * b * n * n * p,
+                      b * (m * p * itemsize + m * 4 + 8 + p * 4), PEAK_LANE_OPS_F32)
+
+
+def meta(updates, mask, n_succ, k_trim) -> torch.Tensor:
+    """The kernel's output on meta tensors: (P,) or (B, P) f32."""
+    return updates.new_empty(updates.shape[:-2] + updates.shape[-1:], dtype=torch.float32)

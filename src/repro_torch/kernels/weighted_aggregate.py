@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.utils.roofline import PEAK_FLOPS_F32, KernelCost
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -94,3 +95,16 @@ def weighted_aggregate(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tens
 
 weighted_aggregate.launches = 0
 weighted_aggregate.batch_launches = 0
+
+
+def cost(shape, itemsize: int = 4) -> KernelCost:
+    """One call's work at ``shape`` = (M, P) or (B, M, P): 2 M P flops a run
+    at the f32 rate; each update read once (``itemsize`` bytes), the (M,)
+    f32 scales read and the (P,) f32 output written once."""
+    b, (m, p) = (shape[0] if len(shape) == 3 else 1), shape[-2:]
+    return KernelCost(2 * b * m * p, b * (m * p * itemsize + m * 4 + p * 4), PEAK_FLOPS_F32)
+
+
+def meta(updates: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The kernel's output on meta tensors: (P,) or (B, P) f32."""
+    return updates.new_empty(updates.shape[:-2] + updates.shape[-1:], dtype=torch.float32)

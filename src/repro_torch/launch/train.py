@@ -32,12 +32,16 @@ from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bandits import GLRCUCB
-from repro_torch.core.channels import random_piecewise_env
+from repro_torch.core.channels import ChannelEnv, random_piecewise_env
 from repro_torch.data.synthetic import synthetic_lm_batches
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import TrainState, make_fl_train_step, make_train_state_init
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
+
+CLIENTS, CHANNELS = 4, 8        # the FL setup's defaults (--clients, --channels)
+SCHED_HISTORY = 128             # GLR-CUCB's ring length and detector stride
+DETECTOR_STRIDE = 1
 
 
 class TrainRun(NamedTuple):
@@ -54,6 +58,7 @@ class TrainRun(NamedTuple):
     batch: int
     seq: int
     device: torch.device
+    env: ChannelEnv                 # the channels the step draws from (the step holds it)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -64,8 +69,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--clients", type=int, default=4)
-    ap.add_argument("--channels", type=int, default=8)
+    ap.add_argument("--clients", type=int, default=CLIENTS)
+    ap.add_argument("--channels", type=int, default=CHANNELS)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seq-shard", action="store_true")
     ap.add_argument("--microbatch", type=int, default=1)
@@ -112,7 +117,8 @@ def setup(args: argparse.Namespace) -> TrainRun:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg=cfg, remat="none" if args.smoke else "full",
                   ce_chunk=args.ce_chunk, seq_shard=args.seq_shard)
-    sched = GLRCUCB(args.channels, args.clients, history=128)
+    sched = GLRCUCB(args.channels, args.clients, history=SCHED_HISTORY,
+                    detector_stride=DETECTOR_STRIDE)
 
     def gen(offset):
         return torch.Generator(device=dev).manual_seed(args.seed + offset)
@@ -126,7 +132,7 @@ def setup(args: argparse.Namespace) -> TrainRun:
     data = (synthetic_lm_batches(args.batch, args.seq, cfg.vocab_size, seed=args.seed)
             if cfg.arch_type != "audio" else None)
     return TrainRun(cfg, model, state, step, data, gen(2), gen(3), args.channels, args.batch,
-                    args.seq, dev)
+                    args.seq, dev, env)
 
 
 def train_round(run: TrainRun, state: TrainState) -> Tuple[TrainState, Dict[str, Any]]:

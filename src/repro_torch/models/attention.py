@@ -147,7 +147,9 @@ def attn_core(
     """GQA attention.  q (B,Hq,S,D), k/v (B,Hkv,S,Dv) -> (B,Hq,S,Dv).
 
     ``impl``: ``None`` takes the kernel route on a CUDA tensor whenever
-    Dv == D and the plain chunked path otherwise; ``"kernel"`` forces the
+    Dv == D, and on a meta tensor where the card would (the dry run's
+    path: the kernel's meta route forward, the plain chunked backward),
+    and the plain chunked path otherwise; ``"kernel"`` forces the
     kernel route (the plain version of the kernel on a CPU tensor: the
     twin of ``REPRO_ATTN_IMPL=flash``); ``"plain"`` forces the chunked path
     (the card-side reference).  Runs inside the profiler range
@@ -156,7 +158,7 @@ def attn_core(
         raise ValueError(f"attn_core: unknown impl {impl!r}; use one of {ATTN_IMPLS}")
     d = q.shape[-1]
     scale = float(scale) if scale is not None else float(1.0 / (d ** 0.5))
-    kernel = impl == "kernel" or (impl is None and q.is_cuda)
+    kernel = impl == "kernel" or (impl is None and (q.is_cuda or q.is_meta))
     with torch.profiler.record_function(FORWARD_RANGE):
         if kernel and v.shape[-1] == d:
             return _KernelAttention.apply(q, k, v, causal, window, scale, chunk)

@@ -125,7 +125,9 @@ def test_dispatch_refuses_unknown_grid_and_device():
     with pytest.raises(ValueError, match="split_grid"):
         ops.glr_step_tenants(cum, total, base, slots, live, detect, counts, r_vec, sched,
                              split_grid="dense")
-    with pytest.raises(ValueError, match="no kernel for device"):
+    # the meta route (the dry run's) takes meta tensors only: a meta ring
+    # beside CPU operands is refused
+    with pytest.raises(ValueError, match="meta route takes meta tensors"):
         ops.glr_step_tenants(cum.to("meta"), total, base, slots, live, detect, counts, r_vec,
                              sched)
 

@@ -10,10 +10,14 @@
   finds no built library), for all five kernels; ``attn_core`` on a CUDA
   tensor goes to the kernel at every prompt length.
 * ``flash_attention`` picks its route from dtype and head dim: bf16 with
-  D % 8 == 0 and D <= 128 reaches the tensor-core kernel's launch function,
+  D % 8 == 0 and D <= 256 reaches the tensor-core kernel's launch function,
   f32 and bf16 at any other D the f32-FMA kernel's; each route moves its
   own counter and the total; a tensor-core library that cannot be loaded
   raises and never reaches the FMA kernel or the plain version.
+* Every module of the JAX package has its twin in the port (at the same
+  path, or under the name ``RENAMED`` gives), or a reason in ``NO_TWIN``.
+* A meta tensor reaches each kernel's meta route, which returns the
+  kernel's shapes and dtypes, and never its plain version.
 """
 import ast
 import math
@@ -46,7 +50,8 @@ from repro_torch.models import build_model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "examples" / "torch").glob("*.py")))
+              + sorted((ROOT / "examples" / "torch").glob("*.py"))
+              + [ROOT / "tools" / "roofline_report.py"])
 
 
 def _imported_roots(path):
@@ -66,8 +71,34 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+# JAX modules whose twin has another name in the port
+RENAMED = {"utils/jaxpr_cost.py": "utils/cost.py"}     # the port has no jaxpr
+# JAX modules with no twin, and why
+NO_TWIN = {
+    "models/act_sharding.py": "it only constrains GSPMD's sharding propagation; on one eager "
+                              "card it is the identity, and the port's model never calls it",
+    "utils/hlo.py": "it parses HLO text, which eager PyTorch does not produce; its collective "
+                    "bytes are zero on one card and its op counts come from utils/cost.py",
+}
+
+
 def test_port_covers_every_module():
-    assert len(PORT_FILES) > 20
+    """Every ``src/repro/**/*.py`` has a twin under ``src/repro_torch/`` at
+    the same path or under its ``RENAMED`` name, or a reason in ``NO_TWIN``;
+    only the two GSPMD/HLO tools are without one."""
+    jax_root, port_root = ROOT / "src" / "repro", ROOT / "src" / "repro_torch"
+    missing = []
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        if rel in NO_TWIN:
+            continue
+        if not (port_root / RENAMED.get(rel, rel)).exists():
+            missing.append(rel)
+    assert not missing, f"JAX modules without a twin: {missing}"
+    assert set(NO_TWIN) == {"models/act_sharding.py", "utils/hlo.py"}
+    for rel in list(NO_TWIN) + list(RENAMED):
+        assert (jax_root / rel).exists(), rel
+        assert not (port_root / rel).exists(), rel
 
 
 # the JAX modules each slice ports, by their path under src/repro/
@@ -90,7 +121,9 @@ SLICE_TWINS = ("core/aggregation.py", "core/faults.py", "core/channels/process.p
                "data/synthetic.py", "models/moe.py", "configs/minicpm3_4b.py",
                "configs/deepseek_v2_236b.py", "configs/dbrx_132b.py", "models/ssm.py",
                "models/rglru.py", "configs/mamba2_1_3b.py", "configs/recurrentgemma_2b.py",
-               "configs/phi_3_vision_4_2b.py", "configs/hubert_xlarge.py")
+               "configs/phi_3_vision_4_2b.py", "configs/hubert_xlarge.py", "launch/mesh.py",
+               "launch/shardings.py", "launch/specs.py", "launch/dryrun.py",
+               "utils/roofline.py")
 
 
 @pytest.mark.parametrize("rel", SLICE_TWINS)
@@ -243,6 +276,30 @@ def test_cuda_tensors_never_fall_back_to_the_plain_version(monkeypatch):
             _State(cum, z, z), torch.zeros(1, dtype=torch.int64), sched, z, counts, z, True)
     assert not called
     assert _counts() == before
+
+
+def test_cuda_calls_reach_the_kernel_before_any_cost_accounting(monkeypatch):
+    """The CUDA branch of each entry point is the kernel's alone: it never
+    asks for a cost walker, so no count and no cost is made there."""
+    from repro_torch.utils import cost
+
+    def missing(*a, **k):
+        raise RuntimeError("repro_torch kernel build failed: no library")
+
+    monkeypatch.setattr(_build, "load", missing)
+    monkeypatch.setattr(cost, "active", lambda: pytest.fail("asked for the cost walker"))
+    f = lambda *shape, dtype=torch.float32: _FakeCuda(torch.zeros(shape, dtype=dtype))
+    i32, b8 = torch.int32, torch.bool
+    calls = [
+        lambda: ops.glr_step(f(3, 8), f(3), f(3), f(3, dtype=i32), f(3), f(3, dtype=b8)),
+        lambda: ops.weighted_aggregate(f(2, 8), f(2)),
+        lambda: ops.robust_trimmed(f(4, 8), f(4), f(), f()),
+        lambda: ops.glr_scan(f(3, 8), f(3, dtype=i32)),
+        lambda: ops.flash_attention(f(1, 2, 8, 16), f(1, 2, 8, 16), f(1, 2, 8, 16)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no library"):
+            call()
 
 
 def test_new_kernels_never_fall_back_to_the_plain_version(monkeypatch):
@@ -697,3 +754,73 @@ def test_glr_step_tenants_refuses_what_the_kernel_does_not_take(monkeypatch):
     with pytest.raises(ValueError, match="split_grid"):
         f(*args, split_grid="dense")
     assert f.launches == before
+
+
+def test_meta_tensors_reach_each_kernels_meta_route(monkeypatch):
+    """Every entry point of ``ops`` on meta tensors returns the kernel's
+    output shapes and dtypes from its meta route: no loader, no plain
+    version, no launch counted; under a cost walker each call is one
+    launch of its kernel.  Meta beside CPU operands is refused."""
+    from repro_torch.core import regret
+    from repro_torch.kernels import glr_step_tenants as gst_mod
+    from repro_torch.kernels import regret_scan as rs_mod
+    from repro_torch.utils import cost
+
+    monkeypatch.setattr(_build, "load", lambda *a, **k: pytest.fail("reached the loader"))
+    for name in ("glr_step", "glr_step_tenants", "weighted_aggregate", "robust_trimmed",
+                 "glr_scan", "glr_scan_tenants", "mha_attention"):
+        monkeypatch.setattr(ops.ref, name, lambda *a, **k: pytest.fail("ran the plain version"))
+    monkeypatch.setattr(regret, "_simulate_rounds",
+                        lambda *a, **k: pytest.fail("ran the plain version"))
+    counters = _counts() + (gst_mod.glr_step_tenants.launches, rs_mod.regret_scan.launches,
+                            glr_scan_mod.glr_scan_tenants.launches)
+    m = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
+    f32 = torch.float32
+
+    sched = GLRCUCB(3, 2, history=16)
+    env = make_stationary(torch.linspace(0.9, 0.3, 3), device="meta")
+    sched_state = sched.init("meta")
+
+    def calls():
+        out = {}
+        out["glr_step"] = ops.glr_step(m(2, 3, 16), m(2, 3), m(2, 3), m(2, 3, dtype=torch.int32),
+                                       m(2, 3), m(2, 3, dtype=torch.bool))
+        out["glr_step_tenants"] = ops.glr_step_tenants(
+            m(5, 3, 16), m(5, 3), m(5, 3), m(4, dtype=torch.int32), m(4, dtype=torch.bool),
+            m(4, dtype=torch.bool), m(4, 3, dtype=torch.int32), m(4, 3), m(4, 3, dtype=torch.bool))
+        out["weighted_aggregate"] = (ops.weighted_aggregate(m(4, 7, dtype=torch.bfloat16), m(4)),
+                                     ops.weighted_aggregate(m(2, 4, 7), m(2, 4)))
+        out["robust_trimmed"] = ops.robust_trimmed(m(2, 4, 7), m(2, 4), m(2), m(2))
+        out["glr_scan"] = ops.glr_scan(m(3, 16), m(3, dtype=torch.int32))
+        out["glr_scan_tenants"] = ops.glr_scan_tenants(m(5, 3, 16), m(4, dtype=torch.int32),
+                                                       m(4, dtype=torch.bool),
+                                                       m(4, 3, dtype=torch.int32))
+        out["regret_scan"] = ops.regret_scan(sched, env, sched_state, m(50, 2, 3))
+        out["flash_attention"] = ops.flash_attention(m(1, 4, 9, 32, dtype=torch.bfloat16),
+                                                     m(1, 2, 9, 32, dtype=torch.bfloat16),
+                                                     m(1, 2, 9, 32, dtype=torch.bfloat16))
+        return out
+
+    out = calls()
+    shapes = lambda t: (tuple(t.shape), t.dtype)
+    assert [shapes(t) for t in out["glr_step"]] == [((2, 3, 16), f32)] + [((2, 3), f32)] * 3
+    assert shapes(out["glr_step_tenants"]) == ((4, 3), f32)
+    assert [shapes(t) for t in out["weighted_aggregate"]] == [((7,), f32), ((2, 7), f32)]
+    assert shapes(out["robust_trimmed"]) == ((2, 7), f32)
+    assert shapes(out["glr_scan"]) == ((3,), f32)
+    assert shapes(out["glr_scan_tenants"]) == ((4, 3), f32)
+    rs = out["regret_scan"]
+    assert shapes(rs["regret"]) == ((50,), f32) and shapes(rs["channels"]) == ((50, 2), torch.int64)
+    assert shapes(rs["aoi_pi"]) == ((2,), f32) and rs["restarts"].dtype == torch.int32
+    assert shapes(out["flash_attention"]) == ((1, 4, 9, 32), torch.bfloat16)
+    assert all(t.is_meta for t in [out["glr_scan"], out["flash_attention"], rs["regret"]])
+    assert _counts() + (gst_mod.glr_step_tenants.launches, rs_mod.regret_scan.launches,
+                        glr_scan_mod.glr_scan_tenants.launches) == counters
+
+    tr = cost.trace(calls)
+    assert tr.kernel_launches == {"glr_step": 1, "glr_step_tenants": 1, "weighted_aggregate": 2,
+                                  "robust_trimmed": 1, "glr_scan": 1, "glr_scan_tenants": 1,
+                                  "regret_scan": 1, "flash_attention": 1}
+    assert tr.cost.flops == sum(c.flops for c in tr.kernel_cost.values())
+    with pytest.raises(ValueError, match="meta route takes meta tensors"):
+        ops.glr_scan(m(3, 16), torch.zeros(3, dtype=torch.int32))

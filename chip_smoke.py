@@ -284,11 +284,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    positions a second, the model-FLOP share of 989 TFLOP/s, peak device
    memory and a profiled step split into attention forward, the plain
    attention backward, the SSD chunk loop, the RG-LRU scan and the rest;
+   then the MLA and MoE models (``MLA_MOE_TRAINED``: minicpm3-4b whole at
+   B = 8 x 2048, deepseek-v2-236b cut to its dense layer 0 and one MoE
+   layer at B = 4 x 1024, dbrx-132b cut to one layer at B = 8 x 2048, each
+   cut the dry run's to a predicted peak of at most 75 GiB, printed where
+   it runs), one at a time: (0) ``flash_attention`` at dbrx's training
+   shape (8, 48/8, 2048, 128), tensor-core route, as above; (a) f32 at full
+   width (minicpm3 and deepseek-v2 2 layers, dbrx 1), B=2 x 512:
+   ``loss`` and its gradients twice, bit for bit (the MoE backward adds in
+   a fixed order), then dbrx's kernel route against the plain route
+   (rtol/atol 2e-3) and the MLA models' ``remat="full"`` against
+   ``"none"`` (bitwise: the recompute routes as the forward did); (b) the
+   smoke configs' rounds against the CPU, as above; (c) the cut through
+   ``setup`` (its ``cfg``) / ``train_round``, one warm-up round and two
+   timed, as above, with the active parameters (the model-FLOP share counts
+   6 N_active B S, and MLA's attention at its two head widths), ``moe_aux``
+   finite, and the profile's MoE dispatch, expert products and combine;
 19. the dry run against the card, on the host (no step of its own): for
    every config and shape phases 7, 14, 16, 17 and 18 ran (qwen3-32b,
    minicpm3-4b, deepseek-v2-236b and dbrx-132b at 8 layers, mamba2-1.3b,
    recurrentgemma-2b and phi-3-vision-4.2b served; qwen1.5-0.5b,
-   hubert-xlarge, mamba2, recurrentgemma and phi-3-vision trained),
+   hubert-xlarge, mamba2, recurrentgemma, phi-3-vision, minicpm3-4b,
+   deepseek-v2 (2 layers) and dbrx (1 layer) trained),
    ``repro_torch.launch.dryrun`` on meta tensors in six host processes,
    held against what those phases measured: (a) the step's static bytes
    (the weights and AdamW state after the launcher's setup; weights and
@@ -299,8 +316,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    before the model was set up) within 10 %; (c) each kernel's launches a
    step exactly; (d) printed: the counted FLOPs, the roofline bound, the
    measured ms, the step's share of its roofline and the model-FLOP
-   share; (e) printed: the dry run's training predictions for minicpm3-4b
-   (62 layers) and deepseek-v2 and dbrx (8 layers) at B = 8 x 2048.
+   share.
 
 Phase 2 releases its tensors and the allocator's cache before phase 3, so
 the paths start from the same device memory state with or without it.
@@ -426,6 +442,15 @@ RING_CUT, RING_STEPS = 64, 80  # (b): recurrentgemma's window cut to 64, 80 deco
 TRAIN_FAMILIES = (("hubert-xlarge", 2), ("mamba2-1.3b", 2), ("recurrentgemma-2b", 3),
                   ("phi-3-vision-4.2b", 2))
 FAMILY_ROUNDS, FAMILY_WARM = 4, 1   # (c): rounds a model, the first untimed
+# phase 18's MLA and MoE models: (arch, layers trained, B, S, layers of the f32 reference),
+# each cut from the dry run to a predicted peak of at most 75 GiB at full width (PERF.md):
+# minicpm3-4b whole (62.08 GiB at B = 8 x 2048); deepseek-v2 its dense layer 0 and one MoE
+# layer at B = 4 x 1024 (63.04; 75.77 at 4 x 2048); dbrx one (MoE) layer (64.15); the
+# references hold one layer of each kind
+MLA_MOE_TRAINED = (("minicpm3-4b", 62, TRAIN_B, TRAIN_S, 2),
+                   ("deepseek-v2-236b", 2, 4, 1024, 2),
+                   ("dbrx-132b", 1, TRAIN_B, TRAIN_S, 1))
+MLA_MOE_ROUNDS = 3             # (c): rounds a model, the first untimed (phase 18's 4, cut)
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention", "regret_scan", "glr_step_tenants", "glr_scan_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
@@ -4288,8 +4313,11 @@ def grads_close(torch, got, want, what):
 
 
 def attn_layers(cfg, n_layers=None):
-    """The layers of ``cfg`` (its first ``n_layers``) that attend: one
-    ``flash_attention`` launch each a prefill."""
+    """The layers of ``cfg`` (its first ``n_layers``) that attend through
+    ``flash_attention``: one launch each a prefill.  MLA never does (its
+    value width is not its query width: the plain chunked path, as JAX's)."""
+    if cfg.attention == "mla":
+        return 0
     return sum(cfg.layer_kind(i) == "attn"
                for i in range(cfg.n_layers if n_layers is None else n_layers))
 
@@ -4376,17 +4404,35 @@ def _tree_to(tree, dev):
     return tree_map(lambda x: x.to(dev) if hasattr(x, "to") else x, tree)
 
 
-def train_card_vs_cpu(torch, seed, arch=TRAIN_ARCH, label="phase 14 (b)"):
+def moments_excess(opt, ref_opt):
+    """The largest |diff| of ``opt``'s AdamW moments from ``ref_opt``'s over
+    ``adam_round_close``'s moment tolerance (rtol 1e-4, atol min(1e-6, 1e-4
+    of the tensor's largest entry)), and the entries past it."""
+    worst, beyond = 0.0, 0
+    for m in ("mu", "nu"):
+        for k, ref in ref_opt[m].items():
+            tol = 1e-4 * ref.abs() + min(1e-6, 1e-4 * float(ref.abs().max()))
+            excess = (opt[m][k] - ref).abs() / tol.clamp_min(1e-30)
+            worst, beyond = max(worst, float(excess.max())), beyond + int((excess > 1).sum())
+    return worst, beyond
+
+
+def train_card_vs_cpu(torch, seed, arch=TRAIN_ARCH, label="phase 14 (b)", carried_adam=True):
     """(b) three ``make_fl_train_step`` rounds at ``arch``'s smoke config in
     f32 on the card against the same rounds on the CPU (same initial
     state, batches and uniforms): AoI, the scheduler's state, the count and
     ``n_success`` bit for bit; loss, contributions, zeta at rtol 1e-4;
-    moments and parameters as ``adam_round_close`` holds them, on the run
-    carried over the rounds and on each round stepped on the card from the
-    CPU's state before it.  On the card each round launches ``glr_step``
-    once and ``flash_attention`` twice an attention layer on the FMA route
-    (the forward and the checkpoint's recompute); on the CPU nothing
-    launches."""
+    moments and parameters as ``adam_round_close`` holds them, on each
+    round stepped on the card from the CPU's state before it and, with
+    ``carried_adam``, on the run carried over the rounds.  Without it the
+    carried run's moments are measured, not held: AdamW's scale-free first
+    steps move an entry whose gradient is rounding noise by another
+    fraction of lr on each device, and the gradients those moves induce a
+    round later may pass the moments' rtol 1e-4 (the rule the JAX parity
+    tests hold AdamW by, ``tests/test_torch_train_families.py``).  On the
+    card each round launches ``glr_step`` once and ``flash_attention``
+    twice an attention layer on the FMA route (the forward and the
+    checkpoint's recompute); on the CPU nothing launches."""
     import dataclasses
 
     import numpy as np
@@ -4438,7 +4484,7 @@ def train_card_vs_cpu(torch, seed, arch=TRAIN_ARCH, label="phase 14 (b)"):
                                      to(batches[r], "cuda"), u[r, 0].cuda(), u[r, 1].cuda())[0],
                        "cpu") for r in range(rounds)]
     slack = {k: torch.zeros_like(v) for k, v in state0.params.items()}
-    worst, beyond = 0.0, 0
+    worst, beyond, drift = 0.0, 0, []
     for r, ((cs, cm), (gs, gm)) in enumerate(zip(runs["cpu"], runs["cuda"])):
         at = f"{label} round {r}"
         check(torch.equal(gs.fl.aoi, cs.fl.aoi) and gs.fl.t == cs.fl.t == r + 1, f"{at}: aoi")
@@ -4449,21 +4495,29 @@ def train_card_vs_cpu(torch, seed, arch=TRAIN_ARCH, label="phase 14 (b)"):
         for name, a, c in (("contrib", gs.fl.contrib, cs.fl.contrib),
                            ("zeta", gs.fl.zeta, cs.fl.zeta), ("loss", gm["loss"], cm["loss"])):
             check(torch.allclose(a, c, rtol=1e-4, atol=0), f"{at}: {name} beyond rtol 1e-4")
-        slack, n = adam_round_close(torch, gs.params, gs.opt_state, cs.params, cs.opt_state,
-                                    slack, lr, at)
         adam_round_close(torch, forced[r].params, forced[r].opt_state, cs.params, cs.opt_state,
                          {k: torch.zeros_like(v) for k, v in slack.items()}, lr,
                          f"{at} (stepped from the CPU's state)")
-        beyond = max(beyond, n)
+        if carried_adam:
+            slack, n = adam_round_close(torch, gs.params, gs.opt_state, cs.params, cs.opt_state,
+                                        slack, lr, at)
+            beyond = max(beyond, n)
+        else:
+            drift.append(moments_excess(gs.opt_state, cs.opt_state))
         for k, p in cs.params.items():
             worst = max(worst, float(((gs.params[k] - p).abs() / (p.abs() + 1e-6)).max()))
     n_params = sum(p.numel() for p in state0.params.values())
+    carried = (f"moments rtol 1e-4; params (largest |diff| / (|p| + 1e-6) {worst:.3e}; at most "
+               f"{beyond} of {n_params} entries beyond rtol 1e-4 / atol 1e-6, inside the AdamW "
+               f"slack) ok, each round also from the CPU's state ok" if carried_adam else
+               f"each round's moments and params from the CPU's state as adam_round_close holds "
+               f"them ok; the carried run measured: its moments' largest |diff| over the "
+               f"tolerance by round {', '.join(f'{x:.3g}' for x, _ in drift)} ("
+               f"{', '.join(str(n) for _, n in drift)} entries past it), params largest |diff| "
+               f"/ (|p| + 1e-6) {worst:.3e}")
     line(f"  (b) {cfg.name} f32, {rounds} rounds of make_fl_train_step on the card equal the CPU "
          f"run: AoI, scheduler state, n_success bit for bit; loss, contributions, zeta rtol 1e-4; "
-         f"moments rtol 1e-4; params (largest |diff| / (|p| + 1e-6) {worst:.3e}; at most {beyond} "
-         f"of {n_params} entries beyond rtol 1e-4 / atol 1e-6, inside the AdamW slack) ok, each "
-         f"round also from the CPU's state ok; launches a round: glr_step 1, flash_attention "
-         f"(FMA) {n_attn}")
+         f"{carried}; launches a round: glr_step 1, flash_attention (FMA) {n_attn}")
 
 
 def train_microbatches(torch, seed):
@@ -5675,12 +5729,12 @@ def hybrid_serving(torch, seed, floor_ms):
 # phase 18: training for the SSM, RG-LRU hybrid, VLM and audio families
 # ---------------------------------------------------------------------------
 
-def family_attention_shape(cfg):
+def family_attention_shape(cfg, b=TRAIN_B, s=TRAIN_S):
     """(shape (B, Hq, Hkv, S, D), causal, window) of ``cfg``'s attention at
-    the training batch: ``TRAIN_B`` sequences of ``TRAIN_S`` positions (a
-    VLM's behind its patch embeddings)."""
-    s = TRAIN_S + (cfg.frontend_tokens if cfg.arch_type == "vlm" else 0)
-    return ((TRAIN_B, cfg.n_heads, cfg.n_kv_heads, s, cfg.resolved_head_dim), cfg.is_decoder,
+    a training batch of ``b`` sequences of ``s`` positions (a VLM's behind
+    its patch embeddings)."""
+    s = s + (cfg.frontend_tokens if cfg.arch_type == "vlm" else 0)
+    return ((b, cfg.n_heads, cfg.n_kv_heads, s, cfg.resolved_head_dim), cfg.is_decoder,
             cfg.local_attn_window)
 
 
@@ -5704,43 +5758,59 @@ def family_attention(torch, gen, floor_ms):
 
 
 def train_flops(cfg, n_params, b, s):
-    """Model FLOPs of one training step: 6 P B S, P the parameters that
-    enter a product (all but the untied embedding table, a lookup), plus
-    attention, 3 x 4 D FLOPs a visible (query, key) pair a head an
-    attention layer (causal or not, windowed or not, as the model's)."""
-    p = n_params - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model)
+    """Model FLOPs of one training step: 6 P B S, P the parameters a token
+    meets in a product (all but the untied embedding table, a lookup, and
+    the experts the router does not pick: ``cfg.active_param_count()``'s
+    cut), plus attention, 3 x 2 (D_qk + D_v) FLOPs a visible (query, key)
+    pair a head an attention layer (causal or not, windowed or not, as the
+    model's; MLA's D_qk = nope + rope and D_v its value width, 12 D
+    elsewhere).  Returns (6 P B S, attention, P)."""
+    p = (n_params - (cfg.param_count() - cfg.active_param_count())
+         - (0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model))
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
     attn = 0
-    if attn_layers(cfg):
+    if n_attn:
+        if cfg.attention == "mla":
+            dqk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+        else:
+            dqk = dv = cfg.resolved_head_dim
         _, causal, window = family_attention_shape(cfg)
-        attn = 12 * cfg.resolved_head_dim * b * cfg.n_heads * attn_layers(cfg) * attn_pairs(
-            s, causal, window)
+        attn = 6 * (dqk + dv) * b * cfg.n_heads * n_attn * attn_pairs(s, causal, window)
     return 6 * p * b * s, attn, p
 
 
-def family_train_path(torch, seed, arch):
-    """(c) ``arch`` at full width and depth in bf16 through the CLI's own
-    functions (``launch.train.parse_args``, ``setup``, ``train_round``:
+def family_train_path(torch, seed, arch, n_layers=None, b=TRAIN_B, s=TRAIN_S,
+                      rounds=FAMILY_ROUNDS, shape="card_train"):
+    """(c) ``arch`` at full width in bf16 through the CLI's own functions
+    (``launch.train.parse_args``, ``setup``, ``train_round``:
     ``remat="full"``, ``ce_chunk`` 512, the launcher's clients, channels and
-    history, the step donating its state), B = ``TRAIN_B`` x ``TRAIN_S``:
-    one warm-up round and ``FAMILY_ROUNDS - 1`` timed ones, the main path
-    whose launches are counted; then (not counted) one profiled round split
-    by the model's profiler ranges."""
+    history, the step donating its state), at full depth or cut to
+    ``n_layers`` (``setup``'s ``cfg``), B = ``b`` x ``s``: one warm-up
+    round and ``rounds - 1`` timed ones, the main path whose launches are
+    counted; then (not counted) one profiled round split by the model's
+    profiler ranges.  Phase 19 reads the step at the card's ``shape``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
     from repro_torch.launch import train
-    from repro_torch.models import rglru, ssm
+    from repro_torch.models import moe, rglru, ssm
     from repro_torch.models.attention import BACKWARD_RANGE, FORWARD_RANGE
     from repro_torch.utils import roofline as rl
 
-    args = train.parse_args(["--arch", arch, "--steps", str(FAMILY_ROUNDS), "--batch",
-                             str(TRAIN_B), "--seq", str(TRAIN_S), "--clients",
+    label = f"phase 18 (c) {arch}"
+    args = train.parse_args(["--arch", arch, "--steps", str(rounds), "--batch", str(b),
+                             "--seq", str(s), "--clients",
                              str(TRAIN_CLIENTS), "--channels", str(TRAIN_CHANNELS),
                              "--lr", str(TRAIN_LR), "--ce-chunk", str(TRAIN_CE_CHUNK),
                              "--seed", str(seed), "--device", "cuda"])
+    full = get_config(arch)
+    cut = dataclasses.replace(full, n_layers=n_layers) if n_layers else None
     release(torch)
     torch.cuda.reset_peak_memory_stats()
     h0, free0 = allocator_bytes(torch), free_blocks(torch)
     m0 = h0[0]
     t0 = time.perf_counter()
-    run = train.setup(args)
+    run = train.setup(args, cfg=cut)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     static = minus(allocator_bytes(torch), h0)
@@ -5750,57 +5820,65 @@ def family_train_path(torch, seed, arch):
     n_specs = sum(v.numel() for v in specs.values())
     check(n_params == n_specs and run.model.remat == "full"
           and state.params["unembed"].dtype == torch.bfloat16,
-          f"phase 18 (c) {arch}: {n_params} params, param_specs() says {n_specs}")
+          f"{label}: {n_params} params, param_specs() says {n_specs}")
     static_gib = torch.cuda.memory_allocated() / 2 ** 30
-    s_total = family_attention_shape(cfg)[0][3]
-    line(f"  (c) {arch}: all {cfg.n_layers} layers, width {cfg.d_model}, vocab {cfg.vocab_size}, "
+    s_total = family_attention_shape(cfg, b, s)[0][3]
+    depth = (f"all {cfg.n_layers} layers" if cfg.n_layers == full.n_layers else
+             f"{cfg.n_layers} of its {full.n_layers} layers (cut: {full.param_count():,} params "
+             f"at full depth)")
+    line(f"  (c) {arch}: {depth}, width {cfg.d_model}, vocab {cfg.vocab_size}, "
          f"bf16, {n_params:,} params = the sum over param_specs() (param_count() "
-         f"{cfg.param_count():,}), remat={run.model.remat}, ce_chunk={run.model.ce_chunk}; "
-         f"{TRAIN_CLIENTS} clients over {TRAIN_CHANNELS} channels, B={TRAIN_B} x {s_total} "
+         f"{cfg.param_count():,}; active a token {cfg.active_param_count():,}), "
+         f"remat={run.model.remat}, ce_chunk={run.model.ce_chunk}; "
+         f"{TRAIN_CLIENTS} clients over {TRAIN_CHANNELS} channels, B={b} x {s_total} "
          f"positions, AdamW lr {TRAIN_LR}; set up on the card in {setup_s:.2f} s, "
          f"{static_gib:.2f} GiB allocated (weights and moments)")
     unembed0 = state.params["unembed"][:, :64].clone()
     embed0 = state.params["embed"].clone() if cfg.arch_type == "audio" else None
 
     state, mets, step_ms, spread, launches, warm_peak = timed_rounds(
-        torch, train, run, state, FAMILY_ROUNDS, FAMILY_WARM)
-    card = card_step(static, warm_peak - m0,
-                     per_step(launches, FAMILY_ROUNDS, f"phase 18 (c) {arch}"), step_ms,
+        torch, train, run, state, rounds, FAMILY_WARM)
+    card = card_step(static, warm_peak - m0, per_step(launches, rounds, label), step_ms,
                      (free0,), env_sizes(run.env))
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(m["loss"]) for m in mets]
     succ = [int(m["n_success"]) for m in mets]
     fa_per = 2 * attn_layers(cfg)
-    check(launches["flash_attention_tc"] == FAMILY_ROUNDS * fa_per
-          and launches["flash_attention"] == FAMILY_ROUNDS * fa_per
-          and launches["glr_step"] == FAMILY_ROUNDS,
-          f"phase 18 (c) {arch}: launches {launches}; expected flash_attention {fa_per} a step on "
+    check(launches["flash_attention_tc"] == rounds * fa_per
+          and launches["flash_attention"] == rounds * fa_per
+          and launches["glr_step"] == rounds,
+          f"{label}: launches {launches}; expected flash_attention {fa_per} a step on "
           f"the tensor-core route and glr_step 1 a step")
-    check(all(math.isfinite(x) for x in losses), f"phase 18 (c) {arch}: losses {losses}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
     check(not torch.equal(state.params["unembed"][:, :64], unembed0),
-          f"phase 18 (c) {arch}: the parameters did not move")
+          f"{label}: the parameters did not move")
     never_read = ""
     if embed0 is not None:
         check(torch.equal(state.params["embed"], embed0),
-              f"phase 18 (c) {arch}: embed (never read: zero gradient) moved")
+              f"{label}: embed (never read: zero gradient) moved")
         never_read = "; embed (never read) unchanged bit for bit"
     del unembed0, embed0
-    positions = TRAIN_B * s_total
-    flops, attn, p_prod = train_flops(cfg, n_params, TRAIN_B, s_total)
+    aux = ""
+    if cfg.n_experts:
+        auxes = [float(m["moe_aux"]) for m in mets]
+        check(all(math.isfinite(x) for x in auxes), f"{label}: moe_aux {auxes}")
+        aux = f", moe_aux {', '.join(f'{x:.4f}' for x in auxes)}"
+    positions = b * s_total
+    flops, attn, p_prod = train_flops(cfg, n_params, b, s_total)
     share = (flops + attn) / (step_ms * 1e-3) / rl.PEAK_FLOPS_BF16
-    line(f"  (c) {arch}: {FAMILY_ROUNDS} rounds: loss {', '.join(f'{x:.4f}' for x in losses)} "
-         f"(finite), |S_t| {succ}, the parameters moved{never_read}; launches flash_attention "
-         f"{launches['flash_attention']} ({fa_per} a step, tensor-core route), glr_step "
-         f"{launches['glr_step']}")
+    line(f"  (c) {arch}: {rounds} rounds: loss {', '.join(f'{x:.4f}' for x in losses)} "
+         f"(finite){aux}, |S_t| {succ}, the parameters moved{never_read}; launches "
+         f"flash_attention {launches['flash_attention']} ({fa_per} a step, tensor-core route), "
+         f"glr_step {launches['glr_step']}")
     line(f"  (c) {arch}: {step_ms:.1f} ms a step untraced (rounds {FAMILY_WARM}-"
-         f"{FAMILY_ROUNDS - 1} after {FAMILY_WARM} warm-up; between the steps' CUDA events "
+         f"{rounds - 1} after {FAMILY_WARM} warm-up; between the steps' CUDA events "
          f"{', '.join(f'{x:.1f}' for x in spread)} ms), {positions / step_ms * 1e3:,.0f} "
-         f"positions/s ({TRAIN_B * TRAIN_S / step_ms * 1e3:,.0f} tokens/s of the {TRAIN_S} a "
-         f"sequence); model FLOPs a step 6 P B S = {flops:.4e} (P = {p_prod:,} in products) + "
-         f"{'non-causal ' if not cfg.is_decoder else ''}attention {attn:.4e} = "
-         f"{flops + attn:.4e}, {(flops + attn) / (step_ms * 1e-3) / 1e12:.1f} TFLOP/s = "
-         f"{100 * share:.1f} % of {rl.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s; peak device memory "
-         f"{peak_gib:.2f} GiB (allocated; {static_gib:.2f} GiB of weights and moments)")
+         f"positions/s ({b * s / step_ms * 1e3:,.0f} tokens/s of the {s} a "
+         f"sequence); model FLOPs a step 6 P B S = {flops:.4e} (P = {p_prod:,} active in "
+         f"products of {n_params:,}) + {'non-causal ' if not cfg.is_decoder else ''}attention "
+         f"{attn:.4e} = {flops + attn:.4e}, {(flops + attn) / (step_ms * 1e-3) / 1e12:.1f} "
+         f"TFLOP/s = {100 * share:.1f} % of {rl.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s; peak device "
+         f"memory {peak_gib:.2f} GiB (allocated; {static_gib:.2f} GiB of weights and moments)")
 
     holder = {"state": state}
 
@@ -5813,20 +5891,135 @@ def family_train_path(torch, seed, arch):
     parts = {"attention forward": range_device_us(events, FORWARD_RANGE)[0],
              "plain attention backward": range_device_us(events, BACKWARD_RANGE)[0],
              "SSD chunk loop": range_device_us(events, ssm.SSD_RANGE)[0],
-             "RG-LRU scan": range_device_us(events, rglru.SCAN_RANGE)[0]}
+             "RG-LRU scan": range_device_us(events, rglru.SCAN_RANGE)[0],
+             "MoE dispatch": range_device_us(events, moe.DISPATCH_RANGE)[0],
+             "MoE expert products": range_device_us(events, moe.EXPERTS_RANGE)[0],
+             "MoE combine": range_device_us(events, moe.COMBINE_RANGE)[0]}
     parts["the rest"] = total - sum(parts.values())
-    split = ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / total:.1f} %)" for k, v in parts.items()) \
+    split = ", ".join(f"{k} {v / 1e3:.2f} ms ({100 * v / total:.1f} %)"
+                      for k, v in parts.items() if v or k == "the rest") \
         if total else "no device kernels in the trace (not measured)"
+    mla = ("; MLA's attention backward is autograd's of the plain chunked path, in no range: "
+           "in the rest" if cfg.attention == "mla" else "")
     line(f"  (c) {arch} step profile: wall {wall_us / 1e3:.1f} ms, {len(kernels)} kernels, device "
-         f"time {total / 1e3:.2f} ms: {split} (the SSD and scan ranges hold their forward and "
-         f"recompute, not their backward)")
+         f"time {total / 1e3:.2f} ms: {split} (the forward ranges hold their forward and "
+         f"recompute, not their backward{mla})")
     report_kernels(f"(c) {arch} training step", kernels, wall_us, 1)
     del holder, events, kernels, state, run, mets
     release(torch)
     return launches, dict(step_ms=step_ms, positions_per_s=positions / step_ms * 1e3,
                           model_flops=flops + attn, flop_share=share, peak_gib=peak_gib,
                           static_gib=static_gib, split_us=parts, device_us=total,
-                          card={"card_train": card})
+                          card={shape: card})
+
+
+def card_train_shape(b, s):
+    """The card shape (``launch/specs.py``) of phase 18's training step at
+    B = ``b`` x ``s``."""
+    return "card_train" if (b, s) == (TRAIN_B, TRAIN_S) else f"card_train_s{s}"
+
+
+def mla_moe_train_reference(torch, seed, arch, n_layers):
+    """(a) for an MLA or MoE model: ``arch`` at full width, ``n_layers`` deep
+    (one layer of each kind), f32, B=2 x ``TRAIN_REF_S``: ``loss`` and its
+    gradients under ``remat="full"`` twice, bitwise (the MoE backward adds
+    each token's rows in a fixed order, so a step repeats on the card), then
+    against another run: dbrx's plain route (its kernel route launches the
+    FMA kernel twice an attention layer; rtol/atol 2e-3, as phase 14 (a)),
+    an MLA model's ``remat="none"`` (both routes are plain attention there:
+    the check is the checkpoint's recompute of the attention and of the
+    routing, bitwise).  Two gradient sets are held at once."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build_model
+
+    label = f"phase 18 (a) {arch}"
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 147)
+    model = build_model(cfg, remat="full")
+    params, _ = model.init(gen, device="cuda")
+    batch = model_batch(torch, cfg, 2, TRAIN_REF_S, gen)
+    w = torch.tensor([1.0, 0.5], device="cuda")
+    n_attn = 2 * attn_layers(cfg)
+    before = (kernel.fma_launches, kernel.tc_launches)
+    l1, m1, g1 = loss_and_grads(model, params, batch, w)
+    torch.cuda.synchronize()
+    launched = (kernel.fma_launches - before[0], kernel.tc_launches - before[1])
+    check(launched == (n_attn, 0),
+          f"{label}: launched {launched} (FMA, tensor-core), expected {n_attn} FMA")
+    check(bool(torch.isfinite(l1)) and all(bool(torch.isfinite(g).all()) for g in g1.values()),
+          f"{label}: loss {float(l1)} or a gradient not finite")
+    l2, m2, g2 = loss_and_grads(model, params, batch, w)
+    repeat = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+    check(torch.equal(l1, l2) and torch.equal(m1["moe_aux"], m2["moe_aux"]) and not repeat,
+          f"{label}: a second identical loss and gradients differ: loss {float(l1)} / "
+          f"{float(l2)}, gradients {repeat}")
+    del g2
+    kinds = ", ".join(sorted({cfg.layer_kind(i) + ("+moe" if cfg.n_experts and
+                                                   i >= cfg.first_k_dense else "")
+                              for i in range(n_layers)}))
+    head = (f"  (a) {cfg.name} width {cfg.d_model}, vocab {cfg.vocab_size}, {n_layers} layers "
+            f"({kinds}; {cfg.attention}), f32, B=2 S={TRAIN_REF_S}: loss {float(l1):.6f}, moe_aux "
+            f"{float(m1['moe_aux']):.6f}; loss and all {len(g1)} gradients twice, bit for bit")
+    if n_attn:
+        lp, _, gp = loss_and_grads(build_model(cfg, remat="full", attn_impl="plain"), params,
+                                   batch, w)
+        check(kernel.fma_launches - before[0] == 2 * n_attn,
+              f"{label}: the plain route ran the kernel")
+        check(torch.allclose(l1, lp, rtol=2e-3, atol=2e-3),
+              f"{label}: loss {float(l1)} against the plain route's {float(lp)}")
+        g_err, g_max, g_rel = grads_close(torch, g1, gp, f"{label} kernel vs plain route")
+        line(f"{head}; kernel route (FMA, {launched[0]} launches a pass: forward and recompute) "
+             f"vs plain route: loss {float(lp):.6f}, gradients max_abs_err {g_err:.3e} (max "
+             f"|grad| {g_max:.3e}; worst tensor's max_abs_err / its max |grad| {g_rel:.3e}; rtol "
+             f"2e-3, atol min(2e-3, 1e-4 max |grad|)) ok")
+    else:
+        ln, mn, gn = loss_and_grads(build_model(cfg, remat="none"), params, batch, w)
+        apart = [k for k in g1 if not torch.equal(g1[k], gn[k])]
+        check(torch.equal(l1, ln) and torch.equal(m1["moe_aux"], mn["moe_aux"]) and not apart,
+              f"{label}: remat='full' against remat='none': loss {float(l1)} / {float(ln)}, "
+              f"gradients apart {apart}")
+        gp = gn
+        line(f"{head}; remat='full' (the blocks recomputed in the backward pass: attention, "
+             f"router, dispatch) = remat='none' bit for bit (MLA: both routes are the plain "
+             f"chunked attention) ok")
+    del params, g1, gp
+    release(torch)
+
+
+def mla_moe_training(torch, seed, floor_ms):
+    """Phase 18's second part: training the MLA and MoE models
+    (``MLA_MOE_TRAINED``), one at a time: (0) ``flash_attention`` at dbrx's
+    training shape; (a) ``mla_moe_train_reference``; (b) the smoke configs'
+    rounds on the card against the CPU (``train_card_vs_cpu``); (c) the cut
+    run through the launcher (``family_train_path``).  Returns the main
+    path's launches ((c), each model counted from zero), dbrx's attention
+    entry and each model's numbers."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    dbrx = get_config("dbrx-132b")
+    shape, causal, window = family_attention_shape(dbrx)
+    attn = attention_at(torch, torch.Generator(device="cuda").manual_seed(seed + 181), shape,
+                        window, "(0) dbrx-132b's training:", floor_ms, causal=causal)
+    check(attn["route"] == "cuda-tc", "phase 18 (0): dbrx's attention not on the tensor-core route")
+    for arch, _, _, _, ref_layers in MLA_MOE_TRAINED:
+        mla_moe_train_reference(torch, seed, arch, ref_layers)
+    for arch, *_ in MLA_MOE_TRAINED:
+        train_card_vs_cpu(torch, seed, arch, f"phase 18 (b) {arch}", carried_adam=False)
+    paths, numbers = {}, {}
+    for arch, n_layers, b, s, _ in MLA_MOE_TRAINED:
+        paths[arch], numbers[arch] = family_train_path(torch, seed, arch, n_layers, b, s,
+                                                       MLA_MOE_ROUNDS, card_train_shape(b, s))
+    launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
+    attn["launches"] = paths["dbrx-132b"]["flash_attention"]
+    line(f"  phase 18 MLA and MoE launches: flash_attention {launches['flash_attention']} "
+         f"(tensor-core {launches['flash_attention_tc']}), glr_step {launches['glr_step']}; wall "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, attn, numbers
 
 
 def family_training(torch, seed, floor_ms):
@@ -5908,24 +6101,24 @@ def dry_run_vs_card(torch, measured):
     the cached blocks that live tensors of earlier work keep), (b) its
     peak within ``PEAK_BAND``, (c) each kernel's launches a step exactly;
     (d) printed: the counted FLOPs, the roofline bound, the measured ms and
-    the step's share of its roofline, the model-FLOP share; (e) printed:
-    the dry run's training predictions for the MLA and MoE models (phase
-    16's depths, B = 8 x 2048, ``remat="full"``, the donated step).  Runs
-    no step on the card."""
+    the step's share of its roofline, the model-FLOP share.  Runs no step
+    on the card."""
     from repro_torch.launch.specs import CARD_SHAPES
     from repro_torch.utils import roofline as rl
     from repro_torch.utils.cost import allocated_bytes
 
     t_phase = time.perf_counter()
-    smoke = {"card_train": (TRAIN_S, TRAIN_B, (TRAIN_CLIENTS, TRAIN_CHANNELS, TRAIN_HISTORY)),
+    fl = (TRAIN_CLIENTS, TRAIN_CHANNELS, TRAIN_HISTORY)
+    smoke = {"card_train": (TRAIN_S, TRAIN_B, fl),
              "card_prefill": (SERVE_PROMPT, SERVE_PREFILL_BATCH),
              "card_decode": (SERVE_CONTEXT, SERVE_BATCH)}
-    spec = {k: (v.seq_len, v.global_batch, v.fl[:3])[:len(smoke[k])]
+    smoke.update({card_train_shape(b, s): (s, b, fl) for _, _, b, s, _ in MLA_MOE_TRAINED})
+    spec = {k: (v.seq_len, v.global_batch, v.fl[:3])[:len(smoke.get(k, ()))]
             for k, v in CARD_SHAPES.items()}
     check(spec == smoke, f"phase 19: the card shapes {spec} are not the smoke's steps {smoke}")
-    jobs = [(arch, n, shape, TRAIN_CE_CHUNK if shape == "card_train" else 0)
-            for (arch, n), steps in measured.items() for shape in steps]
-    jobs += [(arch, n, "card_train", TRAIN_CE_CHUNK) for arch, n in MLA_MOE_SERVED]
+    ce_of = lambda shape: TRAIN_CE_CHUNK if CARD_SHAPES[shape].mode == "train" else 0
+    jobs = [(arch, n, shape, ce_of(shape)) for (arch, n), steps in measured.items()
+            for shape in steps]
     recs = dry_runs(jobs)
     bad = {j: r["error"] for j, r in recs.items() if r["status"] != "ok"}
     check(not bad, f"phase 19: dry runs failed: {bad}")
@@ -5933,8 +6126,7 @@ def dry_run_vs_card(torch, measured):
     out = {}
     for (arch, n), steps in measured.items():
         for shape, card in steps.items():
-            ce = TRAIN_CE_CHUNK if shape == "card_train" else 0
-            rec = recs[(arch, n, shape, ce)]
+            rec = recs[(arch, n, shape, ce_of(shape))]
             mem, roof = rec["memory"], rec["roofline"]
             what = f"{arch}{f' ({n} layers)' if n else ''} {shape}"
             held, sizes, free = card["held"], mem["static_sizes"], card["free"]
@@ -5983,16 +6175,6 @@ def dry_run_vs_card(torch, measured):
                                             flops=rec["cost_logical"]["flops"],
                                             bound_ms=bound_ms),
                              card=card)
-    for arch, n in MLA_MOE_SERVED:
-        rec = recs[(arch, n, "card_train", TRAIN_CE_CHUNK)]
-        mem = rec["memory"]
-        line(f"  (e) {arch} ({n} layers) training, B = {TRAIN_B} x {TRAIN_S}, remat=full, the "
-             f"donated AdamW step (predicted, not run): static {gib(mem['static_bytes']):.2f} GiB, "
-             f"peak {gib(mem['peak_bytes']):.2f} GiB, fits the card's 80 GiB: {mem['fits']}; "
-             f"launches a step {rec['kernel_launches']}, "
-             f"{rec['cost_logical']['flops']:.4e} FLOPs")
-        out[f"{arch} ({n} layers) card_train (predicted)"] = dict(
-            static=mem["static_bytes"], peak=mem["peak_bytes"], fits=mem["fits"])
     line(f"  phase 19: {len(recs)} dry runs; wall {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -6000,7 +6182,7 @@ def dry_run_vs_card(torch, measured):
 def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs_t, fa_err,
                 fa_t, fig2_scan, recompute_scan, gst_err, gst_t, batch_scan, reactive_scan,
                 agg_batch, sub_kernels, train_kernels, gsct_err, gsct_t, dbrx_attn, hybrid_attn,
-                family_attn):
+                family_attn, dbrx_train_attn):
     """The entries of the kernels line: launches from the paths, the rest
     from phase 2; ``glr_step`` and ``glr_scan`` also carry their scan route
     (``regret_scan``, one launch a Fig. 2 run) from phases 3 and 6, and
@@ -6020,9 +6202,9 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     prefill (``phi3v``), both on the tensor-core route, each with phase
     17's launches and (a)'s check and times; recurrentgemma's and the model
     shape's also carry ``fma_ms`` and ``ms_again`` (``routes_in_turns``);
-    and the three training shapes of phase 18 (``train_hubert``, non-causal,
-    ``train_recurrentgemma``, ``train_phi3v``), each with phase 18's
-    launches and (0)'s check and times."""
+    and the four training shapes of phase 18 (``train_hubert``, non-causal,
+    ``train_recurrentgemma``, ``train_phi3v``, ``train_dbrx``), each with
+    phase 18's launches and (0)'s check and times."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -6089,7 +6271,7 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               train=train_kernels["flash_attention"], dbrx=dbrx_attn, **hybrid_attn,
               train_hubert=family_attn["hubert-xlarge"],
               train_recurrentgemma=family_attn["recurrentgemma-2b"],
-              train_phi3v=family_attn["phi-3-vision-4.2b"]),
+              train_phi3v=family_attn["phi-3-vision-4.2b"], train_dbrx=dbrx_train_attn),
     ]
 
 
@@ -6216,6 +6398,12 @@ def main(argv=None) -> int:
         family_train_launches, family_attn, family_numbers = family_training(torch, args.seed,
                                                                              floor_ms)
         release(torch)
+        line("[18] training the MLA and MoE models at full width: minicpm3-4b (62 layers, B = 8 "
+             "x 2048), deepseek-v2-236b (2 layers, B = 4 x 1024), dbrx-132b (1 layer, B = 8 x "
+             "2048)")
+        mla_moe_train_launches, dbrx_train_attn, mla_moe_train_numbers = mla_moe_training(
+            torch, args.seed, floor_ms)
+        release(torch)
         if not args.paths:
             line("[19] the dry run against the card: static bytes, peaks, launches and roofline "
                  "shares of phases 7, 14, 16, 17 and 18's steps")
@@ -6224,13 +6412,15 @@ def main(argv=None) -> int:
                                   ((TRAIN_ARCH, None), train_numbers)]
                                  + [((a, n), mla_moe_numbers[a]) for a, n in MLA_MOE_SERVED]
                                  + [((a, None), hybrid_numbers[a]) for a, _ in HYBRID_REF_LAYERS]
-                                 + [((a, None), family_numbers[a]) for a, _ in TRAIN_FAMILIES]):
+                                 + [((a, None), family_numbers[a]) for a, _ in TRAIN_FAMILIES]
+                                 + [((a, n), mla_moe_train_numbers[a])
+                                    for a, n, *_ in MLA_MOE_TRAINED]):
                 measured.setdefault(key, {}).update(numbers["card"])
             dry_run_vs_card(torch, measured)
         paths = (fig2_launches, fig3_launches, robust_launches, recompute_launches,
                  serve_launches, sched_launches, baseline_launches, batch_launches,
                  family_launches, fl_launches, sub_launches, train_launches, served_launches,
-                 mla_moe_launches, hybrid_launches, family_train_launches)
+                 mla_moe_launches, hybrid_launches, family_train_launches, mla_moe_train_launches)
         launches = {k: sum(p[k] for p in paths) for k in COUNTERS}
         check(all(launches[k] > 0 for k in KERNEL_NAMES + BATCH_ROUTES
                   + ("flash_attention_tc", "regret_scan_reactive")),
@@ -6249,7 +6439,7 @@ def main(argv=None) -> int:
                                                 dict(batch_fields, max_abs_err=batch_err),
                                                 reactive_fields, agg_batch, sub_kernels,
                                                 train_kernels, gsct_err, gsct_t, dbrx_attn,
-                                                hybrid_attn, family_attn)}))
+                                                hybrid_attn, family_attn, dbrx_train_attn)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -28,7 +28,7 @@ prefill forward (``make_prefill_step``) or the one-token serve step
 
 JAX's four shapes assume a multi-device mesh: for them it also reports
 each device's parameter and AdamW bytes under ``--layout tp|fsdp`` on the
-named mesh (``launch/shardings.py`` ``param_shard_shapes``).  The three
+named mesh (``launch/shardings.py`` ``param_shard_shapes``).  The four
 card shapes (``launch/specs.py`` ``CARD_SHAPES``) are ``chip_smoke.py``'s
 own steps on one card: their records say whether the peak fits the card's
 80 GiB, and ``chip_smoke.py`` phase 19 holds them against the card.  A
@@ -48,7 +48,7 @@ Usage (on the host; no card is needed):
   python -m repro_torch.launch.dryrun --arch all --shape all --mesh 16x16 --out DIR
   python -m repro_torch.launch.dryrun --arch hubert-xlarge --shape card_train --ce-chunk 512
 
-``--shape all`` takes JAX's four and the card's three.  ``main`` returns
+``--shape all`` takes JAX's four and the card's four.  ``main`` returns
 1 when any record has status ``error``.
 """
 from __future__ import annotations

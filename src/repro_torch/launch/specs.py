@@ -11,11 +11,14 @@ matrix's columns), which assume a multi-device mesh:
     long_500k     seq=524288  global_batch=1     serve step (1 token; ring or
                                                  recurrent state)
 
-and the three shapes ``chip_smoke.py`` runs on one card, each the card's
+and the four shapes ``chip_smoke.py`` runs on one card, each the card's
 (the dry run holds itself against the card's measurements at them):
 
     card_train    seq=2048    global_batch=8     the training step of phases
                                                  14 and 18 (launch/train.py)
+    card_train_s1024 seq=1024 global_batch=4     phase 18's deepseek-v2
+                                                 training step (2 layers; one
+                                                 sequence a client)
     card_prefill  seq=2048    global_batch=4     the prefill of phases 7, 16, 17
     card_decode   seq=2048    global_batch=8     a decode step of their serve
                                                  loop (context 2048)
@@ -73,9 +76,10 @@ SHAPES: Dict[str, ShapeSpec] = {
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
 
-# the card's shapes: chip_smoke.py's training step, prefill and decode step
+# the card's shapes: chip_smoke.py's training steps, prefill and decode step
 CARD_SHAPES: Dict[str, ShapeSpec] = {
     "card_train": ShapeSpec("card_train", 2048, 8, "train", LAUNCHER_FL),
+    "card_train_s1024": ShapeSpec("card_train_s1024", 1024, 4, "train", LAUNCHER_FL),
     "card_prefill": ShapeSpec("card_prefill", 2048, 4, "prefill"),
     "card_decode": ShapeSpec("card_decode", 2048, 8, "decode"),
 }

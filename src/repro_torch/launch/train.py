@@ -112,9 +112,14 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, generator: torch.Generato
     return out
 
 
-def setup(args: argparse.Namespace) -> TrainRun:
+def setup(args: argparse.Namespace, cfg: Optional[ModelConfig] = None) -> TrainRun:
+    """The run ``args`` describe.  ``cfg`` (never given by the CLI) replaces
+    the config named by ``--arch``/``--smoke``: a caller trains a config cut
+    in depth (``dataclasses.replace(get_config(arch), n_layers=...)``)
+    through the launcher's own path."""
     dev = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg is None:
+        cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = Model(cfg=cfg, remat="none" if args.smoke else "full",
                   ce_chunk=args.ce_chunk, seq_shard=args.seq_shard)
     sched = GLRCUCB(args.channels, args.clients, history=SCHED_HISTORY,

@@ -8,7 +8,10 @@ capacity, as in the JAX package:
 2. flatten each row's (token, k) assignments and sort them by expert id
    (stable: within an expert, tokens keep their order);
 3. scatter tokens into a (B, E, C, d) buffer (C = capacity per expert a
-   row; a token past its expert's capacity is dropped, GShard's rule);
+   row; a token past its expert's capacity is dropped, GShard's rule); in
+   the backward pass a token's k gradient rows are added in ascending
+   expert id (``_TokenRows``), so the gradients repeat bit for bit on the
+   card;
 4. one batched product per FFN matrix: (B, E, C, d) x (E, d, f);
 5. gather the results back to token order and combine them with the
    router weights in f32, each token's experts added in ascending id (the
@@ -98,6 +101,29 @@ def _row_offsets(idx: torch.Tensor, stride: int) -> torch.Tensor:
     return (idx + rows).reshape(-1)
 
 
+class _TokenRows(torch.autograd.Function):
+    """``x.index_select(0, tok)``: each token's row once for each of its k
+    assignments.  The backward adds a token's k gradient rows from zero in
+    ascending expert id (``pos`` (tokens, k): where they lie), the order of
+    JAX's scatter-add and of ``index_add`` on the CPU; ``index_select``'s own
+    backward, an ``index_add``, adds them with atomics on the card, in no
+    fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, tok, pos):
+        ctx.save_for_backward(pos)
+        return x.index_select(0, tok)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (pos,) = ctx.saved_tensors
+        terms = grad.index_select(0, pos.reshape(-1)).reshape(*pos.shape, grad.shape[-1])
+        out = torch.zeros_like(terms[:, 0])
+        for j in range(pos.shape[1]):
+            out = out + terms[:, j]
+        return out, None, None
+
+
 def moe_ffn(
     p: Dict[str, torch.Tensor], prefix: str, x: torch.Tensor, cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -115,7 +141,11 @@ def moe_ffn(
         topw, topi = route(probs, k)                           # (B, S, k)
         order, slot, keep_w = dispatch(topi, topw, e, cap)
         tok = _row_offsets(torch.div(order, k, rounding_mode="floor"), s)
-        rows = x.reshape(b * s, d).index_select(0, tok)
+        # where each token's k rows lie in expert order, ascending expert id
+        pos = torch.empty_like(order).scatter_(
+            -1, order, torch.arange(s * k, device=x.device).expand(b, s * k))
+        pos = _row_offsets(pos.reshape(b, s, k).sort(dim=-1).values.reshape(b, s * k), s * k)
+        rows = _TokenRows.apply(x.reshape(b * s, d), tok, pos.reshape(b * s, k))
         buf = x.new_zeros((b * (e * cap + 1), d)).index_copy(
             0, _row_offsets(slot, e * cap + 1), rows)
         buf = buf.reshape(b, e * cap + 1, d)[:, :-1].reshape(b, e, cap, d)

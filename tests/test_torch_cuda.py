@@ -1331,6 +1331,44 @@ def test_moe_router_and_dispatch_on_the_card_equal_the_cpu(cuda, arch):
     assert int((card[3] == e * cap).sum()) > 0        # the capacity binds
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "dbrx-132b"])
+def test_moe_gradients_repeat_bit_for_bit_on_the_card(cuda, arch):
+    """One MoE layer's loss and gradients in f32 at its smoke width, 4 x 256
+    tokens at a capacity that drops some: twice on the card bit for bit (a
+    token's k gathered rows add their gradients in a fixed order, not with
+    ``index_add``'s atomics), and equal to the CPU's run at rtol 1e-4 / atol
+    1e-4 of each tensor's largest entry (TF32 off)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import ParamBuilder
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", capacity_factor=0.75)
+    pb = ParamBuilder(torch.Generator().manual_seed(5), dtype=torch.float32, device="cpu")
+    moe.add_moe_params(pb, "m", cfg)
+    x = torch.randn((4, 256, cfg.d_model), generator=torch.Generator().manual_seed(6))
+
+    def grads(dev):
+        p = {k: v.to(dev).requires_grad_(True) for k, v in pb.params.items()}
+        xs = x.to(dev).requires_grad_(True)
+        out, aux = moe.moe_ffn(p, "m", xs, cfg)
+        loss = (out.float() ** 2).mean() + 0.01 * aux
+        g = torch.autograd.grad(loss, [xs] + list(p.values()))
+        return [loss.detach()] + [t.detach() for t in g]
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        first, again = grads(cuda), grads(cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = grads("cpu")
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    for a, b in zip(first, cpu):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
 @pytest.mark.parametrize("s,a_log", [(600, 0.0), (256, 2.0)])
 def test_ssd_chunk_loop_on_the_card_equals_the_cpu(cuda, monkeypatch, s, a_log):
     """mamba2's SSD block at full width (d = 2048, 64 heads of 64, state

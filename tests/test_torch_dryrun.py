@@ -49,6 +49,7 @@ from repro_torch.models.model import Model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.utils import cost  # noqa: E402
 from repro_torch.utils.roofline import HBM_BW, PEAK_FLOPS_BF16, Roofline  # noqa: E402
+from test_torch_train import _chip_smoke  # noqa: E402
 
 MESHES = {"16x16": make_production_mesh(), "2x16x16": make_production_mesh(multi_pod=True)}
 
@@ -155,8 +156,13 @@ def test_supported_and_serve_window_match_jax_over_every_arch_and_shape():
 
 def test_card_shapes_are_the_smokes_steps():
     assert {k: (v.seq_len, v.global_batch, v.mode) for k, v in specs.CARD_SHAPES.items()} == {
-        "card_train": (2048, 8, "train"), "card_prefill": (2048, 4, "prefill"),
-        "card_decode": (2048, 8, "decode")}
+        "card_train": (2048, 8, "train"), "card_train_s1024": (1024, 4, "train"),
+        "card_prefill": (2048, 4, "prefill"), "card_decode": (2048, 8, "decode")}
+    smoke = _chip_smoke()
+    trained = {smoke.card_train_shape(b, s): (s, b) for _, _, b, s, _ in smoke.MLA_MOE_TRAINED}
+    trained["card_train"] = (smoke.TRAIN_S, smoke.TRAIN_B)
+    assert trained == {k: (v.seq_len, v.global_batch) for k, v in specs.CARD_SHAPES.items()
+                       if v.mode == "train"}
 
 
 def test_training_shapes_carry_their_fl_setup():
@@ -169,8 +175,9 @@ def test_training_shapes_carry_their_fl_setup():
     assert all(tuple(v.fl) == pod for v in specs.SHAPES.values())
     args = train.parse_args(["--arch", "qwen1.5-0.5b"])
     run_sched = GLRCUCB(args.channels, args.clients, history=train.SCHED_HISTORY)
-    assert tuple(specs.CARD_SHAPES["card_train"].fl) == (
-        args.clients, args.channels, run_sched.history, run_sched.detector_stride)
+    for name in ("card_train", "card_train_s1024"):
+        assert tuple(specs.CARD_SHAPES[name].fl) == (
+            args.clients, args.channels, run_sched.history, run_sched.detector_stride)
 
 
 # ---------------------------------------------------------------------------
@@ -376,6 +383,9 @@ CARD = {
     ("mamba2-1.3b", None, "card_train"): ({"glr_step": 1}, 13.4717),
     ("recurrentgemma-2b", None, "card_train"): ({"flash_attention": 16, "glr_step": 1}, 31.3345),
     ("phi-3-vision-4.2b", None, "card_train"): ({"flash_attention": 64, "glr_step": 1}, 35.5878),
+    ("minicpm3-4b", None, "card_train"): ({"glr_step": 1}, 39.7062),
+    ("deepseek-v2-236b", 2, "card_train_s1024"): ({"glr_step": 1}, 48.3733),
+    ("dbrx-132b", 1, "card_train"): ({"flash_attention": 2, "glr_step": 1}, 41.837),
     ("qwen3-32b", None, "card_prefill"): ({"flash_attention": 64}, 61.0247),
     ("qwen3-32b", None, "card_decode"): ({}, 65.0247),
     ("minicpm3-4b", None, "card_prefill"): ({}, 7.9427),
@@ -398,7 +408,7 @@ def test_dry_run_reproduces_the_cards_launches_and_static_bytes(arch, n_layers, 
     cfg = get_config(arch)
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    rec = dryrun.run_one(cfg, shape, ce_chunk=512 if shape == "card_train" else 0,
+    rec = dryrun.run_one(cfg, shape, ce_chunk=512 if shape.startswith("card_train") else 0,
                          verbose=False)
     assert rec["status"] == "ok", rec.get("error")
     launches, static_gib = CARD[(arch, n_layers, shape)]

@@ -294,6 +294,11 @@ def test_fl_train_step_matches_jax(arch):
     by other fractions of lr on each side, and on the hybrid the gradients
     those moves induce a round later pass the moments' rtol 1e-4 (by up to
     1.6x the tolerance, measured here on the CPU)."""
+    fl_train_step_matches_jax(arch)
+
+
+def fl_train_step_matches_jax(arch):
+    """``test_fl_train_step_matches_jax``'s check on ``arch``'s smoke config."""
     jm = _jax_model(arch)
     jsched, jenv, jopt = JGLRCUCB(N_CH, N_CL, **SCHED), ENVS["piecewise"](), j_adamw(1e-3)
     jstate = j_make_init(jm, jopt, jsched, N_CL)(KEY)
@@ -330,6 +335,12 @@ def test_fl_train_step_matches_jax(arch):
                                        ("phi-3-vision-4.2b", "phi-3-vision-smoke (vlm)"),
                                        ("hubert-xlarge", "hubert-smoke (audio)")])
 def test_train_launcher_on_the_cpu(capsys, arch, name):
+    train_launcher_on_the_cpu(capsys, arch, name)
+
+
+def train_launcher_on_the_cpu(capsys, arch, name):
+    """Two rounds of ``launch/train.py``'s CLI on ``arch``'s smoke config on
+    the CPU: its header names ``name``, each round a finite loss."""
     assert train.main(["--arch", arch, "--smoke", "--steps", "2", "--batch", "4", "--seq", "32",
                        "--device", "cpu"]) == 0
     out = capsys.readouterr().out
@@ -386,12 +397,18 @@ def test_donated_step_equals_the_functional_step():
     moments into the given state's tensors, with the functional step's
     bits, over three rounds on recurrentgemma's smoke config in bf16 (the
     launcher's dtype); SGD, which has no in-place step, is refused."""
+    donated_step_equals_the_functional_step("recurrentgemma-2b")
+
+
+def donated_step_equals_the_functional_step(arch):
+    """``test_donated_step_equals_the_functional_step``'s check on
+    ``arch``'s smoke config."""
     from repro_torch.core.channels import make_stationary
     from repro_torch.launch.steps import make_train_state_init
     from repro_torch.optim import sgd
     from repro_torch.utils.tree import tree_map
 
-    cfg = get_smoke_config("recurrentgemma-2b")
+    cfg = get_smoke_config(arch)
     model, opt = Model(cfg, remat="full"), adamw(1e-3)
     sched = GLRCUCB(N_CH, N_CL, history=16)
     env = make_stationary(torch.linspace(0.9, 0.4, N_CH), device="cpu")

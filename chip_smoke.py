@@ -184,19 +184,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    setup, bit for bit; (f) (a) with a coordinate-median aggregator,
    ``robust_trimmed`` once a round; (g) a profiled 10-round window of (a);
 14. the FL training path at LLM scale (``make_fl_train_step``) on
-   qwen1.5-0.5b: (0) ``flash_attention`` bf16 (8, 16/16, 2048, 64) and
-   ``glr_step`` (8, 128) at the path's shapes against their plain
-   versions; (a) at full width, 2 layers, f32: ``loss`` and its gradients
-   on the kernel route against the plain route (rtol/atol 2e-3); (b) three
+   qwen1.5-0.5b: (0) ``flash_attention`` bf16 (8, 16/16, 2048, 64), its
+   backward kernels (``flash_attention_bwd``: the logsumexp, dq, dk, dv
+   against the f32 plain version at rtol 2^-6 / atol 2^-7 of the largest
+   entry, two calls bitwise, the plain chunked route held against it, its
+   time beside the plain version's, the chunked route's, SDPA's backward
+   and the bound) and ``glr_step`` (8, 128) at the path's shapes against
+   their plain versions; (a) at full width, 2 layers, f32: ``loss`` and
+   its gradients on the kernel route against the plain route (rtol/atol
+   2e-3), then in bf16: each leaf's relative error against that f32 run
+   on the kernel route (the backward kernels) at most twice the bf16
+   plain route's; (b) three
    rounds at the smoke config, f32, on the card against the CPU (the
    discrete state bit for bit, floats rtol 1e-4); (c) ``microbatches = 4``
    against 1 at (a)'s size in bf16; (d) all 24 layers in bf16 through the
    launcher's own functions (4 clients over 8 channels, AdamW, ``remat =
    "full"``, ``ce_chunk = 512``, B = 8, S = 2048, 20 rounds): finite and
    falling loss, ``flash_attention`` 48 times a step on the tensor-core
-   route, ``glr_step`` once, ms a step, tokens a second, the model-FLOP
-   share, peak device memory and a profiled 3-step window with the plain
-   attention backward's share; (e) the trained parameters through
+   route, its backward kernels 24 times and the chunked recompute never,
+   ``glr_step`` once, ms a step, tokens a second, the model-FLOP share,
+   peak device memory and a profiled 3-step window with the attention
+   backward's share; (e) the trained parameters through
    ``save_checkpoint`` and back, bit for bit;
 15. the scheduler service for every other policy it serves (random,
    round-robin, channel-aware, Lyapunov, M-Exp3 with Exp3.S sharing, each
@@ -265,11 +273,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    training shapes (hubert (8, 16/16, 2048, 80) non-causal, recurrentgemma
    (8, 10/1, 2048, 256) window 2048, phi-3-vision (8, 32/32, 2192, 96)),
    each on the tensor-core route against the f32 plain version (phase 2's
-   bf16 tolerance), timed beside the plain version and SDPA; (a) f32 at
+   bf16 tolerance), timed beside the plain version and SDPA, and its
+   backward kernels as phase 14 (0); (a) f32 at
    full width, cut in depth (hubert, mamba2 and phi-3-vision 2 layers,
    recurrentgemma one rglru, rglru, attn cycle), B=2 x 512: ``loss`` and
    its gradients on the kernel route against the plain route (rtol/atol
-   2e-3, as phase 14 (a)), mamba2's (L = 256 chunks, the upper triangle's
+   2e-3, and the bf16 gate, as phase 14 (a)), mamba2's (L = 256 chunks, the upper triangle's
    exponent past exp's overflow) finite and equal to the CPU's run of the
    same weights; (b) each smoke config in f32, three
    ``make_fl_train_step`` rounds on the card against the CPU run, as phase
@@ -280,20 +289,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    its state), one warm-up round and three timed: the parameter count
    against ``param_specs()``, finite losses, moved parameters (hubert's
    never-read ``embed`` unchanged), ``flash_attention`` 96 / 0 / 16 / 64 a
-   step on the tensor-core route and ``glr_step`` once, ms a step,
+   step on the tensor-core route, its backward kernels 48 / 0 / 8 / 32 and
+   the chunked recompute never, ``glr_step`` once, ms a step,
    positions a second, the model-FLOP share of 989 TFLOP/s, peak device
-   memory and a profiled step split into attention forward, the plain
-   attention backward, the SSD chunk loop, the RG-LRU scan and the rest;
+   memory and a profiled step split into attention forward, the attention
+   backward, the SSD chunk loop, the RG-LRU scan and the rest;
    then the MLA and MoE models (``MLA_MOE_TRAINED``: minicpm3-4b whole at
    B = 8 x 2048, deepseek-v2-236b cut to its dense layer 0 and one MoE
    layer at B = 4 x 1024, dbrx-132b cut to one layer at B = 8 x 2048, each
    cut the dry run's to a predicted peak of at most 75 GiB, printed where
    it runs), one at a time: (0) ``flash_attention`` at dbrx's training
-   shape (8, 48/8, 2048, 128), tensor-core route, as above; (a) f32 at full
+   shape (8, 48/8, 2048, 128), tensor-core route, and its backward
+   kernels, as above; (a) f32 at full
    width (minicpm3 and deepseek-v2 2 layers, dbrx 1), B=2 x 512:
    ``loss`` and its gradients twice, bit for bit (the MoE backward adds in
    a fixed order), then dbrx's kernel route against the plain route
-   (rtol/atol 2e-3) and the MLA models' ``remat="full"`` against
+   (rtol/atol 2e-3) and in bf16 (the gate of phase 14 (a)), and the MLA
+   models' ``remat="full"`` against
    ``"none"`` (bitwise: the recompute routes as the forward did); (b) the
    smoke configs' rounds against the CPU, as above; (c) the cut through
    ``setup`` (its ``cfg``) / ``train_round``, one warm-up round and two
@@ -452,11 +464,15 @@ MLA_MOE_TRAINED = (("minicpm3-4b", 62, TRAIN_B, TRAIN_S, 2),
                    ("dbrx-132b", 1, TRAIN_B, TRAIN_S, 1))
 MLA_MOE_ROUNDS = 3             # (c): rounds a model, the first untimed (phase 18's 4, cut)
 KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
-                "flash_attention", "regret_scan", "glr_step_tenants", "glr_scan_tenants")
+                "flash_attention", "flash_attention_bwd", "regret_scan", "glr_step_tenants",
+                "glr_scan_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
 BATCH_ROUTES = ("weighted_aggregate_batch", "robust_trimmed_batch")   # the Step-4 batch launches
-COUNTERS = KERNEL_NAMES + FLASH_ROUTES + ("regret_scan_reactive",) + BATCH_ROUTES
-# (regret_scan's reactive template and the Step-4 batch launches count in .launches too)
+PLAIN_BACKWARD = "attention_plain_backward"   # attention gradients by the chunked recompute
+COUNTERS = (KERNEL_NAMES + FLASH_ROUTES + ("regret_scan_reactive",) + BATCH_ROUTES
+            + (PLAIN_BACKWARD,))
+# (regret_scan's reactive template and the Step-4 batch launches count in .launches too;
+# flash_attention_bwd counts a backward call, three launches: Delta, dK/dV, dQ)
 
 
 class SmokeFailure(Exception):
@@ -474,7 +490,7 @@ def line(*parts):
 
 def kernel_wrappers():
     """Each kernel's wrapper, by name: the ``.launches`` counters."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.glr_scan import glr_scan, glr_scan_tenants
     from repro_torch.kernels.glr_step import glr_step
     from repro_torch.kernels.glr_step_tenants import glr_step_tenants
@@ -484,13 +500,17 @@ def kernel_wrappers():
 
     return dict(glr_step=glr_step, weighted_aggregate=weighted_aggregate,
                 robust_trimmed=robust_trimmed, glr_scan=glr_scan,
-                flash_attention=flash_attention, regret_scan=regret_scan,
-                glr_step_tenants=glr_step_tenants, glr_scan_tenants=glr_scan_tenants)
+                flash_attention=flash_attention, flash_attention_bwd=flash_attention_bwd,
+                regret_scan=regret_scan, glr_step_tenants=glr_step_tenants,
+                glr_scan_tenants=glr_scan_tenants)
 
 
 def reset_launches():
+    from repro_torch.models.attention import _KernelAttention
+
     for w in kernel_wrappers().values():
         w.launches = 0
+    _KernelAttention.plain_backward_calls = 0
     fa = kernel_wrappers()["flash_attention"]
     fa.tc_launches = fa.fma_launches = 0
     kernel_wrappers()["regret_scan"].reactive_launches = 0
@@ -500,8 +520,12 @@ def reset_launches():
 
 def read_launches():
     """Every counter of ``COUNTERS``: each wrapper's, ``flash_attention``'s
-    per route and ``regret_scan``'s reactive template's."""
+    per route, ``regret_scan``'s reactive template's and the attention
+    gradients taken by the chunked recompute (``PLAIN_BACKWARD``)."""
+    from repro_torch.models.attention import _KernelAttention
+
     out = {k: w.launches for k, w in kernel_wrappers().items()}
+    out[PLAIN_BACKWARD] = _KernelAttention.plain_backward_calls
     fa = kernel_wrappers()["flash_attention"]
     out.update(flash_attention_tc=fa.tc_launches, flash_attention_fma=fa.fma_launches,
                regret_scan_reactive=kernel_wrappers()["regret_scan"].reactive_launches,
@@ -4200,11 +4224,12 @@ def sparse_substrate(torch, seed, floor_ms):
 # ---------------------------------------------------------------------------
 
 def train_kernels(torch, gen, floor_ms):
-    """``flash_attention`` and ``glr_step`` at the training path's shapes
-    against their plain versions (not counted as launches of the path):
-    qwen1.5-0.5b's attention, bf16 (8, 16/16, 2048, 64) causal, on the
-    tensor-core route within rtol 2**-8 / atol 1e-4 of the f32 plain
-    version (phase 2's bf16 tolerance); ``glr_step`` (8, 128) on {0, 1}
+    """``flash_attention``, its backward and ``glr_step`` at the training
+    path's shapes against their plain versions (not counted as launches of
+    the path): qwen1.5-0.5b's attention, bf16 (8, 16/16, 2048, 64) causal,
+    on the tensor-core route within rtol 2**-8 / atol 1e-4 of the f32 plain
+    version (phase 2's bf16 tolerance), and its gradient by the backward
+    kernels (``attention_bwd_at``); ``glr_step`` (8, 128) on {0, 1}
     rewards, state bitwise, the statistic at rtol 1e-5.  Returns each
     kernel's entry (error, times, bound)."""
     from torch.nn import functional as F
@@ -4247,7 +4272,9 @@ def train_kernels(torch, gen, floor_ms):
          f"{gl['max_abs_err']:.3e} vs plain ok; kernel {gl['ms']:.4f} ms, plain "
          f"{gl['plain_ms']:.4f} ms, bound {gl['bound_ms']:.2e} ms ({gl['bound_by']}), launch "
          f"floor {floor_ms:.5f} ms")
-    return dict(flash_attention=fa, glr_step=gl)
+    release(torch)
+    bwd = attention_bwd_at(torch, gen.initial_seed() + 7, shape, True, 0, "(0)")
+    return dict(flash_attention=fa, glr_step=gl, flash_attention_bwd=bwd)
 
 
 def adam_step_bound(count, b1=0.9, b2=0.95):
@@ -4346,10 +4373,12 @@ def train_reference(torch, seed, arch=TRAIN_ARCH, n_layers=TRAIN_REF_LAYERS,
     audio model's frames): one ``loss`` and its gradients on the kernel
     route (the FMA kernel, forward and the checkpoint's recompute: twice an
     attention layer) against the plain route: the loss at rtol / atol 2e-3
-    (phase 7's tolerance), each gradient at ``grads_close``'s rule.  An SSM
-    (its L = 256 chunks take the upper triangle's exponent past exp's f32
-    overflow) is also run on the CPU on the same weights: its gradients
-    finite and equal to the card's by the same rule."""
+    (phase 7's tolerance), each gradient at ``grads_close``'s rule; a
+    model with attention then again in bf16 (``bf16_grads_gate``: the
+    tensor-core forward and the backward kernels).  An SSM (its L = 256
+    chunks take the upper triangle's exponent past exp's f32 overflow) is
+    also run on the CPU on the same weights: its gradients finite and equal
+    to the card's by the same rule."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4383,6 +4412,9 @@ def train_reference(torch, seed, arch=TRAIN_ARCH, n_layers=TRAIN_REF_LAYERS,
          f"{float(lp):.6f}, gradients max_abs_err {g_err:.3e} (max |grad| {g_max:.3e}; worst "
          f"tensor's max_abs_err / its max |grad| {g_rel:.3e}; rtol 2e-3, atol min(2e-3, 1e-4 "
          f"max |grad|)) ok")
+    if attn_layers(cfg):
+        gk = None
+        bf16_grads_gate(torch, cfg, params, batch, w, gp, label)
     if cfg.arch_type == "ssm":
         expo = ssd_upper_exponent(torch, params, cfg, batch)
         check(expo > 88.72, f"{label}: the upper-triangle exponent {expo:.1f} does not overflow")
@@ -4397,6 +4429,64 @@ def train_reference(torch, seed, arch=TRAIN_ARCH, n_layers=TRAIN_REF_LAYERS,
              f"|grad| {c_rel:.3e}) ok")
     del params, gk, gp
     release(torch)
+
+
+def bf16_grads_gate(torch, cfg, params, batch, w, want, label):
+    """(a)'s size again in bf16: the f32 parameters and float inputs rounded
+    to bf16, the loss's gradients on the kernel route (the tensor-core
+    forward twice an attention layer, with the checkpoint's recompute, and
+    the backward kernels once; no chunked recompute) and on the plain
+    route, each leaf's relative Frobenius error ||g - g_f32|| / ||g_f32||
+    against the f32 plain route's gradients ``want``: the kernel route's at
+    most twice the plain route's own (a leaf the loss never reads has no
+    gradient in either).  The two routes run one after the other, so only
+    one set of bf16 gradients is held at a time."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as fb
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import _KernelAttention
+
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    p16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    b16 = {k: v.to(torch.bfloat16) if v.is_floating_point() else v for k, v in batch.items()}
+    n_attn = attn_layers(cfg)
+    counts = lambda: (fa.tc_launches, fb.launches, _KernelAttention.plain_backward_calls)
+    norms = {k: float(g.float().norm()) for k, g in want.items()}
+
+    def rel_errors(impl):
+        _, _, got = loss_and_grads(build_model(cfg16, remat="full", attn_impl=impl), p16, b16, w)
+        out = {}
+        for k, g in want.items():
+            if norms[k] == 0.0:
+                check(not got[k].any(), f"{label} bf16 ({impl or 'kernel'} route): {k} has a "
+                      f"gradient where the f32 run has none")
+            else:
+                out[k] = float((got[k].float() - g.float()).norm()) / norms[k]
+        return out
+
+    before = counts()
+    ek = rel_errors(None)
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    check(launched == (2 * n_attn, n_attn, 0),
+          f"{label} bf16: the kernel route launched {launched} (tensor-core forward, backward "
+          f"kernels, chunked recomputes), expected {(2 * n_attn, n_attn, 0)}")
+    ep = rel_errors("plain")
+    ratio = {k: ek[k] / max(ep[k], 1e-30) for k in ek}
+    bad = {k: (ek[k], ep[k]) for k in ek if ek[k] > 2 * ep[k]}
+    check(not bad, f"{label} bf16: the kernel route's relative error above twice the plain "
+          f"route's: {bad}")
+    worst = max(ratio, key=ratio.get)
+    line(f"  (a) {cfg.name} bf16, the same size: gradients on the kernel route (tensor-core "
+         f"forward {launched[0]}, backward kernels {launched[1]}, chunked recompute 0) and on "
+         f"the plain route against the f32 plain route, ||g - g_f32|| / ||g_f32|| a leaf: kernel "
+         f"route up to {max(ek.values()):.3e}, plain route up to {max(ep.values()):.3e}; the "
+         f"largest ratio {ratio[worst]:.3f} ({worst}: {ek[worst]:.3e} / {ep[worst]:.3e}; gate "
+         f"2) ok")
+    del p16, b16
 
 
 def _tree_to(tree, dev):
@@ -4589,13 +4679,14 @@ def model_flops(cfg, n_params, b, s):
     FLOPs a visible (query, key) pair a head a layer; and what the card
     executes besides with ``remat="full"``: the blocks' forward again (2
     P' B S, P' the blocks' parameters), the CE chunks' unembedding again (2
-    V d B S) and attention's forward twice more (the checkpoint's recompute
-    and the plain backward's)."""
+    V d B S), attention's forward once more (the checkpoint's recompute, 4
+    D a pair) and the backward kernels' recompute of the logits (2 D a
+    pair)."""
     pairs = attn_pairs(s, True, 0)
     attn = 12 * cfg.resolved_head_dim * b * cfg.n_heads * cfg.n_layers * pairs
     blocks = n_params - cfg.vocab_size * cfg.d_model
     extra = (2 * blocks * b * s + 2 * cfg.vocab_size * cfg.d_model * b * s
-             + 8 * cfg.resolved_head_dim * b * cfg.n_heads * cfg.n_layers * pairs)
+             + 6 * cfg.resolved_head_dim * b * cfg.n_heads * cfg.n_layers * pairs)
     return 6 * n_params * b * s, attn, extra
 
 
@@ -4695,9 +4786,11 @@ def train_path(torch, seed):
     fa_per = 2 * cfg.n_layers
     check(launches["flash_attention_tc"] == TRAIN_ROUNDS * fa_per
           and launches["flash_attention"] == TRAIN_ROUNDS * fa_per
-          and launches["glr_step"] == TRAIN_ROUNDS,
+          and launches["flash_attention_bwd"] == TRAIN_ROUNDS * cfg.n_layers
+          and launches[PLAIN_BACKWARD] == 0 and launches["glr_step"] == TRAIN_ROUNDS,
           f"phase 14 (d): launches {launches}; expected flash_attention {fa_per} a step on the "
-          f"tensor-core route and glr_step 1 a step")
+          f"tensor-core route, its backward kernels {cfg.n_layers} a step and no chunked "
+          f"recompute, and glr_step 1 a step")
     check(all(math.isfinite(x) for x in losses), f"phase 14 (d): losses {losses}")
     # a round in which no client delivered weighs every example 0: its loss is 0
     delivered = [x for x, n in zip(losses, succ) if n > 0]
@@ -4713,7 +4806,9 @@ def train_path(torch, seed):
          f"/ last 5 rounds with a delivery {first:.4f} / {last:.4f}), |S_t| {succ}, zeta sums to "
          f"{zsum:.7f}, t = {state.fl.t}; launches flash_attention {launches['flash_attention']} "
          f"({launches['flash_attention_tc'] // TRAIN_ROUNDS} a step, tensor-core route), "
-         f"glr_step {launches['glr_step']}")
+         f"flash_attention_bwd {launches['flash_attention_bwd']} "
+         f"({launches['flash_attention_bwd'] // TRAIN_ROUNDS} a step; chunked recompute "
+         f"{launches[PLAIN_BACKWARD]}), glr_step {launches['glr_step']}")
     line(f"  (d) {step_ms:.3f} ms a step untraced (rounds {TRAIN_WARM}-{TRAIN_ROUNDS - 1}, after "
          f"{TRAIN_WARM} warm-up rounds; between the steps' CUDA events min {spread[0]:.3f}, "
          f"median {spread[len(spread) // 2]:.3f}, max {spread[-1]:.3f} ms), "
@@ -4741,12 +4836,15 @@ def train_path(torch, seed):
     total = sum(by_name.values())
     bwd_us, n_ranges = range_device_us(events, BACKWARD_RANGE)
     flash_us = sum(v for k, v in by_name.items() if "flash_fwd" in k)
+    flash_bwd_us = sum(v for k, v in by_name.items() if "bwd_d" in k)   # delta, dkdv, dq
     gemm_us = sum(v for k, v in by_name.items() if "gemm" in k.lower() or "xmma" in k.lower()
                   or "cutlass" in k.lower())
     if total:
-        line(f"  (d) profile: the plain attention backward ({n_ranges} ranges) "
-             f"{bwd_us / TRAIN_PROFILE_STEPS / 1e3:.2f} ms a step = {100 * bwd_us / total:.1f} % "
-             f"of device time; flash_attention {flash_us / TRAIN_PROFILE_STEPS / 1e3:.2f} ms "
+        line(f"  (d) profile: the attention backward (the backward kernels' route, {n_ranges} "
+             f"ranges) {bwd_us / TRAIN_PROFILE_STEPS / 1e3:.2f} ms a step = "
+             f"{100 * bwd_us / total:.1f} % of device time (its three kernels "
+             f"{flash_bwd_us / TRAIN_PROFILE_STEPS / 1e3:.2f} ms); flash_attention "
+             f"{flash_us / TRAIN_PROFILE_STEPS / 1e3:.2f} ms "
              f"({100 * flash_us / total:.1f} %); kernels named gemm/xmma/cutlass "
              f"{gemm_us / TRAIN_PROFILE_STEPS / 1e3:.2f} ms ({100 * gemm_us / total:.1f} %)")
     del holder, events, kernels
@@ -4785,7 +4883,8 @@ def training(torch, seed, floor_ms):
     for name in kernels:
         kernels[name]["launches"] = launches[name]
     line(f"  phase 14 launches: flash_attention {launches['flash_attention']} (tensor-core "
-         f"{launches['flash_attention_tc']}), glr_step {launches['glr_step']}; wall "
+         f"{launches['flash_attention_tc']}), flash_attention_bwd "
+         f"{launches['flash_attention_bwd']}, glr_step {launches['glr_step']}; wall "
          f"{time.perf_counter() - t_phase:.1f} s")
     return launches, kernels, numbers
 
@@ -5155,6 +5254,96 @@ def attention_at(torch, gen, shape, window, label, floor_ms, fma_turns=False, ca
     del q, k, v
     release(torch)
     return fa
+
+
+def attention_bwd_at(torch, seed, shape, causal, window, label):
+    """The backward kernels (``flash_attention_bwd``) at a model's training
+    ``shape`` (B, Hq, Hkv, S, D), bf16, with the mask of its attention, none
+    of it counted as launches of a path: the tensor-core forward's logsumexp
+    against the plain version's (rtol / atol 1e-5: the same f32 logits,
+    summed in another order); dq, dk, dv against ``ref.mha_attention_bwd``
+    in f32 on the same bf16 inputs, kernel output and logsumexp, per tensor
+    within ``BWD_RTOL |want| + BWD_ATOL max|want|`` (2^-6, 2^-7: the
+    emulation in tests/test_torch_flash_bwd_split.py); two calls bitwise
+    equal; and the plain chunked backward route (``_KernelAttention``'s
+    recompute, which f32 calls keep) held against the kernel by the same
+    rule.  Times: the kernel (CUDA events), the plain version, the chunked
+    route, SDPA's backward (its forward outside the timed window; the
+    yardstick only) and the bound (``cost_bwd``).  Prints ``label``'s line;
+    returns the entry for the kernels line."""
+    from torch.nn import functional as F
+
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import _KernelAttention
+
+    b, hq, hkv, s, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rand = lambda h, sd: (torch.randn((b, h, s, d), generator=gen, device="cuda") * sd).to(
+        torch.bfloat16)
+    q, k, v, do = rand(hq, 0.5), rand(hkv, 0.5), rand(hkv, 1.0), rand(hq, 1.0)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    _, want_lse = ref.mha_attention(q.float(), k.float(), v.float(), causal=causal,
+                                    window=window, return_lse=True)
+    lse_err = float((lse - want_lse).abs().max())
+    check(torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5),
+          f"{label} flash_attention's logsumexp {shape} beyond rtol/atol 1e-5 ({lse_err:.3e})")
+    del want_lse
+    kernel = fa_mod.flash_attention_bwd
+    before = kernel.launches
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    check(kernel.launches == before + 2, f"{label} flash_attention_bwd {shape}: not launched")
+    names = ("dq", "dk", "dv")
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          f"{label} flash_attention_bwd {shape}: two calls differ")
+    del again
+    want = ref.mha_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+                                 causal=causal, window=window)
+    excess = [fa_mod.bwd_within(g, w) for g, w in zip(got, want)]
+    err = max(float((g.float() - w).abs().max()) for g, w in zip(got, want))
+    check(max(excess) <= 1.0, f"{label} flash_attention_bwd {shape}: beyond rtol 2^-6 / atol "
+          f"2^-7 max|want| against f32 plain: {dict(zip(names, excess))}")
+    del want
+
+    class Ctx:                      # _KernelAttention's context on its chunked route
+        saved_tensors, kernel_backward = (q, k, v), False
+        args = (causal, window, scale, 512)
+
+    plain_route = lambda: _KernelAttention.backward(Ctx, do)[:3]
+    route_excess = [fa_mod.bwd_within(g, w) for g, w in zip(got, plain_route())]
+    check(max(route_excess) <= 1.0, f"{label} flash_attention_bwd {shape}: beyond the check "
+          f"against the plain chunked route: {dict(zip(names, route_excess))}")
+    del got
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o_sdpa = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+    check(window == 0 or window >= s, f"{label}: SDPA takes no window shorter than S")
+    t = dict(shape_b_hq_hkv_s_d=list(shape), causal=causal, window=window, dtype="bfloat16",
+             route="cuda-mma", max_abs_err=err, excess=dict(zip(names, excess)),
+             excess_vs_chunked_route=dict(zip(names, route_excess)), lse_max_abs_err=lse_err,
+             ms=time_ms(torch, lambda: kernel(q, k, v, out, lse, do, causal=causal,
+                                               window=window, scale=scale), 20),
+             plain_ms=time_ms(torch, lambda: ref.mha_attention_bwd(
+                 q, k, v, out, lse, do, causal=causal, window=window), 3),
+             chunked_route_ms=time_ms(torch, plain_route, 3),
+             library_ms=time_ms(torch, lambda: torch.autograd.grad(
+                 o_sdpa, leaves, do, retain_graph=True), 20))
+    kc = fa_mod.cost_bwd(shape, causal, window, torch.bfloat16)
+    t["bound_ms"], t["bound_by"] = bound_of(kc)
+    line(f"  {label} flash_attention_bwd (B, Hq, Hkv, S, D)={shape} "
+         f"{'causal' if causal else 'non-causal'} window {window} bf16: logsumexp max_abs_err "
+         f"{lse_err:.2e} (rtol/atol 1e-5) ok; dq, dk, dv max_abs_err {err:.3e}, "
+         f"|err| - 2^-6 |want| at most {max(excess):.3f} of 2^-7 max|want| vs f32 plain, "
+         f"{max(route_excess):.3f} vs the plain chunked route; two calls bitwise ok; kernel "
+         f"{t['ms']:.4f} ms ({kc.ops / t['ms'] / 1e9:.1f} TFLOP/s), plain "
+         f"{t['plain_ms']:.4f} ms, plain chunked route {t['chunked_route_ms']:.4f} ms, library "
+         f"(SDPA backward, enable_gqa) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+         f"({t['bound_by']}, {kc.ops:.4e} flops)")
+    del q, k, v, do, out, lse, leaves, o_sdpa
+    release(torch)
+    return t
 
 
 def dbrx_attention(torch, gen, floor_ms):
@@ -5741,7 +5930,9 @@ def family_attention_shape(cfg, b=TRAIN_B, s=TRAIN_S):
 def family_attention(torch, gen, floor_ms):
     """(0) ``flash_attention`` bf16 at the three attending families'
     training shapes (``attention_at``: hubert's non-causal, the first at
-    full size), each on the tensor-core route.  Returns their entries."""
+    full size), each on the tensor-core route, and its gradient by the
+    backward kernels (``attention_bwd_at``).  Returns their entries, the
+    backward's under ``backward``."""
     from repro_torch.configs import get_config
 
     out = {}
@@ -5754,6 +5945,8 @@ def family_attention(torch, gen, floor_ms):
                                  causal=causal)
         check(out[arch]["route"] == "cuda-tc",
               f"phase 18 (0): {arch}'s attention not on the tensor-core route")
+        out[arch]["backward"] = attention_bwd_at(torch, gen.initial_seed() + len(out), shape,
+                                                 causal, window, f"(0) {arch}'s training:")
     return out
 
 
@@ -5846,9 +6039,11 @@ def family_train_path(torch, seed, arch, n_layers=None, b=TRAIN_B, s=TRAIN_S,
     fa_per = 2 * attn_layers(cfg)
     check(launches["flash_attention_tc"] == rounds * fa_per
           and launches["flash_attention"] == rounds * fa_per
-          and launches["glr_step"] == rounds,
+          and launches["flash_attention_bwd"] == rounds * fa_per // 2
+          and launches[PLAIN_BACKWARD] == 0 and launches["glr_step"] == rounds,
           f"{label}: launches {launches}; expected flash_attention {fa_per} a step on "
-          f"the tensor-core route and glr_step 1 a step")
+          f"the tensor-core route, its backward kernels {fa_per // 2} a step and no chunked "
+          f"recompute, and glr_step 1 a step")
     check(all(math.isfinite(x) for x in losses), f"{label}: losses {losses}")
     check(not torch.equal(state.params["unembed"][:, :64], unembed0),
           f"{label}: the parameters did not move")
@@ -5869,7 +6064,8 @@ def family_train_path(torch, seed, arch, n_layers=None, b=TRAIN_B, s=TRAIN_S,
     line(f"  (c) {arch}: {rounds} rounds: loss {', '.join(f'{x:.4f}' for x in losses)} "
          f"(finite){aux}, |S_t| {succ}, the parameters moved{never_read}; launches "
          f"flash_attention {launches['flash_attention']} ({fa_per} a step, tensor-core route), "
-         f"glr_step {launches['glr_step']}")
+         f"flash_attention_bwd {launches['flash_attention_bwd']} ({fa_per // 2} a step; chunked "
+         f"recompute {launches[PLAIN_BACKWARD]}), glr_step {launches['glr_step']}")
     line(f"  (c) {arch}: {step_ms:.1f} ms a step untraced (rounds {FAMILY_WARM}-"
          f"{rounds - 1} after {FAMILY_WARM} warm-up; between the steps' CUDA events "
          f"{', '.join(f'{x:.1f}' for x in spread)} ms), {positions / step_ms * 1e3:,.0f} "
@@ -5889,7 +6085,7 @@ def family_train_path(torch, seed, arch, n_layers=None, b=TRAIN_B, s=TRAIN_S,
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     total = sum(float(e["dur"]) for e in kernels)
     parts = {"attention forward": range_device_us(events, FORWARD_RANGE)[0],
-             "plain attention backward": range_device_us(events, BACKWARD_RANGE)[0],
+             "attention backward (kernels)": range_device_us(events, BACKWARD_RANGE)[0],
              "SSD chunk loop": range_device_us(events, ssm.SSD_RANGE)[0],
              "RG-LRU scan": range_device_us(events, rglru.SCAN_RANGE)[0],
              "MoE dispatch": range_device_us(events, moe.DISPATCH_RANGE)[0],
@@ -5928,7 +6124,8 @@ def mla_moe_train_reference(torch, seed, arch, n_layers):
     FMA kernel twice an attention layer; rtol/atol 2e-3, as phase 14 (a)),
     an MLA model's ``remat="none"`` (both routes are plain attention there:
     the check is the checkpoint's recompute of the attention and of the
-    routing, bitwise).  Two gradient sets are held at once."""
+    routing, bitwise).  Two gradient sets are held at once.  dbrx then
+    runs ``bf16_grads_gate``."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -5976,6 +6173,8 @@ def mla_moe_train_reference(torch, seed, arch, n_layers):
              f"vs plain route: loss {float(lp):.6f}, gradients max_abs_err {g_err:.3e} (max "
              f"|grad| {g_max:.3e}; worst tensor's max_abs_err / its max |grad| {g_rel:.3e}; rtol "
              f"2e-3, atol min(2e-3, 1e-4 max |grad|)) ok")
+        g1.clear()
+        bf16_grads_gate(torch, cfg, params, batch, w, gp, label)
     else:
         ln, mn, gn = loss_and_grads(build_model(cfg, remat="none"), params, batch, w)
         apart = [k for k in g1 if not torch.equal(g1[k], gn[k])]
@@ -6006,6 +6205,8 @@ def mla_moe_training(torch, seed, floor_ms):
     attn = attention_at(torch, torch.Generator(device="cuda").manual_seed(seed + 181), shape,
                         window, "(0) dbrx-132b's training:", floor_ms, causal=causal)
     check(attn["route"] == "cuda-tc", "phase 18 (0): dbrx's attention not on the tensor-core route")
+    attn["backward"] = attention_bwd_at(torch, seed + 182, shape, causal, window,
+                                        "(0) dbrx-132b's training:")
     for arch, _, _, _, ref_layers in MLA_MOE_TRAINED:
         mla_moe_train_reference(torch, seed, arch, ref_layers)
     for arch, *_ in MLA_MOE_TRAINED:
@@ -6016,8 +6217,10 @@ def mla_moe_training(torch, seed, floor_ms):
                                                        MLA_MOE_ROUNDS, card_train_shape(b, s))
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
     attn["launches"] = paths["dbrx-132b"]["flash_attention"]
+    attn["backward"]["launches"] = paths["dbrx-132b"]["flash_attention_bwd"]
     line(f"  phase 18 MLA and MoE launches: flash_attention {launches['flash_attention']} "
-         f"(tensor-core {launches['flash_attention_tc']}), glr_step {launches['glr_step']}; wall "
+         f"(tensor-core {launches['flash_attention_tc']}), flash_attention_bwd "
+         f"{launches['flash_attention_bwd']}, glr_step {launches['glr_step']}; wall "
          f"{time.perf_counter() - t_phase:.1f} s")
     return launches, attn, numbers
 
@@ -6040,8 +6243,10 @@ def family_training(torch, seed, floor_ms):
     launches = {k: sum(p[k] for p in paths.values()) for k in COUNTERS}
     for arch, fa in attn.items():
         fa["launches"] = paths[arch]["flash_attention"]
+        fa["backward"]["launches"] = paths[arch]["flash_attention_bwd"]
     line(f"  phase 18 launches: flash_attention {launches['flash_attention']} (tensor-core "
-         f"{launches['flash_attention_tc']}), glr_step {launches['glr_step']}; wall "
+         f"{launches['flash_attention_tc']}), flash_attention_bwd "
+         f"{launches['flash_attention_bwd']}, glr_step {launches['glr_step']}; wall "
          f"{time.perf_counter() - t_phase:.1f} s")
     return launches, attn, numbers
 
@@ -6204,7 +6409,11 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
     shape's also carry ``fma_ms`` and ``ms_again`` (``routes_in_turns``);
     and the four training shapes of phase 18 (``train_hubert``, non-causal,
     ``train_recurrentgemma``, ``train_phi3v``, ``train_dbrx``), each with
-    phase 18's launches and (0)'s check and times."""
+    phase 18's launches and (0)'s check and times.  ``flash_attention_bwd``
+    (the backward kernels) carries phase 14 (0)'s check and times at
+    qwen1.5-0.5b's training shape with phase 14's and 18's launches, and
+    the four other training shapes' under the same keys, each with its
+    phase's launches."""
     def entry(name, replaces, err, t, source=None, **extra):
         source = source or f"src/repro_torch/kernels/csrc/{name}.cu"
         return dict(name=name, route="cuda", source=source,
@@ -6216,6 +6425,8 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
         "ms", "plain_ms", "device_ms", "bound_ms", "bound_by", "splits", "detecting_rows")
         + (("old_ms",) if "old_ms" in t else ())})
     serve = gst_t["serve"]
+    bwd = train_kernels["flash_attention_bwd"]
+    without = lambda d, key: {k: v for k, v in d.items() if k != key}
     return [
         entry("glr_step", "src/repro/kernels/glr_step.py:163", glr_err, glr_t["fig2"],
               batch_scan=batch_scan, substrate=sub_kernels["glr_step"],
@@ -6269,9 +6480,20 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
               f32_library_ms=fa_t["model_f32"]["library_ms"],
               f32_bound_ms=fa_t["model_f32"]["bound_ms"], jax_test_shapes=fa_t["jax_shapes"],
               train=train_kernels["flash_attention"], dbrx=dbrx_attn, **hybrid_attn,
-              train_hubert=family_attn["hubert-xlarge"],
-              train_recurrentgemma=family_attn["recurrentgemma-2b"],
-              train_phi3v=family_attn["phi-3-vision-4.2b"], train_dbrx=dbrx_train_attn),
+              train_hubert=without(family_attn["hubert-xlarge"], "backward"),
+              train_recurrentgemma=without(family_attn["recurrentgemma-2b"], "backward"),
+              train_phi3v=without(family_attn["phi-3-vision-4.2b"], "backward"),
+              train_dbrx=without(dbrx_train_attn, "backward")),
+        entry("flash_attention_bwd", "src/repro/models/attention.py:147",
+              bwd["max_abs_err"], bwd, replaces_note="no Pallas kernel: the counterpart of the "
+              "JAX custom_vjp backward _bwd (:147-149), a recompute through XLA",
+              **{k: bwd[k] for k in ("shape_b_hq_hkv_s_d", "causal", "window", "dtype",
+                                     "excess", "excess_vs_chunked_route", "lse_max_abs_err",
+                                     "chunked_route_ms")},
+              train_hubert=family_attn["hubert-xlarge"]["backward"],
+              train_recurrentgemma=family_attn["recurrentgemma-2b"]["backward"],
+              train_phi3v=family_attn["phi-3-vision-4.2b"]["backward"],
+              train_dbrx=dbrx_train_attn["backward"]),
     ]
 
 

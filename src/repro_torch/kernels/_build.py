@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan", "flash_attention",
-           "flash_attention_tc", "regret_scan", "glr_step_tenants")
+           "flash_attention_tc", "flash_attention_bwd", "regret_scan", "glr_step_tenants")
 PROBES = ("launch_floor",)     # measurement only: an empty kernel's launch floor
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -12,7 +12,11 @@
 // f32; a key is visible to a query when k < S, and k <= q (causal), and
 // k > q - window (window > 0).  Online softmax with a running max m and
 // normaliser l per row; the output is O / max(l, 1e-30), rounded once to
-// bf16.
+// bf16.  When `lse` is not null (the training path's forward), each row's
+// logsumexp of its scaled logits goes there too, (B, Hq, S) f32 in natural
+// units: (m + log2 l) ln 2 from the finalize's m and l, which are in log2
+// units; the backward (flash_attention_bwd.cu) reads it.  Prefill passes
+// null and writes nothing more.
 //
 // What bounds it on the H100: bf16 tensor-core operations.  A causal prefill
 // at qwen3-32b's (4, 64/8, 2048, 128) does 2.75e11 flops of Q.K^T and P.V
@@ -431,7 +435,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
                     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-                    int hq, int hkv, int s, int d, int causal, int window, float scale_log2) {
+                    float* __restrict__ lse, int hq, int hkv, int s, int d, int causal,
+                    int window, float scale_log2) {
   using L = Layout<DP, BK>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -538,7 +543,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
 
-    // epilogue: O / max(l, 1e-30), rows < S and columns < D
+    // epilogue: O / max(l, 1e-30), rows < S and columns < D; the logsumexp
     float denom[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -546,6 +551,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       denom[h] = fmaxf(l, 1e-30f);
+      const int qpos = row + 8 * h;
+      if (lse != nullptr && lane % 4 == 0 && qpos < s)     // one lane of the row's quad
+        lse[static_cast<long long>(bh) * s + qpos] = (m_run[h] + log2f(l)) * 0.6931471805599453f;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -605,8 +613,8 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int heads, 
 }
 
 template <int DP, int BK>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, int hkv, int s,
-           int d, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int hq,
+           int hkv, int s, int d, int causal, int window, float scale, cudaStream_t stream) {
   using L = Layout<DP, BK>;
   static_assert(L::kAlloc <= 232448, "above the 227 KB a block can use");
   static bool attr_set = false;     // once per instantiation: above 48 KB needs the opt-in
@@ -626,7 +634,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, 
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(b * hq, (s + kBQ - 1) / kBQ);
   flash_fwd_tc_kernel<DP, BK><<<grid, kThreads, L::kAlloc, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), hq, hkv, s, d, causal, window,
+      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), lse, hq, hkv, s, d, causal, window,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
@@ -634,15 +642,18 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int hq, 
 }  // namespace
 
 // bf16 q, k, v and out; 8 <= d <= 256 with d % 8 == 0, hq % hkv == 0, b * hq
-// below 2^31, 16-byte aligned pointers (the tensor maps refuse others).
+// below 2^31, 16-byte aligned pointers (the tensor maps refuse others).  `lse`
+// is null, or (B, Hq, S) f32 for each row's logsumexp.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* o,
                                          int b, int hq, int hkv, int s, int d, int causal,
-                                         int window, float scale, void* stream) {
+                                         int window, float scale, void* lse, void* stream) {
   if (b <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 || s <= 0 || d < 8 || d > 256 ||
       d % 8 != 0 || window < 0 || static_cast<long long>(b) * hq > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 64) return launch<64, 128>(q, k, v, o, b, hq, hkv, s, d, causal, window, scale, st);
-  if (d <= 128) return launch<128, 128>(q, k, v, o, b, hq, hkv, s, d, causal, window, scale, st);
-  return launch<256, 64>(q, k, v, o, b, hq, hkv, s, d, causal, window, scale, st);
+  float* l = static_cast<float*>(lse);
+  if (d <= 64) return launch<64, 128>(q, k, v, o, l, b, hq, hkv, s, d, causal, window, scale, st);
+  if (d <= 128)
+    return launch<128, 128>(q, k, v, o, l, b, hq, hkv, s, d, causal, window, scale, st);
+  return launch<256, 64>(q, k, v, o, l, b, hq, hkv, s, d, causal, window, scale, st);
 }

@@ -201,8 +201,11 @@ def regret_scan(scheduler, env, state, uniforms: torch.Tensor, collect_curve: bo
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
-                    window: int = 0, scale=None) -> torch.Tensor:
-    """Blockwise GQA attention.  q (B,Hq,S,D), k/v (B,Hkv,S,D) -> (B,Hq,S,D).
+                    window: int = 0, scale=None, return_lse: bool = False):
+    """Blockwise GQA attention.  q (B,Hq,S,D), k/v (B,Hkv,S,D) -> (B,Hq,S,D);
+    with ``return_lse`` also each query row's logsumexp of its scaled,
+    masked logits, (B,Hq,S) f32 (on CUDA the tensor-core route only: bf16,
+    D % 8 == 0), which ``flash_attention_bwd`` reads.
 
     ``scale`` defaults to 1/sqrt(D) of the true D (the JAX wrapper takes it
     before padding D).  On CUDA the kernel masks the D and S tails itself,
@@ -210,12 +213,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.is_cuda:
         return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=causal, window=window, scale=scale)
+                                   causal=causal, window=window, scale=scale,
+                                   return_lse=return_lse)
     b, hq, s, d = q.shape
     with _counted("flash_attention",
-                  lambda: _fa.cost((b, hq, k.shape[1], s, d), causal, window, q.dtype)):
+                  lambda: _fa.cost((b, hq, k.shape[1], s, d), causal, window, q.dtype,
+                                   lse=return_lse)):
         if _on_meta("flash_attention", q, k, v):
-            return _fa.meta(q, k, v)
+            return _fa.meta(q, k, v, return_lse)
         if q.device.type != "cpu":
             raise ValueError(f"flash_attention: no kernel for device {q.device}")
-        return ref.mha_attention(q, k, v, causal=causal, window=window, scale=scale)
+        return ref.mha_attention(q, k, v, causal=causal, window=window, scale=scale,
+                                 return_lse=return_lse)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+                        window: int = 0, scale=None):
+    """The gradient of ``flash_attention`` from its output ``out`` and row
+    logsumexp ``lse`` (``return_lse``) and the output's gradient ``do``:
+    returns (dq, dk, dv) in the dtypes of q, k, v.  On CUDA the backward
+    kernels, which take what the tensor-core forward takes (bf16, D % 8 ==
+    0, D <= 256) and raise on anything else; on the CPU the plain version
+    ``ref.mha_attention_bwd``; on meta the kernels' meta route."""
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.is_cuda:
+        c = lambda t: t.contiguous()
+        return _fa.flash_attention_bwd(c(q), c(k), c(v), c(out), c(lse), c(do), causal=causal,
+                                       window=window, scale=scale)
+    b, hq, s, d = q.shape
+    with _counted("flash_attention_bwd",
+                  lambda: _fa.cost_bwd((b, hq, k.shape[1], s, d), causal, window, q.dtype)):
+        if _on_meta("flash_attention_bwd", q, k, v, out, lse, do):
+            return _fa.meta_bwd(q, k, v)
+        if q.device.type != "cpu":
+            raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
+        return ref.mha_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window,
+                                     scale=scale)

@@ -334,8 +334,21 @@ def robust_trimmed(updates: torch.Tensor, mask: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# flash_attention — blockwise grouped-query attention, forward
+# flash_attention — blockwise grouped-query attention, forward and backward
 # ---------------------------------------------------------------------------
+
+def _attention_mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(S, S) bool: key j visible to query i where j <= i (causal) and
+    j > i - window (window > 0)."""
+    qi = torch.arange(s, device=device)[:, None]
+    ki = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        mask &= ki <= qi
+    if window > 0:
+        mask &= ki > qi - window
+    return mask
+
 
 def mha_attention(
     q: torch.Tensor,          # (B, Hq, S, D)
@@ -344,24 +357,62 @@ def mha_attention(
     causal: bool = True,
     window: int = 0,          # 0 => full; else sliding window of this width
     scale=None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Grouped-query attention, the naive O(S^2) oracle: query head h reads
-    KV head h // (Hq / Hkv); f32 logits and softmax; masked keys get -inf
-    (causal: k <= q; window: k > q - window); the output in q's dtype."""
+    KV head h // (Hq / Hkv); f32 logits and softmax (f64 inputs in f64);
+    masked keys get -inf (causal: k <= q; window: k > q - window); the
+    output in q's dtype.  With ``return_lse`` also each query row's
+    logsumexp of its masked, scaled logits, (B, Hq, S) in f32 (f64 for f64
+    inputs): the row statistic the backward reads."""
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    wt = torch.promote_types(q.dtype, torch.float32)
     k_exp = k.repeat_interleave(group, dim=1)
     v_exp = v.repeat_interleave(group, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k_exp.float()) * scale
-    qi = torch.arange(s, device=q.device)[:, None]
-    ki = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= ki <= qi
-    if window > 0:
-        mask &= ki > qi - window
-    logits.masked_fill_(~mask, -torch.inf)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.to(wt), k_exp.to(wt)) * scale
+    logits.masked_fill_(~_attention_mask(s, causal, window, q.device), -torch.inf)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, v_exp.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v_exp.to(wt)).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
+
+
+def mha_attention_bwd(
+    q: torch.Tensor,          # (B, Hq, S, D)
+    k: torch.Tensor,          # (B, Hkv, S, D)
+    v: torch.Tensor,          # (B, Hkv, S, D)
+    out: torch.Tensor,        # (B, Hq, S, D): the forward's output
+    lse: torch.Tensor,        # (B, Hq, S): the forward's row logsumexp
+    do: torch.Tensor,         # (B, Hq, S, D): the output's gradient
+    causal: bool = True,
+    window: int = 0,
+    scale=None,
+):
+    """The gradient of ``mha_attention`` from its saved output and row
+    logsumexp (the FlashAttention-2 backward): P = exp(scale QK^T - lse)
+    under the mask, Delta = rowsum(dO * O), dV = P^T dO, dS = P (dO V^T -
+    Delta), dQ = scale dS K, dK = scale dS^T Q; a KV head's dK and dV sum
+    over its query heads.  In f32 (f64 inputs stay f64); returns (dq, dk,
+    dv) in the dtypes of q, k and v."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    wt = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, of, dof = (t.to(wt) for t in (q, k, v, out, do))
+    k_exp = kf.repeat_interleave(group, dim=1)
+    v_exp = vf.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, k_exp) * scale
+    mask = _attention_mask(s, causal, window, q.device)
+    p = torch.where(mask, torch.exp(logits - lse.to(wt)[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v_exp)
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k_exp) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    fold = lambda t: t.reshape(b, hkv, group, s, d).sum(dim=2)
+    return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)

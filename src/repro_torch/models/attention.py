@@ -6,7 +6,9 @@ of weights:
 * ``prefill`` — full-sequence attention through ``attn_core``.  On a CUDA
   tensor it is the hand-written ``flash_attention`` kernel whenever the
   value width equals the query width, at every prompt length (the JAX
-  package's ``S >= 256`` and TPU-backend tests were a TPU tiling choice).
+  package's ``S >= 256`` and TPU-backend tests were a TPU tiling choice);
+  its gradient is the hand-written backward kernel wherever the forward
+  took the tensor-core route (bf16, D % 8 == 0).
   Elsewhere, or with ``impl="plain"``, a query-chunked softmax in plain
   PyTorch with the same semantics runs (the twin of ``_attn_core_xla``).
 * ``decode`` — one token against a (possibly ring / latent) KV cache,
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as _kernel_ops
+from repro_torch.kernels.flash_attention import tc_route
 from repro_torch.models.kvcache import ring_slot, valid_mask
 from repro_torch.models.layers import ParamBuilder, apply_rope, rms_norm
 
@@ -80,13 +83,15 @@ def add_mla_params(pb: ParamBuilder, prefix: str, cfg: ModelConfig, stacked: int
 # ---------------------------------------------------------------------------
 
 def _chunk_attn(q, k, v, q_offset, causal, window, scale, kv_len):
-    """One query chunk: q (B,H,Cq,D); k,v (B,Hkv,S,D) -> (B,H,Cq,Dv)."""
+    """One query chunk: q (B,H,Cq,D); k,v (B,Hkv,S,D) -> (B,H,Cq,Dv), in f32
+    (f64 inputs in f64)."""
     hq, hkv = q.shape[1], k.shape[1]
     g = hq // hkv
     b, _, cq, _ = q.shape
     s = k.shape[2]
+    wt = torch.promote_types(q.dtype, torch.float32)
     qg = q.reshape(b, hkv, g, cq, -1)
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(wt), k.to(wt)) * scale
     q_idx = q_offset + torch.arange(cq, device=q.device)[:, None]
     k_idx = torch.arange(s, device=q.device)[None, :]
     mask = k_idx < kv_len
@@ -96,7 +101,7 @@ def _chunk_attn(q, k, v, q_offset, causal, window, scale, kv_len):
         mask = mask & (k_idx > q_idx - window)
     logits.masked_fill_(~mask, _NEG_INF)        # in place: the product's output is not saved
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.float())
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.to(wt))
     return out.reshape(b, hq, cq, -1).to(q.dtype)
 
 
@@ -111,31 +116,58 @@ def _attn_core_plain(q, k, v, causal, window, scale, chunk):
     return torch.cat(outs, dim=2)
 
 
-BACKWARD_RANGE = "attn_core.backward (plain chunked)"   # its profiler range
-FORWARD_RANGE = "attn_core (forward)"                    # attn_core's, on either route
+BACKWARD_RANGE = "attn_core.backward"    # its profiler range, on either backward route
+FORWARD_RANGE = "attn_core (forward)"    # attn_core's, on either route
+
+
+def kernel_backward(q: torch.Tensor) -> bool:
+    """Whether ``_KernelAttention``'s backward takes ``ops.flash_attention_bwd``
+    (the backward kernels on the card, their plain version on the CPU, their
+    meta route on meta): every CPU and meta call, and on CUDA the calls the
+    tensor-core forward takes (``tc_route``: bf16, D % 8 == 0).  Picked from
+    dtype and D before any launch; the other CUDA calls (f32, bf16 with
+    D % 8 != 0) recompute through the plain chunked path."""
+    return not q.is_cuda or tc_route(q.dtype, q.shape[-1])
 
 
 class _KernelAttention(torch.autograd.Function):
-    """Forward: ``ops.flash_attention`` (the CUDA kernel on the card).
-    Backward: recompute through the plain chunked path, as the JAX package
-    does with its ``custom_vjp`` (the kernel is forward-only), inside a
-    ``record_function`` range named ``BACKWARD_RANGE`` so a trace can give
-    its device time."""
+    """Forward: ``ops.flash_attention`` (the CUDA kernel on the card), with
+    the row logsumexp when the backward kernels will need it.  Backward,
+    inside one ``record_function`` range named ``BACKWARD_RANGE`` so a trace
+    can give its device time: ``ops.flash_attention_bwd`` where
+    ``kernel_backward`` says so, else the recompute through the plain
+    chunked path, as the JAX package's ``custom_vjp`` does (counted in
+    ``plain_backward_calls``).  A failed launch raises; neither route stands
+    in for the other."""
+
+    plain_backward_calls = 0     # backward passes through the chunked recompute
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, chunk):
-        ctx.save_for_backward(q, k, v)
         ctx.args = (causal, window, scale, chunk)
+        ctx.kernel_backward = kernel_backward(q)
+        if ctx.kernel_backward and any(ctx.needs_input_grad[:3]):
+            out, lse = _kernel_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                                   scale=scale, return_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v)
         return _kernel_ops.flash_attention(q, k, v, causal=causal, window=window, scale=scale)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
+        causal, window, scale, _ = ctx.args
         with torch.profiler.record_function(BACKWARD_RANGE):
-            with torch.enable_grad():
-                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-                out = _attn_core_plain(*leaves, *ctx.args)
-            grads = torch.autograd.grad(out, leaves, g)
+            if ctx.kernel_backward:
+                q, k, v, out, lse = ctx.saved_tensors
+                grads = _kernel_ops.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                                        window=window, scale=scale)
+            else:
+                _KernelAttention.plain_backward_calls += 1
+                with torch.enable_grad():
+                    leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+                    out = _attn_core_plain(*leaves, *ctx.args)
+                grads = torch.autograd.grad(out, leaves, g)
         return (*grads, None, None, None, None)
 
 
@@ -148,7 +180,7 @@ def attn_core(
 
     ``impl``: ``None`` takes the kernel route on a CUDA tensor whenever
     Dv == D, and on a meta tensor where the card would (the dry run's
-    path: the kernel's meta route forward, the plain chunked backward),
+    path: the kernels' meta routes, forward and backward),
     and the plain chunked path otherwise; ``"kernel"`` forces the
     kernel route (the plain version of the kernel on a CPU tensor: the
     twin of ``REPRO_ATTN_IMPL=flash``); ``"plain"`` forces the chunked path

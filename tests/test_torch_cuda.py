@@ -26,7 +26,12 @@ in bf16 to the plain version on the same inputs in f32, at rtol 2**-8 (the
 output's one rounding to bf16 is at most 2**-9 relative) and atol 1e-4;
 bf16 with D % 8 == 0 and D <= 256 must take the tensor-core route (which
 splits P into two bf16 terms to stay inside that tolerance), every other
-call the FMA route.  ``regret_scan`` (a whole regret-harness run in one
+call the FMA route.  The tensor-core forward's logsumexp is held to the
+plain version's at rtol / atol 1e-5 (the same f32 logits), and the backward
+kernels' dq, dk, dv to ``ref.mha_attention_bwd`` in f32 on the same bf16
+inputs, per tensor within 2^-6 |want| + 2^-7 max|want| (the emulation of
+their arithmetic in ``tests/test_torch_flash_bwd_split.py``), two calls
+bitwise (no atomics).  ``regret_scan`` (a whole regret-harness run in one
 launch) equals the per-round route with the plain detector bit for bit in
 schedule, restarts, regret, AoI, success rate and final state; the
 variance sums at rtol 1e-6 (the kernel adds the M squared deviations in
@@ -1454,3 +1459,83 @@ def test_family_fl_train_step_on_the_card_equals_the_cpu(cuda, arch):
     holds the dense model."""
     torch.backends.cuda.matmul.allow_tf32 = False
     _chip_smoke().train_card_vs_cpu(torch, 0, arch, f"{arch} (b)")
+
+
+# the backward kernels at the forward's shapes of the tensor-core route, and the five
+# training shapes cut to B = 1 (qwen1.5, hubert, recurrentgemma, phi-3-vision, dbrx)
+_FLASH_BWD_SHAPES = [
+    (1, 2, 2, 128, 64, True, 0),
+    (2, 4, 2, 257, 72, True, 0),
+    (1, 4, 1, 200, 128, False, 0),
+    (1, 2, 2, 300, 64, True, 64),
+    (2, 8, 4, 64, 96, True, 16),
+    (1, 2, 1, 1, 64, True, 0),        # one token
+    (1, 8, 2, 190, 64, True, 8),      # a window narrower than a tile
+    (1, 4, 2, 300, 128, False, 40),   # non-causal window
+    (1, 2, 1, 77, 8, True, 0),        # the smallest head dim
+    (2, 8, 2, 257, 200, True, 0),     # D = 200 padded to 256
+    (1, 4, 2, 300, 136, False, 0),    # D = 136
+    (1, 16, 16, 2048, 64, True, 0),   # qwen1.5-0.5b
+    (1, 16, 16, 2048, 80, False, 0),  # hubert-xlarge
+    (1, 10, 1, 2048, 256, True, 2048),  # recurrentgemma-2b: MQA, window 2048
+    (1, 32, 32, 2192, 96, True, 0),   # phi-3-vision-4.2b: S not a tile multiple
+    (1, 48, 8, 2048, 128, True, 0),   # dbrx-132b: group 6
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", _FLASH_BWD_SHAPES)
+def test_flash_attention_bwd_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal, window):
+    """The tensor-core forward's logsumexp against the plain version's (rtol
+    / atol 1e-5: the same f32 logits, summed in another order), and the
+    backward kernels' dq, dk, dv against ``ref.mha_attention_bwd`` in f32 on
+    the same bf16 inputs, kernel output and logsumexp, per tensor within
+    ``BWD_RTOL |want| + BWD_ATOL max|want|``; a second call gives the same
+    bits (no atomics)."""
+    from repro_torch.kernels.flash_attention import BWD_ATOL, BWD_RTOL, bwd_within
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q, k, v = _attn_inputs(b, hq, hkv, s, d, torch.bfloat16, cuda, seed=s * d + hq)
+    gen = torch.Generator(device=cuda).manual_seed(s + d)
+    do = torch.randn((b, hq, s, d), generator=gen, device=cuda).to(torch.bfloat16)
+    out, lse = ops.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    want_out, want_lse = ref.mha_attention(q.float(), k.float(), v.float(), causal=causal,
+                                           window=window, return_lse=True)
+    torch.testing.assert_close(out.float(), want_out, rtol=2.0 ** -8, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    before = flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    want = ref.mha_attention_bwd(q.float(), k.float(), v.float(), out.float(), lse, do.float(),
+                                 causal=causal, window=window)
+    for name, g, a, w, like in zip(("dq", "dk", "dv"), got, again, want, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == like.shape, name
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        if s == 1 and name != "dv":
+            # one key: P = 1 and dS = dO.v - dO.o = 0 but for the rounding of two f32 sums
+            assert float(w.abs().max()) == 0.0 and float(g.float().abs().max()) < 1e-5, name
+            continue
+        assert bwd_within(g, w) <= 1.0, \
+            f"{name}: beyond rtol {BWD_RTOL} / atol {BWD_ATOL} max|want| ({bwd_within(g, w):.3f})"
+
+
+def test_attn_core_bf16_backward_takes_the_kernel(cuda):
+    """A bf16 ``attn_core`` gradient on the card is one backward-kernel call
+    and no chunked recompute; an f32 one is the chunked recompute and no
+    backward-kernel call; the two agree within the card check."""
+    from repro_torch.kernels.flash_attention import bwd_within, flash_attention_bwd
+    from repro_torch.models.attention import _KernelAttention, attn_core
+
+    q, k, v = _attn_inputs(2, 8, 2, 300, 64, torch.bfloat16, cuda, seed=5)
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention_bwd.launches, _KernelAttention.plain_backward_calls
+    grads = torch.autograd.grad((attn_core(*leaves, causal=True) ** 2).sum(), leaves)
+    assert (flash_attention_bwd.launches, _KernelAttention.plain_backward_calls) == \
+        (before[0] + 1, before[1])
+    f32 = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad((attn_core(*f32, causal=True) ** 2).sum(), f32)
+    assert (flash_attention_bwd.launches, _KernelAttention.plain_backward_calls) == \
+        (before[0] + 1, before[1] + 1)
+    for g, w in zip(grads, want):
+        assert bwd_within(g, w) <= 1.0

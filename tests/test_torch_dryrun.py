@@ -305,7 +305,9 @@ def test_a_real_cpu_step_and_its_meta_twin_count_the_same():
     (their meta routes): the same FLOPs, bytes and launches."""
     real = cost.trace(*(lambda s, a: (s, *a))(*_train_step("cpu")))
     meta = cost.trace(*(lambda s, a: (s, *a))(*_train_step("meta")))
-    assert real.kernel_launches == meta.kernel_launches == {"flash_attention": 4, "glr_step": 1}
+    assert real.kernel_launches == meta.kernel_launches == {"flash_attention": 4,
+                                                            "flash_attention_bwd": 2,
+                                                            "glr_step": 1}
     assert real.cost.flops == meta.cost.flops
     assert real.cost.bytes_fused == meta.cost.bytes_fused
     assert real.op_counts == meta.op_counts
@@ -378,14 +380,19 @@ def test_roofline_with_the_cards_constants():
 # the card's memory_allocated counted them after a setup that starts from
 # an emptied cache, as chip_smoke.py's does
 CARD = {
-    ("qwen1.5-0.5b", None, "card_train"): ({"flash_attention": 48, "glr_step": 1}, 4.3222),
-    ("hubert-xlarge", None, "card_train"): ({"flash_attention": 96, "glr_step": 1}, 8.8051),
+    ("qwen1.5-0.5b", None, "card_train"): ({"flash_attention": 48, "flash_attention_bwd": 24,
+                                            "glr_step": 1}, 4.3222),
+    ("hubert-xlarge", None, "card_train"): ({"flash_attention": 96, "flash_attention_bwd": 48,
+                                             "glr_step": 1}, 8.8051),
     ("mamba2-1.3b", None, "card_train"): ({"glr_step": 1}, 13.4717),
-    ("recurrentgemma-2b", None, "card_train"): ({"flash_attention": 16, "glr_step": 1}, 31.3345),
-    ("phi-3-vision-4.2b", None, "card_train"): ({"flash_attention": 64, "glr_step": 1}, 35.5878),
+    ("recurrentgemma-2b", None, "card_train"): ({"flash_attention": 16, "flash_attention_bwd": 8,
+                                                 "glr_step": 1}, 31.3345),
+    ("phi-3-vision-4.2b", None, "card_train"): ({"flash_attention": 64, "flash_attention_bwd": 32,
+                                                 "glr_step": 1}, 35.5878),
     ("minicpm3-4b", None, "card_train"): ({"glr_step": 1}, 39.7062),
     ("deepseek-v2-236b", 2, "card_train_s1024"): ({"glr_step": 1}, 48.3733),
-    ("dbrx-132b", 1, "card_train"): ({"flash_attention": 2, "glr_step": 1}, 41.837),
+    ("dbrx-132b", 1, "card_train"): ({"flash_attention": 2, "flash_attention_bwd": 1,
+                                      "glr_step": 1}, 41.837),
     ("qwen3-32b", None, "card_prefill"): ({"flash_attention": 64}, 61.0247),
     ("qwen3-32b", None, "card_decode"): ({}, 65.0247),
     ("minicpm3-4b", None, "card_prefill"): ({}, 7.9427),

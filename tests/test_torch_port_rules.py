@@ -14,6 +14,10 @@
   f32 and bf16 at any other D the f32-FMA kernel's; each route moves its
   own counter and the total; a tensor-core library that cannot be loaded
   raises and never reaches the FMA kernel or the plain version.
+* The attention gradient of a bf16 CUDA call that the tensor-core route
+  takes is the backward kernels' (``flash_attention_bwd``) or raises: it
+  never reaches the chunked recompute; the wrapper refuses what the
+  kernels do not take before the loader, and a failed launch raises.
 * Every module of the JAX package has its twin in the port (at the same
   path, or under the name ``RENAMED`` gives), or a reason in ``NO_TWIN``.
 * A meta tensor reaches each kernel's meta route, which returns the
@@ -250,7 +254,7 @@ class _State:
 def _counts():
     return (glr_step_mod.glr_step.launches, wagg_mod.weighted_aggregate.launches,
             robust_mod.robust_trimmed.launches, glr_scan_mod.glr_scan.launches,
-            flash_mod.flash_attention.launches)
+            flash_mod.flash_attention.launches, flash_mod.flash_attention_bwd.launches)
 
 
 def test_cuda_tensors_never_fall_back_to_the_plain_version(monkeypatch):
@@ -296,6 +300,8 @@ def test_cuda_calls_reach_the_kernel_before_any_cost_accounting(monkeypatch):
         lambda: ops.robust_trimmed(f(4, 8), f(4), f(), f()),
         lambda: ops.glr_scan(f(3, 8), f(3, dtype=i32)),
         lambda: ops.flash_attention(f(1, 2, 8, 16), f(1, 2, 8, 16), f(1, 2, 8, 16)),
+        lambda: ops.flash_attention_bwd(*(f(1, 2, 8, 16, dtype=torch.bfloat16),) * 4,
+                                        f(1, 2, 8), f(1, 2, 8, 16, dtype=torch.bfloat16)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no library"):
@@ -768,7 +774,7 @@ def test_meta_tensors_reach_each_kernels_meta_route(monkeypatch):
 
     monkeypatch.setattr(_build, "load", lambda *a, **k: pytest.fail("reached the loader"))
     for name in ("glr_step", "glr_step_tenants", "weighted_aggregate", "robust_trimmed",
-                 "glr_scan", "glr_scan_tenants", "mha_attention"):
+                 "glr_scan", "glr_scan_tenants", "mha_attention", "mha_attention_bwd"):
         monkeypatch.setattr(ops.ref, name, lambda *a, **k: pytest.fail("ran the plain version"))
     monkeypatch.setattr(regret, "_simulate_rounds",
                         lambda *a, **k: pytest.fail("ran the plain version"))
@@ -799,6 +805,10 @@ def test_meta_tensors_reach_each_kernels_meta_route(monkeypatch):
         out["flash_attention"] = ops.flash_attention(m(1, 4, 9, 32, dtype=torch.bfloat16),
                                                      m(1, 2, 9, 32, dtype=torch.bfloat16),
                                                      m(1, 2, 9, 32, dtype=torch.bfloat16))
+        bf = lambda *shape: m(*shape, dtype=torch.bfloat16)
+        out["flash_attention_bwd"] = ops.flash_attention_bwd(
+            bf(1, 4, 9, 32), bf(1, 2, 9, 32), bf(1, 2, 9, 32), bf(1, 4, 9, 32), m(1, 4, 9),
+            bf(1, 4, 9, 32), causal=True)
         return out
 
     out = calls()
@@ -813,14 +823,137 @@ def test_meta_tensors_reach_each_kernels_meta_route(monkeypatch):
     assert shapes(rs["regret"]) == ((50,), f32) and shapes(rs["channels"]) == ((50, 2), torch.int64)
     assert shapes(rs["aoi_pi"]) == ((2,), f32) and rs["restarts"].dtype == torch.int32
     assert shapes(out["flash_attention"]) == ((1, 4, 9, 32), torch.bfloat16)
-    assert all(t.is_meta for t in [out["glr_scan"], out["flash_attention"], rs["regret"]])
+    assert [shapes(t) for t in out["flash_attention_bwd"]] == \
+        [((1, 4, 9, 32), torch.bfloat16)] + [((1, 2, 9, 32), torch.bfloat16)] * 2
+    assert all(t.is_meta for t in [out["glr_scan"], out["flash_attention"], rs["regret"],
+                                   *out["flash_attention_bwd"]])
     assert _counts() + (gst_mod.glr_step_tenants.launches, rs_mod.regret_scan.launches,
                         glr_scan_mod.glr_scan_tenants.launches) == counters
 
     tr = cost.trace(calls)
     assert tr.kernel_launches == {"glr_step": 1, "glr_step_tenants": 1, "weighted_aggregate": 2,
                                   "robust_trimmed": 1, "glr_scan": 1, "glr_scan_tenants": 1,
-                                  "regret_scan": 1, "flash_attention": 1}
+                                  "regret_scan": 1, "flash_attention": 1,
+                                  "flash_attention_bwd": 1}
     assert tr.cost.flops == sum(c.flops for c in tr.kernel_cost.values())
     with pytest.raises(ValueError, match="meta route takes meta tensors"):
         ops.glr_scan(m(3, 16), torch.zeros(3, dtype=torch.int32))
+
+
+def _bwd_args(d=64, dtype=torch.bfloat16, s=5, hq=4, hkv=2):
+    """q, k, v, out, lse, do as fake CUDA tensors."""
+    z = lambda *shape, dt=dtype: _FakeCuda(torch.zeros(shape, dtype=dt))
+    return (z(1, hq, s, d), z(1, hkv, s, d), z(1, hkv, s, d), z(1, hq, s, d),
+            z(1, hq, s, dt=torch.float32), z(1, hq, s, d))
+
+
+class _Ctx:
+    """The autograd context ``_KernelAttention.backward`` reads."""
+
+    def __init__(self, saved, kernel_backward, causal=True, window=0, scale=0.125, chunk=512):
+        self.saved_tensors, self.kernel_backward = saved, kernel_backward
+        self.args = (causal, window, scale, chunk)
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
+def test_bf16_cuda_backward_never_reaches_the_chunked_path(monkeypatch, d):
+    """The model's attention gradient on a bf16 CUDA call of the
+    tensor-core route goes to the backward kernels' loader at the five
+    training head dims (64, 80, 96, 128, 256); a library that cannot be
+    built raises there, and nothing reaches the chunked recompute, the
+    plain version, or a counter."""
+    def missing(*a, **k):
+        raise RuntimeError("repro_torch kernel build failed: no library")
+
+    monkeypatch.setattr(_build, "load", missing)
+    monkeypatch.setattr(attn_mod, "_attn_core_plain",
+                        lambda *a, **k: pytest.fail("reached the chunked recompute"))
+    monkeypatch.setattr(ops.ref, "mha_attention_bwd",
+                        lambda *a, **k: pytest.fail("ran the plain version"))
+    args = _bwd_args(d)
+    assert attn_mod.kernel_backward(args[0])
+    before = _counts(), attn_mod._KernelAttention.plain_backward_calls
+    with pytest.raises(RuntimeError, match="no library"):
+        attn_mod._KernelAttention.backward(_Ctx(args[:5], True), args[5])
+    with pytest.raises(RuntimeError, match="no library"):
+        ops.flash_attention_bwd(*args)
+    assert (_counts(), attn_mod._KernelAttention.plain_backward_calls) == before
+
+
+def test_f32_cuda_backward_keeps_the_chunked_recompute(monkeypatch):
+    """f32 and bf16 with D % 8 != 0 on the card are not the backward
+    kernels' inputs: ``kernel_backward`` says so before any launch, and the
+    backward recomputes through the chunked path, counted on its own."""
+    assert not attn_mod.kernel_backward(_FakeCuda(torch.zeros((1, 2, 3, 64))))
+    assert not attn_mod.kernel_backward(_FakeCuda(torch.zeros((1, 2, 3, 36),
+                                                              dtype=torch.bfloat16)))
+    monkeypatch.setattr(_build, "load", lambda *a, **k: pytest.fail("reached the loader"))
+    q = torch.randn((1, 2, 6, 8), dtype=torch.float64)
+    g = torch.randn((1, 2, 6, 8), dtype=torch.float64)
+    before = attn_mod._KernelAttention.plain_backward_calls
+    grads = attn_mod._KernelAttention.backward(_Ctx((q, q, q), False), g)
+    assert attn_mod._KernelAttention.plain_backward_calls == before + 1
+    assert [t.shape for t in grads[:3]] == [q.shape] * 3 and grads[3:] == (None,) * 4
+
+
+def test_flash_attention_bwd_refuses_what_the_kernels_do_not_take(monkeypatch):
+    """Inputs outside the backward kernels are refused before the loader:
+    f32, bf16 with D % 8 != 0 or D > 256, a mismatched out, dO or
+    logsumexp, a non-contiguous tensor, CPU tensors; no launch, no count."""
+    monkeypatch.setattr(_build, "load", lambda *a, **k: pytest.fail("reached the loader"))
+    before = _counts()
+    f = flash_mod.flash_attention_bwd
+    with pytest.raises(ValueError, match="tensor-core forward takes"):
+        f(*_bwd_args(64, torch.float32))
+    with pytest.raises(ValueError, match="tensor-core forward takes"):
+        f(*_bwd_args(36))
+    with pytest.raises(ValueError, match="unsupported shape"):
+        f(*_bwd_args(264))
+    args = list(_bwd_args())
+    for i, bad, what in ((3, _FakeCuda(torch.zeros((1, 4, 5, 32), dtype=torch.bfloat16)), "out"),
+                         (5, _FakeCuda(torch.zeros((1, 4, 5, 64))), "do"),
+                         (4, _FakeCuda(torch.zeros((1, 4, 5), dtype=torch.bfloat16)), "lse"),
+                         (4, _FakeCuda(torch.zeros((1, 4, 6))), "lse")):
+        with pytest.raises(ValueError, match=f"{what} must be"):
+            f(*args[:i], bad, *args[i + 1:])
+    strided = _FakeCuda(torch.zeros((1, 5, 4, 64), dtype=torch.bfloat16).transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        f(*args[:5], strided)
+    with pytest.raises(ValueError, match="window"):
+        f(*args, window=-1)
+    with pytest.raises(ValueError, match="CUDA"):
+        f(*(t._t for t in args))
+    with pytest.raises(ValueError, match="tensor-core route only"):
+        flash_mod.flash_attention(*_bwd_args(64, torch.float32)[:3], return_lse=True)
+    assert _counts() == before
+
+
+def test_backward_reaches_its_launch_function(recorded):
+    """A bf16 backward call loads ``flash_attention_bwd_launch`` once with
+    the shape, mask and scale, counts one call, and returns dq, dk, dv in
+    the inputs' shapes; the forward asked for the logsumexp hands the
+    tensor-core kernel a pointer for it."""
+    args = _bwd_args(96, s=7, hq=6, hkv=2)
+    before = _counts()
+    dq, dk, dv = flash_mod.flash_attention_bwd(*args, causal=False, window=3)
+    assert [(n, s) for n, s, _ in recorded] == [("flash_attention_bwd",
+                                                 "flash_attention_bwd_launch")]
+    call = recorded[0][2]
+    assert call[10:17] == (1, 6, 2, 7, 96, 0, 3)        # b, hq, hkv, s, d, causal, window
+    assert call[17] == pytest.approx(1.0 / math.sqrt(96))
+    assert [t.shape for t in (dq, dk, dv)] == [(1, 6, 7, 96), (1, 2, 7, 96), (1, 2, 7, 96)]
+    assert _counts() == before[:5] + (before[5] + 1,)
+    out, lse = flash_mod.flash_attention(*args[:3], return_lse=True)
+    assert recorded[-1][1] == "flash_attention_tc_launch" and recorded[-1][2][12] is not None
+    assert lse.shape == (1, 6, 7) and lse.dtype == torch.float32
+
+
+def test_failed_backward_launch_raises(monkeypatch):
+    """A backward launch that returns a CUDA error raises and counts
+    nothing."""
+    monkeypatch.setattr(_build, "load", lambda name, symbol, argtypes: lambda *a: 1)
+    monkeypatch.setattr(flash_mod, "_stream", lambda q: 0)
+    before = _counts()
+    with pytest.raises(RuntimeError, match="flash_attention_bwd: kernel launch failed"):
+        flash_mod.flash_attention_bwd(*_bwd_args(128))
+    assert _counts() == before

@@ -188,8 +188,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    backward kernels (``flash_attention_bwd``: the logsumexp, dq, dk, dv
    against the f32 plain version at rtol 2^-6 / atol 2^-7 of the largest
    entry, two calls bitwise, the plain chunked route held against it, its
-   time beside the plain version's, the chunked route's, SDPA's backward
-   and the bound) and ``glr_step`` (8, 128) at the path's shapes against
+   time beside the plain version's, the chunked route's, SDPA's backward,
+   the bound, its share of the bound and its time before the redesign for
+   Hopper) and ``glr_step`` (8, 128) at the path's shapes against
    their plain versions; (a) at full width, 2 layers, f32: ``loss`` and
    its gradients on the kernel route against the plain route (rtol/atol
    2e-3), then in bf16: each leaf's relative error against that f32 run
@@ -467,6 +468,12 @@ KERNEL_NAMES = ("glr_step", "weighted_aggregate", "robust_trimmed", "glr_scan",
                 "flash_attention", "flash_attention_bwd", "regret_scan", "glr_step_tenants",
                 "glr_scan_tenants")
 FLASH_ROUTES = ("flash_attention_tc", "flash_attention_fma")   # its two routes' counters
+# the backward kernels' ms a call before their redesign for Hopper (mma.sync m16n8k16 and
+# cp.async), measured by this script on an H100 80GB HBM3 at 700 W, at the five training
+# shapes (B, Hq, Hkv, S, D); printed beside this run's time, never compared against it
+BWD_MMA_SYNC_MS = {(8, 16, 16, 2048, 64): 1.5854, (8, 16, 16, 2048, 80): 3.3711,
+                   (8, 10, 1, 2048, 256): 6.0260, (8, 32, 32, 2192, 96): 4.9188,
+                   (8, 48, 8, 2048, 128): 7.4530}
 BATCH_ROUTES = ("weighted_aggregate_batch", "robust_trimmed_batch")   # the Step-4 batch launches
 PLAIN_BACKWARD = "attention_plain_backward"   # attention gradients by the chunked recompute
 COUNTERS = (KERNEL_NAMES + FLASH_ROUTES + ("regret_scan_reactive",) + BATCH_ROUTES
@@ -4836,7 +4843,8 @@ def train_path(torch, seed):
     total = sum(by_name.values())
     bwd_us, n_ranges = range_device_us(events, BACKWARD_RANGE)
     flash_us = sum(v for k, v in by_name.items() if "flash_fwd" in k)
-    flash_bwd_us = sum(v for k, v in by_name.items() if "bwd_d" in k)   # delta, dkdv, dq
+    flash_bwd_us = sum(v for k, v in by_name.items()            # stats, dK/dV, dQ
+                       if "bwd_stats_kernel" in k or "bwd_kernel<" in k)
     gemm_us = sum(v for k, v in by_name.items() if "gemm" in k.lower() or "xmma" in k.lower()
                   or "cutlass" in k.lower())
     if total:
@@ -5256,7 +5264,7 @@ def attention_at(torch, gen, shape, window, label, floor_ms, fma_turns=False, ca
     return fa
 
 
-def attention_bwd_at(torch, seed, shape, causal, window, label):
+def attention_bwd_at(torch, seed, shape, causal, window, label, kernel=None):
     """The backward kernels (``flash_attention_bwd``) at a model's training
     ``shape`` (B, Hq, Hkv, S, D), bf16, with the mask of its attention, none
     of it counted as launches of a path: the tensor-core forward's logsumexp
@@ -5269,8 +5277,11 @@ def attention_bwd_at(torch, seed, shape, causal, window, label):
     recompute, which f32 calls keep) held against the kernel by the same
     rule.  Times: the kernel (CUDA events), the plain version, the chunked
     route, SDPA's backward (its forward outside the timed window; the
-    yardstick only) and the bound (``cost_bwd``).  Prints ``label``'s line;
-    returns the entry for the kernels line."""
+    yardstick only) and the bound (``cost_bwd``).  ``kernel``, called as
+    ``flash_attention_bwd``, replaces the wrapper in every check and time
+    (tools/flash_bwd_ab.py passes another tree's kernels; their launches are
+    then not counted).  Prints ``label``'s line; returns the entry for the
+    kernels line."""
     from torch.nn import functional as F
 
     from repro_torch.kernels import flash_attention as fa_mod
@@ -5290,12 +5301,14 @@ def attention_bwd_at(torch, seed, shape, causal, window, label):
     check(torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5),
           f"{label} flash_attention's logsumexp {shape} beyond rtol/atol 1e-5 ({lse_err:.3e})")
     del want_lse
-    kernel = fa_mod.flash_attention_bwd
-    before = kernel.launches
-    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
-    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    own = kernel is None
+    call, kernel = (ops.flash_attention_bwd, fa_mod.flash_attention_bwd) if own else (kernel,) * 2
+    before = fa_mod.flash_attention_bwd.launches
+    got = call(q, k, v, out, lse, do, causal=causal, window=window, scale=scale)
+    again = call(q, k, v, out, lse, do, causal=causal, window=window, scale=scale)
     torch.cuda.synchronize()
-    check(kernel.launches == before + 2, f"{label} flash_attention_bwd {shape}: not launched")
+    check(not own or fa_mod.flash_attention_bwd.launches == before + 2,
+          f"{label} flash_attention_bwd {shape}: not launched")
     names = ("dq", "dk", "dv")
     check(all(torch.equal(x, y) for x, y in zip(got, again)),
           f"{label} flash_attention_bwd {shape}: two calls differ")
@@ -5321,7 +5334,7 @@ def attention_bwd_at(torch, seed, shape, causal, window, label):
     o_sdpa = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
     check(window == 0 or window >= s, f"{label}: SDPA takes no window shorter than S")
     t = dict(shape_b_hq_hkv_s_d=list(shape), causal=causal, window=window, dtype="bfloat16",
-             route="cuda-mma", max_abs_err=err, excess=dict(zip(names, excess)),
+             route="cuda-wgmma", max_abs_err=err, excess=dict(zip(names, excess)),
              excess_vs_chunked_route=dict(zip(names, route_excess)), lse_max_abs_err=lse_err,
              ms=time_ms(torch, lambda: kernel(q, k, v, out, lse, do, causal=causal,
                                                window=window, scale=scale), 20),
@@ -5332,12 +5345,16 @@ def attention_bwd_at(torch, seed, shape, causal, window, label):
                  o_sdpa, leaves, do, retain_graph=True), 20))
     kc = fa_mod.cost_bwd(shape, causal, window, torch.bfloat16)
     t["bound_ms"], t["bound_by"] = bound_of(kc)
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    before = (f", {BWD_MMA_SYNC_MS[tuple(shape)]:.4f} ms before the redesign (the mma.sync "
+              f"kernels)" if tuple(shape) in BWD_MMA_SYNC_MS else "")
     line(f"  {label} flash_attention_bwd (B, Hq, Hkv, S, D)={shape} "
          f"{'causal' if causal else 'non-causal'} window {window} bf16: logsumexp max_abs_err "
          f"{lse_err:.2e} (rtol/atol 1e-5) ok; dq, dk, dv max_abs_err {err:.3e}, "
          f"|err| - 2^-6 |want| at most {max(excess):.3f} of 2^-7 max|want| vs f32 plain, "
          f"{max(route_excess):.3f} vs the plain chunked route; two calls bitwise ok; kernel "
-         f"{t['ms']:.4f} ms ({kc.ops / t['ms'] / 1e9:.1f} TFLOP/s), plain "
+         f"{t['ms']:.4f} ms ({kc.ops / t['ms'] / 1e9:.1f} TFLOP/s, "
+         f"{100 * t['bound_share']:.1f} % of the bound){before}, plain "
          f"{t['plain_ms']:.4f} ms, plain chunked route {t['chunked_route_ms']:.4f} ms, library "
          f"(SDPA backward, enable_gqa) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
          f"({t['bound_by']}, {kc.ops:.4e} flops)")
@@ -6487,9 +6504,11 @@ def kernel_line(launches, glr_err, glr_t, wa_err, wa_t, rt_err, rt_t, gs_err, gs
         entry("flash_attention_bwd", "src/repro/models/attention.py:147",
               bwd["max_abs_err"], bwd, replaces_note="no Pallas kernel: the counterpart of the "
               "JAX custom_vjp backward _bwd (:147-149), a recompute through XLA",
+              redesigned="for Hopper: wgmma products on TMA-fed tiles, a producer warpgroup "
+              "and two consumer warpgroups (was mma.sync m16n8k16 and cp.async)",
               **{k: bwd[k] for k in ("shape_b_hq_hkv_s_d", "causal", "window", "dtype",
                                      "excess", "excess_vs_chunked_route", "lse_max_abs_err",
-                                     "chunked_route_ms")},
+                                     "chunked_route_ms", "bound_share")},
               train_hubert=family_attn["hubert-xlarge"]["backward"],
               train_recurrentgemma=family_attn["recurrentgemma-2b"]["backward"],
               train_phi3v=family_attn["phi-3-vision-4.2b"]["backward"],

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exports one plain C launch function; it is
 compiled by ``nvcc`` into its own shared library and loaded with
 ``ctypes`` (pointers and the stream pass as ``c_void_p``).  Builds happen
 at first use, from the sources in this package only, into
-``<repo>/build/repro_torch/`` (listed in ``.gitignore``).  The library's
+``<repo>/build/repro_torch/`` (listed in ``.gitignore``), each library
+beside its compiler report (``report``).  The library's
 file name carries a hash of its source, the shared headers of ``csrc/``
 (``*.cuh``) and the flags, so an edited kernel is rebuilt and a stale one
 is never loaded.  A failed build raises.
@@ -61,6 +62,19 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def report_path(name: str) -> Path:
+    """Where the ``-Xptxas -v`` report of the current build of ``name`` is
+    kept, beside its library."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
+def report(name: str) -> str:
+    """The compiler's report (registers, shared memory, spills of every
+    kernel) of the current build of ``name``, building it first if needed."""
+    build([name])
+    return report_path(name).read_text()
+
+
 def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     """Compile every named kernel that has no current build, all ``nvcc``
     processes started together.  Returns ``{name: compiler output}`` (the
@@ -75,7 +89,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     jobs: List[tuple] = []
     for name in names:
         target = library_path(name)
-        if target.exists():
+        if target.exists() and report_path(name).exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -91,6 +105,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             os.unlink(tmp)
             continue
         os.replace(tmp, target)
+        report_path(name).write_text(out)
         reports[name] = out
     if jobs:
         build.seconds += time.perf_counter() - t0

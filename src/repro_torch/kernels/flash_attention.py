@@ -34,8 +34,9 @@ The tensor-core forward can also write each query row's logsumexp
 (``return_lse``), which the backward kernels read
 (``csrc/flash_attention_bwd.cu``, ``flash_attention_bwd``): the gradient of
 every call the tensor-core route takes, in three launches and no atomics
-(deterministic).  It replaces no Pallas kernel: it is the counterpart of
-the JAX package's ``custom_vjp`` backward, which recomputes through XLA
+(deterministic), wgmma products on TMA-fed tiles as in the forward.  It
+replaces no Pallas kernel: it is the counterpart of the JAX package's
+``custom_vjp`` backward, which recomputes through XLA
 (``src/repro/models/attention.py:147-149``).  Semantics of record:
 ``ref.mha_attention_bwd``.
 """
@@ -64,6 +65,7 @@ TC_MAX_HEAD_DIM = 256
 # arithmetic in tests/test_torch_flash_bwd_split.py (P and dS rounded once to bf16)
 BWD_RTOL = 2.0 ** -6
 BWD_ATOL = 2.0 ** -7
+_BWD_TILE = 64     # rows of a streamed tile in the backward kernels
 _MAX_GRID_YZ = 65535
 
 
@@ -178,13 +180,21 @@ def meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool = F
     return q.new_empty(q.shape), lse
 
 
+def _bwd_scratch(q: torch.Tensor) -> torch.Tensor:
+    """The backward kernels' f32 scratch: each query row's lse log2(e) and
+    Delta = rowsum(dO * O), (2, B Hq, S_pad) with S_pad = S rounded up to
+    the 64-row tile, so that a tile's 64 values start 256-byte aligned."""
+    b, hq, s, _ = q.shape
+    return q.new_empty((2, b * hq, -(-s // _BWD_TILE) * _BWD_TILE), dtype=torch.float32)
+
+
 def meta_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """The backward kernels' outputs on meta tensors, dq, dk, dv in the
     shapes and dtypes of q, k, v, allocated as the wrapper allocates them:
-    Delta's (B, Hq, S) f32 scratch first, freed on return."""
-    delta = q.new_empty(q.shape[:3], dtype=torch.float32)
+    the f32 scratch (``_bwd_scratch``) first, freed on return."""
+    scratch = _bwd_scratch(q)
     grads = q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
-    del delta
+    del scratch
     return grads
 
 
@@ -229,8 +239,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     call the tensor-core forward takes: q, out, ``do`` (B, Hq, S, D), k, v
     (B, Hkv, S, D), all bf16 with D % 8 == 0 and D <= 256, contiguous, on
     one CUDA device; ``lse`` (B, Hq, S) f32, the forward's
-    ``return_lse``.  Returns (dq, dk, dv) in bf16: three launches (Delta,
-    dK/dV, dQ), counted as one call on ``.launches``."""
+    ``return_lse``.  Returns (dq, dk, dv) in bf16: three launches (lse and
+    Delta into an f32 scratch, dK/dV, dQ), counted as one call on
+    ``.launches``."""
     _check("flash_attention_bwd", q, k, v, window)
     b, hq, s, d = q.shape
     if not tc_route(q.dtype, d):
@@ -249,14 +260,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
         raise ValueError("flash_attention_bwd: every tensor must start 16-byte aligned")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     fn = _build.load("flash_attention_bwd", "flash_attention_bwd_launch", _BWD_ARGTYPES)
-    delta = q.new_empty(q.shape[:3], dtype=torch.float32)
+    grads = _launch_bwd(fn, q, k, v, out, lse, do, causal, window, scale)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+def _launch_bwd(fn, q, k, v, out, lse, do, causal, window, scale):
+    """The C entry ``flash_attention_bwd_launch`` (``fn``, argtypes
+    ``_BWD_ARGTYPES``) on checked inputs: allocates the scratch and dq, dk,
+    dv, launches, and counts nothing."""
+    b, hq, s, d = q.shape
+    scratch = _bwd_scratch(q)
     dq, dk, dv = q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
-    err = fn(*(t.data_ptr() for t in tensors), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), b, hq, k.shape[1], s, d, int(bool(causal)), int(window), scale,
-             _stream(q))
+    err = fn(*(t.data_ptr() for t in (q, k, v, out, lse, do)), scratch.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, k.shape[1], s, d,
+             int(bool(causal)), int(window), scale, _stream(q))
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd: kernel launch failed (cudaError {err})")
-    flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 

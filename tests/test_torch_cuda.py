@@ -1480,6 +1480,15 @@ _FLASH_BWD_SHAPES = [
     (1, 10, 1, 2048, 256, True, 2048),  # recurrentgemma-2b: MQA, window 2048
     (1, 32, 32, 2192, 96, True, 0),   # phi-3-vision-4.2b: S not a tile multiple
     (1, 48, 8, 2048, 128, True, 0),   # dbrx-132b: group 6
+    # the edges of the wgmma kernels' tiles: 128 resident rows a block (64 at D = 256)
+    # against streamed 64-row tiles
+    (1, 4, 2, 129, 64, True, 0),      # S one past a block and past two streamed tiles
+    (2, 2, 1, 65, 128, False, 0),     # S one past a streamed tile
+    (1, 10, 1, 130, 64, True, 0),     # ten query heads on one KV head at small S
+    (1, 4, 4, 203, 80, False, 0),     # D = 80 (32-byte swizzle) at a ragged S
+    (2, 6, 3, 157, 96, True, 0),      # D = 96 (64-byte swizzle) at a ragged S
+    (1, 4, 1, 200, 256, True, 24),    # D = 256 with a window narrower than a tile
+    (1, 2, 2, 65, 256, False, 0),     # D = 256, S one past its 64-row block
 ]
 
 
@@ -1518,6 +1527,23 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal
             continue
         assert bwd_within(g, w) <= 1.0, \
             f"{name}: beyond rtol {BWD_RTOL} / atol {BWD_ATOL} max|want| ({bwd_within(g, w):.3f})"
+
+
+def test_flash_attention_bwd_build_spills_nothing(cuda):
+    """The compiler's report of ``csrc/flash_attention_bwd.cu`` (``-Xptxas
+    -v``, kept beside the library): every kernel of it, the statistics
+    launch and the dK/dV and dQ kernels at each of the five padded head
+    dims, spills 0 bytes (the consumers' accumulators fit their 240
+    registers)."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    text = _build.report("flash_attention_bwd")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+    kernels = re.findall(r"Compiling entry function '(\w+)'", text)
+    assert len(kernels) == 11 and len(spills) == len(kernels), (kernels, spills)
+    assert all(st == "0" and ld == "0" for st, ld in spills), text
 
 
 def test_attn_core_bf16_backward_takes_the_kernel(cuda):

@@ -178,3 +178,19 @@ def test_the_cost_walker_counts_the_backward_kernel(device):
     fwd = fa_mod.cost(shape, True, 16, torch.bfloat16, lse=True)
     assert tr.kernel_cost["flash_attention"].bytes == fwd.nbytes
     assert [tuple(g.shape) for g in tr.result] == [tuple(t.shape) for t in (q, k, v)]
+
+
+@pytest.mark.parametrize("s,s_pad", [(1, 64), (64, 64), (65, 128), (2192, 2240)])
+def test_backward_scratch_pads_rows_to_the_streamed_tile(s, s_pad):
+    """The backward kernels' f32 scratch holds each query row's lse log2(e)
+    and Delta, (2, B Hq, S_pad) with S_pad a multiple of the 64-row tile
+    the dK/dV kernel fetches them by; the meta route allocates the same
+    before its outputs and frees it on return."""
+    q = torch.empty((2, 3, s, 16), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((2, 1, s, 16), dtype=torch.bfloat16, device="meta")
+    scratch = fa_mod._bwd_scratch(q)
+    assert tuple(scratch.shape) == (2, 6, s_pad) and scratch.dtype == torch.float32
+    assert s_pad % fa_mod._BWD_TILE == 0 and s_pad - s < fa_mod._BWD_TILE
+    grads = fa_mod.meta_bwd(q, k, k)
+    assert [tuple(g.shape) for g in grads] == [tuple(q.shape), tuple(k.shape), tuple(k.shape)]
+    assert all(g.dtype == torch.bfloat16 for g in grads)

@@ -6,7 +6,9 @@ bf16 operands, P = exp2(scale log2(e) q.k - lse log2(e)) and dS = P (dP -
 Delta) in f32; P and dS entering the products dV = P^T dO, dK = dS^T Q and
 dQ = dS K as bf16 operands with f32 sums, in the kernels' tile order: dK
 and dV over 64-key tiles walking the query tiles, dQ over 64-query tiles
-walking the key tiles; each output rounded once to bf16) is held against
+walking the key tiles; each output rounded once to bf16; at D = 256 the
+kernels hand P over in f32 and dS as its rounded bf16 fragments between
+their two warpgroups, which adds no rounding) is held against
 an f64 backward of the same bf16 inputs.  The card check is per tensor,
 |got - want| <= rtol |want| + atol max|want|, with ``BWD_RTOL`` = 2^-6 and
 ``BWD_ATOL`` = 2^-7 (``kernels/flash_attention.py``; ``chip_smoke.py``
@@ -27,10 +29,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.flash_attention import BWD_ATOL, BWD_RTOL  # noqa: E402
 
 LOG2E = 1.4426950408889634
-TILE = 64           # keys a dK/dV block, queries a dQ block (csrc/flash_attention_bwd.cu)
-# the dK/dV kernel's query tile and the dQ kernel's key tile at each padded head dim
-BQ = {64: 64, 80: 64, 96: 64, 128: 32, 256: 32}
-BK = {64: 64, 80: 64, 96: 64, 128: 64, 256: 32}
+# keys of a dK/dV warpgroup and the query tiles it walks, queries of a dQ warpgroup and the
+# key tiles it walks, at every head dim (csrc/flash_attention_bwd.cu)
+TILE = 64
 
 
 def _bf16(x):
@@ -59,12 +60,12 @@ def _exact(q, k, v, do, causal, window, scale):
     return out, lse, ds @ kd * scale, ds.transpose(1, 2) @ qd * scale, p.transpose(1, 2) @ dod
 
 
-def _emulate(q, k, v, do, out, lse, causal, window, scale, split, dp):
+def _emulate(q, k, v, do, out, lse, causal, window, scale, split):
     """The backward kernels' arithmetic: f32 from bf16 operands; P and dS
     one bf16 rounding each (or, with ``split``, hi + lo bf16 terms); dK, dV
-    for 64-key tiles over query tiles of ``BQ[dp]``, dQ for 64-query tiles
-    over key tiles of ``BK[dp]`` (``dp`` the padded head dim)."""
-    bq, bk = BQ[dp], BK[dp]
+    for 64-key tiles over 64-query tiles, dQ for 64-query tiles over 64-key
+    tiles."""
+    bq = bk = TILE
     h, s, d = q.shape
     qf, kf, vf, dof, of = (t.float() for t in (q, k, v, do, out))
     mask = _mask(s, causal, window)
@@ -111,9 +112,8 @@ def _case(h, s, d, causal, window, split, rtol, atol):
                    .to(torch.bfloat16) for sd in (0.5, 0.5, 1.0, 1.0))
     scale = 1.0 / math.sqrt(d)
     out, lse, *want = _exact(q, k, v, do, causal, window, scale)
-    dp = next(p for p in sorted(BQ) if d <= p)
     got = _emulate(q, k, v, do, out.to(torch.bfloat16), lse.float(), causal, window, scale,
-                   split, dp)
+                   split)
     return [_excess(g, w, rtol, atol) for g, w in zip(got, want)]
 
 

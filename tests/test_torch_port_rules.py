@@ -568,6 +568,54 @@ def test_build_targets_follow_the_shared_header(monkeypatch, tmp_path):
         assert '#include "glr_kl.cuh"' in (tmp_path / f"{name}.cu").read_text()
 
 
+def test_both_tensor_core_attention_kernels_follow_the_hopper_header(monkeypatch, tmp_path):
+    """The attention forward and backward on the tensor cores include
+    ``hopper.cuh`` (mbarriers, TMA, wgmma): editing it renames (so
+    rebuilds) both libraries and no other."""
+    import shutil
+
+    for f in _build.CSRC.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    users = {k for k in _build.KERNELS
+             if '#include "hopper.cuh"' in (tmp_path / f"{k}.cu").read_text()}
+    assert users == {"flash_attention_tc", "flash_attention_bwd"}
+    before = {k: _build.library_path(k).name for k in _build.KERNELS}
+    (tmp_path / "hopper.cuh").write_text((tmp_path / "hopper.cuh").read_text() + "\n// edit\n")
+    after = {k: _build.library_path(k).name for k in _build.KERNELS}
+    assert all(after[k] != before[k] for k in users)
+
+
+def test_a_build_keeps_its_compiler_report_beside_the_library(monkeypatch, tmp_path):
+    """``_build.build`` writes each library's ``-Xptxas -v`` report beside it
+    and ``_build.report`` reads it back; a library without its report is
+    built again (an ``nvcc`` stand-in writes both here)."""
+    import subprocess
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    calls = []
+
+    class FakeProc:
+        returncode = 0
+
+        def __init__(self, cmd, **kwargs):
+            calls.append(cmd)
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"\x7fELF")
+
+        def communicate(self):
+            return "ptxas info    : 0 bytes spill stores, 0 bytes spill loads\n", None
+
+    monkeypatch.setattr(subprocess, "Popen", FakeProc)
+    lib = _build.library_path("glr_step")
+    assert _build.report_path("glr_step") == lib.with_suffix(".ptxas.txt")
+    assert "0 bytes spill stores" in _build.report("glr_step") and len(calls) == 1
+    assert _build.report("glr_step") and len(calls) == 1        # current: not rebuilt
+    _build.report_path("glr_step").unlink()
+    _build.report("glr_step")
+    assert len(calls) == 2 and lib.exists()
+
+
 def test_load_sets_argtypes_once_and_caches_the_function(monkeypatch):
     """``_build.load`` builds and loads a library once, sets the function's
     ``argtypes`` and ``restype`` once, and hands back the same function on
